@@ -1,0 +1,207 @@
+"""Weights into the port: JAX parameter trees and reference checkpoints.
+
+* :func:`state_dict_from_jax_params` turns the JAX package's parameter tree
+  (numpy leaves; linear weights [in, out], conv weights [k, in, out],
+  layers stacked on a leading axis) into this package's state_dict — how
+  weights carry across for the parity tests.
+* :func:`load_reference_checkpoint` loads a reference ``.pt`` in both
+  layouts (reference train.py:596-613): the full model
+  (``wav2vec_model.model.*`` + ``seg_model.*``) or the SFC head only, whose
+  backbone then comes from a local HF snapshot of the pretrained model.
+  Module names follow those keys, so loading is ``load_state_dict`` as is.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+from pathlib import Path
+
+import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
+
+# SpecAugment's learned vector is unused at inference; files without it load
+_OPTIONAL_KEYS = ("masked_spec_embed",)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _wav2vec_sd(p: dict, prefix: str) -> dict:
+    sd = {}
+    for i, layer in enumerate(p["feature_extractor"]["convs"]):
+        base = f"{prefix}feature_extractor.conv_layers.{i}"
+        sd[f"{base}.conv.weight"] = _t(np.transpose(layer["w"], (2, 1, 0)))
+        sd[f"{base}.conv.bias"] = _t(layer["b"])
+        sd[f"{base}.layer_norm.weight"] = _t(layer["ln"]["scale"])
+        sd[f"{base}.layer_norm.bias"] = _t(layer["ln"]["bias"])
+    fp = p["feature_projection"]
+    sd[f"{prefix}feature_projection.layer_norm.weight"] = _t(fp["ln"]["scale"])
+    sd[f"{prefix}feature_projection.layer_norm.bias"] = _t(fp["ln"]["bias"])
+    sd[f"{prefix}feature_projection.projection.weight"] = _t(
+        np.asarray(fp["proj"]["w"]).T)
+    sd[f"{prefix}feature_projection.projection.bias"] = _t(fp["proj"]["b"])
+    pc = p["pos_conv"]
+    sd[f"{prefix}encoder.pos_conv_embed.conv.weight_g"] = _t(pc["w_g"])
+    sd[f"{prefix}encoder.pos_conv_embed.conv.weight_v"] = _t(pc["w_v"])
+    sd[f"{prefix}encoder.pos_conv_embed.conv.bias"] = _t(pc["b"])
+    if "masked_spec_embed" in p:
+        sd[f"{prefix}masked_spec_embed"] = _t(p["masked_spec_embed"])
+    layers = p["layers"]
+    for i in range(np.asarray(layers["ln1"]["scale"]).shape[0]):
+        base = f"{prefix}encoder.layers.{i}"
+        for name, key in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                          ("out_proj", "o")):
+            lin = layers["attn"][key]
+            sd[f"{base}.attention.{name}.weight"] = _t(np.asarray(lin["w"])[i].T)
+            sd[f"{base}.attention.{name}.bias"] = _t(np.asarray(lin["b"])[i])
+        for name, key in (("layer_norm", "ln1"), ("final_layer_norm", "ln2")):
+            sd[f"{base}.{name}.weight"] = _t(np.asarray(layers[key]["scale"])[i])
+            sd[f"{base}.{name}.bias"] = _t(np.asarray(layers[key]["bias"])[i])
+        for name, key in (("intermediate_dense", "w1"), ("output_dense", "w2")):
+            lin = layers["ffn"][key]
+            sd[f"{base}.feed_forward.{name}.weight"] = _t(
+                np.asarray(lin["w"])[i].T)
+            sd[f"{base}.feed_forward.{name}.bias"] = _t(np.asarray(lin["b"])[i])
+    return sd
+
+
+def _sfc_sd(p: dict, prefix: str) -> dict:
+    sd = {}
+    layers = p.get("layers")
+    n = 0 if layers is None else np.asarray(layers["ln1"]["scale"]).shape[0]
+    for i in range(n):
+        base = f"{prefix}transformer.layers.{i}"
+        attn = layers["attn"]
+        sd[f"{base}.self_attn.in_proj_weight"] = _t(np.concatenate(
+            [np.asarray(attn[x]["w"])[i].T for x in "qkv"], axis=0))
+        sd[f"{base}.self_attn.in_proj_bias"] = _t(np.concatenate(
+            [np.asarray(attn[x]["b"])[i] for x in "qkv"]))
+        sd[f"{base}.self_attn.out_proj.weight"] = _t(
+            np.asarray(attn["o"]["w"])[i].T)
+        sd[f"{base}.self_attn.out_proj.bias"] = _t(np.asarray(attn["o"]["b"])[i])
+        for name, key in (("norm1", "ln1"), ("norm2", "ln2")):
+            sd[f"{base}.{name}.weight"] = _t(np.asarray(layers[key]["scale"])[i])
+            sd[f"{base}.{name}.bias"] = _t(np.asarray(layers[key]["bias"])[i])
+        for name, key in (("linear1", "w1"), ("linear2", "w2")):
+            lin = layers["ffn"][key]
+            sd[f"{base}.{name}.weight"] = _t(np.asarray(lin["w"])[i].T)
+            sd[f"{base}.{name}.bias"] = _t(np.asarray(lin["b"])[i])
+    sd[f"{prefix}layer_norm.weight"] = _t(p["final_ln"]["scale"])
+    sd[f"{prefix}layer_norm.bias"] = _t(p["final_ln"]["bias"])
+    sd[f"{prefix}output_layer.weight"] = _t(np.asarray(p["out"]["w"]).T)
+    sd[f"{prefix}output_layer.bias"] = _t(p["out"]["b"])
+    return sd
+
+
+def state_dict_from_jax_params(np_tree: dict, model) -> dict:
+    """JAX SHAS params ({'wav2vec': ..., 'seg': ...}, numpy leaves) -> the
+    state_dict of ``model`` (a port SHAS)."""
+    sd = _wav2vec_sd(np_tree["wav2vec"], "wav2vec_model.model.")
+    sd.update(_sfc_sd(np_tree["seg"], "seg_model."))
+    for key, value in model.state_dict().items():
+        if key.endswith(_OPTIONAL_KEYS):
+            sd.setdefault(key, value.detach().cpu().clone())
+    return sd
+
+
+def _load_strict(module: torch.nn.Module, sd: dict) -> None:
+    """load_state_dict(strict=True), except that the optional keys may be
+    absent from ``sd``."""
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith(_OPTIONAL_KEYS)]
+    if missing or unexpected:
+        raise KeyError(f"checkpoint does not fit the model: missing "
+                       f"{missing}, unexpected {unexpected}")
+
+
+def _rename_weight_norm(sd: dict) -> dict:
+    """Newer HF/torch weight-norm names -> weight_g / weight_v."""
+    out = {}
+    for k, v in sd.items():
+        k = k.replace("conv.parametrizations.weight.original0", "conv.weight_g")
+        k = k.replace("conv.parametrizations.weight.original1", "conv.weight_v")
+        out[k] = v
+    return out
+
+
+def is_full_layout(sd: dict) -> bool:
+    """True if the checkpoint carries wav2vec weights (full layout)."""
+    return any(k.startswith("wav2vec_model.") for k in sd)
+
+
+def hf_local_snapshot(model_name: str) -> Path | None:
+    """A locally cached or downloaded HF model dir with weights, or None
+    (no network)."""
+    hf_home = os.environ.get("HF_HOME",
+                             os.path.expanduser("~/.cache/huggingface"))
+    repo = Path(hf_home) / "hub" / ("models--" + model_name.replace("/", "--"))
+    candidates = sorted((repo / "snapshots").glob("*")) if repo.exists() else []
+    candidates.append(Path(model_name))
+    for c in candidates:
+        if c.is_dir() and ((c / "pytorch_model.bin").exists()
+                           or (c / "model.safetensors").exists()):
+            return c
+    return None
+
+
+def backbone_state_dict(model_dir: Path, num_layers: int) -> dict:
+    """HF Wav2Vec2Model / ForCTC weights -> the backbone's state_dict,
+    truncated to ``num_layers`` encoder layers (the final encoder LayerNorm,
+    quantizer and heads are dropped, as the reference truncation does)."""
+    if (model_dir / "model.safetensors").exists():
+        from safetensors.torch import load_file
+
+        sd = load_file(str(model_dir / "model.safetensors"))
+    else:
+        sd = torch.load(str(model_dir / "pytorch_model.bin"),
+                        map_location="cpu", weights_only=True)
+    prefix = "wav2vec2." if any(k.startswith("wav2vec2.") for k in sd) else ""
+    keep = re.compile(r"^(feature_extractor\.|feature_projection\."
+                      r"|encoder\.pos_conv_embed\.|masked_spec_embed$"
+                      r"|encoder\.layers\.(\d+)\.)")
+    out = {}
+    for k, v in _rename_weight_norm(sd).items():
+        if not k.startswith(prefix):
+            continue
+        k = k[len(prefix):]
+        m = keep.match(k)
+        if m and (m.group(2) is None or int(m.group(2)) < num_layers):
+            out[k] = v
+    return out
+
+
+def load_reference_checkpoint(path, model, allow_random_wav2vec: bool = False):
+    """Load a reference ``.pt`` (either layout) into ``model`` in place.
+
+    A seg-only file takes the backbone from a local HF snapshot of
+    ``model.wav2vec_model_name``; without one it raises unless
+    ``allow_random_wav2vec``, which keeps a seeded random backbone."""
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    sd = _rename_weight_norm(sd)
+    if is_full_layout(sd):
+        _load_strict(model, sd)
+        return model
+    _load_strict(model.seg_model, sd)
+    backbone = model.wav2vec_model.model
+    snap = hf_local_snapshot(model.wav2vec_model_name)
+    if snap is not None:
+        logger.info("Loading wav2vec2 weights from %s", snap)
+        _load_strict(backbone, backbone_state_dict(snap, model.keep_layers))
+    elif allow_random_wav2vec:
+        from ..models.wav2vec2 import init_from_numpy
+
+        logger.warning("No local weights for %s — using a RANDOM wav2vec2 "
+                       "backbone (allow_random_wav2vec).",
+                       model.wav2vec_model_name)
+        init_from_numpy(backbone, seed=0)
+    else:
+        raise FileNotFoundError(
+            f"No local HF weights found for '{model.wav2vec_model_name}'. "
+            "Place the model under $HF_HOME/hub or pass a local directory.")
+    return model

@@ -1,0 +1,84 @@
+"""Segmentation frame classifier (SFC) head.
+
+Counterpart of ``wav2vecsegmenter_tpu/models/sfc.py``: N pre-LN transformer
+layers (torch ``TransformerEncoderLayer`` with norm_first, GELU, 8 heads,
+FFN 2048) -> LayerNorm -> Linear(H -> 1) -> squeeze.  Padding enters as a
+key mask (True = valid frame).  Submodule names follow the reference
+classifier's state_dict keys.  Only the vocab-1 (bce) head is ported.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention_bthd
+from ..ops.layernorm import layer_norm
+from .wav2vec2 import _lin
+
+EPS = 1e-5
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, d_model, device=None):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(
+            torch.zeros(3 * d_model, d_model, device=device))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, device=device))
+        self.out_proj = nn.Linear(d_model, d_model, device=device)
+
+
+class SFCLayer(nn.Module):
+    def __init__(self, d_model, ffn_dim, device=None):
+        super().__init__()
+        self.self_attn = SelfAttention(d_model, device)
+        self.linear1 = nn.Linear(d_model, ffn_dim, device=device)
+        self.linear2 = nn.Linear(ffn_dim, d_model, device=device)
+        self.norm1 = nn.LayerNorm(d_model, device=device)
+        self.norm2 = nn.LayerNorm(d_model, device=device)
+
+
+class Transformer(nn.Module):
+    def __init__(self, d_model, n_layers, ffn_dim, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            SFCLayer(d_model, ffn_dim, device) for _ in range(n_layers))
+
+
+class SegmentationFrameClassifier(nn.Module):
+    def __init__(self, d_model: int = 1024, n_layers: int = 1,
+                 n_heads: int = 8, ffn_dim: int = 2048, vocab_size: int = 1,
+                 device=None):
+        super().__init__()
+        if vocab_size != 1:
+            raise NotImplementedError("only the vocab-1 (bce) head is ported")
+        self.n_heads = n_heads
+        self.transformer = Transformer(d_model, n_layers, ffn_dim, device)
+        self.layer_norm = nn.LayerNorm(d_model, device=device)
+        self.output_layer = nn.Linear(d_model, vocab_size, device=device)
+
+    def forward(self, x, out_mask, compute_dtype=torch.float32):
+        return sfc_forward(self, x, out_mask, compute_dtype)
+
+
+def sfc_forward(head: SegmentationFrameClassifier, x: torch.Tensor,
+                out_mask: torch.Tensor,
+                compute_dtype=torch.float32) -> torch.Tensor:
+    """x [B, T, H] hidden states, out_mask [B, T] -> logits [B, T] float32."""
+    dt = compute_dtype
+    h = x.to(dt).contiguous()
+    for layer in head.transformer.layers:
+        hn = layer_norm(h, layer.norm1.weight, layer.norm1.bias, EPS)
+        b, t, d_model = hn.shape
+        dh = d_model // head.n_heads
+        sa = layer.self_attn
+        qkv = (hn @ sa.in_proj_weight.to(dt).t() + sa.in_proj_bias.to(dt))
+        qkv = qkv.view(b, t, 3, head.n_heads, dh)
+        a = attention_bthd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], out_mask,
+                           dh ** -0.5)
+        h = h + _lin(sa.out_proj, a.reshape(b, t, d_model), dt)
+        hn = layer_norm(h, layer.norm2.weight, layer.norm2.bias, EPS)
+        h = h + _lin(layer.linear2, F.gelu(_lin(layer.linear1, hn, dt)), dt)
+    h = layer_norm(h, head.layer_norm.weight, head.layer_norm.bias, EPS)
+    return _lin(head.output_layer, h, dt).float()[..., 0]

@@ -1,0 +1,409 @@
+"""wav2vec 2.0 encoder (LayerNorm-mode conv stack, stable-LN transformer).
+
+Counterpart of ``wav2vecsegmenter_tpu/models/wav2vec2.py`` in the
+configuration ``W2VSEG_CONVFUSE=0 W2VSEG_FFNFUSE=0``: each conv layer is a
+GEMM over a stride-folded view followed by the fused bias -> LayerNorm ->
+GELU kernel, and the encoder FFN is two GEMMs around an exact GELU.  The
+truncated encoder's final LayerNorm is not applied (the reference replaces
+it with Identity).
+
+Submodule names follow the HF ``Wav2Vec2Model`` state_dict keys, so a
+reference checkpoint loads with ``load_state_dict`` and no renaming.  The
+modules only hold parameters (float32 masters); the forward functions below
+cast weights to the compute dtype at use, as the JAX code does.  LayerNorm
+parameters stay float32 everywhere.
+
+Not ported yet (they raise ``NotImplementedError``): the group-norm conv
+stack of the base models, post-LN encoders, FFN adapters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention_packed
+from ..ops.layernorm import bias_layer_norm_gelu, layer_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class Wav2Vec2Config:
+    hidden_size: int = 1024
+    num_layers: int = 24            # transformer layers kept (post-truncation)
+    num_heads: int = 16
+    ffn_dim: int = 4096
+    conv_dim: tuple = (512, 512, 512, 512, 512, 512, 512)
+    conv_kernel: tuple = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: tuple = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = True
+    feat_extract_norm: str = "layer"    # 'layer' (large/xls-r) | 'group' (base)
+    do_stable_layer_norm: bool = True
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    apply_attention_prob_dropout: bool = False
+    activation_dropout: float = 0.0
+    feat_proj_dropout: float = 0.1
+    layer_norm_eps: float = 1e-5
+    ffn_adapter: bool = False
+    adapter_dim: int = 512
+    adapter_scale: float = 4.0
+    apply_spec_augment: bool = True
+    mask_time_prob: float = 0.05
+    mask_time_length: int = 10
+    mask_time_min_masks: int = 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+# architecture presets for the checkpoints the reference uses
+PRESETS: dict[str, dict] = {
+    "facebook/wav2vec2-xls-r-300m": dict(
+        hidden_size=1024, num_layers=24, num_heads=16, ffn_dim=4096,
+        feat_extract_norm="layer", do_stable_layer_norm=True, conv_bias=True,
+        feat_proj_dropout=0.1, activation_dropout=0.0,
+    ),
+    "facebook/wav2vec2-large-960h-lv60-self": dict(
+        hidden_size=1024, num_layers=24, num_heads=16, ffn_dim=4096,
+        feat_extract_norm="layer", do_stable_layer_norm=True, conv_bias=True,
+        feat_proj_dropout=0.1, activation_dropout=0.1,
+    ),
+    "facebook/wav2vec2-base-960h": dict(
+        hidden_size=768, num_layers=12, num_heads=12, ffn_dim=3072,
+        feat_extract_norm="group", do_stable_layer_norm=False, conv_bias=False,
+        feat_proj_dropout=0.1, activation_dropout=0.1,
+    ),
+    "facebook/wav2vec2-base": dict(
+        hidden_size=768, num_layers=12, num_heads=12, ffn_dim=3072,
+        feat_extract_norm="group", do_stable_layer_norm=False, conv_bias=False,
+        feat_proj_dropout=0.1, activation_dropout=0.1,
+    ),
+}
+
+
+def _preset_from_local_config(model_name: str) -> dict | None:
+    """The architecture from a local HF model dir's config.json."""
+    import json
+    import os
+
+    path = os.path.join(model_name, "config.json")
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        c = json.load(f)
+    return dict(
+        hidden_size=int(c["hidden_size"]),
+        num_layers=int(c["num_hidden_layers"]),
+        num_heads=int(c["num_attention_heads"]),
+        ffn_dim=int(c["intermediate_size"]),
+        feat_extract_norm=c.get("feat_extract_norm", "layer"),
+        do_stable_layer_norm=bool(c.get("do_stable_layer_norm", True)),
+        conv_bias=bool(c.get("conv_bias", True)),
+        feat_proj_dropout=float(c.get("feat_proj_dropout", 0.1)),
+        activation_dropout=float(c.get("activation_dropout", 0.0)),
+    )
+
+
+def config_for(model_name: str, keep_layers: int | None = None,
+               ffn_adapter: bool = False) -> Wav2Vec2Config:
+    preset = PRESETS.get(model_name) or _preset_from_local_config(model_name)
+    if preset is None:
+        raise ValueError(
+            f"Unknown wav2vec2 model '{model_name}'. Known presets: "
+            f"{sorted(PRESETS)}; or pass a local HF model directory "
+            f"containing config.json.")
+    kwargs = dict(preset)
+    if keep_layers is not None:
+        kwargs["num_layers"] = min(keep_layers, kwargs["num_layers"])
+    kwargs["ffn_adapter"] = ffn_adapter
+    return Wav2Vec2Config(**kwargs)
+
+
+# --------------------------------------------------------------------------
+# modules (parameter holders named after the HF state_dict keys)
+# --------------------------------------------------------------------------
+
+class ConvLayer(nn.Module):
+    def __init__(self, c_in, c_out, k, s, device=None):
+        super().__init__()
+        self.conv = nn.Conv1d(c_in, c_out, k, s, bias=True, device=device)
+        self.layer_norm = nn.LayerNorm(c_out, device=device)
+
+
+class FeatureExtractor(nn.Module):
+    def __init__(self, cfg: Wav2Vec2Config, device=None):
+        super().__init__()
+        dims = (1,) + tuple(cfg.conv_dim)
+        self.conv_layers = nn.ModuleList(
+            ConvLayer(dims[i], dims[i + 1], cfg.conv_kernel[i],
+                      cfg.conv_stride[i], device)
+            for i in range(len(cfg.conv_dim)))
+
+
+class FeatureProjection(nn.Module):
+    def __init__(self, cfg: Wav2Vec2Config, device=None):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], device=device)
+        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size,
+                                    device=device)
+
+
+class WeightNormConv(nn.Module):
+    """Grouped conv weights in weight-norm form: w = g * v / ||v||."""
+
+    def __init__(self, h, groups, k, device=None):
+        super().__init__()
+        self.weight_g = nn.Parameter(torch.ones(1, 1, k, device=device))
+        self.weight_v = nn.Parameter(
+            torch.zeros(h, h // groups, k, device=device))
+        self.bias = nn.Parameter(torch.zeros(h, device=device))
+
+
+class PositionalConvEmbedding(nn.Module):
+    def __init__(self, cfg: Wav2Vec2Config, device=None):
+        super().__init__()
+        self.conv = WeightNormConv(cfg.hidden_size,
+                                   cfg.num_conv_pos_embedding_groups,
+                                   cfg.num_conv_pos_embeddings, device)
+
+
+class Attention(nn.Module):
+    def __init__(self, h, device=None):
+        super().__init__()
+        self.q_proj = nn.Linear(h, h, device=device)
+        self.k_proj = nn.Linear(h, h, device=device)
+        self.v_proj = nn.Linear(h, h, device=device)
+        self.out_proj = nn.Linear(h, h, device=device)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, h, f, device=None):
+        super().__init__()
+        self.intermediate_dense = nn.Linear(h, f, device=device)
+        self.output_dense = nn.Linear(f, h, device=device)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: Wav2Vec2Config, device=None):
+        super().__init__()
+        h = cfg.hidden_size
+        self.attention = Attention(h, device)
+        self.layer_norm = nn.LayerNorm(h, device=device)
+        self.feed_forward = FeedForward(h, cfg.ffn_dim, device)
+        self.final_layer_norm = nn.LayerNorm(h, device=device)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: Wav2Vec2Config, device=None):
+        super().__init__()
+        self.pos_conv_embed = PositionalConvEmbedding(cfg, device)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, device) for _ in range(cfg.num_layers))
+
+
+class Wav2Vec2Model(nn.Module):
+    """The truncated backbone: conv stack, projection, pos conv, layers."""
+
+    def __init__(self, cfg: Wav2Vec2Config, device=None):
+        super().__init__()
+        if cfg.feat_extract_norm != "layer" or not cfg.conv_bias:
+            raise NotImplementedError(
+                "only the LayerNorm-mode conv stack with conv bias is ported")
+        if not cfg.do_stable_layer_norm:
+            raise NotImplementedError("post-LN encoders are not ported yet")
+        if cfg.ffn_adapter:
+            raise NotImplementedError("FFN adapters are not ported yet")
+        self.cfg = cfg
+        self.feature_extractor = FeatureExtractor(cfg, device)
+        self.feature_projection = FeatureProjection(cfg, device)
+        self.encoder = Encoder(cfg, device)
+        # SpecAugment's learned mask vector: a training-only parameter, kept
+        # so that reference checkpoints load strictly
+        self.masked_spec_embed = nn.Parameter(
+            torch.zeros(cfg.hidden_size, device=device))
+
+    def forward(self, audio, in_lengths, compute_dtype=torch.float32):
+        return wav2vec2_forward(self, audio, in_lengths, compute_dtype)
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+def _lin(lin: nn.Linear, x: torch.Tensor, dt) -> torch.Tensor:
+    return x @ lin.weight.to(dt).t() + lin.bias.to(dt)
+
+
+def strided_conv1d_as_matmul(x: torch.Tensor, w: torch.Tensor, stride: int,
+                             dt) -> torch.Tensor:
+    """VALID strided conv as one GEMM over a stride-folded view.
+
+    x [B, T, C], w [O, C, k] (torch layout) -> [B, T', O], T' = (T-k)//s + 1.
+    Folding the stride into channels, ``y[b, i, j*C + c] = x[b, i*s + j, c]``,
+    turns tap p into the shifted view ``y[:, p:p+T']``; the taps concatenate
+    into one operand of depth ceil(k/s)*s*C against the weight rows of
+    kernel positions p*s + j (zero rows past k).  One GEMM accumulates every
+    tap in float32 and rounds once, as the JAX version's f32 tap sum does.
+    """
+    b, t, c = x.shape
+    o, _, k = w.shape
+    t_out = (t - k) // stride + 1
+    n_taps = -(-k // stride)
+    t_need = (n_taps + t_out - 1) * stride
+    if t_need > t:
+        x = F.pad(x, (0, 0, 0, t_need - t))
+    elif t_need < t:
+        x = x[:, :t_need]
+    y = x.reshape(b, n_taps + t_out - 1, stride * c).to(dt)
+    z = y if n_taps == 1 else torch.cat(
+        [y[:, p:p + t_out] for p in range(n_taps)], dim=-1)
+    w_full = w.to(dt).permute(2, 1, 0).reshape(k * c, o)
+    if n_taps * stride > k:
+        w_full = F.pad(w_full, (0, 0, 0, (n_taps * stride - k) * c))
+    return z @ w_full
+
+
+def feature_extractor(fe: FeatureExtractor, audio: torch.Tensor,
+                      cfg: Wav2Vec2Config, dt) -> torch.Tensor:
+    """audio [B, L] -> features [B, T, conv_dim[-1]] (exact T rows; the TPU
+    version's 8-aligned row padding is not rebuilt)."""
+    x = audio[:, :, None].to(dt)
+    for i, layer in enumerate(fe.conv_layers):
+        x = strided_conv1d_as_matmul(x, layer.conv.weight,
+                                     cfg.conv_stride[i], dt)
+        x = bias_layer_norm_gelu(x, layer.conv.bias, layer.layer_norm.weight,
+                                 layer.layer_norm.bias, cfg.layer_norm_eps)
+    return x
+
+
+def pos_conv_weight(conv: WeightNormConv) -> torch.Tensor:
+    """Weight-norm reconstruction, norm over (out, in/groups) per kernel
+    position (torch weight_norm dim=2)."""
+    v = conv.weight_v
+    norm = torch.sqrt(torch.sum(v.square(), dim=(0, 1), keepdim=True))
+    return conv.weight_g * v / norm
+
+
+def positional_conv(pe: PositionalConvEmbedding, x: torch.Tensor,
+                    cfg: Wav2Vec2Config, dt) -> torch.Tensor:
+    """Grouped conv positional embedding [B, T, H] -> [B, T, H]."""
+    k = cfg.num_conv_pos_embeddings
+    w = pos_conv_weight(pe.conv).to(dt)  # [H, H/groups, k]
+    y = F.conv1d(x.to(dt).transpose(1, 2), w, padding=k // 2,
+                 groups=cfg.num_conv_pos_embedding_groups)
+    y = y.transpose(1, 2) + pe.conv.bias.to(dt)
+    if k % 2 == 0:  # even kernel: drop the last step
+        y = y[:, :-1]
+    return F.gelu(y).contiguous()
+
+
+def _mha(attn: Attention, x: torch.Tensor, key_mask: torch.Tensor,
+         num_heads: int, dt) -> torch.Tensor:
+    """One fused [H, 3H] QKV GEMM, then attention straight off its output."""
+    h = x.shape[-1]
+    w = torch.cat([attn.q_proj.weight, attn.k_proj.weight,
+                   attn.v_proj.weight]).to(dt)
+    bias = torch.cat([attn.q_proj.bias, attn.k_proj.bias,
+                      attn.v_proj.bias]).to(dt)
+    proj = x @ w.t() + bias
+    out = attention_packed(proj, key_mask, num_heads,
+                           (h // num_heads) ** -0.5)
+    return _lin(attn.out_proj, out, dt)
+
+
+def _ffn(ff: FeedForward, x: torch.Tensor, dt) -> torch.Tensor:
+    """w1 -> exact GELU (rounded to dt, as ``ffn_xla``) -> w2."""
+    f = F.gelu(_lin(ff.intermediate_dense, x, dt))
+    return _lin(ff.output_dense, f, dt)
+
+
+def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
+            cfg: Wav2Vec2Config, dt) -> torch.Tensor:
+    """Pre-LN transformer over [B, T, H]; padded frames are zeroed once,
+    before the positional conv, and carry finite values after that."""
+    eps = cfg.layer_norm_eps
+    x = torch.where(frame_mask[:, :, None], x, 0)
+    h = (x + positional_conv(enc.pos_conv_embed, x, cfg, dt)).to(dt)
+    for layer in enc.layers:
+        hn = layer_norm(h, layer.layer_norm.weight, layer.layer_norm.bias, eps)
+        h = h + _mha(layer.attention, hn, frame_mask, cfg.num_heads, dt)
+        hn = layer_norm(h, layer.final_layer_norm.weight,
+                        layer.final_layer_norm.bias, eps)
+        h = h + _ffn(layer.feed_forward, hn, dt)
+    return h
+
+
+def frame_lengths(in_lengths: torch.Tensor,
+                  cfg: Wav2Vec2Config) -> torch.Tensor:
+    """Exact conv-stack output lengths (HF _get_feat_extract_output_lengths)."""
+    fl = in_lengths.long()
+    for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+        fl = torch.div(fl - k, s, rounding_mode="floor") + 1
+    return fl
+
+
+def wav2vec2_forward(model: Wav2Vec2Model, audio: torch.Tensor,
+                     in_lengths: torch.Tensor,
+                     compute_dtype=torch.float32):
+    """audio [B, L] normalized, in_lengths [B] valid samples ->
+    (hidden [B, T, H] float32, frame_mask [B, T] bool)."""
+    cfg = model.cfg
+    feats = feature_extractor(model.feature_extractor, audio, cfg,
+                              compute_dtype)
+    t = feats.shape[1]
+    fl = frame_lengths(in_lengths.to(feats.device), cfg)
+    frame_mask = torch.arange(t, device=feats.device)[None, :] < fl[:, None]
+    fp = model.feature_projection
+    feats = layer_norm(feats, fp.layer_norm.weight, fp.layer_norm.bias,
+                       cfg.layer_norm_eps)
+    x = _lin(fp.projection, feats, compute_dtype)
+    h = encoder(model.encoder, x, frame_mask, cfg, compute_dtype)
+    return h.float(), frame_mask
+
+
+def init_from_numpy(model: nn.Module, seed: int) -> None:
+    """Seeded random weights drawn with numpy, in state_dict order: linear
+    and conv weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)), conv
+    biases and LayerNorm biases 0, LayerNorm scales 1, the positional conv
+    direction N(0, 0.02) with its gain set to the direction's norm."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    named = dict(model.named_modules())
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            owner_name, _, leaf = name.rpartition(".")
+            owner = named[owner_name]
+            if isinstance(owner, nn.LayerNorm):
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+                continue
+            if isinstance(owner, WeightNormConv):
+                if leaf == "weight_v":
+                    p.copy_(torch.from_numpy(
+                        rng.randn(*p.shape).astype(np.float32) * 0.02))
+                elif leaf == "bias":
+                    p.zero_()
+                continue  # weight_g follows weight_v below
+            if isinstance(owner, nn.Conv1d) and leaf == "bias":
+                p.zero_()
+                continue
+            if isinstance(owner, (nn.Linear, nn.Conv1d)):
+                w = owner.weight
+                fan_in = w.shape[1] * (w.shape[2] if w.dim() == 3 else 1)
+            else:  # the SFC's in_proj_* and masked_spec_embed
+                w = getattr(owner, "in_proj_weight", p)
+                fan_in = w.shape[-1]
+            bound = 1.0 / math.sqrt(fan_in)
+            p.copy_(torch.from_numpy(
+                rng.uniform(-bound, bound, p.shape).astype(np.float32)))
+        for m in model.modules():
+            if isinstance(m, WeightNormConv):
+                m.weight_g.copy_(torch.sqrt(torch.sum(
+                    m.weight_v.square(), dim=(0, 1), keepdim=True)))
