@@ -1,32 +1,46 @@
 """Smoke run of the PyTorch port (wav2vecsegmenter_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds the kernels of wav2vecsegmenter_tpu_torch/ops/csrc;
+2. build: nvcc builds the kernels of wav2vecsegmenter_tpu_torch/ops/csrc
+   (one process per source file, in parallel);
 3. kernels: each hand kernel against its plain PyTorch version on the card,
    at the shapes the segmentation path gives it, float32 (TF32 off) and
-   bf16, with ragged lengths; times from CUDA events;
+   bf16, with ragged lengths; times from CUDA events, beside the kernel's
+   bound (the larger of its bytes over 3.35 TB/s and its operations over
+   the peak rate of their type) and, where one PyTorch call computes the
+   same function, that call's time;
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
-   pTHR: once through the kernels (launch counters reset just before), once
-   eager (counters must not move), once in float32; the kernels' bf16
-   probabilities must be as close to the float32 ones as the eager path's
-   (within KERNEL_SLACK), and the two bf16 runs no further apart than bf16
-   is from float32;
-5. batch: one full batch of 14 x 20 s windows timed with kernels and eager
-   in turns (``--profile`` adds a torch.profiler table on standard error);
-6. the last line: {"ok": true, "device": {...}}.
+   pTHR, in the default configuration (fused conv layers and FFN): once
+   through the kernels (launch counters reset just before), once eager
+   (counters must not move), once in float32; then once in the JAX
+   package's A/B configuration W2VSEG_CONVFUSE=0 W2VSEG_FFNFUSE=0 through
+   the kernels (counters reset just before; the path of the conv epilogue
+   kernel).  The kernels' bf16 probabilities must be as close to the
+   float32 ones as the eager path's (within KERNEL_SLACK), the kernels and
+   eager no further apart than bf16 is from float32, and the two
+   configurations within BF16_PAIR of their distance to float32;
+5. batch: one full batch of 14 x 20 s windows timed in both configurations
+   with the kernels, and eager, in turns (``--profile`` adds a
+   torch.profiler table of one default-configuration batch on standard
+   error);
+6. a JSON line of every kernel (launches on the path that runs it, error,
+   times, bound), the nvidia-smi line, and the last line:
+   {"ok": true, "device": {...}}.
 
 Needs CUDA; exits non-zero without it.  Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -36,18 +50,29 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from wav2vecsegmenter_tpu_torch.cli.common import segment_wavs
 from wav2vecsegmenter_tpu_torch.models.shas import SHAS
 from wav2vecsegmenter_tpu_torch.models.wav2vec2 import init_from_numpy
 from wav2vecsegmenter_tpu_torch.ops import _build, backend
 from wav2vecsegmenter_tpu_torch.ops import attention as attn
+from wav2vecsegmenter_tpu_torch.ops import convfuse as conv
+from wav2vecsegmenter_tpu_torch.ops import ffn as tffn
 from wav2vecsegmenter_tpu_torch.ops import layernorm as ln
 
 B = 14              # conf/segment.yaml batch_size
 T, T_TAIL = 999, 1099   # frames of a 20 s window and of the 22 s tail bucket
+L_AUDIO = 320000    # samples of a 20 s window
 F32_ATOL = 1e-4     # float32, TF32 off: summation order only
 BF16_ATOL = 2 ** -5  # one bf16 step at |y| in [4, 8): independent roundings
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): memory, bf16 tensor
+# cores, float32 outside the tensor cores (the scalar kernels' arithmetic)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16_tc": 989e12, "f32": 67e12}
+# scalar operations an element of a LayerNorm (mean, variance, normalise,
+# scale, bias) and of a GELU (erf counted as one) take
+LN_OPS, GELU_OPS = 8, 4
 # conf/algorithm/pthr.yaml
 PTHR = {"tag": "pthr", "max_segment_length": 28, "min_segment_length": 0.2,
         "max_lerp_range": 4, "min_lerp_range": 0.4, "threshold": 0.1,
@@ -58,21 +83,43 @@ PTHR = {"tag": "pthr", "max_segment_length": 28, "min_segment_length": 0.2,
 # bf16 runs that differ only in summation order part to the bf16 noise
 # floor through 15 layers.  Asserted instead: the kernels add no error to
 # the bf16 path (their distance to the float32 run is within KERNEL_SLACK of
-# the plain path's), and the two bf16 paths differ by no more than bf16
-# differs from float32.
+# the plain path's), and the kernels and the plain path, which round at the
+# same points, differ by no more than bf16 differs from float32.
 JAX_ENVELOPE = {"mean": 3e-3, "p99": 0.055}
 KERNEL_SLACK = 1.25
+# Two bf16 paths that round at different points each sit at about the
+# bf16-vs-float32 distance d from the float32 run, with independent noise,
+# so about sqrt(2) d from each other: the bound between the default and the
+# unfused configuration.
+BF16_PAIR = 2 ** 0.5
+# the JAX package's A/B arm (the unfused configuration): conv layers as
+# GEMMs + the bias -> LayerNorm -> GELU kernel, the FFN as GEMMs around a
+# GELU
+UNFUSED = {"W2VSEG_CONVFUSE": "0", "W2VSEG_FFNFUSE": "0"}
 
-SOURCES = {
-    "layer_norm": ("wav2vecsegmenter_tpu_torch/ops/csrc/layernorm.cu",
+CSRC = "wav2vecsegmenter_tpu_torch/ops/csrc/"
+SOURCES = {  # kernel: (source, the TPU kernel it replaces)
+    "layer_norm": (CSRC + "layernorm.cu",
                    "wav2vecsegmenter_tpu/ops/layernorm.py:34"),
-    "bias_layer_norm_gelu": ("wav2vecsegmenter_tpu_torch/ops/csrc/layernorm.cu",
+    "bias_layer_norm_gelu": (CSRC + "layernorm.cu",
                              "wav2vecsegmenter_tpu/ops/layernorm.py:195"),
-    "attention_packed": ("wav2vecsegmenter_tpu_torch/ops/csrc/attention.cu",
+    "attention_packed": (CSRC + "attention.cu",
                          "wav2vecsegmenter_tpu/ops/attention.py:327"),
-    "attention_bthd": ("wav2vecsegmenter_tpu_torch/ops/csrc/attention.cu",
+    "attention_bthd": (CSRC + "attention.cu",
                        "wav2vecsegmenter_tpu/ops/attention.py:89"),
+    "ffn": (CSRC + "ffn.cu", "wav2vecsegmenter_tpu/ops/ffn.py:73"),
+    "conv_bias_ln_gelu": (CSRC + "convfuse.cu",
+                          "wav2vecsegmenter_tpu/ops/convfuse.py:127 "
+                          "(and :100, :161)"),
+    "conv_audio_ln_gelu": (CSRC + "convfuse.cu",
+                           "wav2vecsegmenter_tpu/ops/convfuse.py:161"),
 }
+# kernels of the default configuration's path; bias_layer_norm_gelu runs on
+# the A/B arm's
+DEFAULT_PATH = ("layer_norm", "attention_packed", "attention_bthd", "ffn",
+                "conv_bias_ln_gelu", "conv_audio_ln_gelu")
+UNFUSED_PATH = ("layer_norm", "attention_packed", "attention_bthd",
+                "bias_layer_norm_gelu")
 
 
 def phase(tag: str, **fields) -> None:
@@ -82,6 +129,22 @@ def phase(tag: str, **fields) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
+
+
+@contextlib.contextmanager
+def env(values: dict):
+    """Set environment variables for the block (the port reads its
+    configuration flags at call time)."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -106,79 +169,170 @@ def ragged_mask(t: int, g: torch.Generator, dev) -> torch.Tensor:
     return (torch.arange(t)[None, :] < lengths[:, None]).to(dev)
 
 
+def bound(nbytes: float, *ops: tuple[str, float]) -> tuple[float, str]:
+    """(ms, 'bytes' or 'operations'): the least time the card could take,
+    the larger of the bytes over the memory rate and the operations, given
+    as (rate, count) pairs, over the peak rate of their type (summed)."""
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = sum(n / PEAK_OPS[kind] for kind, n in ops) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def check_kernels(dev) -> dict:
     g = torch.Generator(device="cpu").manual_seed(0)
     gd = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(*shape, dtype):
-        return torch.randn(*shape, generator=gd, device=dev).to(dtype)
+    def randn(*shape, dtype=torch.float32, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gd, device=dev) * std
+                + mean).to(dtype)
 
-    def ln_case(h, rows_shape, gelu, dtype):
-        x = randn(*rows_shape, h, dtype=torch.float32).mul_(2).add_(0.5).to(dtype)
-        scale = randn(h, dtype=torch.float32).mul_(0.1).add_(1.0)
-        bias = randn(h, dtype=torch.float32).mul_(0.1)
+    def tc(dtype):  # the product's rate: tensor cores in bf16
+        return "bf16_tc" if dtype == torch.bfloat16 else "f32"
+
+    def ln_case(h, rows, gelu, dtype):
+        x = randn(rows, h, std=2.0, mean=0.5, dtype=dtype)
+        scale, bias = randn(h, std=0.1, mean=1.0), randn(h, std=0.1)
+        moved = nbytes(x, x, scale, bias)
         if gelu:
-            cb = randn(h, dtype=torch.float32).mul_(0.3)
+            cb = randn(h, std=0.3)
             args = (x, cb, scale, bias)
-            return ln.bias_layer_norm_gelu, ln.bias_layer_norm_gelu_plain, args
-        return ln.layer_norm, ln.layer_norm_plain, (x, scale, bias)
+            return dict(fn=lambda: ln.bias_layer_norm_gelu(*args),
+                        plain=lambda: ln.bias_layer_norm_gelu_plain(*args),
+                        bound=bound(moved + nbytes(cb), (
+                            "f32", rows * h * (1 + LN_OPS + GELU_OPS))),
+                        library=None)
+        lib_scale, lib_bias = scale.to(dtype), bias.to(dtype)
+        return dict(fn=lambda: ln.layer_norm(x, scale, bias),
+                    plain=lambda: ln.layer_norm_plain(x, scale, bias),
+                    bound=bound(moved, ("f32", rows * h * LN_OPS)),
+                    library=lambda: F.layer_norm(x, (h,), lib_scale, lib_bias,
+                                                 ln.EPS))
+
+    def attn_bound(q, mask, heads, d, dtype):
+        # QK and PV over the valid keys of every query row
+        valid = mask.sum(1).double()
+        flops = float(4 * heads * d * q.shape[1] * valid.sum())
+        return bound(4 * nbytes(q), (tc(dtype), flops))
+
+    def sdpa(q, k, v, mask):  # [B, T, H, D] views -> the library call
+        m = mask[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=m)
 
     def packed_case(t, dtype):
         proj = randn(B, t, 3 * 1024, dtype=dtype)
         mask = ragged_mask(t, g, dev)
-        return (lambda: attn.attention_packed(proj, mask, 16),
-                lambda: attn.attention_packed_plain(proj, mask, 16, 64 ** -0.5),
-                mask)
+        q, k, v = attn._unpack_qkv(proj, 16)
+        return dict(fn=lambda: attn.attention_packed(proj, mask, 16),
+                    plain=lambda: attn.attention_packed_plain(
+                        proj, mask, 16, 64 ** -0.5),
+                    rows=mask, bound=attn_bound(q, mask, 16, 64, dtype),
+                    library=sdpa(q, k, v, mask))
 
     def bthd_case(t, dtype):
         qkv = randn(B, t, 3, 8, 128, dtype=dtype)  # the SFC's view layout
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         mask = ragged_mask(t, g, dev)
-        return (lambda: attn.attention_bthd(q, k, v, mask),
-                lambda: attn.attention_bthd_plain(q, k, v, mask, 128 ** -0.5),
-                mask)
+        return dict(fn=lambda: attn.attention_bthd(q, k, v, mask),
+                    plain=lambda: attn.attention_bthd_plain(
+                        q, k, v, mask, 128 ** -0.5),
+                    rows=mask, bound=attn_bound(q, mask, 8, 128, dtype),
+                    library=sdpa(q, k, v, mask))
 
-    cases = []  # (kernel, label, kernel fn, plain fn, valid query rows)
+    def ffn_case(t, dtype):
+        x = randn(B, t, 1024, dtype=dtype)
+        w1, b1 = randn(4096, 1024, std=0.03), randn(4096, std=0.1)
+        w2, b2 = randn(1024, 4096, std=0.015), randn(1024, std=0.1)
+        rows = B * t
+        moved = 2 * nbytes(x) + (w1.numel() + w2.numel()) * x.element_size() \
+            + nbytes(b1, b2)
+        args = (x, w1, b1, w2, b2)
+        return dict(fn=lambda: tffn.ffn(*args),
+                    plain=lambda: tffn.ffn_plain(*args),
+                    bound=bound(moved, (tc(dtype), 4 * rows * 1024 * 4096),
+                                ("f32", rows * 4096 * (1 + GELU_OPS))),
+                    library=None)
+
+    def conv_case(t, c, k, s, dtype):
+        x = randn(B, t, c, dtype=dtype)
+        w = randn(512, c, k, std=(c * k) ** -0.5)
+        cb, scale, bias = (randn(512, std=0.3), randn(512, std=0.1, mean=1.0),
+                           randn(512, std=0.1))
+        args = (x, w, cb, scale, bias, s)
+        rows = B * ((t - k) // s + 1)
+        moved = nbytes(x) + rows * 512 * x.element_size() \
+            + w.numel() * x.element_size() + nbytes(cb, scale, bias)
+        product = 2 * rows * k * c * 512
+        epilogue = rows * 512 * (1 + LN_OPS + GELU_OPS)
+        # the narrow raw-audio product runs on scalar FMAs
+        rate = "f32" if k * c <= conv.AUDIO_MAX_K else tc(dtype)
+        return dict(fn=lambda: conv.conv_bias_ln_gelu(*args),
+                    plain=lambda: conv.conv_bias_ln_gelu_plain(*args),
+                    bound=bound(moved, (rate, product), ("f32", epilogue)),
+                    library=None)
+
+    cases = []  # (kernel, label, dtype, case)
     for dtype in (torch.float32, torch.bfloat16):
         for h in (1024, 512):
-            fn, plain, args = ln_case(h, (B * T,), False, dtype)
             cases.append(("layer_norm", f"[{B}*{T},{h}]", dtype,
-                          lambda fn=fn, a=args: fn(*a),
-                          lambda p=plain, a=args: p(*a), None))
+                          lambda h=h, d=dtype: ln_case(h, B * T, False, d)))
         for t in (63999, T):
-            fn, plain, args = ln_case(512, (B, t), True, dtype)
             cases.append(("bias_layer_norm_gelu", f"[{B},{t},512]", dtype,
-                          lambda fn=fn, a=args: fn(*a),
-                          lambda p=plain, a=args: p(*a), None))
+                          lambda t=t, d=dtype: ln_case(512, B * t, True, d)))
         for t in (T, T_TAIL):
-            fn, plain, mask = packed_case(t, dtype)
             cases.append(("attention_packed", f"[{B},{t},3072]x16", dtype,
-                          fn, plain, mask))
-        fn, plain, mask = bthd_case(T, dtype)
-        cases.append(("attention_bthd", f"[{B},{T},8,128]", dtype, fn, plain,
-                      mask))
+                          lambda t=t, d=dtype: packed_case(t, d)))
+        cases.append(("attention_bthd", f"[{B},{T},8,128]", dtype,
+                      lambda d=dtype: bthd_case(T, d)))
+        for t in (T, T_TAIL):
+            cases.append(("ffn", f"[{B},{t},1024]x4096", dtype,
+                          lambda t=t, d=dtype: ffn_case(t, d)))
+        # conv layer 1 (k=3, s=2) and layer 6 (k=2, s=2); layer 0's raw audio
+        for t, k, s in ((63999, 3, 2), (1999, 2, 2)):
+            cases.append(("conv_bias_ln_gelu", f"[{B},{t},512] k={k} s={s}",
+                          dtype,
+                          lambda t=t, k=k, s=s, d=dtype: conv_case(
+                              t, 512, k, s, d)))
+        cases.append(("conv_audio_ln_gelu", f"[{B},{L_AUDIO}] k=10 s=5", dtype,
+                      lambda d=dtype: conv_case(L_AUDIO, 1, 10, 5, d)))
 
     results: dict = {}
-    for name, label, dtype, fn, plain, rows in cases:
-        got, ref = fn(), plain()
+    for name, label, dtype, make in cases:
+        case = make()
+        got, ref = case["fn"](), case["plain"]()
         torch.cuda.synchronize()
         check(torch.isfinite(got).all().item(), f"{name} {label}: non-finite")
         diff = (got.float() - ref.float()).abs()
-        if rows is not None:
-            diff = diff[rows]
+        if case.get("rows") is not None:
+            diff = diff[case["rows"]]
         err = diff.max().item()
+        del got, ref, diff
         tol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
-        big = name == "bias_layer_norm_gelu" and label.startswith(f"[{B},63999")
-        ms = cuda_ms(fn, 3 if big else 10)
-        plain_ms = cuda_ms(plain, 3 if big else 10)
+        big = "63999" in label or str(L_AUDIO) in label
+        iters = 3 if big else 10
+        ms = cuda_ms(case["fn"], iters)
+        plain_ms = cuda_ms(case["plain"], iters)
+        library_ms = (cuda_ms(case["library"], iters)
+                      if case["library"] is not None else None)
+        bound_ms, bound_by = case["bound"]
         dname = str(dtype).replace("torch.", "")
         phase("kernel", name=name, shape=label, dtype=dname, max_abs_err=err,
-              tol=tol, ms=ms, plain_ms=plain_ms)
+              tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, library_ms=library_ms)
         check(err <= tol, f"{name} {label} {dname}: max abs err {err} > {tol}")
-        del got, ref, diff
+        del case
+        torch.cuda.empty_cache()
         # the record keeps the main path's dtype (bf16) at its first shape
         if dtype == torch.bfloat16 and name not in results:
-            results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            results[name] = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": library_ms}
     return results
 
 
@@ -198,7 +352,7 @@ def write_talk(path: Path, secs: float, seed: int) -> None:
         f.writeframes(pcm.tobytes())
 
 
-def run_slice(dev) -> dict:
+def run_slice(dev) -> tuple[dict, dict, SHAS]:
     model = SHAS(device=dev)  # conf/task/shas.yaml: xls-r-300m, 15 layers
     init_from_numpy(model, seed=0)
     with torch.no_grad():
@@ -216,41 +370,54 @@ def run_slice(dev) -> dict:
             write_talk(w, secs[w.name], seed)
         audio_secs = sum(secs.values())
 
-        def run(mode: str, dtype=torch.bfloat16):
+        def run(mode: str, dtype=torch.bfloat16, flags: dict | None = None):
             backend.set_kernels(mode)
             before = backend.launch_counts()
             probs: dict = {}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rows = segment_wavs(model, wavs, PTHR, B, 20.0, 1, dev, dtype,
-                                talk_probs=probs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with env(flags or {}):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows = segment_wavs(model, wavs, PTHR, B, 20.0, 1, dev, dtype,
+                                    talk_probs=probs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
             backend.set_kernels("auto")
             if mode == "eager":
                 check(backend.launch_counts() == before,
                       "the eager run launched kernels")
             return rows, probs, wall
 
-        run("auto")  # warm-up: cuBLAS/cuDNN handles, pinned memory, kernels
+        # warm-up: cuBLAS/cuDNN handles, pinned memory, kernels
+        run("auto")
+        run("auto", flags=UNFUSED)
         run("eager")
         backend.reset_launch_counts()
         rows_k, probs_k, wall = run("auto")
         counts = backend.launch_counts()
-        walls = {"auto": [wall], "eager": []}
+        walls = {"auto": [wall], "eager": [], "unfused": []}
         rows_e, probs_e, wall = run("eager")
         walls["eager"].append(wall)
-        for mode in ("eager", "auto", "auto", "eager"):  # alternate turns
-            walls[mode].append(run(mode)[2])
+        backend.reset_launch_counts()
+        rows_u, probs_u, wall = run("auto", flags=UNFUSED)
+        counts_unfused = backend.launch_counts()
+        walls["unfused"].append(wall)
+        for mode in ("eager", "unfused", "auto", "auto", "unfused", "eager"):
+            walls[mode].append(
+                run("auto", flags=UNFUSED)[2] if mode == "unfused"
+                else run(mode)[2])
         _, probs_f32, _ = run("auto", torch.float32)  # the float32 oracle
 
-    for name in SOURCES:
-        check(counts.get(name, 0) > 0, f"kernel {name} never launched")
-    for rows in (rows_k, rows_e):
+    for name in DEFAULT_PATH:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never launched on the default path")
+    for name in UNFUSED_PATH:
+        check(counts_unfused.get(name, 0) > 0,
+              f"kernel {name} never launched on the unfused path")
+    for rows in (rows_k, rows_e, rows_u):
         check({r["wav"] for r in rows} == {w.name for w in wavs},
               "a talk got no segments")
     names = list(secs)
-    for probs in (probs_k, probs_e, probs_f32):
+    for probs in (probs_k, probs_e, probs_u, probs_f32):
         for name in names:
             p = probs[name]
             # one frame per 1/49.95 s, the output frame rate
@@ -265,19 +432,24 @@ def run_slice(dev) -> dict:
     k_vs_e = dprob(probs_k, probs_e)
     k_vs_f = dprob(probs_k, probs_f32)
     e_vs_f = dprob(probs_e, probs_f32)
-    wall_k, wall_e = (float(np.median(walls[m])) for m in ("auto", "eager"))
+    u_vs_k = dprob(probs_u, probs_k)
+    u_vs_f = dprob(probs_u, probs_f32)
+    med = {m: float(np.median(w)) for m, w in walls.items()}
     phase("slice", params=n_params, segments_kernels=len(rows_k),
-          segments_eager=len(rows_e),
+          segments_eager=len(rows_e), segments_unfused=len(rows_u),
           prob_range=[float(min(p.min() for p in probs_k.values())),
                       float(max(p.max() for p in probs_k.values()))],
           dprob_kernels_vs_eager=k_vs_e, dprob_kernels_vs_f32=k_vs_f,
-          dprob_eager_vs_f32=e_vs_f,
+          dprob_eager_vs_f32=e_vs_f, dprob_unfused_vs_kernels=u_vs_k,
+          dprob_unfused_vs_f32=u_vs_f,
           jax_envelope_met=all(k_vs_e[q] <= JAX_ENVELOPE[q]
                                for q in JAX_ENVELOPE),
           audio_secs=audio_secs, wall_secs_kernels=walls["auto"],
-          wall_secs_eager=walls["eager"],
-          audio_per_wall_kernels=audio_secs / wall_k,
-          audio_per_wall_eager=audio_secs / wall_e, launches=counts)
+          wall_secs_eager=walls["eager"], wall_secs_unfused=walls["unfused"],
+          audio_per_wall_kernels=audio_secs / med["auto"],
+          audio_per_wall_eager=audio_secs / med["eager"],
+          audio_per_wall_unfused=audio_secs / med["unfused"],
+          launches=counts, launches_unfused=counts_unfused)
     for q in ("mean", "p99"):
         check(k_vs_f[q] <= KERNEL_SLACK * e_vs_f[q],
               f"kernels add error: {q} dprob to float32 {k_vs_f[q]} vs "
@@ -285,42 +457,51 @@ def run_slice(dev) -> dict:
         check(k_vs_e[q] <= e_vs_f[q],
               f"kernel vs eager {q} dprob {k_vs_e[q]} exceeds the bf16 "
               f"envelope {e_vs_f[q]}")
-    return counts, model
+        pair = BF16_PAIR * max(k_vs_f[q], u_vs_f[q])
+        check(u_vs_k[q] <= pair,
+              f"unfused vs default {q} dprob {u_vs_k[q]} exceeds the bf16 "
+              f"envelope of two bf16 paths {pair}")
+    return counts, counts_unfused, model
 
 
 def time_batch(dev, model, profile: bool) -> None:
-    """One full batch (14 windows of 20 s) through the engine, kernels and
-    eager in turns; with ``profile``, a torch.profiler table of one
-    kernel-mode batch goes to standard error."""
+    """One full batch (14 windows of 20 s) through the engine: the default
+    configuration with the kernels, the unfused one with the kernels, and
+    eager, in turns; with ``profile``, a torch.profiler table of one
+    default-configuration batch goes to standard error."""
     from wav2vecsegmenter_tpu_torch.data.windows import BatchIterator
     from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
 
     rng = np.random.RandomState(2)
-    n = 320000
-    env = (np.arange(n) / 16000 % 3.5) < 3.0
-    examples = [((rng.randn(n) * 0.1 * env).astype(np.float32), None,
+    env_ = (np.arange(L_AUDIO) / 16000 % 3.5) < 3.0
+    examples = [((rng.randn(L_AUDIO) * 0.1 * env_).astype(np.float32), None,
                  0, 999) for _ in range(B)]
     batch, = BatchIterator(examples, B, 20.0)  # a list serves as dataset
     engine = WindowInference(model, dev, torch.bfloat16)
 
-    def once(mode):
-        backend.set_kernels(mode)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.run_batch(batch).numpy()
-        ms = (time.perf_counter() - t0) * 1e3
+    def once(arm):
+        backend.set_kernels("eager" if arm == "eager" else "auto")
+        with env(UNFUSED if arm == "unfused" else {}):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.run_batch(batch).numpy()
+            ms = (time.perf_counter() - t0) * 1e3
         backend.set_kernels("auto")
         return ms
 
-    ms = {"auto": [], "eager": []}
-    once("auto")
-    once("eager")
-    for mode in ("auto", "eager", "eager", "auto", "auto", "eager"):
-        ms[mode].append(once(mode))
+    ms = {"auto": [], "unfused": [], "eager": []}
+    for arm in ms:
+        once(arm)
+    torch.cuda.reset_peak_memory_stats()
+    for arm in ("auto", "unfused", "eager", "eager", "unfused", "auto",
+                "auto", "unfused", "eager"):
+        ms[arm].append(once(arm))
+    med = {arm: float(np.median(v)) for arm, v in ms.items()}
     phase("batch", windows=B, audio_secs=B * 20.0, ms_kernels=ms["auto"],
-          ms_eager=ms["eager"],
-          audio_per_wall_kernels=B * 20.0 / (np.median(ms["auto"]) / 1e3),
-          audio_per_wall_eager=B * 20.0 / (np.median(ms["eager"]) / 1e3),
+          ms_unfused_kernels=ms["unfused"], ms_eager=ms["eager"],
+          audio_per_wall_kernels=B * 20.0 / (med["auto"] / 1e3),
+          audio_per_wall_unfused=B * 20.0 / (med["unfused"] / 1e3),
+          audio_per_wall_eager=B * 20.0 / (med["eager"] / 1e3),
           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof
@@ -355,12 +536,13 @@ def main() -> int:
           nvcc_seconds=_build.build_seconds, ptxas=ptxas)
 
     kernels = check_kernels(dev)
-    counts, model = run_slice(dev)
+    counts, counts_unfused, model = run_slice(dev)
     time_batch(dev, model, profile="--profile" in sys.argv)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], **kernels[name]}
+         "launches": (counts if name in DEFAULT_PATH
+                      else counts_unfused)[name], **kernels[name]}
         for name, (src, rep) in SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

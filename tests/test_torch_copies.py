@@ -1,0 +1,143 @@
+"""The port's own copies of the JAX package's jax-free helpers, held equal to
+the originals: constants, frame conversions, window grids, wav reads,
+collation, the segmentation algorithms and the config composer.  Equality
+is exact: the same arrays, the same segment lists, the same configs.
+"""
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import wav2vecsegmenter_tpu.algorithms as jalgo
+import wav2vecsegmenter_tpu.config as jconfig
+import wav2vecsegmenter_tpu.constants as jconst
+from wav2vecsegmenter_tpu.core import frames as jframes
+from wav2vecsegmenter_tpu.core import windows as jwindows
+from wav2vecsegmenter_tpu.data import audio as jaudio
+from wav2vecsegmenter_tpu.data import collate as jcollate
+import wav2vecsegmenter_tpu_torch.algorithms as talgo
+import wav2vecsegmenter_tpu_torch.config as tconfig
+import wav2vecsegmenter_tpu_torch.constants as tconst
+from wav2vecsegmenter_tpu_torch.core import frames as tframes
+from wav2vecsegmenter_tpu_torch.core import windows as twindows
+from wav2vecsegmenter_tpu_torch.data import audio as taudio
+from wav2vecsegmenter_tpu_torch.data import collate as tcollate
+
+from .helpers import make_speechlike_wav
+
+CONF = Path(__file__).resolve().parents[1] / "conf"
+
+
+def test_constants_equal():
+    for name in ("INPUT_SAMPLE_RATE", "TARGET_SAMPLE_RATE",
+                 "WAV2VEC_FRAME_LEN"):
+        assert getattr(tconst, name) == getattr(jconst, name)
+
+
+def test_frame_conversions_equal():
+    x = np.random.RandomState(0).rand(1000) * 1e6
+    for name in ("secs_to_outframes", "outframes_to_inframes",
+                 "inframes_to_outframes", "secs_to_inframes",
+                 "conv_output_length"):
+        np.testing.assert_array_equal(getattr(tframes, name)(x.astype(int)),
+                                      getattr(jframes, name)(x.astype(int)))
+        np.testing.assert_array_equal(getattr(tframes, name)(x),
+                                      getattr(jframes, name)(x))
+
+
+@pytest.mark.parametrize("inference_times", [1, 2, 3])
+def test_window_grid_equal(inference_times):
+    for duration in (100, 320000, 320001, 351999, 352000, 1040000, 659219):
+        for it in range(inference_times):
+            got = twindows.fixed_window_grid(duration, 20, inference_times, it)
+            want = jwindows.fixed_window_grid(duration, 20, inference_times,
+                                              it)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+
+
+def test_wav_reads_equal(tmp_path):
+    path = tmp_path / "talk.wav"
+    make_speechlike_wav(path, duration_secs=3.3, seed=4)
+    assert taudio.assert_sample_rate(path) == jaudio.assert_sample_rate(path)
+    for offset, n in ((0, None), (100, 5000), (52000, 10000)):
+        np.testing.assert_array_equal(taudio.read_wav_window(path, offset, n),
+                                      jaudio.read_wav_window(path, offset, n))
+    ours, theirs = taudio.WaveformCache(1), jaudio.WaveformCache(1)
+    np.testing.assert_array_equal(ours.window(path, 7, 900),
+                                  theirs.window(path, 7, 900))
+
+
+@pytest.mark.parametrize("device_normalize", [True, False])
+def test_collate_equal(device_normalize):
+    rng = np.random.RandomState(5)
+    examples = [(rng.randn(n).astype(np.float32) * 0.1, None, s, s + n // 320)
+                for n, s in ((32000, 0), (25000, 100), (31990, 200))]
+    examples.append((np.zeros(32000, np.float32), None, 300, 400))  # silent
+    audio_len = 32000
+    got = tcollate.collate(examples, 6, audio_len,
+                           tcollate.out_len_for(audio_len),
+                           device_normalize=device_normalize)
+    want = jcollate.collate(examples, 6, audio_len,
+                            jcollate.out_len_for(audio_len),
+                            device_normalize=device_normalize)
+    for field in dataclasses.fields(got):
+        a, b = getattr(got, field.name), getattr(want, field.name)
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype, field.name
+            np.testing.assert_array_equal(a, b, err_msg=field.name)
+        else:
+            assert a == b, field.name
+
+
+def _probs(seed: int, n: int = 6000) -> np.ndarray:
+    """A speech-like frame-probability curve: smooth runs above and below
+    the thresholds with noise."""
+    rng = np.random.RandomState(seed)
+    base = np.repeat(rng.rand(n // 50 + 1) > 0.3, 50)[:n].astype(float)
+    return np.clip(0.8 * base + 0.3 * rng.randn(n) * rng.rand(n), 0, 1)
+
+
+def _spans(segments):
+    return [(s.start, s.end, s.duration, s.offset) for s in segments]
+
+
+ALGOS = {
+    "pthr": dict(max_segment_length=28, min_segment_length=0.2,
+                 max_lerp_range=4, min_lerp_range=0.4, threshold=0.1,
+                 moving_average_window=0.1),
+    "pdac": dict(max_segment_length=10, min_segment_length=0.2,
+                 threshold=0.5),
+    "strm": dict(max_segment_length=10, min_segment_length=0.2,
+                 min_pause_length=0.2, threshold=0.5),
+}
+
+
+@pytest.mark.parametrize("algo", list(ALGOS))
+def test_algorithms_equal(algo):
+    rows_t, rows_j = [], []
+    for seed in range(4):
+        probs = _probs(seed)
+        got = getattr(talgo, algo)(probs.copy(), **ALGOS[algo])
+        want = getattr(jalgo, algo)(probs.copy(), **ALGOS[algo])
+        assert _spans(got) == _spans(want) and got
+        talgo.update_yaml_content(rows_t, got, f"talk{seed}.wav")
+        jalgo.update_yaml_content(rows_j, want, f"talk{seed}.wav")
+    assert rows_t == rows_j
+
+
+def test_config_compose_equal(tmp_path):
+    overrides = ["algorithm=dac", "batch_size=3", "+runtime.device=cpu",
+                 "algorithm.max_segment_length=10"]
+    got = tconfig.compose(CONF, "segment", overrides)
+    want = jconfig.compose(CONF, "segment", overrides)
+    assert tconfig.to_plain(got) == jconfig.to_plain(want)
+    assert got.runtime.device == "cpu"
+    jconfig.save_config(want, tmp_path / "c.yaml")
+    loaded = tconfig.load_config(tmp_path / "c.yaml")
+    assert tconfig.to_plain(tconfig.merge(loaded, got)) == jconfig.to_plain(
+        jconfig.merge(jconfig.load_config(tmp_path / "c.yaml"), want))
+    assert tconfig.to_plain(tconfig.resolve(loaded)) == jconfig.to_plain(
+        jconfig.resolve(jconfig.load_config(tmp_path / "c.yaml")))

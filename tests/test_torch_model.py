@@ -2,9 +2,12 @@
 the JAX package, on shared weights.
 
 JAX ``init`` -> numpy -> ``state_dict_from_jax_params`` -> the port; the JAX
-forward runs the configuration the port mirrors (``W2VSEG_CONVFUSE=0
-W2VSEG_FFNFUSE=0``) with its Pallas kernels in interpret mode.  Bound: the
-< 2e-4 of tests/test_model_parity.py on valid frames (float32).
+forward runs its Pallas kernels in interpret mode, in both of the
+configurations the port runs: the default (fused conv layers and FFN; at
+the small config's conv_dim=64, s*C = 128, so the JAX side really takes
+its fused conv kernels) and ``W2VSEG_CONVFUSE=0 W2VSEG_FFNFUSE=0``.  The
+flags are set for both sides.  Bound: the < 2e-4 of
+tests/test_model_parity.py on valid frames (float32).
 """
 
 import dataclasses
@@ -70,12 +73,14 @@ def _inputs(t_out: int):
     return audio, lengths, out_mask
 
 
-@pytest.fixture
-def jax_pallas_unfused(monkeypatch):
-    """The JAX configuration the port mirrors: Pallas kernels in interpret
-    mode, conv and FFN fusion off (read at trace time)."""
-    monkeypatch.setenv("W2VSEG_CONVFUSE", "0")
-    monkeypatch.setenv("W2VSEG_FFNFUSE", "0")
+@pytest.fixture(params=["fused", "unfused"])
+def jax_pallas_unfused(request, monkeypatch):
+    """A configuration both packages run: Pallas kernels in interpret mode,
+    conv and FFN fusion on (the default) or off (the A/B arm); the JAX
+    package reads the flags at trace time, the port at call time."""
+    flag = "1" if request.param == "fused" else "0"
+    monkeypatch.setenv("W2VSEG_CONVFUSE", flag)
+    monkeypatch.setenv("W2VSEG_FFNFUSE", flag)
     set_backend("pallas")
     try:
         with pltpu.force_tpu_interpret_mode():

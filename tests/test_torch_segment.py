@@ -82,7 +82,8 @@ def test_batches_equal_jax_batch_iterator(workspace, iteration):
                                      remainder_ladder=True))
         assert len(got) == len(want) > 0
         for g, w in zip(got, want):
-            for field in dataclasses.fields(w):
+            assert w.tokens is None  # CTC batches: not on this path
+            for field in dataclasses.fields(g):
                 a, b = getattr(g, field.name), getattr(w, field.name)
                 if isinstance(b, np.ndarray):
                     np.testing.assert_array_equal(a, b)
@@ -151,11 +152,33 @@ def test_segment_cli_yaml_equals_jax_cli(workspace, tiny_builders, algo):
                                   f"+results_path={out_jax}",
                                   "runtime.kernels=xla", "runtime.mesh.data=1"])
     rows_port = port_main(common + [f"output_dir={out_port}",
-                                    f"+results_path={out_port}"])
+                                    f"+results_path={out_port}",
+                                    "+runtime.device=cpu"])
     assert rows_port == rows_jax
     assert {r["wav"] for r in rows_port} == set(TALKS)
     assert ((out_port / "custom_segments.yaml").read_bytes()
             == (out_jax / "custom_segments.yaml").read_bytes())
+
+
+def test_segment_cli_runs_on_cuda_unless_asked_for_cpu(workspace,
+                                                     tiny_builders,
+                                                     monkeypatch):
+    """Without a GPU the segment CLI raises, and says how to ask for the
+    CPU; the device is never picked behind the caller's back."""
+    from wav2vecsegmenter_tpu_torch.cli.segment import main as port_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ws = workspace[0]
+    with pytest.raises(RuntimeError, match=r"\+runtime\.device=cpu"):
+        port_main([f"ckpt_path={ws}/ckpt.pt",
+                   f"config_path={ws}/train_config.yaml",
+                   f"infer_data.wav_dir={ws}/wav",
+                   f"infer_data.orig_seg_yaml={ws}/txt/orig.yaml",
+                   f"output_dir={ws}/no_gpu", f"+results_path={ws}/no_gpu"])
+    assert tcommon.runtime_device_dtype("cpu") == (torch.device("cpu"),
+                                                   torch.float32)
+    with pytest.raises(RuntimeError):
+        tcommon.runtime_device_dtype()
 
 
 def test_segment_wavs_fills_talk_probs(workspace):

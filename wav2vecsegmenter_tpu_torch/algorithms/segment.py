@@ -1,0 +1,59 @@
+"""Segment primitive and trim operations.
+
+Behavioral contract follows reference lib/segment.py:13-134: a Segment
+covers [start, end) in output-frame space (49.95 Hz); ``duration``/``offset``
+round to 6 decimals when converting to seconds.
+
+The port's copy of what pTHR, pDAC and pSTRM use of
+``wav2vecsegmenter_tpu/algorithms/segment.py`` (tests/test_torch_copies.py
+holds the two equal); the argmax and soft trims come with the heads that
+need them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..constants import TARGET_SAMPLE_RATE
+
+
+@dataclass
+class Segment:
+    start: float
+    end: float
+    probs: np.ndarray | None = None
+    decimal: int = 6
+
+    @property
+    def duration(self) -> float:
+        return float(round((self.end - self.start) / TARGET_SAMPLE_RATE, self.decimal))
+
+    @property
+    def offset(self) -> float:
+        return float(round(self.start / TARGET_SAMPLE_RATE, self.decimal))
+
+    @property
+    def offset_plus_duration(self) -> float:
+        return round(self.offset + self.duration, self.decimal)
+
+
+def trim(sgm: Segment, threshold: float) -> Segment:
+    """Shrink to the span between the first/last probs >= threshold
+    (reference lib/segment.py:34-53)."""
+    included = np.where(sgm.probs >= threshold)[0]
+    if not len(included):
+        return Segment(sgm.start, sgm.start, probs=np.empty([0]))
+    i, j = included[0], included[-1] + 1
+    return Segment(sgm.start + i, sgm.start + j, probs=sgm.probs[i:j])
+
+
+def split_and_trim(sgm: Segment, split_idx: int, threshold: float):
+    """Split at split_idx (the split frame itself is dropped) and trim both
+    halves (reference lib/segment.py:113-134)."""
+    probs_a = sgm.probs[:split_idx]
+    sgm_a = Segment(sgm.start, sgm.start + len(probs_a), probs=probs_a)
+    probs_b = sgm.probs[split_idx + 1 :]
+    sgm_b = Segment(sgm_a.end + 1, sgm.end, probs=probs_b)
+    return trim(sgm_a, threshold), trim(sgm_b, threshold)

@@ -15,8 +15,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from wav2vecsegmenter_tpu.algorithms import pdac, pthr, strm, update_yaml_content
-
+from ..algorithms import pdac, pthr, strm, update_yaml_content
 from ..data.windows import BatchIterator, FixedSegmentationDatasetNoTarget
 from ..infer.pipeline import WindowInference, collect_talk, dispatch_talk
 from ..models.shas import SHAS
@@ -24,10 +23,16 @@ from ..models.shas import SHAS
 logger = logging.getLogger("wav2vecsegmenter_tpu_torch")
 
 
-def runtime_device_dtype(compute_dtype: str = "bfloat16"):
-    """(device, compute dtype): the first CUDA device with the configured
-    dtype (bf16 by default), else the CPU in float32."""
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def runtime_device_dtype(device: str = "cuda",
+                         compute_dtype: str = "bfloat16"):
+    """(device, compute dtype) as the caller asks: ``cuda`` (the default)
+    with the configured dtype (bf16 by default), or ``cpu`` in float32.
+    Without a CUDA device, ``cuda`` raises: the CPU runs only on request."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found; to run on the CPU, ask for it "
+            "(segment CLI: +runtime.device=cpu)")
     if device.type == "cpu" or compute_dtype != "bfloat16":
         return device, torch.float32
     return device, torch.bfloat16

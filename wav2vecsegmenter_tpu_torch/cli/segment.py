@@ -7,10 +7,12 @@ overrides, the training run's config merged underneath):
     python -m wav2vecsegmenter_tpu_torch.cli.segment ckpt_path=/path/ckpt.pt \
         config_path=/path/config.yaml output_dir=/path/out [algorithm=dac] ...
 
-The checkpoint is a reference ``.pt`` (either layout).  ``runtime.kernels``
-is ``auto`` (hand kernels on CUDA) or ``eager``; ``runtime.compute_dtype``
-applies on CUDA, the CPU runs float32.  Sweeps (``-m``) are not ported.
-The config layer and pyyaml are imported inside :func:`main` only.
+The checkpoint is a reference ``.pt`` (either layout).  The run is on the
+first CUDA device and raises without one; ``+runtime.device=cpu`` asks for
+the CPU.  ``runtime.kernels`` is ``auto`` (hand kernels on CUDA) or
+``eager``; ``runtime.compute_dtype`` applies on CUDA, the CPU runs float32.
+Sweeps (``-m``) are not ported.  pyyaml is imported inside :func:`main`
+only.
 """
 
 from __future__ import annotations
@@ -54,10 +56,8 @@ def _wavs_from_yaml(config) -> list[Path]:
 def main(argv: list[str] | None = None) -> list[dict]:
     import yaml
 
-    from wav2vecsegmenter_tpu.config import (compose, load_config, merge,
-                                             resolve, to_plain)
-
     from ..checkpoints.convert import load_reference_checkpoint
+    from ..config import compose, load_config, merge, resolve, to_plain
     from ..ops.backend import set_kernels
 
     argv = sys.argv[1:] if argv is None else argv
@@ -83,7 +83,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     rt = config.get("runtime") or {}
     set_kernels(rt.get("kernels", "auto"))
     device, dtype = common.runtime_device_dtype(
-        rt.get("compute_dtype", "bfloat16"))
+        rt.get("device", "cuda"), rt.get("compute_dtype", "bfloat16"))
     model = common.build_model(to_plain(config.task.model), device)
     load_reference_checkpoint(
         config.ckpt_path, model,

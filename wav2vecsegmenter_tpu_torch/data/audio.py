@@ -1,0 +1,98 @@
+"""Wav decoding with random-access window reads.
+
+Replaces the reference's torchaudio sox_io seek-reads (lib/dataset.py:
+659-663) with the stdlib ``wave`` module (16-bit PCM mono, which is what
+MuST-C ships).  Samples are returned float32 in [-1, 1) (int16 / 32768,
+torchaudio's convention).
+
+The port's copy of ``wav2vecsegmenter_tpu/data/audio.py`` without its native
+C++ loader, which belongs to the JAX package (tests/test_torch_copies.py
+holds the two equal).
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import wave
+from pathlib import Path
+
+import numpy as np
+
+from ..constants import INPUT_SAMPLE_RATE
+
+
+def wav_info(path: str | Path) -> tuple[int, int, int]:
+    """(num_frames, sample_rate, channels)."""
+    with wave.open(str(path), "rb") as f:
+        return f.getnframes(), f.getframerate(), f.getnchannels()
+
+
+def read_wav_window(path: str | Path, offset: int = 0,
+                    num_frames: int | None = None) -> np.ndarray:
+    """Read ``num_frames`` samples starting at ``offset`` -> float32 [-1, 1)."""
+    with wave.open(str(path), "rb") as f:
+        n_channels = f.getnchannels()
+        sampwidth = f.getsampwidth()
+        total = f.getnframes()
+        if num_frames is None:
+            num_frames = total - offset
+        num_frames = max(0, min(num_frames, total - offset))
+        f.setpos(int(offset))
+        raw = f.readframes(int(num_frames))
+    if sampwidth == 2:
+        data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif sampwidth == 4:
+        data = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif sampwidth == 1:
+        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+    else:
+        raise ValueError(f"Unsupported sample width {sampwidth} in {path}")
+    if n_channels > 1:
+        # the reference keeps only the first channel (waveform[0],
+        # lib/dataset.py:257) — match that, not a downmix
+        data = np.ascontiguousarray(data.reshape(-1, n_channels)[:, 0])
+    return data
+
+
+class WaveformCache:
+    """Thread-safe tiny LRU of fully-decoded waveforms.
+
+    The fixed-grid inference dataset reads the SAME wav once per window and
+    once per pass; access is talk-sequential, so a small LRU turns all but
+    the first read into memory slices.
+    """
+
+    def __init__(self, capacity: int = 2):
+        self._cap = capacity
+        self._data: "collections.OrderedDict[str, np.ndarray]" = \
+            collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def full(self, path: str | Path) -> np.ndarray:
+        key = str(path)
+        with self._lock:
+            if key in self._data:
+                self._data.move_to_end(key)
+                return self._data[key]
+        data = read_wav_window(key, 0, None)
+        with self._lock:
+            self._data[key] = data
+            self._data.move_to_end(key)
+            while len(self._data) > self._cap:
+                self._data.popitem(last=False)
+        return data
+
+    def window(self, path: str | Path, offset: int,
+               num_frames: int) -> np.ndarray:
+        full = self.full(path)
+        return full[offset : offset + num_frames]
+
+
+def assert_sample_rate(path: str | Path) -> int:
+    """Sample-rate guard (reference lib/dataset.py:600-602)."""
+    n, sr, _ = wav_info(path)
+    assert sr == INPUT_SAMPLE_RATE, (
+        f"Audio needs to have sample rate of {INPUT_SAMPLE_RATE} (got {sr})"
+    )
+    return n

@@ -1,0 +1,126 @@
+"""Batch assembly with reference-exact normalization, static device shapes.
+
+The reference CollateFn (lib/datautils.py:57-142) pads each batch to its own
+max length and normalizes every non-empty waveform with mean/std computed
+over the *padded* row (zeros included; torch.std => ddof=1).  Here:
+
+  * normalization statistics are computed over ``norm_length`` = the batch's
+    max true length — bit-matching the reference's padded-row statistics;
+  * the buffer is then padded further to a static bucket length, which does
+    not affect statistics and keeps two audio shapes per segment length.
+
+Batches shorter than ``batch_size`` are padded with empty rows
+(included=False), matching the reference's handling of all-zero windows
+(probs forced to 0 at lib/evaluate.py:109-111).
+
+The port's copy of ``Batch``, ``collate`` and ``out_len_for`` of
+``wav2vecsegmenter_tpu/data/collate.py`` (tests/test_torch_copies.py holds
+the two equal); the CTC and autoregressive batches come with their heads.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..core.frames import conv_output_length, inframes_to_outframes
+
+
+@dataclass
+class Batch:
+    audio: np.ndarray        # [B, L_static] float32 normalized, or int16 raw
+    in_lengths: np.ndarray   # [B] int32 true sample counts
+    target: np.ndarray | None  # [B, T_static] float32
+    out_mask: np.ndarray     # [B, T_static] bool
+    included: np.ndarray     # [B] bool (False for padding rows / silent windows)
+    starts: np.ndarray       # [B] int32 output-space start frames
+    ends: np.ndarray         # [B] int32 output-space end frames
+    # device-normalize path: audio is int16 *raw* samples and normalization
+    # stats are computed on the device over [0, norm_length)
+    norm_length: int = 0
+    device_normalize: bool = False
+    # real example rows (the rest are static-shape padding)
+    n_real: int = 0
+
+
+def collate(
+    examples: list,
+    batch_size: int,
+    audio_len: int,
+    out_len: int,
+    pad_token_id: float = 0.0,
+    device_normalize: bool = False,
+) -> Batch:
+    """examples: list of (waveform, target|None, start, end) numpy tuples.
+
+    With ``device_normalize`` the waveforms are left raw (as int16) and
+    normalization moves to the device (see infer/pipeline.py)."""
+    n = len(examples)
+    assert n <= batch_size
+    audio = np.zeros((batch_size, audio_len),
+                     np.int16 if device_normalize else np.float32)
+    in_lengths = np.zeros(batch_size, np.int32)
+    included = np.zeros(batch_size, bool)
+    starts = np.zeros(batch_size, np.int32)
+    ends = np.zeros(batch_size, np.int32)
+    has_target = n > 0 and examples[0][1] is not None
+    target = (
+        np.full((batch_size, out_len), pad_token_id, np.float32)
+        if has_target else None
+    )
+    out_mask = np.zeros((batch_size, out_len), bool)
+
+    norm_length = max((len(ex[0]) for ex in examples), default=0)
+
+    for i, (wav, tgt, s, e) in enumerate(examples):
+        L = len(wav)
+        if device_normalize:
+            # exact int16 round-trip (decoders produce int16/32768 floats);
+            # clip before the cast: a +full-scale sample from a 24/32-bit
+            # source rounds to 32768, which astype(int16) would wrap
+            audio[i, :L] = np.clip(
+                np.rint(wav * 32768.0), -32768, 32767).astype(np.int16)
+        else:
+            audio[i, :L] = wav
+        in_lengths[i] = L
+        included[i] = bool(wav.sum())
+        starts[i] = s
+        ends[i] = e
+        out_sl = e - s
+        out_mask[i, :out_sl] = True
+        if has_target and tgt is not None:
+            t = tgt[:out_len]
+            target[i, : len(t)] = t
+
+    # Reference-equivalent normalization: stats over the batch-max padded row
+    # (lib/datautils.py:120-125; torch.std => ddof=1).
+    if not device_normalize:
+        for i in range(n):
+            if not included[i]:
+                continue
+            row = audio[i, :norm_length]
+            mean = row.mean(dtype=np.float64)
+            std = row.std(ddof=1, dtype=np.float64)
+            audio[i, :norm_length] = ((row - mean) / std).astype(np.float32)
+
+    # Replicate the reference's batch-level +-1 frame correction
+    # (lib/evaluate.py:62-68): when the conv stack yields fewer frames than
+    # the widest out row, every row's end is decremented before stitching.
+    if n:
+        size1 = int(conv_output_length(norm_length))
+        size2 = int((ends[:n] - starts[:n]).max())
+        if size1 < size2:
+            ends[:n] -= 1
+            # the reference also crops out_mask's width (out_mask[:, :-1]),
+            # shrinking the widest rows' key set in the seg-head attention
+            out_mask[:, size2 - 1 :] = False
+
+    return Batch(audio, in_lengths, target, out_mask, included, starts, ends,
+                 norm_length=norm_length, device_normalize=device_normalize,
+                 n_real=n)
+
+
+def out_len_for(audio_len: int) -> int:
+    """Static output-frame count for a static audio bucket."""
+    return int(inframes_to_outframes(audio_len))

@@ -3,19 +3,19 @@
 Mirrors ``FixedSegmentationDatasetNoTarget`` (wav2vecsegmenter_tpu/data/
 datasets.py) and ``BatchIterator``'s audio buckets and remainder ladder
 (wav2vecsegmenter_tpu/data/loader.py), which import pandas; this module
-needs numpy only.  The window grid, wav decoding and collation are the JAX
-package's own (``core.windows``, ``data.audio``, ``data.collate``), imported
-as they are.  Batches come out sequentially, in window order.
+needs numpy only.  The window grid, wav decoding and collation are the
+port's own copies (``core.windows``, ``data.audio``, ``data.collate``).
+Batches come out sequentially, in window order.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from wav2vecsegmenter_tpu.core.frames import inframes_to_outframes, secs_to_inframes
-from wav2vecsegmenter_tpu.core.windows import fixed_window_grid
-from wav2vecsegmenter_tpu.data.audio import WaveformCache, assert_sample_rate
-from wav2vecsegmenter_tpu.data.collate import collate, out_len_for
+from ..core.frames import inframes_to_outframes, secs_to_inframes
+from ..core.windows import fixed_window_grid
+from .audio import WaveformCache, assert_sample_rate
+from .collate import collate, out_len_for
 
 
 class FixedSegmentationDatasetNoTarget:

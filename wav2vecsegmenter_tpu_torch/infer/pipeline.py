@@ -10,8 +10,7 @@ dispatching while the copy is in flight.
 
 The stitch helpers (``stitch_row``, ``nan_fill``) mirror the JAX module's
 for probabilities only (the logits of the ``dac_logits`` head are not
-ported); that module cannot be imported without jax.  Their semantics
-replicate reference lib/evaluate.py:9-127.
+ported).  Their semantics replicate reference lib/evaluate.py:9-127.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from wav2vecsegmenter_tpu.data.collate import Batch
+from ..data.collate import Batch
 
 
 def normalize_int16(audio: torch.Tensor, norm_length: int,

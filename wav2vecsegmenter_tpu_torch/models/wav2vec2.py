@@ -1,11 +1,14 @@
 """wav2vec 2.0 encoder (LayerNorm-mode conv stack, stable-LN transformer).
 
-Counterpart of ``wav2vecsegmenter_tpu/models/wav2vec2.py`` in the
-configuration ``W2VSEG_CONVFUSE=0 W2VSEG_FFNFUSE=0``: each conv layer is a
-GEMM over a stride-folded view followed by the fused bias -> LayerNorm ->
-GELU kernel, and the encoder FFN is two GEMMs around an exact GELU.  The
-truncated encoder's final LayerNorm is not applied (the reference replaces
-it with Identity).
+Counterpart of ``wav2vecsegmenter_tpu/models/wav2vec2.py`` in the JAX
+package's default configuration: each conv layer is one fused kernel
+(``ops.convfuse``: the product, conv bias, LayerNorm and GELU) and the
+encoder FFN is the fused ``ops.ffn``.  The JAX package's A/B flags select
+the other arm, read at call time: ``W2VSEG_CONVFUSE=0`` runs each conv
+layer as a GEMM over a stride-folded view followed by the fused bias ->
+LayerNorm -> GELU kernel, ``W2VSEG_FFNFUSE=0`` the FFN as two GEMMs around
+an exact GELU.  The truncated encoder's final LayerNorm is not applied (the
+reference replaces it with Identity).
 
 Submodule names follow the HF ``Wav2Vec2Model`` state_dict keys, so a
 reference checkpoint loads with ``load_state_dict`` and no renaming.  The
@@ -27,6 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_packed
+from ..ops.convfuse import conv_bias_ln_gelu, convfuse_enabled
+from ..ops.ffn import ffn, ffnfuse_enabled
 from ..ops.layernorm import bias_layer_norm_gelu, layer_norm
 
 
@@ -273,13 +278,24 @@ def strided_conv1d_as_matmul(x: torch.Tensor, w: torch.Tensor, stride: int,
 def feature_extractor(fe: FeatureExtractor, audio: torch.Tensor,
                       cfg: Wav2Vec2Config, dt) -> torch.Tensor:
     """audio [B, L] -> features [B, T, conv_dim[-1]] (exact T rows; the TPU
-    version's 8-aligned row padding is not rebuilt)."""
+    version's 8-aligned row padding is not rebuilt).
+
+    A layer takes the fused kernel where the JAX package's does
+    (``wav2vec2.feature_extractor``): the wide layers (s*C a multiple of
+    128, at most two stride-folded taps: layers 1-6) and the raw-audio
+    layer (s*C <= 64: layer 0)."""
     x = audio[:, :, None].to(dt)
+    fused = convfuse_enabled()
     for i, layer in enumerate(fe.conv_layers):
-        x = strided_conv1d_as_matmul(x, layer.conv.weight,
-                                     cfg.conv_stride[i], dt)
-        x = bias_layer_norm_gelu(x, layer.conv.bias, layer.layer_norm.weight,
-                                 layer.layer_norm.bias, cfg.layer_norm_eps)
+        k, s, c = cfg.conv_kernel[i], cfg.conv_stride[i], x.shape[-1]
+        ln = layer.layer_norm
+        if fused and ((s * c) % 128 == 0 and -(-k // s) <= 2 or s * c <= 64):
+            x = conv_bias_ln_gelu(x, layer.conv.weight, layer.conv.bias,
+                                  ln.weight, ln.bias, s, cfg.layer_norm_eps)
+            continue
+        x = strided_conv1d_as_matmul(x, layer.conv.weight, s, dt)
+        x = bias_layer_norm_gelu(x, layer.conv.bias, ln.weight, ln.bias,
+                                 cfg.layer_norm_eps)
     return x
 
 
@@ -319,9 +335,12 @@ def _mha(attn: Attention, x: torch.Tensor, key_mask: torch.Tensor,
 
 
 def _ffn(ff: FeedForward, x: torch.Tensor, dt) -> torch.Tensor:
-    """w1 -> exact GELU (rounded to dt, as ``ffn_xla``) -> w2."""
-    f = F.gelu(_lin(ff.intermediate_dense, x, dt))
-    return _lin(ff.output_dense, f, dt)
+    """The fused ``ops.ffn`` or, under ``W2VSEG_FFNFUSE=0``, w1 -> exact
+    GELU (rounded to dt, as ``ffn_xla``) -> w2."""
+    w1, w2 = ff.intermediate_dense, ff.output_dense
+    if ffnfuse_enabled():
+        return ffn(x, w1.weight, w1.bias, w2.weight, w2.bias)
+    return _lin(w2, F.gelu(_lin(w1, x, dt)), dt)
 
 
 def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``ops/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, loaded with ``ctypes`` (pointers and the stream as ``c_void_p``).
+``nvcc`` compiles every ``csrc/*.cu`` (one process per file, in parallel)
+and links them into one shared library with a plain C interface, loaded
+with ``ctypes`` (pointers and the stream as ``c_void_p``).
 That builds in seconds, where an extension that includes PyTorch's headers
 takes minutes.  The library lands in ``wav2vecsegmenter_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by a hash of the sources and flags, so a
@@ -23,8 +24,9 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +43,14 @@ _SIGNATURES = {
     "w2v_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                       _F, _I, _P),
+    # x, w1, b1, w2, b2, hidden, out, rows, h, f, dtype, stream
+    "w2v_ffn": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # x, w, conv_bias, scale, bias, out, batch, t_in, c_in, k, stride,
+    # t_out, n_out, eps, dtype, stream
+    "w2v_conv_ln_gelu": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _L,
+                         _I, _F, _I, _P),
+    "w2v_conv_audio_ln_gelu": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
+                               _L, _I, _F, _I, _P),
 }
 
 _lib = None
@@ -76,22 +86,41 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc process per ``.cu`` file, all started together, then a link."""
     global build_seconds, build_log
     out = library_path()
     if out.is_file():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"{out.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    try:
+        objs, procs = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = work / f"{src.stem}.o"
+            objs.append(str(obj))
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
+        tmp = work / out.name
+        proc = subprocess.run([nvcc, *NVCC_ARCH, "-shared", "-o", str(tmp),
+                               *objs], capture_output=True, text=True,
+                              check=False)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, out)
+    finally:
+        build_seconds = time.perf_counter() - t0
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

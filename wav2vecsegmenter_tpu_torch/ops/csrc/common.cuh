@@ -27,6 +27,11 @@ __device__ __forceinline__ float w2v_round(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// exact (erf) GELU in float32
+__device__ __forceinline__ float w2v_gelu(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
 __device__ __forceinline__ float w2v_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -1,0 +1,77 @@
+"""The encoder's feed-forward block: (x·w1 + b1) -> GELU -> ·w2 + b2.
+
+Counterpart of ``wav2vecsegmenter_tpu/ops/ffn.py``: ``ffn`` replaces the
+Pallas ``_ffn_kernel`` (K5).  On CUDA tensors it runs the kernels of
+``csrc/ffn.cu`` (two launches of one tensor-core GEMM mainloop, a bias +
+GELU + cast epilogue and a bias epilogue; the source says why the
+activation is not kept on chip as on the TPU); on CPU tensors the plain
+version.  It takes float32 and bfloat16: the JAX kernel's bf16-only and
+inference-only gates came from the TPU's 16 MB scoped-VMEM limit.
+
+Weights are in ``torch.nn.Linear`` layout (w1 [F, H], w2 [H, F]) and are
+cast to x's type per call, biases go in as float32.  Rounding points (the
+TPU kernel's): both products accumulate in float32, bias and exact GELU act
+on the float32 sums, the activation is rounded to x's type before the
+second product, the output once at the end.  (``ffn_xla`` rounds the first
+product before its bias instead.)
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.nn.functional as F
+
+from . import _build, backend
+
+backend.register_kernel("ffn")
+
+
+def ffnfuse_enabled() -> bool:
+    """Route the encoder FFN through ``ffn`` (default).  ``W2VSEG_FFNFUSE=0``
+    restores the separate GEMM chain of the JAX package's A/B arm; read at
+    call time."""
+    return os.environ.get("W2VSEG_FFNFUSE", "1") == "1"
+
+
+def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: float32 products of the
+    operands in x's type (exact for bf16), the kernel's rounding points."""
+    w1, w2 = w1.to(x.dtype).float(), w2.to(x.dtype).float()
+    t = F.linear(x.float(), w1, b1.float())
+    g = F.gelu(t).to(x.dtype)
+    return F.linear(g.float(), w2, b2.float()).to(x.dtype)
+
+
+def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """FFN over the last dim of x [..., H]; leading dims are rows."""
+    if not backend.use_kernel(x):
+        return ffn_plain(x, w1, b1, w2, b2)
+    h = x.shape[-1]
+    f = w1.shape[0]
+    if w1.shape != (f, h) or w2.shape != (h, f) or b1.shape != (f,) \
+            or b2.shape != (h,):
+        raise ValueError("ffn kernel: w1 [F, H], b1 [F], w2 [H, F], b2 [H]")
+    if not x.is_contiguous():
+        raise ValueError("ffn kernel takes a contiguous input")
+    for p in (w1, b1, w2, b2):
+        if p.device != x.device:
+            raise ValueError("ffn parameters must be on x's device")
+    w1 = w1.to(x.dtype).contiguous()
+    w2 = w2.to(x.dtype).contiguous()
+    b1 = b1.float().contiguous()
+    b2 = b2.float().contiguous()
+    rows = x.numel() // h
+    hidden = torch.empty((rows, f), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    status = _build.library().w2v_ffn(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), rows, h, f,
+        _build.dtype_code(x.dtype),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "ffn")
+    backend.count_launch("ffn")
+    return out

@@ -1,0 +1,153 @@
+"""Time tile-shape variants of the tensor-core FFN and conv kernels on one
+CUDA card, side by side in one process.
+
+    python3 -m wav2vecsegmenter_tpu_torch.ops.tile_sweep
+
+Each variant is a copy of ``csrc/`` with the ``using FfnTc = ...`` or
+``using ConvTc = ...`` line replaced, built by nvcc (all at once) into its
+own library and loaded with the same C signatures.  Every variant is held
+against the plain version at the main path's shapes (bf16: the FFN at
+[14, 999, 1024] x 4096, conv layer 1 at [14, 63999, 512], k=3, s=2), then
+timed in two rounds with CUDA events.  Prints the card's name and power
+limit, then one JSON line per variant and round; writes nothing.  A
+measurement tool: nothing imports it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+# TcGemm<BM, BN, WARPS_M, WARPS_N, STAGES, BK, MIN_BLOCKS>
+FFN = {
+    "128x128 w2x4 s4 bk32 mb1": "TcGemm<128, 128, 2, 4, 4, 32, 1>",
+    "128x128 w2x4 s4 bk32 mb2": "TcGemm<128, 128, 2, 4, 4, 32, 2>",
+    "128x128 w2x4 s3 bk64 mb1": "TcGemm<128, 128, 2, 4, 3, 64, 1>",
+    "128x128 w2x4 s3 bk64 mb2": "TcGemm<128, 128, 2, 4, 3, 64, 2>",
+    "128x128 w2x4 s2 bk64 mb2": "TcGemm<128, 128, 2, 4, 2, 64, 2>",
+    "128x256 w2x4 s3 bk64 mb1": "TcGemm<128, 256, 2, 4, 3, 64, 1>",
+}
+CONV = {
+    "64x512 w2x4 s3 bk32": "TcGemm<64, kConvN, 2, 4, 3, 32, 1>",
+    "64x512 w2x4 s4 bk32": "TcGemm<64, kConvN, 2, 4, 4, 32, 1>",
+    "64x512 w2x4 s2 bk64": "TcGemm<64, kConvN, 2, 4, 2, 64, 1>",
+}
+
+
+def _build_variants(work: Path) -> dict:
+    from . import _build
+
+    nvcc = _build._nvcc()
+    jobs = {}
+    for kind, variants, source, alias in (
+            ("ffn", FFN, "ffn.cu", "FfnTc"),
+            ("conv", CONV, "convfuse.cu", "ConvTc")):
+        for tag, decl in variants.items():
+            d = work / f"{kind}_{len(jobs)}"
+            shutil.copytree(_build.CSRC_DIR, d)
+            text, n = re.subn(rf"using {alias} = [^;]*;",
+                              f"using {alias} = {decl};",
+                              (d / source).read_text())
+            if n != 1:
+                raise RuntimeError(f"no '{alias}' line in {source}")
+            (d / source).write_text(text)
+            lib = d / "lib.so"
+            cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
+                   str(d / source), str(d / "layernorm.cu")]
+            jobs[(kind, tag)] = (lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    libs = {}
+    for key, (path, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _build._SIGNATURES.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = ctypes.c_int
+        libs[key] = lib
+    return libs
+
+
+def main() -> int:
+    import torch
+
+    from . import convfuse, ffn
+
+    if not torch.cuda.is_available():
+        raise SystemExit("tile_sweep: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(),
+        flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+
+    def cuda_ms(fn, iters):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = _build_variants(Path(tmp))
+        stream = torch.cuda.current_stream().cuda_stream
+        rows, h, f = 14 * 999, 1024, 4096
+        x = randn(14, 999, h).bfloat16()
+        w1, b1 = randn(f, h, std=0.03).bfloat16(), randn(f, std=0.1)
+        w2, b2 = randn(h, f, std=0.015).bfloat16(), randn(h, std=0.1)
+        ref = ffn.ffn_plain(x, w1, b1, w2, b2)
+        hidden = torch.empty(rows, f, dtype=x.dtype, device=dev)
+        out = torch.empty_like(x)
+        xc = randn(14, 63999, 512).bfloat16()
+        wc = randn(512, 512, 3, std=1536 ** -0.5).bfloat16()
+        cb, sc, bi = randn(512, std=0.3), 1 + randn(512, std=0.1), randn(
+            512, std=0.1)
+        wk = wc.permute(0, 2, 1).reshape(512, 1536).contiguous()
+        ref_c = convfuse.conv_bias_ln_gelu_plain(xc, wc, cb, sc, bi, 2)
+        out_c = torch.empty(14, 31999, 512, dtype=xc.dtype, device=dev)
+        calls = {
+            "ffn": (lambda lib: lib.w2v_ffn(
+                x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), rows, h, f,
+                1, stream), out, ref, 4 * rows * h * f, 20),
+            "conv": (lambda lib: lib.w2v_conv_ln_gelu(
+                xc.data_ptr(), wk.data_ptr(), cb.data_ptr(), sc.data_ptr(),
+                bi.data_ptr(), out_c.data_ptr(), 14, 63999, 512, 3, 2, 31999,
+                512, 1e-5, 1, stream), out_c, ref_c, 2 * 14 * 31999 * 1536 * 512,
+                5),
+        }
+        for rnd in range(2):
+            for (kind, tag), lib in libs.items():
+                launch, got, want, flops, iters = calls[kind]
+                status = launch(lib)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ms = cuda_ms(lambda: launch(lib), iters)
+                print(json.dumps({"kernel": kind, "tile": tag, "round": rnd,
+                                  "status": status, "max_abs_err": err,
+                                  "ms": ms, "tflops": flops / ms / 1e9}),
+                      flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
