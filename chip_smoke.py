@@ -8,11 +8,13 @@ Phases, each printed on its own line; any failure exits non-zero:
 2. build: nvcc builds the kernels of wav2vecsegmenter_tpu_torch/ops/csrc
    (one process per source file, in parallel);
 3. kernels: each hand kernel against its plain PyTorch version on the card,
-   at the shapes the segmentation path gives it, float32 (TF32 off) and
-   bf16, with ragged lengths; times from CUDA events, beside the kernel's
-   bound (the larger of its bytes over 3.35 TB/s and its operations over
-   the peak rate of their type) and, where one PyTorch call computes the
-   same function, that call's time;
+   at the shapes the segmentation and training paths give it, float32
+   (TF32 off) and bf16, with ragged lengths; times from CUDA events, beside
+   the kernel's bound (the larger of its bytes over 3.35 TB/s and its
+   operations over the peak rate of their type) and, where one PyTorch
+   call computes the same function, that call's time (for the attention
+   backward: the SDPA call's forward + backward less its forward); each
+   output is held to the tolerances of its own dtype;
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
@@ -29,9 +31,24 @@ Phases, each printed on its own line; any failure exits non-zero:
    with the kernels, and eager, in turns (``--profile`` adds a
    torch.profiler table of one default-configuration batch on standard
    error);
-6. a JSON line of every kernel (launches on the path that runs it, error,
+6. train: the same full-width SHAS trains its SFC head on a frozen backbone
+   through the port's loop (``train.loop.train``) on a synthetic corpus
+   written to a temporary directory, batch 14, 20 s windows,
+   update_freq=2, two epochs of three micro-steps (a full accumulation and
+   an epoch-end flush each): bf16 through the kernels (launch counters
+   reset just before; the path of the backward kernels K9 and K10), bf16
+   eager (counters must not move), float32 through the kernels and
+   float32 eager, from the same weights and generator seed.  Checked:
+   finite losses, the backbone bitwise unchanged, the head moved, the
+   kernels' bf16 first-micro-step head gradients as close to the float32
+   ones as the eager bf16 gradients (within KERNEL_SLACK), and the
+   float32 kernels and eager gradients within F32_GRAD;
+7. a JSON line of every kernel (launches on the path that runs it, error,
    times, bound), the nvidia-smi line, and the last line:
    {"ok": true, "device": {...}}.
+
+The kernel phase runs each backward kernel twice on the same inputs: the
+outputs must be bitwise equal (no atomics).
 
 Needs CUDA; exits non-zero without it.  Imports no JAX.
 """
@@ -71,8 +88,19 @@ BF16_ATOL = 2 ** -5  # one bf16 step at |y| in [4, 8): independent roundings
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bf16_tc": 989e12, "f32": 67e12}
 # scalar operations an element of a LayerNorm (mean, variance, normalise,
-# scale, bias) and of a GELU (erf counted as one) take
-LN_OPS, GELU_OPS = 8, 4
+# scale, bias), of its backward (the statistics again, x-hat, g*scale, the
+# two row means, dx, the two column sums) and of a GELU (erf counted as
+# one) take
+LN_OPS, LN_BWD_OPS, GELU_OPS = 8, 14, 4
+# the backward kernels' sums (over ~14k rows for dscale/dbias, ~1k keys or
+# queries for dq/dk/dv) run in other orders than the plain versions':
+# relative slack on top of the absolute tolerances, by the output's dtype
+# (a bf16 output: one bf16 step of the value, where the float32 sum rounds
+# to either side; dscale and dbias are float32 in both arms)
+BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+# float32 train arm: the kernels' and the eager path's first-micro-step
+# head gradients, relative L2 distance
+F32_GRAD = 1e-4
 # conf/algorithm/pthr.yaml
 PTHR = {"tag": "pthr", "max_segment_length": 28, "min_segment_length": 0.2,
         "max_lerp_range": 4, "min_lerp_range": 0.4, "threshold": 0.1,
@@ -113,6 +141,10 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces)
                           "(and :100, :161)"),
     "conv_audio_ln_gelu": (CSRC + "convfuse.cu",
                            "wav2vecsegmenter_tpu/ops/convfuse.py:161"),
+    "layer_norm_bwd": (CSRC + "layernorm_bwd.cu",
+                       "wav2vecsegmenter_tpu/ops/layernorm.py:42"),
+    "attention_bwd": (CSRC + "attention_bwd.cu",
+                      "wav2vecsegmenter_tpu/ops/attention.py:111"),
 }
 # kernels of the default configuration's path; bias_layer_norm_gelu runs on
 # the A/B arm's
@@ -120,6 +152,9 @@ DEFAULT_PATH = ("layer_norm", "attention_packed", "attention_bthd", "ffn",
                 "conv_bias_ln_gelu", "conv_audio_ln_gelu")
 UNFUSED_PATH = ("layer_norm", "attention_packed", "attention_bthd",
                 "bias_layer_norm_gelu")
+# the trainer's path: the default configuration's forward kernels and the
+# head's backward kernels
+TRAIN_PATH = DEFAULT_PATH + ("layer_norm_bwd", "attention_bwd")
 
 
 def phase(tag: str, **fields) -> None:
@@ -181,6 +216,10 @@ def bound(nbytes: float, *ops: tuple[str, float]) -> tuple[float, str]:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def as_tuple(out) -> tuple:
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
 def check_kernels(dev) -> dict:
@@ -245,6 +284,50 @@ def check_kernels(dev) -> dict:
                     rows=mask, bound=attn_bound(q, mask, 8, 128, dtype),
                     library=sdpa(q, k, v, mask))
 
+    def ln_bwd_case(h, rows, dtype):
+        x = randn(rows, h, std=2.0, mean=0.5, dtype=dtype)
+        gr = randn(rows, h, dtype=dtype)
+        scale = randn(h, std=0.1, mean=1.0)
+        lib_w = scale.to(dtype)
+        lib_b = torch.zeros(h, device=dev, dtype=dtype)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [h], lib_w, lib_b,
+                                                         ln.EPS)
+        moved = nbytes(x, gr, x, scale) + 2 * h * 4
+        return dict(fn=lambda: ln.layer_norm_bwd(x, scale, gr),
+                    plain=lambda: ln.layer_norm_bwd_plain(x, scale, gr),
+                    bound=bound(moved, ("f32", rows * h * LN_BWD_OPS)),
+                    library=lambda: torch.ops.aten.native_layer_norm_backward(
+                        gr, x, [h], mean, rstd, lib_w, lib_b,
+                        [True, True, True]),
+                    rtol=BWD_RTOL, twice=True)
+
+    def attn_bwd_case(t, heads, d, dtype):
+        qkv = randn(B, t, 3, heads, d, dtype=dtype)  # the head's gradient
+        q, k, v = qkv.unbind(2)
+        do = randn(B, t, heads, d, dtype=dtype)
+        mask = ragged_mask(t, g, dev)
+        mask[3] = False  # a batch-padding row: every key masked
+        scale = d ** -0.5
+        # S = QK^T, dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q over
+        # the valid keys of every query row
+        flops = float(10 * heads * d * t * mask.sum(1).double().sum())
+        # the SDPA call's backward: forward + backward less the forward
+        leaves = [a.transpose(1, 2).detach().requires_grad_()
+                  for a in (q, k, v)]
+        do_t = do.transpose(1, 2)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask[:, None, None, :])
+
+        return dict(fn=lambda: attn.attention_bwd(q, k, v, mask, do, scale),
+                    plain=lambda: attn.attention_bwd_plain(q, k, v, mask,
+                                                           do, scale),
+                    bound=bound(7 * nbytes(q), (tc(dtype), flops)),
+                    library=lambda: torch.autograd.grad(lib_fwd(), leaves,
+                                                        do_t),
+                    library_less=lib_fwd, rtol=BWD_RTOL, twice=True)
+
     def ffn_case(t, dtype):
         x = randn(B, t, 1024, dtype=dtype)
         w1, b1 = randn(4096, 1024, std=0.03), randn(4096, std=0.1)
@@ -301,31 +384,55 @@ def check_kernels(dev) -> dict:
                               t, 512, k, s, d)))
         cases.append(("conv_audio_ln_gelu", f"[{B},{L_AUDIO}] k=10 s=5", dtype,
                       lambda d=dtype: conv_case(L_AUDIO, 1, 10, 5, d)))
+        cases.append(("layer_norm_bwd", f"[{B}*{T},1024]", dtype,
+                      lambda d=dtype: ln_bwd_case(1024, B * T, d)))
+        for heads, d in ((8, 128), (16, 64)):
+            cases.append(("attention_bwd", f"[{B},{T},{heads},{d}]", dtype,
+                          lambda h=heads, dd=d, dt=dtype: attn_bwd_case(
+                              T, h, dd, dt)))
 
     results: dict = {}
     for name, label, dtype, make in cases:
         case = make()
-        got, ref = case["fn"](), case["plain"]()
+        got, ref = as_tuple(case["fn"]()), as_tuple(case["plain"]())
+        again = as_tuple(case["fn"]()) if case.get("twice") else None
         torch.cuda.synchronize()
-        check(torch.isfinite(got).all().item(), f"{name} {label}: non-finite")
-        diff = (got.float() - ref.float()).abs()
-        if case.get("rows") is not None:
-            diff = diff[case["rows"]]
-        err = diff.max().item()
-        del got, ref, diff
-        tol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
+        # each output is held to the limits of its own dtype: K9's dscale
+        # and dbias are float32 column sums whatever x's dtype
+        tols = {torch.float32: F32_ATOL, torch.bfloat16: BF16_ATOL}
+        rtols = case.get("rtol", {})
+        err, ok, limits = 0.0, True, []
+        for a, b in zip(got, ref):
+            check(torch.isfinite(a).all().item(), f"{name} {label}: non-finite")
+            tol, rtol = tols[a.dtype], rtols.get(a.dtype, 0.0)
+            limits.append((tol, rtol))
+            diff = (a.float() - b.float()).abs()
+            lim = tol + rtol * b.float().abs()
+            if case.get("rows") is not None:
+                diff, lim = diff[case["rows"]], lim[case["rows"]]
+            err = max(err, diff.max().item())
+            ok = ok and bool((diff <= lim).all())
+        deterministic = (None if again is None else
+                         all(torch.equal(a, b) for a, b in zip(got, again)))
+        del got, ref, again
         big = "63999" in label or str(L_AUDIO) in label
         iters = 3 if big else 10
         ms = cuda_ms(case["fn"], iters)
         plain_ms = cuda_ms(case["plain"], iters)
         library_ms = (cuda_ms(case["library"], iters)
                       if case["library"] is not None else None)
+        if case.get("library_less") is not None:
+            library_ms -= cuda_ms(case["library_less"], iters)
         bound_ms, bound_by = case["bound"]
         dname = str(dtype).replace("torch.", "")
         phase("kernel", name=name, shape=label, dtype=dname, max_abs_err=err,
-              tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by, library_ms=library_ms)
-        check(err <= tol, f"{name} {label} {dname}: max abs err {err} > {tol}")
+              limits=limits, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, library_ms=library_ms,
+              deterministic=deterministic)
+        check(ok, f"{name} {label} {dname}: max abs err {err} beyond "
+                  f"the (atol, rtol) limits {limits}")
+        check(deterministic is not False,
+              f"{name} {label} {dname}: two runs differ")
         del case
         torch.cuda.empty_cache()
         # the record keeps the main path's dtype (bf16) at its first shape
@@ -513,6 +620,148 @@ def time_batch(dev, model, profile: bool) -> None:
               file=sys.stderr, flush=True)
 
 
+# conf/task/shas.yaml: the frozen-backbone task the trainer runs
+SHAS_TASK = {
+    "autoregression": False,
+    "model": {"wav2vec_model_name": "facebook/wav2vec2-xls-r-300m",
+              "wav2vec_keep_layers": 15, "finetune_wav2vec": False,
+              "wav2vec_ft_layers": 99, "finetune_w2v_feat_enc": False,
+              "finetune_w2v_ffn": False, "ffn_adapter": True,
+              "n_transformer_enc_layers": 1, "n_transformer_enc_heads": 8,
+              "init_dropout": 0.1},
+    "train_generator": {},
+    "eval_generator": {"inference_times": 1},
+    "loss": {"_target_": "torch.nn.BCEWithLogitsLoss", "tag": "bce",
+             "pos_weight": None, "ma_window": None, "reduction": "none"},
+}
+# six 100 s talks: 36 random 20 s windows an epoch, three micro-steps of 14
+TRAIN_TALKS, TRAIN_SECS, TRAIN_WINDOW = 6, 100.0, 20
+
+
+def write_corpus(root: Path) -> tuple[str, str]:
+    """Synthetic talks and their true segments (the speech bursts of
+    write_talk), as the data prep writes the TSVs (an index column)."""
+    talks = ["\tid\tpath\ttotal_frames"]
+    segments = ["\ttalk_id\tstart\tend"]
+    for i in range(TRAIN_TALKS):
+        path = root / f"talk{i}.wav"
+        write_talk(path, TRAIN_SECS, seed=10 + i)
+        talks.append(f"{i}\ttalk{i}\t{path}\t{int(TRAIN_SECS * 16000)}")
+        for s0 in np.arange(0.0, TRAIN_SECS, 3.5):
+            end = min(s0 + 3.0, TRAIN_SECS)
+            segments.append(f"{len(segments) - 1}\ttalk{i}\t"
+                            f"{int(s0 * 16000)}\t{int(end * 16000)}")
+    (root / "talks.tsv").write_text("\n".join(talks) + "\n")
+    (root / "segments.tsv").write_text("\n".join(segments) + "\n")
+    return str(root / "talks.tsv"), str(root / "segments.tsv")
+
+
+def run_train(dev) -> dict:
+    """The train phase; returns the launch counts of the kernels' bf16
+    run."""
+    from wav2vecsegmenter_tpu_torch.cli.common import build_model
+    from wav2vecsegmenter_tpu_torch.config import Config, merge
+    from wav2vecsegmenter_tpu_torch.train.loop import train
+
+    def grad_dist(a, b) -> float:
+        num = sum((x - y).square().sum() for x, y in zip(a, b))
+        den = sum(y.square().sum() for y in b)
+        return float(torch.sqrt(num / den))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        talks, segments = write_corpus(Path(tmp))
+        split = {"talk_list": talks, "segments_list": segments,
+                 "segment_length": TRAIN_WINDOW}
+
+        def run(mode: str, dtype: str):
+            config = merge(Config(), {
+                "exp_name": f"{mode}_{dtype}", "batch_size": B,
+                "learning_rate": 2.5e-4, "max_epochs": 2, "update_freq": 2,
+                "segment_length": TRAIN_WINDOW, "print_every_steps": 100,
+                "save_ckpts": False, "task": SHAS_TASK,
+                "data": {"train": split, "eval": split},
+                "runtime": {"device": dev.type, "compute_dtype": dtype,
+                            "kernels": mode, "seed": 0}})
+            first: list = []
+
+            def on_step(metrics):
+                if not first:
+                    first.extend(g.detach().float().clone()
+                                 for g in metrics["grads"])
+
+            before = backend.launch_counts()
+            out = train(config, work_dir=tmp, on_step=on_step)
+            backend.set_kernels("auto")
+            if mode == "eager":
+                check(backend.launch_counts() == before,
+                      "the eager train run launched kernels")
+            check(bool(np.isfinite(out["history"]["loss"]).all()),
+                  f"non-finite train loss ({mode}, {dtype})")
+            check(out["steps_per_epoch"] == [3, 3] and out["updates"] == 4,
+                  f"not two epochs of a full accumulation and a flush: "
+                  f"{out['steps_per_epoch']}, {out['updates']} updates")
+            return out, first
+
+        backend.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out_k, grads_k = run("auto", "bfloat16")
+        counts = backend.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        model = out_k.pop("model")
+        fresh = build_model(SHAS_TASK["model"], dev)
+        init_from_numpy(fresh, seed=0)
+        for key, value in fresh.wav2vec_model.state_dict().items():
+            check(torch.equal(value, model.wav2vec_model.state_dict()[key]),
+                  f"the frozen backbone moved: {key}")
+        head = model.seg_model.state_dict()
+        moved = max(float((value - head[key]).abs().max())
+                    for key, value in fresh.seg_model.state_dict().items())
+        check(moved > 0, "the head did not move")
+        del model, fresh, head
+        out_e, grads_e = run("eager", "bfloat16")
+        out_e.pop("model")
+        out_f, grads_f = run("auto", "float32")
+        out_f.pop("model")
+        out_fe, grads_fe = run("eager", "float32")
+        out_fe.pop("model")
+        torch.cuda.empty_cache()
+
+    for name in TRAIN_PATH:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never launched on the train path")
+    k_vs_f, e_vs_f = grad_dist(grads_k, grads_f), grad_dist(grads_e, grads_f)
+    f32_k_vs_e = grad_dist(grads_f, grads_fe)
+
+    def ms(out, key="step_seconds"):
+        # median over the micro-steps after the first (the warm-up)
+        return float(np.median(out["history"][key][1:]) * 1e3)
+
+    phase("train", seconds=time.perf_counter() - t0,
+          micro_steps=len(out_k["history"]["loss"]),
+          updates=out_k["updates"], loss_kernels=out_k["history"]["loss"],
+          loss_eager=out_e["history"]["loss"],
+          loss_f32=out_f["history"]["loss"],
+          grad_norm_kernels=out_k["history"]["grad_norm"],
+          ms_per_micro_step_kernels=ms(out_k),
+          ms_per_micro_step_eager=ms(out_e),
+          ms_per_micro_step_f32=ms(out_f),
+          ms_per_micro_step_f32_eager=ms(out_fe),
+          fetch_ms_per_micro_step_kernels=ms(out_k, "fetch_seconds"),
+          step_ms_kernels=[t * 1e3 for t in out_k["history"]["step_seconds"]],
+          eval_kernels=out_k["eval"], eval_eager=out_e["eval"],
+          eval_f32=out_f["eval"], peak_mem_gb=peak_gb,
+          grad_dist_kernels_vs_f32=k_vs_f, grad_dist_eager_vs_f32=e_vs_f,
+          grad_dist_f32_kernels_vs_eager=f32_k_vs_e, head_moved=moved,
+          launches=counts)
+    check(k_vs_f <= KERNEL_SLACK * e_vs_f,
+          f"kernels add error to the head gradients: {k_vs_f} from float32 "
+          f"vs {e_vs_f} on the plain path")
+    check(f32_k_vs_e <= F32_GRAD,
+          f"float32 kernels vs eager head gradients {f32_k_vs_e} > {F32_GRAD}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -538,11 +787,20 @@ def main() -> int:
     kernels = check_kernels(dev)
     counts, counts_unfused, model = run_slice(dev)
     time_batch(dev, model, profile="--profile" in sys.argv)
+    del model
+    torch.cuda.empty_cache()
+    counts_train = run_train(dev)
+
+    def launches(name):
+        if name in DEFAULT_PATH:
+            return counts[name]
+        if name in UNFUSED_PATH:
+            return counts_unfused[name]
+        return counts_train[name]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": (counts if name in DEFAULT_PATH
-                      else counts_unfused)[name], **kernels[name]}
+         "launches": launches(name), **kernels[name]}
         for name, (src, rep) in SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

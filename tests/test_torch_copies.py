@@ -58,6 +58,17 @@ def test_window_grid_equal(inference_times):
                 np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("seed", [0, 3])
+def test_random_window_grid_equal(seed):
+    for total in (100, 320000, 659219, 1040000):
+        got = twindows.random_window_grid(total, 20,
+                                          np.random.RandomState(seed))
+        want = jwindows.random_window_grid(total, 20,
+                                           np.random.RandomState(seed))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
 def test_wav_reads_equal(tmp_path):
     path = tmp_path / "talk.wav"
     make_speechlike_wav(path, duration_secs=3.3, seed=4)
@@ -68,6 +79,9 @@ def test_wav_reads_equal(tmp_path):
     ours, theirs = taudio.WaveformCache(1), jaudio.WaveformCache(1)
     np.testing.assert_array_equal(ours.window(path, 7, 900),
                                   theirs.window(path, 7, 900))
+    ours.clear()
+    theirs.clear()
+    assert not ours._data and not theirs._data
 
 
 @pytest.mark.parametrize("device_normalize", [True, False])

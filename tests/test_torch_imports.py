@@ -1,9 +1,9 @@
 """Import hygiene of the PyTorch port, in fresh interpreters.
 
 The port keeps its own copies of what it needs and imports nothing of the
-JAX package; the card's machine has no JAX, pandas or pyyaml.  Every module
-of ``wav2vecsegmenter_tpu_torch`` and ``chip_smoke.py`` must import with
-``wav2vecsegmenter_tpu``, jax, pandas and yaml blocked (pyyaml is imported
+JAX package; the card's machine has no JAX, pandas, pyyaml, optax, tqdm,
+scikit-learn or soundfile.  Every module of ``wav2vecsegmenter_tpu_torch``
+and ``chip_smoke.py`` must import with those blocked (pyyaml is imported
 inside the functions that read yaml, which the card's path never calls),
 and load no module of the JAX package.
 """
@@ -25,7 +25,8 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 """
 
-BLOCKED = {"wav2vecsegmenter_tpu", "jax", "jaxlib", "pandas", "yaml"}
+BLOCKED = {"wav2vecsegmenter_tpu", "jax", "jaxlib", "pandas", "yaml", "optax",
+           "tqdm", "sklearn", "soundfile"}
 
 
 def _run(code: str, blocked: set) -> str:
@@ -45,7 +46,7 @@ for name in names:
     importlib.import_module(name)
 print(len(names))
 """, BLOCKED)
-    assert int(out.split()[-1]) >= 30
+    assert int(out.split()[-1]) >= 38
 
 
 @pytest.mark.parametrize("target", ["chip_smoke", "path"])
@@ -59,7 +60,14 @@ def test_chip_smoke_path_imports_no_jax_pandas_yaml(target):
                "wav2vecsegmenter_tpu_torch.ops.layernorm, "
                "wav2vecsegmenter_tpu_torch.ops.attention, "
                "wav2vecsegmenter_tpu_torch.ops.ffn, "
-               "wav2vecsegmenter_tpu_torch.ops.convfuse")
+               "wav2vecsegmenter_tpu_torch.ops.convfuse, "
+               "wav2vecsegmenter_tpu_torch.cli.train, "
+               "wav2vecsegmenter_tpu_torch.train.loop, "
+               "wav2vecsegmenter_tpu_torch.train.step, "
+               "wav2vecsegmenter_tpu_torch.train.loss, "
+               "wav2vecsegmenter_tpu_torch.data.datasets, "
+               "wav2vecsegmenter_tpu_torch.data.loader, "
+               "wav2vecsegmenter_tpu_torch.eval.metrics")
     out = _run(imports + """
 print(sorted(m for m in sys.modules if m.split(".")[0] in %r))
 """ % sorted(BLOCKED), BLOCKED)

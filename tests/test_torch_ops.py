@@ -12,18 +12,32 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from wav2vecsegmenter_tpu.ops import attention as jattn
 from wav2vecsegmenter_tpu.ops import layernorm as jln
 from wav2vecsegmenter_tpu.ops.backend import set_backend
+from wav2vecsegmenter_tpu_torch.models import sfc as tsfc
+from wav2vecsegmenter_tpu_torch.models.wav2vec2 import init_from_numpy
+from wav2vecsegmenter_tpu_torch.ops import _build as tbuild
 from wav2vecsegmenter_tpu_torch.ops import attention as tattn
 from wav2vecsegmenter_tpu_torch.ops import backend as tbackend
+from wav2vecsegmenter_tpu_torch.ops import convfuse as tconv
+from wav2vecsegmenter_tpu_torch.ops import ffn as tffn
 from wav2vecsegmenter_tpu_torch.ops import layernorm as tln
 
 LN_ATOL = 1e-5     # float32 statistics, different summation orders
 ATTN_ATOL = 2e-5   # float32 softmax over <= 64 keys, different orders
+
+
+# gradients: float32 sums in different orders (the LayerNorm's column sums
+# run over ~100 rows); bf16: one bf16 step at the tensor's largest magnitude
+GRAD_F32 = dict(atol=1e-5, rtol=1e-6)
+
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
 
 def _pallas(fn):
@@ -33,6 +47,29 @@ def _pallas(fn):
             return np.asarray(fn())
     finally:
         set_backend("auto")
+
+
+def _pallas_vjp(fn, primals, cotangent):
+    """jax.vjp through the Pallas custom VJP, in interpret mode -> float32
+    numpy cotangents of the primals."""
+    set_backend("pallas")
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            _, vjp = jax.vjp(fn, *primals)
+            return [np.asarray(a.astype(jnp.float32)) for a in vjp(cotangent)]
+    finally:
+        set_backend("auto")
+
+
+def _assert_grads_close(got, want, dtype):
+    for g, w in zip(got, want):
+        g = g.float().numpy()
+        assert np.isfinite(g).all()
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, **GRAD_F32)
+        else:
+            step = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
+            np.testing.assert_allclose(g, w, atol=step, rtol=0)
 
 
 def _ln_inputs(rows_shape, h, seed):
@@ -137,3 +174,152 @@ def test_cpu_tensors_take_the_plain_path_in_both_modes():
     assert set(tbackend.launch_counts().values()) == {0}
     with pytest.raises(ValueError):
         tbackend.set_kernels("xla")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_layer_norm_grad_matches_jax_vjp(dtype):
+    """torch.autograd.grad through layer_norm (K9's formula on the CPU)
+    against jax.vjp through _ln_2d's custom VJP (_ln_bwd_kernel), with a
+    ragged row count (111 rows, JAX pads them to a block of 256)."""
+    tdt, jdt = DTYPES[dtype]
+    x, scale, bias, _ = _ln_inputs((3, 37), 128, seed=11)
+    g = np.random.RandomState(12).randn(3, 37, 128).astype(np.float32)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    st = torch.from_numpy(scale).requires_grad_()
+    bt = torch.from_numpy(bias).requires_grad_()
+    got = torch.autograd.grad(tln.layer_norm(xt, st, bt), (xt, st, bt),
+                              torch.from_numpy(g).to(tdt))
+    assert got[0].dtype == tdt and got[1].dtype == torch.float32
+    want = _pallas_vjp(lambda a, s, b: jln.layer_norm_pallas(a, s, b),
+                       (jnp.asarray(x, jdt), jnp.asarray(scale),
+                        jnp.asarray(bias)), jnp.asarray(g, jdt))
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("heads,d", [(8, 128), (2, 64)])
+def test_attention_grad_matches_jax_vjp(dtype, heads, d):
+    """torch.autograd.grad through attention_bthd and attention_qkv (K10's
+    arithmetic on the CPU) against jax.vjp through _fused_attention's
+    custom VJP (_attn_bwd_kernel), with ragged and all-masked key rows."""
+    tdt, jdt = DTYPES[dtype]
+    rng = np.random.RandomState(d + heads)
+    b, t = len(LENGTHS), 50
+    q, k, v, do = (rng.randn(b, t, heads, d).astype(np.float32)
+                   for _ in range(4))
+    mask = _key_mask(LENGTHS, t)
+    scale = d ** -0.5
+    want = _pallas_vjp(
+        lambda a, bb, c: jattn.attention_pallas_bthd(a, bb, c,
+                                                     jnp.asarray(mask), scale),
+        tuple(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(do, jdt))
+    tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_()
+                  for a in (q, k, v))
+    dout = torch.from_numpy(do).to(tdt)
+    got = torch.autograd.grad(
+        tattn.attention_bthd(tq, tk, tv, torch.from_numpy(mask), scale),
+        (tq, tk, tv), dout)
+    _assert_grads_close(got, want, dtype)
+    qkv = torch.from_numpy(np.stack([q, k, v], axis=2)).to(tdt)
+    qkv.requires_grad_()
+    dqkv, = torch.autograd.grad(
+        tattn.attention_qkv(qkv, torch.from_numpy(mask), scale), qkv, dout)
+    _assert_grads_close(dqkv.unbind(2), want, dtype)
+
+
+@pytest.fixture
+def kernels_forced(monkeypatch):
+    """Every wrapper takes its kernel branch on CPU tensors; the launches
+    of K1, K4, K9 and K10 are stood in for by their plain versions, which,
+    like a kernel, return tensors with no autograd graph.  Nothing is
+    built or launched.  Yields the stand-ins' call counts."""
+    calls = {"layer_norm": 0, "attention_bthd": 0, "layer_norm_bwd": 0,
+             "attention_bwd": 0}
+
+    def ln_fwd(x, conv_bias, scale, bias, eps, gelu):
+        assert not gelu
+        calls["layer_norm"] += 1
+        with torch.no_grad():
+            return tln.layer_norm_plain(x, scale, bias, eps)
+
+    def attn_fwd(q, k, v, key_mask, scale, out, name):
+        calls["attention_bthd"] += 1
+        with torch.no_grad():
+            return out.copy_(tattn.attention_bthd_plain(q, k, v, key_mask,
+                                                        scale))
+
+    def ln_bwd(x, scale, g, eps):
+        calls["layer_norm_bwd"] += 1
+        return tln.layer_norm_bwd_plain(x, scale, g, eps)
+
+    def attn_bwd(q, k, v, key_mask, do, scale, out):
+        calls["attention_bwd"] += 1
+        for dst, src in zip(out, tattn.attention_bwd_plain(q, k, v, key_mask,
+                                                           do, scale)):
+            dst.copy_(src)
+        return out
+
+    def no_library():
+        raise LookupError("the kernel library was asked for")
+
+    monkeypatch.setattr(tbackend, "use_kernel", lambda x: True)
+    monkeypatch.setattr(tbuild, "library", no_library)
+    monkeypatch.setattr(tln, "_launch", ln_fwd)
+    monkeypatch.setattr(tln, "_launch_bwd", ln_bwd)
+    monkeypatch.setattr(tattn, "_launch", attn_fwd)
+    monkeypatch.setattr(tattn, "_launch_bwd", attn_bwd)
+    yield calls
+
+
+def _sfc_grads(head, x, mask):
+    logits = tsfc.sfc_forward(head, x, mask)
+    loss = torch.where(mask, logits, 0.0).square().sum()
+    return torch.autograd.grad(loss, list(head.parameters()))
+
+
+def test_kernel_paths_keep_the_graph_or_refuse(kernels_forced):
+    """On the kernel path a raw launch cuts the graph; layer_norm and the
+    attention go through autograd Functions whose backwards are K9 and K10,
+    so every SFC head parameter gets the plain path's gradient; the kernels
+    without a backward refuse a grad-requiring input instead of falling
+    back."""
+    x, scale, bias, cbias = (torch.from_numpy(a) for a in
+                             _ln_inputs((2, 5), 64, seed=3))
+    scale.requires_grad_()
+    assert tln._layer_norm(x, scale, bias, tln.EPS).grad_fn is None
+    assert tln.layer_norm(x, scale, bias).grad_fn is not None
+
+    head = tsfc.SegmentationFrameClassifier(d_model=64, n_layers=1,
+                                            n_heads=1, ffn_dim=128)
+    init_from_numpy(head, seed=4)
+    hid = torch.from_numpy(np.random.RandomState(5).randn(3, 20, 64)
+                           .astype(np.float32))
+    mask = torch.from_numpy(_key_mask([20, 9, 0], 20))
+    kernels_forced.update(dict.fromkeys(kernels_forced, 0))
+    got = _sfc_grads(head, hid, mask)
+    assert kernels_forced == {"layer_norm": 3, "attention_bthd": 1,
+                              "layer_norm_bwd": 3, "attention_bwd": 1}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tbackend, "use_kernel", lambda x: False)
+        want = _sfc_grads(head, hid, mask)
+    for (name, _), g, w in zip(head.named_parameters(), got, want):
+        assert g.abs().sum() > 0, name
+        torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+
+    grad_x = torch.randn(2, 5, 64, requires_grad=True)
+    w1, b1 = torch.randn(128, 64), torch.zeros(128)
+    w2, b2 = torch.randn(64, 128), torch.zeros(64)
+    refusals = {
+        "ffn": lambda: tffn.ffn(grad_x, w1, b1, w2, b2),
+        "bias_layer_norm_gelu": lambda: tln.bias_layer_norm_gelu(
+            grad_x, cbias, scale, bias),
+        "attention_packed": lambda: tattn.attention_packed(
+            torch.randn(2, 5, 192, requires_grad=True), None, 1),
+        "conv_bias_ln_gelu": lambda: tconv.conv_bias_ln_gelu(
+            grad_x, torch.randn(64, 64, 2), cbias, scale, bias, 2),
+    }
+    for name, call in refusals.items():
+        with pytest.raises(RuntimeError, match="LNA fine-tuning slice"):
+            call()
+    with torch.no_grad(), pytest.raises(LookupError):
+        tffn.ffn(grad_x, w1, b1, w2, b2)  # refused only when grad is on

@@ -175,6 +175,18 @@ def backbone_state_dict(model_dir: Path, num_layers: int) -> dict:
     return out
 
 
+def load_pretrained_backbone(model) -> bool:
+    """Load ``model``'s backbone from a local HF snapshot of
+    ``model.wav2vec_model_name``; False (nothing loaded) without one."""
+    snap = hf_local_snapshot(model.wav2vec_model_name)
+    if snap is None:
+        return False
+    logger.info("Loading wav2vec2 weights from %s", snap)
+    _load_strict(model.wav2vec_model.model,
+                 backbone_state_dict(snap, model.keep_layers))
+    return True
+
+
 def load_reference_checkpoint(path, model, allow_random_wav2vec: bool = False):
     """Load a reference ``.pt`` (either layout) into ``model`` in place.
 
@@ -188,18 +200,15 @@ def load_reference_checkpoint(path, model, allow_random_wav2vec: bool = False):
         _load_strict(model, sd)
         return model
     _load_strict(model.seg_model, sd)
-    backbone = model.wav2vec_model.model
-    snap = hf_local_snapshot(model.wav2vec_model_name)
-    if snap is not None:
-        logger.info("Loading wav2vec2 weights from %s", snap)
-        _load_strict(backbone, backbone_state_dict(snap, model.keep_layers))
-    elif allow_random_wav2vec:
+    if load_pretrained_backbone(model):
+        return model
+    if allow_random_wav2vec:
         from ..models.wav2vec2 import init_from_numpy
 
         logger.warning("No local weights for %s — using a RANDOM wav2vec2 "
                        "backbone (allow_random_wav2vec).",
                        model.wav2vec_model_name)
-        init_from_numpy(backbone, seed=0)
+        init_from_numpy(model.wav2vec_model.model, seed=0)
     else:
         raise FileNotFoundError(
             f"No local HF weights found for '{model.wav2vec_model_name}'. "

@@ -1,0 +1,45 @@
+"""Training CLI of the frozen-backbone SFC task.
+
+Counterpart of ``wav2vecsegmenter_tpu/cli/train.py``, with its override
+surface (the repo's ``conf/train.yaml`` composed with ``key=value``
+overrides):
+
+    python -m wav2vecsegmenter_tpu_torch.cli.train exp_name=myrun \\
+        batch_size=14 task=shas data=mustc_ende [key=value ...]
+
+The run is on the first CUDA device and raises without one;
+``+runtime.device=cpu`` asks for the CPU.  The composed config goes to
+``<exp_name>/.hydra/config.yaml`` (the file the segment CLI's
+``config_path`` reads), the run's artifacts under ``<exp_name>/``
+(``train.loop``).  pyyaml is imported inside :func:`main` only.
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+from pathlib import Path
+
+CONF_DIR = Path(__file__).resolve().parents[2] / "conf"
+
+
+def main(argv: list[str] | None = None) -> dict:
+    import yaml
+
+    from ..config import compose, to_plain
+    from ..train.loop import train
+
+    argv = sys.argv[1:] if argv is None else argv
+    overrides = [a for a in argv if "=" in a and not a.startswith("--")]
+    config = compose(CONF_DIR, "train", overrides)
+    logging.basicConfig(level=logging.INFO,
+                        format="[%(levelname)s %(asctime)s] %(message)s")
+    hydra_dir = Path(config.exp_name) / ".hydra"
+    hydra_dir.mkdir(parents=True, exist_ok=True)
+    with open(hydra_dir / "config.yaml", "w") as f:
+        yaml.safe_dump(to_plain(config), f, sort_keys=False)
+    return train(config)
+
+
+if __name__ == "__main__":
+    main()

@@ -88,6 +88,12 @@ class WaveformCache:
         full = self.full(path)
         return full[offset : offset + num_frames]
 
+    def clear(self) -> None:
+        """Drop cached waveforms (a long-lived eval dataset would otherwise
+        pin the last talks' full decodes between evals)."""
+        with self._lock:
+            self._data.clear()
+
 
 def assert_sample_rate(path: str | Path) -> int:
     """Sample-rate guard (reference lib/dataset.py:600-602)."""

@@ -1,0 +1,69 @@
+"""Per-epoch training loaders and fixed-grid evaluation loaders.
+
+Counterpart of the generators of ``wav2vecsegmenter_tpu/data/loader.py``
+(reference lib/dataset.py:671-813), over the port's datasets
+(``data.datasets``) and its ``BatchIterator`` (``data.windows``).  Batches
+carry raw int16 audio for normalization on the device, and the windows'
+targets.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .datasets import FixedSegmentationDataset, RandomSegmentationDataset
+from .windows import BatchIterator
+
+
+class RandomDataloaderGenerator:
+    """Per-epoch random resegmentation (reference lib/dataset.py:671-734):
+    each ``generate`` draws the next epoch seed, which seeds both the
+    window grid and the shuffle."""
+
+    def __init__(self, talk_list, segments_list, segment_length, batch_size,
+                 seed: int | None = None) -> None:
+        self.talk_list = talk_list
+        self.segments_list = segments_list
+        self.segment_length = segment_length
+        self.batch_size = batch_size
+        self._rng = np.random.RandomState(seed)
+        self.dataset: RandomSegmentationDataset | None = None
+
+    def skip_epoch_seeds(self, n: int) -> None:
+        """Advance the per-epoch seed stream without building datasets."""
+        for _ in range(max(0, int(n))):
+            self._rng.randint(0, 2**31 - 1)
+
+    def generate(self) -> BatchIterator:
+        seed = int(self._rng.randint(0, 2**31 - 1))
+        self.dataset = RandomSegmentationDataset(
+            self.talk_list, self.segments_list, self.segment_length, seed)
+        return BatchIterator(self.dataset, self.batch_size,
+                             float(self.segment_length),
+                             remainder_ladder=False, shuffle=True, seed=seed)
+
+
+class FixedDataloaderGenerator:
+    """Fixed-grid evaluation loaders (reference lib/dataset.py:737-813)."""
+
+    def __init__(self, talk_list, segments_list, segment_length, batch_size,
+                 inference_times: int = 1,
+                 remainder_ladder: bool = False) -> None:
+        self.batch_size = batch_size
+        self.segment_length = segment_length
+        self.remainder_ladder = remainder_ladder
+        self.dataset = FixedSegmentationDataset(
+            talk_list, segments_list, segment_length, inference_times)
+
+    def generate(self, talk_id, iteration: int) -> BatchIterator:
+        """Windows of one talk (or of every talk, for ``talk_id == ""``)."""
+        if talk_id == "":
+            self.dataset.generate_fixed_segments_all_talks(iteration)
+        else:
+            self.dataset.generate_fixed_segments(talk_id, iteration)
+        return BatchIterator(self.dataset, self.batch_size,
+                             float(self.segment_length),
+                             remainder_ladder=self.remainder_ladder)
+
+    def get_talk_ids(self) -> list:
+        return self.dataset.corpus.talk_ids()

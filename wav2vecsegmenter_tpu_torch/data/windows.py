@@ -1,11 +1,13 @@
 """Sliding inference windows over one wav, batched into static shapes.
 
 Mirrors ``FixedSegmentationDatasetNoTarget`` (wav2vecsegmenter_tpu/data/
-datasets.py) and ``BatchIterator``'s audio buckets and remainder ladder
-(wav2vecsegmenter_tpu/data/loader.py), which import pandas; this module
-needs numpy only.  The window grid, wav decoding and collation are the
-port's own copies (``core.windows``, ``data.audio``, ``data.collate``).
-Batches come out sequentially, in window order.
+datasets.py) and ``BatchIterator``'s audio buckets, remainder ladder and
+seeded shuffle (wav2vecsegmenter_tpu/data/loader.py), which import pandas;
+this module needs numpy only.  The window grid, wav decoding and collation
+are the port's own copies (``core.windows``, ``data.audio``,
+``data.collate``).  Batches are collated in the consumer's thread, in
+window order or in the seeded shuffled order; the examples' targets, where
+a dataset has them, go into the batch.
 """
 
 from __future__ import annotations
@@ -59,14 +61,18 @@ def audio_bucket_lengths(segment_length_secs: float) -> tuple[int, int]:
 
 
 class BatchIterator:
-    """Static-shape, device-normalized batches of a dataset, in order."""
+    """Static-shape, device-normalized batches of a dataset, in order or,
+    with ``shuffle``, in the order of ``RandomState(seed).shuffle``."""
 
     def __init__(self, dataset, batch_size: int, segment_length_secs: float,
-                 remainder_ladder: bool = True) -> None:
+                 remainder_ladder: bool = True, shuffle: bool = False,
+                 seed: int | None = None) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.std_len, self.tail_len = audio_bucket_lengths(segment_length_secs)
         self.remainder_ladder = remainder_ladder
+        self.shuffle = shuffle
+        self.seed = seed
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
@@ -83,9 +89,11 @@ class BatchIterator:
 
     def __iter__(self):
         n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.RandomState(self.seed).shuffle(order)
         for i in range(0, n, self.batch_size):
-            examples = [self.dataset[j]
-                        for j in range(i, min(i + self.batch_size, n))]
+            examples = [self.dataset[j] for j in order[i:i + self.batch_size]]
             longest = max(len(ex[0]) for ex in examples)
             audio_len = self.std_len if longest <= self.std_len else self.tail_len
             yield collate(examples, self._slots_for(len(examples)), audio_len,

@@ -8,9 +8,13 @@ the model, and downloads only the [B, T] probabilities: a ``non_blocking``
 copy into pinned host memory followed by a CUDA event, so the host goes on
 dispatching while the copy is in flight.
 
+With a ``loss_fn`` (the trainer's evaluation), a batch that carries
+targets also computes its masked loss on the device (``batch_loss``), and
+the handle downloads it beside the probabilities.
+
 The stitch helpers (``stitch_row``, ``nan_fill``) mirror the JAX module's
-for probabilities only (the logits of the ``dac_logits`` head are not
-ported).  Their semantics replicate reference lib/evaluate.py:9-127.
+for probabilities and targets (the logits of the ``dac_logits`` head are
+not ported).  Their semantics replicate reference lib/evaluate.py:9-127.
 """
 
 from __future__ import annotations
@@ -34,24 +38,47 @@ def normalize_int16(audio: torch.Tensor, norm_length: int,
     return torch.where(included[:, None], xn, 0.0)
 
 
-class ProbsHandle:
-    """A batch's probabilities on their way to the host."""
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t, non_blocking=True)
 
-    def __init__(self, probs: torch.Tensor):
+
+class ProbsHandle:
+    """A batch's probabilities (and its loss, if computed) on their way to
+    the host."""
+
+    def __init__(self, probs: torch.Tensor, loss: torch.Tensor | None = None):
+        self._host = _to_host(probs)
+        self._loss = None if loss is None else _to_host(loss)
         self._event = None
         if probs.is_cuda:
-            self._host = torch.empty(probs.shape, dtype=probs.dtype,
-                                     pin_memory=True)
-            self._host.copy_(probs, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record()
-        else:
-            self._host = probs
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+    def loss(self) -> float | None:
+        if self._loss is None:
+            return None
+        if self._event is not None:
+            self._event.synchronize()
+        return float(self._loss)
+
+
+def batch_loss(loss_fn, logits: torch.Tensor, target: torch.Tensor,
+               out_mask: torch.Tensor, n_real: int) -> torch.Tensor:
+    """Masked eval loss of one batch (reference lib/evaluate.py:74-81):
+    per-point loss zeroed off ``out_mask``, summed per row, meaned over the
+    batch's real rows only."""
+    t = min(logits.shape[1], target.shape[1])
+    lpp = torch.where(out_mask[:, :t], loss_fn(logits[:, :t].float(),
+                                               target[:, :t]), 0.0)
+    return lpp.sum(dim=1)[:n_real or len(lpp)].mean()
 
 
 class WindowInference:
@@ -61,6 +88,7 @@ class WindowInference:
         self.model = model
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
+        self.loss_fn = None  # the trainer sets its epoch's loss for eval
 
     @torch.inference_mode()
     def run_batch(self, batch: Batch) -> ProbsHandle:
@@ -74,7 +102,11 @@ class WindowInference:
         logits = self.model(audio, up(batch.in_lengths), out_mask,
                             self.compute_dtype)
         probs = torch.where(out_mask, torch.sigmoid(logits.float()), 0.0)
-        return ProbsHandle(probs)
+        loss = None
+        if self.loss_fn is not None and batch.target is not None:
+            loss = batch_loss(self.loss_fn, logits, up(batch.target),
+                              out_mask, batch.n_real)
+        return ProbsHandle(probs, loss)
 
 
 def nan_fill(arr: np.ndarray, duration: int) -> None:
@@ -85,15 +117,22 @@ def nan_fill(arr: np.ndarray, duration: int) -> None:
         arr[j] = np.nanmean(arr[lo:hi])
 
 
-def stitch_row(talk_probs, batch, i, probs, duration_outframes: int) -> None:
-    """Scatter one window row into the talk array; an excluded (silent)
-    row writes zeros.  A talk whose length lands on a .5 output frame puts
+def stitch_row(talk_probs, batch, i, probs, duration_outframes: int,
+               talk_targets=None) -> None:
+    """Scatter one window row into the talk array (and its targets into
+    ``talk_targets``); an excluded (silent) row writes zero probabilities
+    and no targets.  A talk whose length lands on a .5 output frame puts
     the last window's end one past the talk array; it is clamped."""
     start, end = int(batch.starts[i]), int(batch.ends[i])
     end = min(end, duration_outframes)
     if end <= start:
         return
-    talk_probs[start:end] = probs[i, :end - start] if batch.included[i] else 0
+    if not batch.included[i]:
+        talk_probs[start:end] = 0
+        return
+    talk_probs[start:end] = probs[i, :end - start]
+    if talk_targets is not None and batch.target is not None:
+        talk_targets[start:end] = batch.target[i, :end - start]
 
 
 def dispatch_talk(engine: WindowInference, batches) -> list:
@@ -102,13 +141,20 @@ def dispatch_talk(engine: WindowInference, batches) -> list:
     return [(engine.run_batch(batch), batch) for batch in batches]
 
 
-def collect_talk(pending: list, duration_outframes: int) -> np.ndarray:
+def collect_talk(pending: list, duration_outframes: int,
+                 talk_targets: np.ndarray | None = None,
+                 losses: list | None = None) -> np.ndarray:
     """Download and stitch the handles of :func:`dispatch_talk` into the
-    talk's frame probabilities, gaps filled."""
+    talk's frame probabilities, gaps filled; the targets go into
+    ``talk_targets`` and the batches' losses onto ``losses``, when given."""
     talk_probs = np.full(duration_outframes, np.nan)
     for handle, batch in pending:
         probs = handle.numpy()
+        loss = handle.loss()
+        if losses is not None and loss is not None:
+            losses.append(loss)
         for i in range(len(probs)):
-            stitch_row(talk_probs, batch, i, probs, duration_outframes)
+            stitch_row(talk_probs, batch, i, probs, duration_outframes,
+                       talk_targets)
     nan_fill(talk_probs, duration_outframes)
     return talk_probs

@@ -5,6 +5,12 @@ layers (torch ``TransformerEncoderLayer`` with norm_first, GELU, 8 heads,
 FFN 2048) -> LayerNorm -> Linear(H -> 1) -> squeeze.  Padding enters as a
 key mask (True = valid frame).  Submodule names follow the reference
 classifier's state_dict keys.  Only the vocab-1 (bce) head is ported.
+
+The forward is differentiable: its LayerNorms and attention go through the
+autograd Functions of ``ops`` (backward kernels K9 and K10 on CUDA).  With
+a generator it runs in train mode, with dropout at the head's input, after
+the attention output, after the GELU and after the second linear, as the
+JAX ``sfc_forward`` does with ``deterministic=False``.
 """
 
 from __future__ import annotations
@@ -13,9 +19,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import attention_bthd
+from ..ops.attention import attention_qkv
 from ..ops.layernorm import layer_norm
-from .wav2vec2 import _lin
+from .wav2vec2 import _lin, dropout
 
 EPS = 1e-5
 
@@ -58,27 +64,33 @@ class SegmentationFrameClassifier(nn.Module):
         self.layer_norm = nn.LayerNorm(d_model, device=device)
         self.output_layer = nn.Linear(d_model, vocab_size, device=device)
 
-    def forward(self, x, out_mask, compute_dtype=torch.float32):
-        return sfc_forward(self, x, out_mask, compute_dtype)
+    def forward(self, x, out_mask, compute_dtype=torch.float32,
+                dropout_rate: float = 0.0, generator=None):
+        return sfc_forward(self, x, out_mask, compute_dtype, dropout_rate,
+                           generator)
 
 
 def sfc_forward(head: SegmentationFrameClassifier, x: torch.Tensor,
-                out_mask: torch.Tensor,
-                compute_dtype=torch.float32) -> torch.Tensor:
-    """x [B, T, H] hidden states, out_mask [B, T] -> logits [B, T] float32."""
+                out_mask: torch.Tensor, compute_dtype=torch.float32,
+                dropout_rate: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """x [B, T, H] hidden states, out_mask [B, T] -> logits [B, T] float32.
+    A generator selects train mode: dropout at ``dropout_rate``."""
     dt = compute_dtype
-    h = x.to(dt).contiguous()
+    h = dropout(x.to(dt), dropout_rate, generator).contiguous()
     for layer in head.transformer.layers:
         hn = layer_norm(h, layer.norm1.weight, layer.norm1.bias, EPS)
         b, t, d_model = hn.shape
         dh = d_model // head.n_heads
         sa = layer.self_attn
         qkv = (hn @ sa.in_proj_weight.to(dt).t() + sa.in_proj_bias.to(dt))
-        qkv = qkv.view(b, t, 3, head.n_heads, dh)
-        a = attention_bthd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], out_mask,
-                           dh ** -0.5)
-        h = h + _lin(sa.out_proj, a.reshape(b, t, d_model), dt)
+        a = attention_qkv(qkv.view(b, t, 3, head.n_heads, dh), out_mask,
+                          dh ** -0.5)
+        a = _lin(sa.out_proj, a.reshape(b, t, d_model), dt)
+        h = h + dropout(a, dropout_rate, generator)
         hn = layer_norm(h, layer.norm2.weight, layer.norm2.bias, EPS)
-        h = h + _lin(layer.linear2, F.gelu(_lin(layer.linear1, hn, dt)), dt)
+        f = dropout(F.gelu(_lin(layer.linear1, hn, dt)), dropout_rate,
+                    generator)
+        h = h + dropout(_lin(layer.linear2, f, dt), dropout_rate, generator)
     h = layer_norm(h, head.layer_norm.weight, head.layer_norm.bias, EPS)
     return _lin(head.output_layer, h, dt).float()[..., 0]

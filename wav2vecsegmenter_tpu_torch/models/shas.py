@@ -5,8 +5,16 @@ takes the same kwargs (the reference Hydra surface, ``conf/task/shas.yaml``),
 plus an optional ``w2v_cfg`` that replaces the preset's architecture.
 Submodules are named ``wav2vec_model.model`` and ``seg_model`` after the
 reference checkpoint's full layout, so ``load_state_dict`` takes it as is.
-Inference only: the fine-tuning flags are accepted and do not change the
-forward.
+
+Training covers the product's default task only (``conf/task/shas.yaml``,
+``finetune_wav2vec: false``): a frozen backbone and a trained SFC head.
+``train_forward`` runs the backbone in train mode under ``torch.no_grad()``
+(the JAX ``stop_gradient`` on its output) and the head in train mode;
+``trainable_parameters`` is the head's parameters, the counterpart of the
+JAX ``trainable_mask``.  Both raise ``NotImplementedError`` under
+``finetune_wav2vec=True``: fine-tuning the backbone (LNA) is a later slice.
+The fine-tuning flags are accepted for inference, where they do not change
+the forward.
 """
 
 from __future__ import annotations
@@ -16,6 +24,15 @@ from torch import nn
 
 from .sfc import SegmentationFrameClassifier
 from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, config_for
+
+
+def refuse_finetune(finetune_wav2vec: bool) -> None:
+    """Raise for a training run that would fine-tune the backbone."""
+    if finetune_wav2vec:
+        raise NotImplementedError(
+            "training with finetune_wav2vec=True (LNA fine-tuning of the "
+            "backbone) is not ported yet; the port trains the SFC head on "
+            "a frozen backbone")
 
 
 class _Backbone(nn.Module):
@@ -48,6 +65,8 @@ class SHAS(nn.Module):
     ) -> None:
         super().__init__()
         self.wav2vec_model_name = wav2vec_model_name
+        self.finetune_wav2vec = bool(finetune_wav2vec)
+        self.init_dropout = init_dropout
         self.w2v_cfg = w2v_cfg or config_for(
             wav2vec_model_name, wav2vec_keep_layers,
             ffn_adapter=bool(finetune_wav2vec and ffn_adapter))
@@ -68,9 +87,33 @@ class SHAS(nn.Module):
         the hidden states are cut or zero-padded to T_out.
         """
         h, _ = self.wav2vec_model.model(audio, in_lengths, compute_dtype)
-        t_out, t_conv = out_mask.shape[1], h.shape[1]
-        if t_conv > t_out:
-            h = h[:, :t_out]
-        elif t_conv < t_out:
-            h = torch.nn.functional.pad(h, (0, 0, 0, t_out - t_conv))
-        return self.seg_model(h, out_mask, head_dtype or compute_dtype)
+        return self.seg_model(_fit(h, out_mask.shape[1]), out_mask,
+                              head_dtype or compute_dtype)
+
+    def trainable_parameters(self) -> list[nn.Parameter]:
+        """The frozen-backbone trainable set: the SFC head's parameters."""
+        refuse_finetune(self.finetune_wav2vec)
+        return list(self.seg_model.parameters())
+
+    def train_forward(self, audio: torch.Tensor, in_lengths: torch.Tensor,
+                      out_mask: torch.Tensor, generator: torch.Generator,
+                      compute_dtype=torch.float32) -> torch.Tensor:
+        """The training forward: dropout and SpecAugment drawn from
+        ``generator``; no gradient reaches the backbone -> frame logits
+        [B, T_out] float32."""
+        refuse_finetune(self.finetune_wav2vec)
+        with torch.no_grad():
+            h, _ = self.wav2vec_model.model(audio, in_lengths, compute_dtype,
+                                            generator)
+        return self.seg_model(_fit(h, out_mask.shape[1]), out_mask,
+                              compute_dtype, self.init_dropout, generator)
+
+
+def _fit(h: torch.Tensor, t_out: int) -> torch.Tensor:
+    """Cut or zero-pad the hidden states [B, T_conv, H] to T_out frames."""
+    t_conv = h.shape[1]
+    if t_conv > t_out:
+        return h[:, :t_out]
+    if t_conv < t_out:
+        return torch.nn.functional.pad(h, (0, 0, 0, t_out - t_conv))
+    return h

@@ -16,6 +16,20 @@ modules only hold parameters (float32 masters); the forward functions below
 cast weights to the compute dtype at use, as the JAX code does.  LayerNorm
 parameters stay float32 everywhere.
 
+The forward takes an optional ``torch.Generator``: with one, it runs in
+train mode, as the JAX forward does with ``deterministic=False``: dropout
+after the feature projection (``feat_proj_dropout``), after the positional
+conv and after each attention and FFN sub-block (``hidden_dropout``), and
+SpecAugment time masking, which replaces masked frames with
+``masked_spec_embed``.  Attention-probability dropout stays off, as in the
+JAX package's default (``apply_attention_prob_dropout``, off under its
+fused attention).  The fused FFN stays on in train mode;
+with ``activation_dropout`` above 0 (not xls-r-300m's) the FFN leaves it
+for the separate GEMMs with the dropout between them.  Masks are drawn with
+``torch.rand`` from the generator, so they follow the JAX distributions,
+not its bits.  The port trains the SFC head only, so this forward runs
+under ``torch.no_grad()`` on the kernels of the inference path.
+
 Not ported yet (they raise ``NotImplementedError``): the group-norm conv
 stack of the base models, post-LN encoders, FFN adapters.
 """
@@ -234,8 +248,10 @@ class Wav2Vec2Model(nn.Module):
         self.masked_spec_embed = nn.Parameter(
             torch.zeros(cfg.hidden_size, device=device))
 
-    def forward(self, audio, in_lengths, compute_dtype=torch.float32):
-        return wav2vec2_forward(self, audio, in_lengths, compute_dtype)
+    def forward(self, audio, in_lengths, compute_dtype=torch.float32,
+                generator=None):
+        return wav2vec2_forward(self, audio, in_lengths, compute_dtype,
+                                generator)
 
 
 # --------------------------------------------------------------------------
@@ -244,6 +260,48 @@ class Wav2Vec2Model(nn.Module):
 
 def _lin(lin: nn.Linear, x: torch.Tensor, dt) -> torch.Tensor:
     return x @ lin.weight.to(dt).t() + lin.bias.to(dt)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``generator`` (JAX
+    ``_dropout``: keep with probability 1 - rate, scale by 1/(1 - rate));
+    the identity without a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0)
+
+
+def sample_time_mask(generator: torch.Generator, b: int, t: int,
+                     prob: float, length: int,
+                     frame_lengths: torch.Tensor | None = None,
+                     min_masks: int = 2) -> torch.Tensor:
+    """SpecAugment time mask [b, t] bool, as JAX ``sample_time_mask`` (HF
+    ``_compute_mask_indices``): one probabilistic-rounding epsilon per call;
+    per row ``num = max(floor(prob*len/length + eps), min_masks)``, set to
+    ``t // length`` where num spans would exceed t, then clamped to the
+    ``len - length + 1`` candidate starts; starts drawn uniformly without
+    replacement (argsort of uniform keys), so spans lie inside the row's
+    valid length."""
+    dev = generator.device
+    valid = (frame_lengths.long().to(dev) if frame_lengths is not None
+             else torch.full((b,), t, device=dev))
+    eps = torch.rand((), generator=generator, device=dev)
+    n_starts = (valid - (length - 1)).clamp_min(0)
+    num = torch.floor(prob * valid.float() / length + eps).long()
+    num = num.clamp_min(min_masks)
+    num = torch.where(num * length > t, t // length, num)
+    num = torch.minimum(num, n_starts)
+    k_max = max(1, t // length)
+    keys = torch.rand((b, t), generator=generator, device=dev)
+    pos = torch.arange(t, device=dev)
+    keys = torch.where(pos[None, :] < n_starts[:, None], keys, torch.inf)
+    starts = keys.argsort(dim=-1)[:, :k_max, None]
+    active = torch.arange(k_max, device=dev)[None, :] < num[:, None]
+    cover = (pos >= starts) & (pos < starts + length) & active[:, :, None]
+    return cover.any(dim=1)
 
 
 def strided_conv1d_as_matmul(x: torch.Tensor, w: torch.Tensor, stride: int,
@@ -334,28 +392,37 @@ def _mha(attn: Attention, x: torch.Tensor, key_mask: torch.Tensor,
     return _lin(attn.out_proj, out, dt)
 
 
-def _ffn(ff: FeedForward, x: torch.Tensor, dt) -> torch.Tensor:
-    """The fused ``ops.ffn`` or, under ``W2VSEG_FFNFUSE=0``, w1 -> exact
-    GELU (rounded to dt, as ``ffn_xla``) -> w2."""
+def _ffn(ff: FeedForward, x: torch.Tensor, cfg: Wav2Vec2Config, dt,
+         generator=None) -> torch.Tensor:
+    """The fused ``ops.ffn`` or, under ``W2VSEG_FFNFUSE=0`` or in train
+    mode with activation dropout, w1 -> exact GELU (rounded to dt, as
+    ``ffn_xla``) -> dropout -> w2."""
     w1, w2 = ff.intermediate_dense, ff.output_dense
-    if ffnfuse_enabled():
+    act_drop = cfg.activation_dropout if generator is not None else 0.0
+    if ffnfuse_enabled() and act_drop == 0.0:
         return ffn(x, w1.weight, w1.bias, w2.weight, w2.bias)
-    return _lin(w2, F.gelu(_lin(w1, x, dt)), dt)
+    return _lin(w2, dropout(F.gelu(_lin(w1, x, dt)), act_drop, generator),
+                dt)
 
 
 def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
-            cfg: Wav2Vec2Config, dt) -> torch.Tensor:
+            cfg: Wav2Vec2Config, dt, generator=None) -> torch.Tensor:
     """Pre-LN transformer over [B, T, H]; padded frames are zeroed once,
-    before the positional conv, and carry finite values after that."""
+    before the positional conv, and carry finite values after that.  With
+    a generator, hidden dropout after the positional conv and after each
+    sub-block."""
     eps = cfg.layer_norm_eps
     x = torch.where(frame_mask[:, :, None], x, 0)
     h = (x + positional_conv(enc.pos_conv_embed, x, cfg, dt)).to(dt)
+    h = dropout(h, cfg.hidden_dropout, generator)
     for layer in enc.layers:
         hn = layer_norm(h, layer.layer_norm.weight, layer.layer_norm.bias, eps)
-        h = h + _mha(layer.attention, hn, frame_mask, cfg.num_heads, dt)
+        a = _mha(layer.attention, hn, frame_mask, cfg.num_heads, dt)
+        h = h + dropout(a, cfg.hidden_dropout, generator)
         hn = layer_norm(h, layer.final_layer_norm.weight,
                         layer.final_layer_norm.bias, eps)
-        h = h + _ffn(layer.feed_forward, hn, dt)
+        f = _ffn(layer.feed_forward, hn, cfg, dt, generator)
+        h = h + dropout(f, cfg.hidden_dropout, generator)
     return h
 
 
@@ -370,9 +437,11 @@ def frame_lengths(in_lengths: torch.Tensor,
 
 def wav2vec2_forward(model: Wav2Vec2Model, audio: torch.Tensor,
                      in_lengths: torch.Tensor,
-                     compute_dtype=torch.float32):
+                     compute_dtype=torch.float32,
+                     generator: torch.Generator | None = None):
     """audio [B, L] normalized, in_lengths [B] valid samples ->
-    (hidden [B, T, H] float32, frame_mask [B, T] bool)."""
+    (hidden [B, T, H] float32, frame_mask [B, T] bool).  A ``generator``
+    selects train mode (dropout and SpecAugment, drawn from it)."""
     cfg = model.cfg
     feats = feature_extractor(model.feature_extractor, audio, cfg,
                               compute_dtype)
@@ -383,7 +452,15 @@ def wav2vec2_forward(model: Wav2Vec2Model, audio: torch.Tensor,
     feats = layer_norm(feats, fp.layer_norm.weight, fp.layer_norm.bias,
                        cfg.layer_norm_eps)
     x = _lin(fp.projection, feats, compute_dtype)
-    h = encoder(model.encoder, x, frame_mask, cfg, compute_dtype)
+    x = dropout(x, cfg.feat_proj_dropout, generator)
+    if (generator is not None and cfg.apply_spec_augment
+            and cfg.mask_time_prob > 0):
+        tmask = sample_time_mask(generator, x.shape[0], t, cfg.mask_time_prob,
+                                 cfg.mask_time_length, fl,
+                                 cfg.mask_time_min_masks) & frame_mask
+        x = torch.where(tmask[:, :, None],
+                        model.masked_spec_embed.to(x.dtype), x)
+    h = encoder(model.encoder, x, frame_mask, cfg, compute_dtype, generator)
     return h.float(), frame_mask
 
 

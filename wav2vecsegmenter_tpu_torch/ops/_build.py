@@ -51,6 +51,14 @@ _SIGNATURES = {
                          _I, _F, _I, _P),
     "w2v_conv_audio_ln_gelu": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                                _L, _I, _F, _I, _P),
+    # x, scale, g, dx, dscale, dbias, partial, rows, h, n_blocks, eps,
+    # dtype, stream
+    "w2v_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _F, _I,
+                           _P),
+    # q, k, v, key_mask, do, dq, dk, dv, stats, strides (host array of 21),
+    # b, tq, tk, heads, d, scale, dtype, stream
+    "w2v_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _F, _I, _P),
 }
 
 _lib = None

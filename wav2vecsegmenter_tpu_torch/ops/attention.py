@@ -13,6 +13,19 @@ tensors, reading the operands where they lie (no head transposes), and run
 the plain versions on CPU tensors.  The source file says what bounds the
 kernel on the H100 and how its design answers that.
 
+Where a gradient is needed, ``attention_qkv`` (the QKV projection viewed
+[B, T, 3, H, D]) and ``attention_bthd`` go through ``_AttentionFn``, the
+counterpart of the JAX custom VJP ``_fused_attention``: its forward is the
+kernel above, its backward ``attention_bwd``, which replaces
+``_attn_bwd_kernel`` (K10, ``csrc/attention_bwd.cu``) on CUDA tensors and
+runs ``attention_bwd_plain`` on CPU tensors.  The Function takes the packed
+projection, so K10 writes dq, dk and dv straight into one [B, T, 3, H, D]
+gradient.  The SFC head trains through ``attention_qkv``;
+``attention_bthd``'s grad branch stacks q, k and v into one copy first and
+exists to keep the JAX function's differentiable signature (its tests use
+it).  ``attention_packed`` has no backward yet and refuses a
+grad-requiring input on the kernel path.
+
 Key padding: ``key_mask`` [B, T] bool, True = valid.  A padded key scores
 ``NEG_INF`` = -1e30 (not -inf), so a row whose keys are all masked gets a
 finite uniform average; padded query rows carry finite garbage that callers
@@ -20,6 +33,8 @@ zero with the output mask.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,6 +44,7 @@ NEG_INF = -1e30
 
 backend.register_kernel("attention_packed")
 backend.register_kernel("attention_bthd")
+backend.register_kernel("attention_bwd")
 
 
 def attention_bthd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,16 +110,145 @@ def _launch(q, k, v, key_mask, scale, out, name: str) -> torch.Tensor:
     return out
 
 
-def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   key_mask: torch.Tensor | None = None,
-                   scale: float | None = None) -> torch.Tensor:
-    """Self-attention on [B, T, H, D] operands (views allowed) -> [B, T, H, D]."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+def _attention_bthd(q, k, v, key_mask, scale) -> torch.Tensor:
     if not backend.use_kernel(q):
         return attention_bthd_plain(q, k, v, key_mask, scale)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     return _launch(q, k, v, key_mask, scale, out, "attention_bthd")
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_mask: torch.Tensor | None, do: torch.Tensor,
+                        scale: float):
+    """``_attn_bwd_kernel``'s arithmetic -> (dq, dk, dv) in q's type.
+
+    P is recomputed in float32 from Q and K with the -1e30 key bias and
+    normalised, then P and dS = P (dP - rowsum(dP P)) are cast to the
+    input type before their products; the products accumulate in float32
+    and dq, dk, dv are cast to the input type at the end.  This follows the
+    JAX backward, which rounds the *normalised* P; the forward kernels round
+    the unnormalised probabilities (``attention_bthd_plain``)."""
+    dt = q.dtype
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.to(dt).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if key_mask is not None:
+        s = s + torch.where(key_mask[:, None, None, :], 0.0, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  key_mask: torch.Tensor | None, do: torch.Tensor,
+                  scale: float, out=None):
+    """(dq, dk, dv) of ``attention_bthd`` from the output gradient ``do``
+    [B, T, H, D]; ``out``, when given, is the (dq, dk, dv) destination
+    (views allowed, head dim contiguous)."""
+    if not backend.use_kernel(q):
+        grads = attention_bwd_plain(q, k, v, key_mask, do, scale)
+        if out is None:
+            return grads
+        for dst, src in zip(out, grads):
+            dst.copy_(src)
+        return out
+    return _launch_bwd(q, k, v, key_mask, do, scale, out)
+
+
+def _launch_bwd(q, k, v, key_mask, do, scale, out):
+    b, tq, heads, d = q.shape
+    tk = k.shape[1]
+    if d not in (64, 128):
+        raise ValueError(f"attention backward kernel takes head dims 64 or "
+                         f"128, got {d}")
+    if k.shape != (b, tk, heads, d) or v.shape != k.shape \
+            or do.shape != q.shape:
+        raise ValueError("attention backward kernel: shapes disagree")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    do = do.to(q.dtype)
+    if out is None:
+        out = (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+               torch.empty(k.shape, dtype=q.dtype, device=q.device),
+               torch.empty(k.shape, dtype=q.dtype, device=q.device))
+    operands = (q, k, v, do, *out)
+    for a in operands:
+        if a.stride(-1) != 1 or a.device != q.device or a.dtype != q.dtype:
+            raise ValueError("attention backward kernel takes operands on "
+                             "one device, of one type, with the head dim "
+                             "contiguous")
+    if out[0].shape != q.shape or out[1].shape != k.shape \
+            or out[2].shape != k.shape:
+        raise ValueError("attention backward kernel: out shapes disagree")
+    mask_ptr = None
+    if key_mask is not None:
+        if key_mask.shape != (b, tk):
+            raise ValueError("key_mask must be [B, T_k]")
+        key_mask = key_mask.to(device=q.device, dtype=torch.bool).contiguous()
+        mask_ptr = key_mask.data_ptr()
+    strides = (ctypes.c_longlong * 21)(
+        *(s for a in operands for s in a.stride()[:3]))
+    stats = torch.empty((b, heads, tq, 3), dtype=torch.float32,
+                        device=q.device)
+    status = _build.library().w2v_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
+        *(a.data_ptr() for a in out), stats.data_ptr(),
+        ctypes.addressof(strides), b, tq, tk, heads, d, float(scale),
+        _build.dtype_code(q.dtype),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "attention_bwd")
+    backend.count_launch("attention_bwd")
+    return out
+
+
+class _AttentionFn(torch.autograd.Function):
+    """Attention on the QKV projection viewed [B, T, 3, H, D], whose
+    backward is ``attention_bwd`` (K10 on CUDA) writing one packed
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_mask, scale):
+        ctx.save_for_backward(qkv, key_mask)
+        ctx.scale = scale
+        return _attention_bthd(*qkv.unbind(2), key_mask, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        qkv, key_mask = ctx.saved_tensors
+        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        attention_bwd(*qkv.unbind(2), key_mask, do, ctx.scale,
+                      out=dqkv.unbind(2))
+        return dqkv, None, None
+
+
+def attention_qkv(qkv: torch.Tensor, key_mask: torch.Tensor | None = None,
+                  scale: float | None = None) -> torch.Tensor:
+    """Self-attention on the QKV projection viewed [B, T, 3, H, D] (q, k, v
+    on dim 2) -> [B, T, H, D].  Differentiable in qkv."""
+    if scale is None:
+        scale = qkv.shape[-1] ** -0.5
+    if backend.needs_grad(qkv):
+        return _AttentionFn.apply(qkv, key_mask, scale)
+    return _attention_bthd(*qkv.unbind(2), key_mask, scale)
+
+
+def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   key_mask: torch.Tensor | None = None,
+                   scale: float | None = None) -> torch.Tensor:
+    """Self-attention on [B, T, H, D] operands (views allowed) -> [B, T, H, D].
+    Differentiable in q, k and v (through one stacked copy; the QKV
+    projection goes through :func:`attention_qkv` without it)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if backend.needs_grad(q, k, v):
+        return _AttentionFn.apply(torch.stack((q, k, v), dim=2), key_mask,
+                                  scale)
+    return _attention_bthd(q, k, v, key_mask, scale)
 
 
 def attention_packed(proj: torch.Tensor, key_mask: torch.Tensor | None,
@@ -115,6 +260,7 @@ def attention_packed(proj: torch.Tensor, key_mask: torch.Tensor | None,
         scale = (h // num_heads) ** -0.5
     if not backend.use_kernel(proj):
         return attention_packed_plain(proj, key_mask, num_heads, scale)
+    backend.refuse_grad("attention_packed", proj)
     if not proj.is_contiguous():
         raise ValueError("packed attention kernel takes a contiguous [B,T,3H]")
     q, k, v = _unpack_qkv(proj, num_heads)

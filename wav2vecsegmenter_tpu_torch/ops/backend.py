@@ -10,6 +10,12 @@ Counterpart of ``wav2vecsegmenter_tpu/ops/backend.py``.  Two modes:
 Each kernel wrapper adds one to its counter where it launches its kernel,
 and nowhere else, so a run can show that its path really went through the
 kernels (``reset_launch_counts`` / ``launch_counts``).
+
+A kernel writes its output through a raw pointer, so autograd sees no graph
+behind it.  ``layer_norm`` and the attention of ``[B, T, H, D]`` operands
+wrap their kernels in ``torch.autograd.Function``s with backward kernels;
+every other kernel wrapper calls :func:`refuse_grad` before it launches, so
+that a gradient is never cut silently.
 """
 
 from __future__ import annotations
@@ -32,6 +38,22 @@ def set_kernels(mode: str) -> None:
 def use_kernel(x: torch.Tensor) -> bool:
     """True where the hand kernel must run: a CUDA tensor under ``auto``."""
     return x.is_cuda and _mode == "auto"
+
+
+def needs_grad(*tensors) -> bool:
+    """True where autograd would record a graph through ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where the kernel ``name``, which has no backward yet, would
+    cut a gradient: grad mode on and an input that requires grad."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"the {name} kernel has no backward yet (its autograd Function "
+            "comes with the LNA fine-tuning slice); run it under "
+            "torch.no_grad() or on tensors that do not require grad")
 
 
 def register_kernel(name: str) -> None:

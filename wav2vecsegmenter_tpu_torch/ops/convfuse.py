@@ -86,6 +86,8 @@ def conv_bias_ln_gelu(x: torch.Tensor, weight: torch.Tensor,
     if not backend.use_kernel(x):
         return conv_bias_ln_gelu_plain(x, weight, conv_bias, scale, bias,
                                        stride, eps)
+    backend.refuse_grad("conv_bias_ln_gelu", x, weight, conv_bias, scale,
+                        bias)
     b, t, c, o, k, t_out = _geometry(x, weight, stride)
     if not x.is_contiguous():
         raise ValueError("conv kernel takes a contiguous [B, T, C] input")

@@ -50,6 +50,7 @@ def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """FFN over the last dim of x [..., H]; leading dims are rows."""
     if not backend.use_kernel(x):
         return ffn_plain(x, w1, b1, w2, b2)
+    backend.refuse_grad("ffn", x, w1, b1, w2, b2)
     h = x.shape[-1]
     f = w1.shape[0]
     if w1.shape != (f, h) or w2.shape != (h, f) or b1.shape != (f,) \

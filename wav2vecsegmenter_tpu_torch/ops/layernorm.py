@@ -8,6 +8,13 @@ the CUDA kernel of ``csrc/layernorm.cu`` on CUDA tensors and their plain
 versions on CPU tensors; the source file says what bounds the kernel on the
 H100 and how its design answers that.
 
+Where a gradient is needed, ``layer_norm`` goes through ``_LayerNormFn``
+(the counterpart of the JAX custom VJP ``_ln_2d``): its forward is the
+above, its backward ``layer_norm_bwd``, which replaces ``_ln_bwd_kernel``
+(K9, ``csrc/layernorm_bwd.cu``) on CUDA tensors and runs
+``layer_norm_bwd_plain`` on CPU tensors.  ``bias_layer_norm_gelu`` has no
+backward yet and refuses a grad-requiring input on the kernel path.
+
 Semantics (torch.nn.LayerNorm's): float32 mean and biased variance, eps
 inside the rsqrt, float32 scale and bias, the result cast back to the input
 type.  The epilogue adds the float32 conv bias in float32, as the TPU
@@ -24,6 +31,10 @@ EPS = 1e-5
 
 backend.register_kernel("layer_norm")
 backend.register_kernel("bias_layer_norm_gelu")
+backend.register_kernel("layer_norm_bwd")
+
+MAX_H = 1024          # widest row the kernels take (one warp, 32 per lane)
+BWD_ROWS_PER_BLOCK = 32   # kRowsPerBlock of csrc/layernorm_bwd.cu
 
 
 def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -46,8 +57,9 @@ def _launch(x, conv_bias, scale, bias, eps, gelu: bool) -> torch.Tensor:
     h = x.shape[-1]
     if not x.is_contiguous():
         raise ValueError("layer norm kernel takes a contiguous input")
-    if h > 1024:
-        raise ValueError(f"layer norm kernel takes rows up to 1024 wide, got {h}")
+    if h > MAX_H:
+        raise ValueError(f"layer norm kernel takes rows up to {MAX_H} wide, "
+                         f"got {h}")
     params = [scale, bias] + ([conv_bias] if gelu else [])
     for p in params:
         if p.shape != (h,) or p.device != x.device:
@@ -69,12 +81,92 @@ def _launch(x, conv_bias, scale, bias, eps, gelu: bool) -> torch.Tensor:
     return out
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = EPS) -> torch.Tensor:
-    """LayerNorm over the last dim; leading dims are rows."""
+def layer_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
+                         g: torch.Tensor, eps: float = EPS):
+    """The formula of ``_ln_bwd_kernel``: float32 statistics recomputed
+    from x, ``dx = (g·γ − mean(g·γ) − x̂·mean(g·γ·x̂))·rstd`` in x's type,
+    ``dγ = Σ g·x̂`` and ``dβ = Σ g`` over the rows in float32."""
+    h = x.shape[-1]
+    x32, g32 = x.float(), g.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * rstd
+    gs = g32 * scale.float()
+    m1 = gs.mean(dim=-1, keepdim=True)
+    m2 = (gs * xhat).mean(dim=-1, keepdim=True)
+    dx = ((gs - m1 - xhat * m2) * rstd).to(x.dtype)
+    return (dx, (g32 * xhat).reshape(-1, h).sum(0),
+            g32.reshape(-1, h).sum(0))
+
+
+def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                   eps: float = EPS):
+    """(dx in x's type, dscale float32, dbias float32) of a LayerNorm over
+    the last dim, from its input x, its scale and the output gradient g."""
+    if not backend.use_kernel(x):
+        return layer_norm_bwd_plain(x, scale, g, eps)
+    return _launch_bwd(x, scale, g, eps)
+
+
+def _launch_bwd(x, scale, g, eps):
+    h = x.shape[-1]
+    if h > MAX_H:
+        raise ValueError(f"layer norm backward kernel takes rows up to "
+                         f"{MAX_H} wide, got {h}")
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError("layer norm backward: g must match x")
+    if scale.shape != (h,) or scale.device != x.device:
+        raise ValueError("layer norm scale must be [h] on x's device")
+    x, g = x.contiguous(), g.contiguous()
+    scale = scale.float().contiguous()
+    rows = x.numel() // h
+    n_blocks = -(-rows // BWD_ROWS_PER_BLOCK)
+    dx = torch.empty_like(x)
+    dscale = torch.empty(h, dtype=torch.float32, device=x.device)
+    dbias = torch.empty(h, dtype=torch.float32, device=x.device)
+    partial = torch.empty((n_blocks, 2, h), dtype=torch.float32,
+                          device=x.device)
+    status = _build.library().w2v_layer_norm_bwd(
+        x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dscale.data_ptr(), dbias.data_ptr(), partial.data_ptr(), rows, h,
+        n_blocks, float(eps), _build.dtype_code(x.dtype),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "layer_norm_bwd")
+    backend.count_launch("layer_norm_bwd")
+    return dx, dscale, dbias
+
+
+def _layer_norm(x, scale, bias, eps):
     if not backend.use_kernel(x):
         return layer_norm_plain(x, scale, bias, eps)
     return _launch(x, None, scale, bias, eps, gelu=False)
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """LayerNorm whose backward is ``layer_norm_bwd`` (K9 on CUDA)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps, ctx.bias_dtype = eps, bias.dtype
+        return _layer_norm(x, scale, bias, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale, dbias = layer_norm_bwd(x, scale, g, ctx.eps)
+        return dx, dscale.to(scale.dtype), dbias.to(ctx.bias_dtype), None
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = EPS) -> torch.Tensor:
+    """LayerNorm over the last dim; leading dims are rows.  Differentiable
+    in x, scale and bias."""
+    if backend.needs_grad(x, scale, bias):
+        return _LayerNormFn.apply(x, scale, bias, eps)
+    return _layer_norm(x, scale, bias, eps)
 
 
 def bias_layer_norm_gelu(x: torch.Tensor, conv_bias: torch.Tensor,
@@ -83,4 +175,5 @@ def bias_layer_norm_gelu(x: torch.Tensor, conv_bias: torch.Tensor,
     """(x + conv_bias) -> LayerNorm(scale, bias) -> exact GELU, fused."""
     if not backend.use_kernel(x):
         return bias_layer_norm_gelu_plain(x, conv_bias, scale, bias, eps)
+    backend.refuse_grad("bias_layer_norm_gelu", x, conv_bias, scale, bias)
     return _launch(x, conv_bias, scale, bias, eps, gelu=True)

@@ -1,0 +1,136 @@
+"""The training step: loss, gradients, AdamW with accumulation.
+
+Counterpart of ``wav2vecsegmenter_tpu/train/step.py`` for the
+frozen-backbone task (reference train.py:381-480).  ``AccumulatingAdamW``
+stands for ``make_optimizer``, its ``flush`` method for
+``make_accum_flush``; ``make_train_step`` keeps its name.  They cover:
+
+* AdamW (b1 0.9, b2 0.999, eps 1e-8, weight decay 0.01) over the trainable
+  parameters only, the learning rate decayed to 0 on a cosine over the
+  optimizer's updates, not its micro-steps (``optax.cosine_decay_schedule``
+  evaluated at the count of updates applied before);
+* ``update_freq`` accumulation (``optax.MultiSteps``): every k-th
+  micro-step applies the mean of the k gradients;
+* the epoch-end flush of a partial accumulation of r < k micro-steps, which
+  applies sum(grads)/k, as the reference's ``loss / update_freq`` backward
+  and optimizer step at ``step == steps_in_epoch`` do (train.py:474-480);
+* the batch normalised on the device from its raw int16 samples (mean and
+  count-1 variance over the batch's longest window);
+* the per-epoch ``pos_weight`` operand of the BCE loss;
+* the ``loss`` and ``grad_norm`` metrics, grad_norm the global norm of the
+  micro-step's raw gradients.
+
+PyTorch runs eagerly, so there is no jit and no donated state: the
+optimizer object carries the moments, the accumulation and the counts.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..data.collate import Batch
+from ..infer.pipeline import normalize_int16
+from .loss import compute_bce_loss
+
+
+class AccumulatingAdamW:
+    """AdamW with cosine decay and ``update_freq`` accumulation over
+    ``params``."""
+
+    def __init__(self, params, learning_rate: float, total_steps: int,
+                 update_freq: int, weight_decay: float = 0.01) -> None:
+        self.params = list(params)
+        self.every_k = max(1, int(update_freq))
+        self.base_lr = float(learning_rate)
+        self.total_steps = max(1, int(total_steps))
+        self.adamw = torch.optim.AdamW(self.params, lr=self.base_lr,
+                                       betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=weight_decay)
+        self.updates = 0     # optimizer updates applied (the schedule's count)
+        self.mini_step = 0   # micro-steps accumulated since the last update
+        self._acc = [torch.zeros_like(p) for p in self.params]
+
+    def learning_rate(self) -> float:
+        """The cosine schedule at the current update count."""
+        count = min(self.updates, self.total_steps)
+        return self.base_lr * 0.5 * (1.0 + math.cos(math.pi * count
+                                                    / self.total_steps))
+
+    def update(self, grads) -> None:
+        """Accumulate one micro-step's gradients; apply their mean at the
+        k-th."""
+        for acc, g in zip(self._acc, grads):
+            acc.add_(g)
+        self.mini_step += 1
+        if self.mini_step == self.every_k:
+            self._apply()
+
+    def flush(self) -> bool:
+        """Epoch end: apply a partial accumulation (sum/k); False when
+        there is none (always, with ``update_freq == 1``)."""
+        if self.mini_step == 0:
+            return False
+        self._apply()
+        return True
+
+    def _apply(self) -> None:
+        for group in self.adamw.param_groups:
+            group["lr"] = self.learning_rate()
+        for p, acc in zip(self.params, self._acc):
+            p.grad = acc.div_(self.every_k)
+        self.adamw.step()
+        for p, acc in zip(self.params, self._acc):
+            p.grad = None
+            acc.zero_()
+        self.updates += 1
+        self.mini_step = 0
+
+
+def batch_to_device(batch: Batch, device) -> dict:
+    """The batch's tensors on ``device``, its audio normalised there."""
+    def up(a):
+        return torch.from_numpy(np.asarray(a)).to(device, non_blocking=True)
+
+    return {
+        "audio": normalize_int16(up(batch.audio), batch.norm_length,
+                                 up(batch.included)),
+        "in_lengths": up(batch.in_lengths),
+        "out_mask": up(batch.out_mask),
+        "target": up(batch.target),
+    }
+
+
+def make_train_step(model, loss_fn, ma_window_steps: int,
+                    optimizer: AccumulatingAdamW,
+                    compute_dtype=torch.float32,
+                    generator: torch.Generator | None = None):
+    """Returns ``step(batch, pos_weight) -> metrics``: one micro-step of
+    ``model.train_forward`` on the device of the optimizer's parameters
+    (dropout and SpecAugment drawn from ``generator``, by default a fresh
+    one there), the masked BCE loss with ``pos_weight``, the gradients of
+    the optimizer's parameters, and the optimizer's update.  Metrics:
+    ``loss``, ``grad_norm`` (0-dim tensors), ``logits`` (detached) and the
+    micro-step's raw ``grads``."""
+    params = optimizer.params
+    device = params[0].device
+    if generator is None:
+        generator = torch.Generator(device=device)
+
+    def step(batch: Batch, pos_weight: float | None = None) -> dict:
+        b = batch_to_device(batch, device)
+        logits = model.train_forward(b["audio"], b["in_lengths"],
+                                     b["out_mask"], generator, compute_dtype)
+        lf = loss_fn if pos_weight is None else \
+            loss_fn.with_pos_weight(pos_weight)
+        loss = compute_bce_loss(logits, b["target"], b["out_mask"], lf,
+                                ma_window_steps)
+        grads = torch.autograd.grad(loss, params)
+        grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        optimizer.update(grads)
+        return {"loss": loss.detach(), "grad_norm": grad_norm,
+                "logits": logits.detach(), "grads": grads}
+
+    return step
