@@ -42,13 +42,18 @@ Phases, each printed on its own line; any failure exits non-zero:
    finite losses, the backbone bitwise unchanged, the head moved, the
    kernels' bf16 first-micro-step head gradients as close to the float32
    ones as the eager bf16 gradients (within KERNEL_SLACK), and the
-   float32 kernels and eager gradients within F32_GRAD;
+   float32 kernels and eager gradients within F32_GRAD (``--profile``
+   adds a fifth run, bf16 with the kernels, and a torch.profiler table of
+   its second micro-step on standard error);
 7. a JSON line of every kernel (launches on the path that runs it, error,
    times, bound), the nvidia-smi line, and the last line:
    {"ok": true, "device": {...}}.
 
 The kernel phase runs each backward kernel twice on the same inputs: the
-outputs must be bitwise equal (no atomics).
+outputs must be bitwise equal (no atomics).  The attention rows (bf16 on
+the tensor-core kernels, float32 on the scalar ones) include a batch row
+whose keys are all masked, compared in full: its outputs must also be the
+uniform average of its in-range values.
 
 Needs CUDA; exits non-zero without it.  Imports no JAX.
 """
@@ -252,10 +257,18 @@ def check_kernels(dev) -> dict:
                     library=lambda: F.layer_norm(x, (h,), lib_scale, lib_bias,
                                                  ln.EPS))
 
+    def pairs(mask):
+        # (query, key) pairs per head that need the products: the valid
+        # keys of every query row, and a batch-padding row's in-range keys
+        # (its output averages them: PV, and no QK, is needed there)
+        t = mask.shape[1]
+        valid = float(t * mask.sum().double())
+        return valid, float(t * t * int((~mask.any(1)).sum()))
+
     def attn_bound(q, mask, heads, d, dtype):
-        # QK and PV over the valid keys of every query row
-        valid = mask.sum(1).double()
-        flops = float(4 * heads * d * q.shape[1] * valid.sum())
+        # QK and PV (2 * D FLOP a pair each) over the pairs that need them
+        valid, empty = pairs(mask)
+        flops = heads * d * (4 * valid + 2 * empty)
         return bound(4 * nbytes(q), (tc(dtype), flops))
 
     def sdpa(q, k, v, mask):  # [B, T, H, D] views -> the library call
@@ -264,24 +277,35 @@ def check_kernels(dev) -> dict:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=m)
 
+    def uniform_row(v, heads, d):
+        # the batch-padding row 3 (every key masked) must average its
+        # in-range values with equal weights: its error against that mean
+        want = v[3].float().mean(0)
+        return lambda out: float((out.view(B, -1, heads, d)[3].float()
+                                  - want).abs().max())
+
     def packed_case(t, dtype):
         proj = randn(B, t, 3 * 1024, dtype=dtype)
         mask = ragged_mask(t, g, dev)
+        mask[3] = False  # a batch-padding row: every key masked
         q, k, v = attn._unpack_qkv(proj, 16)
         return dict(fn=lambda: attn.attention_packed(proj, mask, 16),
                     plain=lambda: attn.attention_packed_plain(
                         proj, mask, 16, 64 ** -0.5),
-                    rows=mask, bound=attn_bound(q, mask, 16, 64, dtype),
+                    uniform=uniform_row(v, 16, 64),
+                    bound=attn_bound(q, mask, 16, 64, dtype),
                     library=sdpa(q, k, v, mask))
 
     def bthd_case(t, dtype):
         qkv = randn(B, t, 3, 8, 128, dtype=dtype)  # the SFC's view layout
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         mask = ragged_mask(t, g, dev)
+        mask[3] = False
         return dict(fn=lambda: attn.attention_bthd(q, k, v, mask),
                     plain=lambda: attn.attention_bthd_plain(
                         q, k, v, mask, 128 ** -0.5),
-                    rows=mask, bound=attn_bound(q, mask, 8, 128, dtype),
+                    uniform=uniform_row(v, 8, 128),
+                    bound=attn_bound(q, mask, 8, 128, dtype),
                     library=sdpa(q, k, v, mask))
 
     def ln_bwd_case(h, rows, dtype):
@@ -309,8 +333,10 @@ def check_kernels(dev) -> dict:
         mask[3] = False  # a batch-padding row: every key masked
         scale = d ** -0.5
         # S = QK^T, dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q over
-        # the valid keys of every query row
-        flops = float(10 * heads * d * t * mask.sum(1).double().sum())
+        # the valid keys of every query row; all but S over the padding
+        # row's keys (its P is uniform)
+        valid, empty = pairs(mask)
+        flops = heads * d * (10 * valid + 8 * empty)
         # the SDPA call's backward: forward + backward less the forward
         leaves = [a.transpose(1, 2).detach().requires_grad_()
                   for a in (q, k, v)]
@@ -371,8 +397,9 @@ def check_kernels(dev) -> dict:
         for t in (T, T_TAIL):
             cases.append(("attention_packed", f"[{B},{t},3072]x16", dtype,
                           lambda t=t, d=dtype: packed_case(t, d)))
-        cases.append(("attention_bthd", f"[{B},{T},8,128]", dtype,
-                      lambda d=dtype: bthd_case(T, d)))
+        for t in (T, T_TAIL):
+            cases.append(("attention_bthd", f"[{B},{t},8,128]", dtype,
+                          lambda t=t, d=dtype: bthd_case(t, d)))
         for t in (T, T_TAIL):
             cases.append(("ffn", f"[{B},{t},1024]x4096", dtype,
                           lambda t=t, d=dtype: ffn_case(t, d)))
@@ -408,10 +435,12 @@ def check_kernels(dev) -> dict:
             limits.append((tol, rtol))
             diff = (a.float() - b.float()).abs()
             lim = tol + rtol * b.float().abs()
-            if case.get("rows") is not None:
-                diff, lim = diff[case["rows"]], lim[case["rows"]]
             err = max(err, diff.max().item())
             ok = ok and bool((diff <= lim).all())
+        if case.get("uniform") is not None:
+            uniform_err = case["uniform"](got[0])
+            err = max(err, uniform_err)
+            ok = ok and uniform_err <= tols[got[0].dtype]
         deterministic = (None if again is None else
                          all(torch.equal(a, b) for a, b in zip(got, again)))
         del got, ref, again
@@ -656,9 +685,11 @@ def write_corpus(root: Path) -> tuple[str, str]:
     return str(root / "talks.tsv"), str(root / "segments.tsv")
 
 
-def run_train(dev) -> dict:
+def run_train(dev, profile: bool) -> dict:
     """The train phase; returns the launch counts of the kernels' bf16
-    run."""
+    run.  With ``profile``, one more bf16 run with the kernels prints a
+    torch.profiler table of its second micro-step (steady state, with an
+    optimizer update) on standard error."""
     from wav2vecsegmenter_tpu_torch.cli.common import build_model
     from wav2vecsegmenter_tpu_torch.config import Config, merge
     from wav2vecsegmenter_tpu_torch.train.loop import train
@@ -674,7 +705,7 @@ def run_train(dev) -> dict:
         split = {"talk_list": talks, "segments_list": segments,
                  "segment_length": TRAIN_WINDOW}
 
-        def run(mode: str, dtype: str):
+        def run(mode: str, dtype: str, on_step_extra=None):
             config = merge(Config(), {
                 "exp_name": f"{mode}_{dtype}", "batch_size": B,
                 "learning_rate": 2.5e-4, "max_epochs": 2, "update_freq": 2,
@@ -689,6 +720,8 @@ def run_train(dev) -> dict:
                 if not first:
                     first.extend(g.detach().float().clone()
                                  for g in metrics["grads"])
+                if on_step_extra is not None:
+                    on_step_extra()
 
             before = backend.launch_counts()
             out = train(config, work_dir=tmp, on_step=on_step)
@@ -726,6 +759,24 @@ def run_train(dev) -> dict:
         out_fe, grads_fe = run("eager", "float32")
         out_fe.pop("model")
         torch.cuda.empty_cache()
+        if profile:
+            from torch.profiler import ProfilerActivity, schedule
+            from torch.profiler import profile as prof
+
+            def table(p):
+                print(p.key_averages().table(sort_by="cuda_time_total",
+                                             row_limit=40),
+                      file=sys.stderr, flush=True)
+
+            # steps end at on_step: the first micro-step warms up, the
+            # second is recorded
+            with prof(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA],
+                      schedule=schedule(wait=0, warmup=1, active=1,
+                                        repeat=1),
+                      on_trace_ready=table) as p:
+                run("auto", "bfloat16", on_step_extra=p.step)[0].pop("model")
+            torch.cuda.empty_cache()
 
     for name in TRAIN_PATH:
         check(counts.get(name, 0) > 0,
@@ -789,7 +840,7 @@ def main() -> int:
     time_batch(dev, model, profile="--profile" in sys.argv)
     del model
     torch.cuda.empty_cache()
-    counts_train = run_train(dev)
+    counts_train = run_train(dev, profile="--profile" in sys.argv)
 
     def launches(name):
         if name in DEFAULT_PATH:

@@ -8,17 +8,20 @@ Counterpart of ``wav2vecsegmenter_tpu/ops/attention.py``:
 * ``attention_bthd(q, k, v [B,T,H,D], key_mask, scale)`` replaces
   ``_attn_fwd_kernel`` (the SFC head's attention).
 
-Both launch the one strided CUDA kernel of ``csrc/attention.cu`` on CUDA
+Both launch the strided CUDA kernels of ``csrc/attention.cu`` on CUDA
 tensors, reading the operands where they lie (no head transposes), and run
-the plain versions on CPU tensors.  The source file says what bounds the
-kernel on the H100 and how its design answers that.
+the plain versions on CPU tensors: bf16 on the tensor cores (``wgmma``,
+operands by TMA, so q, k and v need 16-byte-aligned starts and strides of
+whole 16-byte units), float32 on scalar FMAs.  The source file says what
+bounds the kernels on the H100 and how their designs answer that.
 
 Where a gradient is needed, ``attention_qkv`` (the QKV projection viewed
 [B, T, 3, H, D]) and ``attention_bthd`` go through ``_AttentionFn``, the
 counterpart of the JAX custom VJP ``_fused_attention``: its forward is the
 kernel above, its backward ``attention_bwd``, which replaces
-``_attn_bwd_kernel`` (K10, ``csrc/attention_bwd.cu``) on CUDA tensors and
-runs ``attention_bwd_plain`` on CPU tensors.  The Function takes the packed
+``_attn_bwd_kernel`` (K10, ``csrc/attention_bwd.cu``: ``mma.sync`` tensor
+cores in bf16, scalar FMAs in float32) on CUDA tensors and runs
+``attention_bwd_plain`` on CPU tensors.  The Function takes the packed
 projection, so K10 writes dq, dk and dv straight into one [B, T, 3, H, D]
 gradient.  The SFC head trains through ``attention_qkv``;
 ``attention_bthd``'s grad branch stacks q, k and v into one copy first and
@@ -81,6 +84,13 @@ def attention_packed_plain(proj: torch.Tensor, key_mask: torch.Tensor | None,
     return attention_bthd_plain(q, k, v, key_mask, scale).reshape(b, t, th // 3)
 
 
+def _chunk_aligned(a: torch.Tensor) -> bool:
+    """What the bf16 kernels' bulk copies (TMA, cp.async) need of an
+    operand: a 16-byte-aligned start and (batch, time, head) strides of
+    whole 16-byte units."""
+    return a.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in a.stride()[:3])
+
+
 def _launch(q, k, v, key_mask, scale, out, name: str) -> torch.Tensor:
     b, tq, heads, d = q.shape
     tk = k.shape[1]
@@ -92,6 +102,13 @@ def _launch(q, k, v, key_mask, scale, out, name: str) -> torch.Tensor:
         if a.stride(-1) != 1 or a.device != q.device or a.dtype != q.dtype:
             raise ValueError("attention kernel takes operands on one device, "
                              "of one type, with the head dim contiguous")
+    if q.dtype == torch.bfloat16 and not all(
+            _chunk_aligned(a) and (heads == 1 or a.stride(2) >= d)
+            for a in (q, k, v)):
+        raise ValueError("the bf16 attention kernel reads q, k and v by TMA: "
+                         "each needs a 16-byte-aligned start, strides that "
+                         "are multiples of 8 elements and heads that do not "
+                         "overlap")
     mask_ptr = None
     if key_mask is not None:
         if key_mask.shape != (b, tk):
@@ -168,9 +185,9 @@ def _launch_bwd(q, k, v, key_mask, do, scale, out):
     if k.shape != (b, tk, heads, d) or v.shape != k.shape \
             or do.shape != q.shape:
         raise ValueError("attention backward kernel: shapes disagree")
-    if do.stride(-1) != 1:
-        do = do.contiguous()
     do = do.to(q.dtype)
+    if do.stride(-1) != 1 or not _chunk_aligned(do):
+        do = do.contiguous()
     if out is None:
         out = (torch.empty(q.shape, dtype=q.dtype, device=q.device),
                torch.empty(k.shape, dtype=q.dtype, device=q.device),
@@ -184,6 +201,11 @@ def _launch_bwd(q, k, v, key_mask, do, scale, out):
     if out[0].shape != q.shape or out[1].shape != k.shape \
             or out[2].shape != k.shape:
         raise ValueError("attention backward kernel: out shapes disagree")
+    if q.dtype == torch.bfloat16 and not all(
+            _chunk_aligned(a) for a in (q, k, v)):
+        raise ValueError("the bf16 attention backward kernel reads q, k and "
+                         "v by cp.async: each needs a 16-byte-aligned start "
+                         "and strides that are multiples of 8 elements")
     mask_ptr = None
     if key_mask is not None:
         if key_mask.shape != (b, tk):

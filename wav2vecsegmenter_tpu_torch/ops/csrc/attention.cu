@@ -6,33 +6,58 @@
 //   _attn_fwd_kernel        (K4): q/k/v [B, T, H, D] (SFC head, 8 heads of
 //       D=128).
 // Both are one computation: out[b,i,h] = softmax_j(q.k * scale + bias_j) . v
-// with bias_j = 0 for a valid key and -1e30 for a padded one.  The kernel
-// takes element strides for (batch, time, head) of every operand with the
-// head dim contiguous, so the packed layout, the [B,T,H,D] views and the
+// with bias_j = 0 for a valid key and -1e30 for a padded one.  The kernels
+// take the operands where they lie (strides for batch, time and head, the
+// head dim contiguous), so the packed layout, the [B,T,H,D] views and the
 // output need no transpose; on the TPU, lane pairing and transposes did
-// that job.
+// that job.  As in the TPU kernel, the unnormalised probabilities are
+// rounded to the input type before the PV product, and the division by the
+// float32 row sum comes once at the end.  Masked keys score -1e30, not
+// -inf: a row whose keys are all masked (batch padding) then averages its
+// in-range values with equal weights, as the TPU kernel does, instead of
+// producing NaN that would reach the next layer's keys.
 //
 // Bound on the H100: operations.  4 * T^2 * D FLOP per (batch, head) against
-// O(T * D) bytes — ~57 GFLOP per encoder layer at [14, 999] — and the
-// products here are scalar float32 FMAs (products may move to mma.sync or
-// wgmma later).  Design: one block of 128 threads per (batch, head, tile of
-// 4096/D queries).  A query row is owned by D/32 neighbouring lanes, 32 head
-// dims each, with its q slice and output accumulator in registers; the
-// partial dot products meet through warp shuffles.  Keys and values stream
-// through shared memory in tiles of 4096/D rows (float32, each 32-dim
-// segment padded by 4 floats so the float4 reads of the lanes of one row
-// hit distinct banks).  An online softmax with float32 statistics walks the
-// key tiles in chunks of 16: running max m (starting at -1e30), running sum
-// l, rescale by exp(m_old - m_new); the division by l happens once at the
-// end.  Masked keys score -1e30, not -inf: a row whose keys are all masked
-// (batch padding, 1-frame windows' tails) then averages its values with
-// finite weights, as the TPU kernel does, instead of producing NaN that
-// would reach the next layer's keys.  As in the TPU kernel, the unnormalised
-// probabilities are rounded to the input type before the PV product.
+// O(T * D) bytes — ~57 GFLOP per encoder layer at [14, 999].  Two kernels:
+//
+// bf16: attn_fwd_tc_kernel, Hopper tensor cores.  One CTA per (batch, head,
+//   128-query tile): two consumer warpgroups of 64 query rows and one
+//   producer warp.  The producer loads the Q tile once and streams K and V
+//   tiles through a two-stage ring in shared memory by TMA, with mbarriers
+//   (full: bytes landed; empty: both warpgroups done).  Each operand has a
+//   3-D tensor map over [B, T, row] as it lies in memory (the packed
+//   projection's rows of 3*H*D, the SFC's [B, T, 3, 8, 128] view), so keys
+//   past T arrive as zeros and no tile reads the next window's rows; the
+//   128-byte swizzle needs D/64 boxes of 64 columns a tile.  S = Q K^T is a
+//   wgmma with both operands in shared memory (K-major); the online softmax
+//   runs on the float32 accumulator in registers (running max from -1e30,
+//   running sum, rescale of O by exp(m_old - m_new)), with -1e30 added for a
+//   masked key and -inf for a key past tk (a zero-filled row).  The
+//   exponentiated scores, packed to bf16 pairs, are already the register
+//   fragment of wgmma's A operand, so O += P V takes P from registers and V
+//   from shared memory (MN-major, the transposed-B form): the bf16 rounding
+//   of P is the kernel's rounding point.  A key tile whose keys are all
+//   masked adds exactly 0 to a row with a valid key and is skipped, unless
+//   the batch row has no valid key at all (then every tile counts); the
+//   kernel works this out from the mask bytes, so a mask that is not a
+//   prefix stays right.  Query tiles are never skipped: padded query rows
+//   stay finite.  Key tiles: 128 keys at D=64, 64 at D=128 (S holds BK/2
+//   floats a thread beside O's D/2).
+// float32 (the oracle arm, TF32 off): attn_fwd_kernel, scalar FMAs, as
+//   before.  One block of 128 threads per (batch, head, tile of 4096/D
+//   queries); a query row is owned by D/32 neighbouring lanes, 32 head dims
+//   each, with its q slice and output accumulator in registers; the partial
+//   dot products meet through warp shuffles.  Keys and values stream
+//   through shared memory in tiles of 4096/D rows (float32, each 32-dim
+//   segment padded by 4 floats so the float4 reads of the lanes of one row
+//   hit distinct banks), scored in chunks of 16 between softmax rescales.
+//   TF32 tensor cores would miss the arm's 1e-4 tolerance.
 
+#include <limits.h>
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -187,11 +212,326 @@ int dispatch_d(const void* q, const void* k, const void* v,
   return W2V_BAD_ARGS;
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 128;        // query rows a CTA: two warpgroups of 64
+constexpr int kTcConsumers = 256;   // threads of the two consumer warpgroups
+constexpr int kTcThreads = kTcConsumers + 32;  // + the producer warp
+constexpr int kTcStages = 2;        // K/V ring depth
+constexpr int kTcKeyTile64 = 128;   // key rows a tile at D=64
+constexpr int kTcKeyTile128 = 64;   // and at D=128
+constexpr int kTcSmemMax = 227 * 1024;
+
+template <int D>
+struct TcFwd {
+  static constexpr int BK = D == 64 ? kTcKeyTile64 : kTcKeyTile128;
+  static constexpr int kBoxes = D / 64;       // 64-column boxes a row
+  static constexpr int kQBytes = kTcRows * D * 2;
+  static constexpr int kKVBytes = BK * D * 2;  // one K or V tile
+  static constexpr int kK = kQBytes;           // stage s at kK + s*kKVBytes
+  static constexpr int kV = kK + kTcStages * kKVBytes;
+  static constexpr int kBars = kV + kTcStages * kKVBytes;
+  // q_full, full[stages], empty[stages]; then the tile count and list, the
+  // per-tile flags and the key mask row
+  static constexpr int kCount = kBars + 8 * (1 + 2 * kTcStages);
+  static constexpr int kList = kCount + 16;
+  static_assert(kQBytes % 1024 == 0 && kKVBytes % 1024 == 0, "swizzle atoms");
+
+  // bytes of dynamic shared memory for tk keys (+1024 to align the base)
+  static long long smem_bytes(int tk) {
+    const long long ntiles = (tk + BK - 1) / BK;
+    return 1024 + kList + 4 * ntiles + ntiles + tk;
+  }
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = hop_smem(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const unsigned char* __restrict__ key_mask,
+                   __nv_bfloat16* __restrict__ out, int tq, int tk,
+                   int q_sh, int k_sh, int v_sh, Strides os,
+                   float scale_log2) {
+  using L = TcFwd<D>;
+  constexpr int BK = L::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kTcStages;
+  int* count = reinterpret_cast<int*>(smem + L::kCount);
+  int* tiles = reinterpret_cast<int*>(smem + L::kList);
+  const int ntiles = (tk + BK - 1) / BK;
+  unsigned char* flag_s = smem + L::kList + 4 * ntiles;
+  unsigned char* mask_s = flag_s + ntiles;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kTcRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  if (tid == 0) {
+    hop_mbar_init(q_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      hop_mbar_init(&full[s], 1);
+      hop_mbar_init(&empty[s], kTcConsumers);
+    }
+    hop_mbar_init_fence();
+  }
+  w2v_key_tiles(key_mask ? key_mask + (long long)b * tk : nullptr, tk, BK,
+                mask_s, flag_s, count, tiles);
+  const int n = *count;
+
+  if (tid >= kTcConsumers) {  // the producer warp: one thread issues TMA
+    if (tid == kTcConsumers) {
+      hop_mbar_expect_tx(q_full, L::kQBytes);
+      for (int c = 0; c < L::kBoxes; ++c)
+        hop_tma_load_3d(smem + c * kTcRows * 128, &qmap, q_full,
+                        h * q_sh + 64 * c, q0, b);
+      for (int it = 0; it < n; ++it) {
+        const int s = it % kTcStages;
+        hop_mbar_wait(&empty[s], ((it / kTcStages) & 1) ^ 1);
+        hop_mbar_expect_tx(&full[s], 2 * L::kKVBytes);
+        const int k0 = tiles[it] * BK;
+        for (int c = 0; c < L::kBoxes; ++c) {
+          hop_tma_load_3d(smem + L::kK + s * L::kKVBytes + c * BK * 128,
+                          &kmap, &full[s], h * k_sh + 64 * c, k0, b);
+          hop_tma_load_3d(smem + L::kV + s * L::kKVBytes + c * BK * 128,
+                          &vmap, &full[s], h * v_sh + 64 * c, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; a thread
+  // holds rows r0 = (warp in group) * 16 + lane / 4 and r0 + 8, columns
+  // 8 j + 2 (lane % 4) + {0, 1} of every accumulator
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  const int r0 = q0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-1e30f, -1e30f};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  const unsigned char* q_s = smem + wg * 64 * 128;
+  hop_mbar_wait(q_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int s = it % kTcStages;
+    hop_mbar_wait(&full[s], (it / kTcStages) & 1);
+    const unsigned char* k_s = smem + L::kK + s * L::kKVBytes;
+    const unsigned char* v_s = smem + L::kV + s * L::kKVBytes;
+
+    // S = Q K^T: D/16 steps of k16, within 64-column boxes by 32 bytes
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    hop_fence_regs(sc);
+    hop_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int box = kk / 4, off = (kk % 4) * 32;
+      hop_wgmma_ss<BK>(
+          sc, hop_desc_sw128(q_s + box * kTcRows * 128 + off, 16, 1024),
+          hop_desc_sw128(k_s + box * BK * 128 + off, 16, 1024), kk > 0);
+    }
+    hop_wgmma_commit();
+    hop_wgmma_wait<0>();
+    hop_fence_regs(sc);
+
+    // scores in log2 units with the key biases; the tile's row maxima
+    const int k0 = tiles[it] * BK;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int j = k0 + 8 * (i / 4) + 2 * quad + (i & 1);
+      const float bias = j < tk ? (mask_s[j] ? 0.f : -1e30f) : -INFINITY;
+      sc[i] = sc[i] * scale_log2 + bias;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+    hop_fence_regs(o);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // P = exp2(s - m), summed in float32 and packed to bf16 pairs: the A
+    // fragment of k-step kk is accumulator pairs 8 kk + {0,2,4,6}
+    uint32_t p[BK / 4];
+#pragma unroll
+    for (int i = 0; i < BK / 2; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float e0 = exp2f(sc[i] - m[r]);
+      const float e1 = exp2f(sc[i + 1] - m[r]);
+      l[r] += e0 + e1;
+      p[i / 2] = w2v_pack_bf16(e0, e1);
+    }
+
+    // O += P V: V MN-major, k-steps of 16 key rows (2048 bytes), the two
+    // 64-column boxes of D=128 one leading byte offset apart
+    hop_fence_regs(o);
+    hop_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                             p[4 * kk + 3]};
+      hop_wgmma_rs_tb<D>(o, a, hop_desc_sw128(v_s + kk * 2048, BK * 128,
+                                              1024));
+    }
+    hop_wgmma_commit();
+    hop_wgmma_wait<0>();
+    hop_fence_regs(o);
+    hop_mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __nv_bfloat16* ob = out + b * os.b + h * os.h + 2 * quad;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= tq) continue;
+    __nv_bfloat16* orow = ob + (long long)row * os.t;
+    const float inv = 1.f / l[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda function), looked up through the
+// runtime: the library links only the runtime
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over one bf16 operand as it lies: [b, t, row] with the row
+// holding every head ((heads - 1) * sh + D elements from the operand's
+// first), boxes of 64 columns x box_rows rows x 1, 128-byte swizzle;
+// rows past t read as zeros.
+bool make_map(CUtensorMap* map, const void* base, int b, int t, int heads,
+              int d, Strides st, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const long long row_bytes = 2 * st.t;
+  const long long batch_bytes = b == 1 ? row_bytes * t : 2 * st.b;
+  const cuuint64_t dims[3] = {
+      static_cast<cuuint64_t>((heads - 1) * st.h + d),
+      static_cast<cuuint64_t>(t), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
+                                 static_cast<cuuint64_t>(batch_bytes)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// what TMA needs of an operand: a 16-byte-aligned base and strides that are
+// whole 16-byte units; heads that do not overlap
+bool tma_ok(const void* p, Strides st, int heads, int d) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.t % 8 == 0 &&
+         st.b % 8 == 0 && st.h % 8 == 0 && (heads == 1 || st.h >= d) &&
+         st.t > 0 && (long long)(heads - 1) * st.h + d <= st.t;
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v,
+              const unsigned char* key_mask, void* out, int b, int tq, int tk,
+              int heads, Strides qs, Strides ks, Strides vs, Strides os,
+              float scale, cudaStream_t stream) {
+  using L = TcFwd<D>;
+  if (!tma_ok(q, qs, heads, D) || !tma_ok(k, ks, heads, D) ||
+      !tma_ok(v, vs, heads, D) || reinterpret_cast<uintptr_t>(out) % 4 ||
+      os.b % 2 || os.t % 2 || os.h % 2 || qs.h > INT_MAX / heads ||
+      ks.h > INT_MAX / heads || vs.h > INT_MAX / heads)
+    return W2V_BAD_ARGS;
+  const long long smem = L::smem_bytes(tk);
+  if (smem > kTcSmemMax) return W2V_BAD_ARGS;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, q, b, tq, heads, D, qs, kTcRows) ||
+      !make_map(&kmap, k, b, tk, heads, D, ks, L::BK) ||
+      !make_map(&vmap, v, b, tk, heads, D, vs, L::BK))
+    return W2V_BAD_ARGS;
+  int status = (int)cudaFuncSetAttribute(
+      attn_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (status != 0) return status;
+  const dim3 grid((tq + kTcRows - 1) / kTcRows, heads, b);
+  attn_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      qmap, kmap, vmap, key_mask, static_cast<__nv_bfloat16*>(out), tq, tk,
+      (int)qs.h, (int)ks.h, (int)vs.h, os, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_tc(const void* q, const void* k, const void* v,
+                const unsigned char* key_mask, void* out, int b, int tq,
+                int tk, int heads, int d, Strides qs, Strides ks, Strides vs,
+                Strides os, float scale, cudaStream_t stream) {
+  if (d == 64)
+    return launch_tc<64>(q, k, v, key_mask, out, b, tq, tk, heads, qs, ks,
+                         vs, os, scale, stream);
+  if (d == 128)
+    return launch_tc<128>(q, k, v, key_mask, out, b, tq, tk, heads, qs, ks,
+                          vs, os, scale, stream);
+  return W2V_BAD_ARGS;
+}
+
 }  // namespace
 
 // q, k, v, out: element (b, t, h, 0..d) at ptr + b*sb + t*st + h*sh, head
 // dim contiguous.  key_mask: [b, tk] bytes (nonzero = valid key) or NULL for
-// no padding.  Launches on `stream`; returns the launch's cudaError_t.
+// no padding.  dtype W2V_F32 runs the scalar kernel, W2V_BF16 the tensor-core
+// one, which also needs q, k and v 16-byte aligned with strides that are
+// multiples of 8 elements, and out's strides even (else W2V_BAD_ARGS).
+// Launches on `stream`; returns the launch's cudaError_t.
 extern "C" int w2v_attention(
     const void* q, const void* k, const void* v, const void* key_mask,
     void* out, int b, int tq, int tk, int heads, int d, long long q_sb,
@@ -210,7 +550,7 @@ extern "C" int w2v_attention(
     return dispatch_d<float>(q, k, v, mask, out, b, tq, tk, heads, d, qs, ks,
                              vs, os, scale, s);
   if (dtype == W2V_BF16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, mask, out, b, tq, tk, heads, d,
-                                     qs, ks, vs, os, scale, s);
+    return dispatch_tc(q, k, v, mask, out, b, tq, tk, heads, d, qs, ks, vs,
+                       os, scale, s);
   return W2V_BAD_ARGS;
 }

@@ -69,6 +69,18 @@ __device__ __forceinline__ void w2v_ldmatrix_x4(unsigned (&r)[4],
       : "r"(w2v_smem_addr(smem)));
 }
 
+// four 8x8 bf16 matrices, each transposed on the way: lane l gets rows
+// 2 (l % 4) and 2 (l % 4) + 1 of column l / 4 (a B fragment of mma.sync
+// from a tile whose rows run along the product's K)
+__device__ __forceinline__ void w2v_ldmatrix_x4_trans(unsigned (&r)[4],
+                                                      const void* smem) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(w2v_smem_addr(smem)));
+}
+
 // d += a . b for one 16x8x16 bf16 tile, float32 accumulate
 __device__ __forceinline__ void w2v_mma_bf16(float (&d)[4],
                                              const unsigned (&a)[4],
