@@ -6,15 +6,23 @@ Phases, each printed on its own line; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the kernels of wav2vecsegmenter_tpu_torch/ops/csrc
-   (one process per source file, in parallel);
+   (one process per source file, in parallel); the line carries ptxas's
+   registers and spills of every kernel;
 3. kernels: each hand kernel against its plain PyTorch version on the card,
    at the shapes the segmentation and training paths give it, float32
-   (TF32 off) and bf16, with ragged lengths; times from CUDA events, beside
-   the kernel's bound (the larger of its bytes over 3.35 TB/s and its
-   operations over the peak rate of their type) and, where one PyTorch
-   call computes the same function, that call's time (for the attention
-   backward: the SDPA call's forward + backward less its forward); each
-   output is held to the tolerances of its own dtype;
+   (TF32 off) and bf16, with ragged lengths; times from CUDA events,
+   beside the kernel's bound (the larger of its bytes over 3.35 TB/s and
+   its operations over the peak rate of their type) and, where one PyTorch
+   call computes the same function, that call's time (for the attention backward: the SDPA call's forward +
+   backward less its forward); each output is held to the tolerances of
+   its own dtype.  The bf16 attention backward rows first run the forward
+   under grad, whose softmax statistics are held against their plain
+   version, and add the forward's time with and without them and the
+   profiler's device time of each of K10's three kernels; the FFN rows
+   (the full batch, the tail bucket and the remainder ladder's 1, 2 and 4
+   windows) add the cuBLAS chain linear -> GELU -> linear as a reference
+   time and the device time of the two GEMM launches; the LayerNorm
+   backward is timed three times against its library call, in turns;
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
@@ -82,6 +90,7 @@ from wav2vecsegmenter_tpu_torch.ops import attention as attn
 from wav2vecsegmenter_tpu_torch.ops import convfuse as conv
 from wav2vecsegmenter_tpu_torch.ops import ffn as tffn
 from wav2vecsegmenter_tpu_torch.ops import layernorm as ln
+from wav2vecsegmenter_tpu_torch.ops.timing import cuda_ms, device_ms
 
 B = 14              # conf/segment.yaml batch_size
 T, T_TAIL = 999, 1099   # frames of a 20 s window and of the 22 s tail bucket
@@ -103,6 +112,10 @@ LN_OPS, LN_BWD_OPS, GELU_OPS = 8, 14, 4
 # (a bf16 output: one bf16 step of the value, where the float32 sum rounds
 # to either side; dscale and dbias are float32 in both arms)
 BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+# the bf16 forward's softmax statistics under grad, (m, l) of a query row,
+# against their plain version: float32 sums of the same terms in another
+# order (m is up to a few tens in log2 units; l a sum of up to T terms)
+STATS_ATOL, STATS_RTOL = 1e-4, 1e-4
 # float32 train arm: the kernels' and the eager path's first-micro-step
 # head gradients, relative L2 distance
 F32_GRAD = 1e-4
@@ -187,20 +200,6 @@ def env(values: dict):
                 os.environ[k] = v
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call from CUDA events, after one warm call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def ragged_mask(t: int, g: torch.Generator, dev) -> torch.Tensor:
     """[B, t] key mask: one row at t, one at about t/2, one at 1 frame, the
     rest random."""
@@ -217,6 +216,46 @@ def bound(nbytes: float, *ops: tuple[str, float]) -> tuple[float, str]:
     ops_ms = sum(n / PEAK_OPS[kind] for kind, n in ops) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and the start of its template arguments from its
+    mangled name in an anonymous namespace (_ZN<n><namespace><n><name>...),
+    e.g. "attn_bwd_dq_tc_kernel ILi64EE"."""
+    import re
+
+    m = re.match(r"_ZN(\d+)", mangled)
+    if m is None:
+        return mangled[:48]
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if m is None:
+        return mangled[:48]
+    n = int(m.group(1))
+    name = rest[m.end():m.end() + n]
+    return f"{name} {rest[m.end() + n:][:24]}"
+
+
+def ptxas_report(log: str) -> dict:
+    """nvcc's -Xptxas=-v log -> {kernel: "N registers, spills S/L bytes"}
+    (ptxas prints a kernel's spills before its registers)."""
+    import re
+
+    report, name, spills = {}, None, "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = _kernel_name(m.group(1)), "?"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            report[name] = f"{m.group(1)} registers, spills {spills} bytes"
+            name = None
+    return report
 
 
 def nbytes(*tensors) -> int:
@@ -317,13 +356,15 @@ def check_kernels(dev) -> dict:
         _, mean, rstd = torch.ops.aten.native_layer_norm(x, [h], lib_w, lib_b,
                                                          ln.EPS)
         moved = nbytes(x, gr, x, scale) + 2 * h * 4
+        # K9 sits within a few percent of its library call: 50 launches a
+        # timing, three timings of each in turns, the spread reported
         return dict(fn=lambda: ln.layer_norm_bwd(x, scale, gr),
                     plain=lambda: ln.layer_norm_bwd_plain(x, scale, gr),
                     bound=bound(moved, ("f32", rows * h * LN_BWD_OPS)),
                     library=lambda: torch.ops.aten.native_layer_norm_backward(
                         gr, x, [h], mean, rstd, lib_w, lib_b,
                         [True, True, True]),
-                    rtol=BWD_RTOL, twice=True)
+                    rtol=BWD_RTOL, twice=True, iters=50, repeats=3)
 
     def attn_bwd_case(t, heads, d, dtype):
         qkv = randn(B, t, 3, heads, d, dtype=dtype)  # the head's gradient
@@ -346,27 +387,70 @@ def check_kernels(dev) -> dict:
             return F.scaled_dot_product_attention(
                 *leaves, attn_mask=mask[:, None, None, :])
 
-        return dict(fn=lambda: attn.attention_bwd(q, k, v, mask, do, scale),
-                    plain=lambda: attn.attention_bwd_plain(q, k, v, mask,
+        case = dict(plain=lambda: attn.attention_bwd_plain(q, k, v, mask,
                                                            do, scale),
+                    # the TPU kernel's function: q, k, v and do in, dq, dk
+                    # and dv out (the bf16 kernels' extra reads of the
+                    # forward's output and statistics are not counted)
                     bound=bound(7 * nbytes(q), (tc(dtype), flops)),
                     library=lambda: torch.autograd.grad(lib_fwd(), leaves,
                                                         do_t),
                     library_less=lib_fwd, rtol=BWD_RTOL, twice=True)
+        if dtype != torch.bfloat16:  # the scalar kernels recompute it all
+            case.update(fn=lambda: attn.attention_bwd(q, k, v, mask, do,
+                                                      scale))
+            return case
+        # bf16: the forward under grad writes the statistics the backward
+        # reads, once, outside the timed region; they are held against
+        # their plain version, and the forward with them is timed against
+        # the inference forward
+        o, stats = attn._attention_bthd(q, k, v, mask, scale,
+                                        with_stats=True)
+        want = attn.attention_stats_plain(q, k, mask, scale)
+        stats_err = (stats - want).abs()
+        check(bool((stats_err <= STATS_ATOL + STATS_RTOL * want.abs()).all()),
+              f"attention statistics [{B},{t},{heads},{d}]: max abs err "
+              f"{stats_err.max().item()}")
 
-    def ffn_case(t, dtype):
-        x = randn(B, t, 1024, dtype=dtype)
+        case.update(
+            fn=lambda: attn.attention_bwd(q, k, v, mask, do, scale, o, stats),
+            extra=lambda: {
+                "stats_max_abs_err": stats_err.max().item(),
+                "fwd_ms": cuda_ms(lambda: attn.attention_bthd(q, k, v, mask,
+                                                              scale), 10),
+                "fwd_stats_ms": cuda_ms(lambda: attn._attention_bthd(
+                    q, k, v, mask, scale, with_stats=True), 10),
+                "device_ms": device_ms(
+                    lambda: attn.attention_bwd(q, k, v, mask, do, scale, o,
+                                               stats), 10,
+                    ("attn_bwd_rows_kernel", "attn_bwd_dq_tc_kernel",
+                     "attn_bwd_dkdv_tc_kernel"))})
+        return case
+
+    def ffn_case(t, dtype, windows=B):
+        x = randn(windows, t, 1024, dtype=dtype)
         w1, b1 = randn(4096, 1024, std=0.03), randn(4096, std=0.1)
         w2, b2 = randn(1024, 4096, std=0.015), randn(1024, std=0.1)
-        rows = B * t
+        rows = windows * t
         moved = 2 * nbytes(x) + (w1.numel() + w2.numel()) * x.element_size() \
             + nbytes(b1, b2)
         args = (x, w1, b1, w2, b2)
+        # a reference point, not the library column: the cuBLAS chain of
+        # three calls in x's type
+        lw1, lb1, lw2, lb2 = (a.to(dtype) for a in (w1, b1, w2, b2))
+
+        def chain():
+            return F.linear(F.gelu(F.linear(x, lw1, lb1)), lw2, lb2)
+
         return dict(fn=lambda: tffn.ffn(*args),
                     plain=lambda: tffn.ffn_plain(*args),
                     bound=bound(moved, (tc(dtype), 4 * rows * 1024 * 4096),
                                 ("f32", rows * 4096 * (1 + GELU_OPS))),
-                    library=None)
+                    library=None,
+                    extra=lambda: {"cublas_chain_ms": cuda_ms(chain, 10),
+                                   "device_ms": device_ms(
+                                       lambda: tffn.ffn(*args), 10,
+                                       ("ffn_wg_kernel", "ffn_gemm_kernel"))})
 
     def conv_case(t, c, k, s, dtype):
         x = randn(B, t, c, dtype=dtype)
@@ -417,6 +501,12 @@ def check_kernels(dev) -> dict:
             cases.append(("attention_bwd", f"[{B},{T},{heads},{d}]", dtype,
                           lambda h=heads, dd=d, dt=dtype: attn_bwd_case(
                               T, h, dd, dt)))
+    # the remainder ladder's 1, 2 and 4 windows, last, so that the rows
+    # above draw the same inputs from the shared stream as in earlier runs
+    for dtype in (torch.float32, torch.bfloat16):
+        for w in (1, 2, 4):
+            cases.append(("ffn", f"[{w},{T},1024]x4096", dtype,
+                          lambda d=dtype, w=w: ffn_case(T, d, w)))
 
     results: dict = {}
     for name, label, dtype, make in cases:
@@ -445,19 +535,38 @@ def check_kernels(dev) -> dict:
                          all(torch.equal(a, b) for a, b in zip(got, again)))
         del got, ref, again
         big = "63999" in label or str(L_AUDIO) in label
-        iters = 3 if big else 10
-        ms = cuda_ms(case["fn"], iters)
+        iters = case.get("iters", 3 if big else 10)
+
+        def library():
+            if case["library"] is None:
+                return None
+            ms_ = cuda_ms(case["library"], iters)
+            if case.get("library_less") is not None:
+                ms_ -= cuda_ms(case["library_less"], iters)
+            return ms_
+
+        # with repeats, the kernel and its library call in turns; the
+        # median of each goes on record, every timing into the phase line
+        runs = {"ms": [], "library_ms": []}
+        for r in range(case.get("repeats", 1)):
+            for key in (("ms", "library_ms") if r % 2 == 0
+                        else ("library_ms", "ms")):
+                runs[key].append(cuda_ms(case["fn"], iters) if key == "ms"
+                                 else library())
+        ms = float(np.median(runs["ms"]))
+        library_ms = (None if runs["library_ms"][0] is None
+                      else float(np.median(runs["library_ms"])))
         plain_ms = cuda_ms(case["plain"], iters)
-        library_ms = (cuda_ms(case["library"], iters)
-                      if case["library"] is not None else None)
-        if case.get("library_less") is not None:
-            library_ms -= cuda_ms(case["library_less"], iters)
+        extra = case["extra"]() if case.get("extra") is not None else {}
+        if case.get("repeats", 1) > 1:
+            extra.update(ms_repeats=runs["ms"],
+                         library_ms_repeats=runs["library_ms"])
         bound_ms, bound_by = case["bound"]
         dname = str(dtype).replace("torch.", "")
         phase("kernel", name=name, shape=label, dtype=dname, max_abs_err=err,
               limits=limits, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
               bound_by=bound_by, library_ms=library_ms,
-              deterministic=deterministic)
+              deterministic=deterministic, iters=iters, **extra)
         check(ok, f"{name} {label} {dname}: max abs err {err} beyond "
                   f"the (atol, rtol) limits {limits}")
         check(deterministic is not False,
@@ -781,6 +890,14 @@ def run_train(dev, profile: bool) -> dict:
     for name in TRAIN_PATH:
         check(counts.get(name, 0) > 0,
               f"kernel {name} never launched on the train path")
+    # one K10 launch a micro-step (the head's one attention), and K5 15
+    # times a forward of the 15-layer backbone (micro-steps and eval)
+    micro_steps = len(out_k["history"]["loss"])
+    check(counts["attention_bwd"] == micro_steps,
+          f"attention_bwd launched {counts['attention_bwd']} times in "
+          f"{micro_steps} micro-steps")
+    check(counts["ffn"] % 15 == 0,
+          f"ffn launched {counts['ffn']} times, not 15 a forward")
     k_vs_f, e_vs_f = grad_dist(grads_k, grads_f), grad_dist(grads_e, grads_f)
     f32_k_vs_e = grad_dist(grads_f, grads_fe)
 
@@ -830,10 +947,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.library()
-    ptxas = [l.strip() for l in _build.build_log.splitlines()
-             if "registers" in l or "spill" in l]
     phase("build", seconds=time.perf_counter() - t0,
-          nvcc_seconds=_build.build_seconds, ptxas=ptxas)
+          nvcc_seconds=_build.build_seconds,
+          ptxas=ptxas_report(_build.build_log))
 
     kernels = check_kernels(dev)
     counts, counts_unfused, model = run_slice(dev)

@@ -1,0 +1,73 @@
+"""The port's segment and train CLIs refuse the options of the JAX CLIs
+that they do not carry out yet (``cli.common.UNPORTED``): each one set away
+from its default in ``conf/segment.yaml`` / ``conf/train.yaml`` raises
+NotImplementedError naming the key, before any model is built, and the
+defaults pass.  (The default runs end to end in tests/test_torch_segment.py
+and tests/test_torch_train.py.)
+"""
+
+import pytest
+
+from wav2vecsegmenter_tpu_torch.cli import common
+from wav2vecsegmenter_tpu_torch.cli import segment as segment_cli
+from wav2vecsegmenter_tpu_torch.cli import train as train_cli
+from wav2vecsegmenter_tpu_torch.config import compose
+
+SEGMENT = {
+    "runtime.precision": "runtime.precision=f32",
+    "runtime.quantize": "runtime.quantize=int8",
+    "runtime.pack_across_talks": "runtime.pack_across_talks=true",
+    "runtime.profile_steps": "runtime.profile_steps=3",
+    "runtime.mesh": "runtime.mesh.data=8",
+}
+TRAIN = {
+    "keep_last_ckpts": "keep_last_ckpts=2",
+    "keep_best_ckpt": "keep_best_ckpt=false",
+    "best_ckpt_metric": "best_ckpt_metric=eval_loss",
+    "save_every_steps": "save_every_steps=100",
+    "perform_st_evaluation": "perform_st_evaluation=true",
+    "log_wandb": "log_wandb=true",
+    "runtime.profile_steps": "runtime.profile_steps=2",
+    "runtime.mesh": "runtime.mesh.model=2",
+}
+
+
+def _segment_args(tmp_path) -> list[str]:
+    return [f"ckpt_path={tmp_path}/ckpt.pt",
+            f"config_path={tmp_path}/config.yaml",
+            f"output_dir={tmp_path}/out", f"+results_path={tmp_path}/out",
+            "runtime.compute_dtype=float32", "+runtime.device=cpu"]
+
+
+def _train_args() -> list[str]:
+    return ["exp_name=run", "batch_size=2", "max_epochs=1",
+            "+runtime.device=cpu", "runtime.kernels=eager"]
+
+
+def test_every_refused_option_is_tested():
+    assert set(common.UNPORTED["segment"]) == set(SEGMENT)
+    assert set(common.UNPORTED["train"]) == set(TRAIN)
+
+
+@pytest.mark.parametrize("key", sorted(SEGMENT))
+def test_segment_cli_refuses_unported_option(tmp_path, monkeypatch, key):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+        segment_cli.main(_segment_args(tmp_path) + [SEGMENT[key]])
+    assert not (tmp_path / "out").exists()  # raised before any work
+
+
+@pytest.mark.parametrize("key", sorted(TRAIN))
+def test_train_cli_refuses_unported_option(tmp_path, monkeypatch, key):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+        train_cli.main(_train_args() + [TRAIN[key]])
+    assert not (tmp_path / "run").exists()  # raised before any work
+
+
+@pytest.mark.parametrize("app", ["segment", "train"])
+def test_defaults_are_not_refused(tmp_path, app):
+    args = _segment_args(tmp_path) if app == "segment" else _train_args()
+    config = compose(segment_cli.CONF_DIR, app, args,
+                     resolve_interp=app == "train")
+    common.refuse_unported(config, app, segment_cli.CONF_DIR)

@@ -242,9 +242,11 @@ def kernels_forced(monkeypatch):
         with torch.no_grad():
             return tln.layer_norm_plain(x, scale, bias, eps)
 
-    def attn_fwd(q, k, v, key_mask, scale, out, name):
+    def attn_fwd(q, k, v, key_mask, scale, out, name, stats=None):
         calls["attention_bthd"] += 1
         with torch.no_grad():
+            if stats is not None:
+                stats.copy_(tattn.attention_stats_plain(q, k, key_mask, scale))
             return out.copy_(tattn.attention_bthd_plain(q, k, v, key_mask,
                                                         scale))
 
@@ -252,8 +254,9 @@ def kernels_forced(monkeypatch):
         calls["layer_norm_bwd"] += 1
         return tln.layer_norm_bwd_plain(x, scale, g, eps)
 
-    def attn_bwd(q, k, v, key_mask, do, scale, out):
+    def attn_bwd(q, k, v, key_mask, do, scale, o, stats, out):
         calls["attention_bwd"] += 1
+        calls["attention_bwd_inputs"] = (o, stats)
         for dst, src in zip(out, tattn.attention_bwd_plain(q, k, v, key_mask,
                                                            do, scale)):
             dst.copy_(src)
@@ -269,6 +272,40 @@ def kernels_forced(monkeypatch):
     monkeypatch.setattr(tattn, "_launch", attn_fwd)
     monkeypatch.setattr(tattn, "_launch_bwd", attn_bwd)
     yield calls
+
+
+@pytest.mark.parametrize("heads,d", [(8, 128), (2, 64)])
+def test_attention_fn_hands_forward_statistics_to_backward(kernels_forced,
+                                                           heads, d):
+    """The bf16 kernel path of _AttentionFn (launches stood in for by the
+    plain versions): the forward asks the kernel for its statistics, and
+    the backward gets them and the forward's output beside the new
+    attention_bwd arguments; the gradients match jax.vjp through the JAX
+    _fused_bwd (_attn_bwd_kernel, interpret mode)."""
+    rng = np.random.RandomState(d + 3 * heads)
+    b, t = len(LENGTHS), 50
+    q, k, v, do = (rng.randn(b, t, heads, d).astype(np.float32)
+                   for _ in range(4))
+    mask = _key_mask(LENGTHS, t)
+    scale = d ** -0.5
+    qkv = torch.from_numpy(np.stack([q, k, v], axis=2)).bfloat16()
+    qkv.requires_grad_()
+    dout = torch.from_numpy(do).bfloat16()
+    out = tattn.attention_qkv(qkv, torch.from_numpy(mask), scale)
+    dqkv, = torch.autograd.grad(out, qkv, dout)
+    o, stats = kernels_forced["attention_bwd_inputs"]
+    assert torch.equal(o, out)
+    assert stats.shape == (b, heads, t, 2) and stats.dtype == torch.float32
+    torch.testing.assert_close(stats, tattn.attention_stats_plain(
+        *qkv.detach().unbind(2)[:2], torch.from_numpy(mask), scale))
+    assert kernels_forced["attention_bthd"] == 1
+    assert kernels_forced["attention_bwd"] == 1
+    want = _pallas_vjp(
+        lambda a, bb, c: jattn.attention_pallas_bthd(a, bb, c,
+                                                     jnp.asarray(mask), scale),
+        tuple(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+        jnp.asarray(do, jnp.bfloat16))
+    _assert_grads_close(dqkv.unbind(2), want, "bfloat16")
 
 
 def _sfc_grads(head, x, mask):
@@ -297,6 +334,8 @@ def test_kernel_paths_keep_the_graph_or_refuse(kernels_forced):
     mask = torch.from_numpy(_key_mask([20, 9, 0], 20))
     kernels_forced.update(dict.fromkeys(kernels_forced, 0))
     got = _sfc_grads(head, hid, mask)
+    inputs = kernels_forced.pop("attention_bwd_inputs")
+    assert inputs[0] is not None and inputs[1] is None  # float32: no stats
     assert kernels_forced == {"layer_norm": 3, "attention_bthd": 1,
                               "layer_norm_bwd": 3, "attention_bwd": 1}
     with pytest.MonkeyPatch.context() as mp:

@@ -23,6 +23,46 @@ from ..models.shas import SHAS
 logger = logging.getLogger("wav2vecsegmenter_tpu_torch")
 
 
+# Options of the JAX CLIs that the port does not carry out yet, by app, with
+# the ROADMAP item that ports each.  ``refuse_unported`` raises for any of
+# them set away from its default in conf/<app>.yaml.
+UNPORTED = {
+    "segment": {
+        "runtime.precision": "A6 (the precision ladder)",
+        "runtime.quantize": "A9 (int8)",
+        "runtime.pack_across_talks": "A9 (packing)",
+        "runtime.profile_steps": "A11 (profiler traces)",
+        "runtime.mesh": "A9 (parallel)",
+    },
+    "train": {
+        "keep_last_ckpts": "A3 (checkpoints and resume)",
+        "keep_best_ckpt": "A3 (checkpoints and resume)",
+        "best_ckpt_metric": "A3 (checkpoints and resume)",
+        "save_every_steps": "A3 (checkpoints and resume)",
+        "perform_st_evaluation": "A8 (the ST-eval harness)",
+        "log_wandb": "A9 (wandb)",
+        "runtime.profile_steps": "A11 (profiler traces)",
+        "runtime.mesh": "A9 (parallel)",
+    },
+}
+
+
+def refuse_unported(config, app: str, conf_dir) -> None:
+    """Raise NotImplementedError for an option of ``UNPORTED[app]`` that
+    ``config`` sets away from its default in ``conf_dir/<app>.yaml``, so
+    that no option is accepted and then silently not carried out."""
+    from ..config import compose, to_plain
+
+    defaults = compose(conf_dir, app, [], resolve_interp=False)
+    for key, item in UNPORTED[app].items():
+        value = to_plain(config.select(key))
+        default = to_plain(defaults.select(key))
+        if value != default:
+            raise NotImplementedError(
+                f"{key}={value} is not ported (only its default {default} "
+                f"runs); ROADMAP {item} ports it")
+
+
 def runtime_device_dtype(device: str = "cuda",
                          compute_dtype: str = "bfloat16"):
     """(device, compute dtype) as the caller asks: ``cuda`` (the default)

@@ -11,8 +11,9 @@ The checkpoint is a reference ``.pt`` (either layout).  The run is on the
 first CUDA device and raises without one; ``+runtime.device=cpu`` asks for
 the CPU.  ``runtime.kernels`` is ``auto`` (hand kernels on CUDA) or
 ``eager``; ``runtime.compute_dtype`` applies on CUDA, the CPU runs float32.
-Sweeps (``-m``) are not ported.  pyyaml is imported inside :func:`main`
-only.
+Sweeps (``-m``) are not ported, and the runtime options of the JAX CLI
+that the port does not carry out (``common.UNPORTED``) raise when set away
+from their defaults.  pyyaml is imported inside :func:`main` only.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     overrides = [a for a in argv if "=" in a and not a.startswith("--")]
 
     config = compose(CONF_DIR, "segment", overrides, resolve_interp=False)
+    common.refuse_unported(config, "segment", CONF_DIR)
     exclude = config.select(
         "hydra.job.config.override_dirname.exclude_keys") or []
     config.update_path("hydra.job.override_dirname",

@@ -11,7 +11,10 @@ The run is on the first CUDA device and raises without one;
 ``+runtime.device=cpu`` asks for the CPU.  The composed config goes to
 ``<exp_name>/.hydra/config.yaml`` (the file the segment CLI's
 ``config_path`` reads), the run's artifacts under ``<exp_name>/``
-(``train.loop``).  pyyaml is imported inside :func:`main` only.
+(``train.loop``).  The options of the JAX CLI that the port does not
+carry out yet (checkpoint rotation, ST evaluation, wandb, profiling,
+meshes: ``common.UNPORTED``) raise when set away from their defaults.
+pyyaml is imported inside :func:`main` only.
 """
 
 from __future__ import annotations
@@ -28,10 +31,12 @@ def main(argv: list[str] | None = None) -> dict:
 
     from ..config import compose, to_plain
     from ..train.loop import train
+    from .common import refuse_unported
 
     argv = sys.argv[1:] if argv is None else argv
     overrides = [a for a in argv if "=" in a and not a.startswith("--")]
     config = compose(CONF_DIR, "train", overrides)
+    refuse_unported(config, "train", CONF_DIR)
     logging.basicConfig(level=logging.INFO,
                         format="[%(levelname)s %(asctime)s] %(message)s")
     hydra_dir = Path(config.exp_name) / ".hydra"

@@ -35,7 +35,9 @@ def _scores(targets: np.ndarray, preds: np.ndarray) -> dict:
 def evaluate(dataloader_generator, engine: WindowInference) -> dict:
     """eval_loss (when the engine has a loss_fn), eval_accuracy, eval_f1,
     eval_precision, eval_recall over every talk of the generator's split.
-    One talk is dispatched ahead of the one being stitched."""
+    One talk is dispatched ahead of the one being stitched.  eval_loss is
+    the mean over (talk, pass) of each one's mean batch loss, as the JAX
+    package takes it, so a talk with more batches weighs no more."""
     all_preds, all_targets, all_losses = [], [], []
     dataset = dataloader_generator.dataset
     inference_times = dataset.inference_times
@@ -57,9 +59,14 @@ def evaluate(dataloader_generator, engine: WindowInference) -> dict:
             handles.append(dispatch_one(nxt))
         passes, duration = handles.pop(0)
         targets = np.zeros(duration)
-        probs = sum(collect_talk(pending, duration,
-                                 targets if it == 0 else None, all_losses)
-                    for it, pending in enumerate(passes)) / inference_times
+        probs = np.zeros(duration)
+        for it, pending in enumerate(passes):
+            losses: list = []
+            probs += collect_talk(pending, duration,
+                                  targets if it == 0 else None, losses)
+            if losses:  # one mean per (talk, pass), as the JAX package
+                all_losses.append(float(np.mean(losses)))
+        probs /= inference_times
         # the reference divides by inference_times a second time
         # (lib/evaluate.py:185), a no-op at the default of one pass
         all_preds.append(probs / inference_times > 0.5)

@@ -38,9 +38,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, conv_bias, scale, bias, out, rows, h, eps, dtype, gelu, stream
     "w2v_layer_norm": (_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P),
-    # q, k, v, key_mask, out, b, tq, tk, heads, d,
+    # q, k, v, key_mask, out, stats, b, tq, tk, heads, d,
     # q/k/v/out strides (batch, time, head), scale, dtype, stream
-    "w2v_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "w2v_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                       _F, _I, _P),
     # x, w1, b1, w2, b2, hidden, out, rows, h, f, dtype, stream
@@ -55,10 +55,10 @@ _SIGNATURES = {
     # dtype, stream
     "w2v_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _F, _I,
                            _P),
-    # q, k, v, key_mask, do, dq, dk, dv, stats, strides (host array of 21),
-    # b, tq, tk, heads, d, scale, dtype, stream
-    "w2v_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _I, _I, _F, _I, _P),
+    # q, k, v, key_mask, do, dq, dk, dv, o, stats, rows, strides (host
+    # array of 24), b, tq, tk, heads, d, scale, dtype, stream
+    "w2v_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 _lib = None

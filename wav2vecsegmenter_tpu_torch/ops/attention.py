@@ -19,11 +19,14 @@ Where a gradient is needed, ``attention_qkv`` (the QKV projection viewed
 [B, T, 3, H, D]) and ``attention_bthd`` go through ``_AttentionFn``, the
 counterpart of the JAX custom VJP ``_fused_attention``: its forward is the
 kernel above, its backward ``attention_bwd``, which replaces
-``_attn_bwd_kernel`` (K10, ``csrc/attention_bwd.cu``: ``mma.sync`` tensor
-cores in bf16, scalar FMAs in float32) on CUDA tensors and runs
-``attention_bwd_plain`` on CPU tensors.  The Function takes the packed
-projection, so K10 writes dq, dk and dv straight into one [B, T, 3, H, D]
-gradient.  The SFC head trains through ``attention_qkv``;
+``_attn_bwd_kernel`` (K10, ``csrc/attention_bwd.cu``: ``wgmma`` tensor
+cores fed by TMA in bf16, scalar FMAs in float32) on CUDA tensors and runs
+``attention_bwd_plain`` on CPU tensors.  In bf16 the forward also writes
+each query row's softmax statistics (``attention_stats_plain`` is their
+plain version) and the Function hands them and the output to the backward,
+which then needs no sweep of its own for them.  The Function takes the
+packed projection, so K10 writes dq, dk and dv straight into one
+[B, T, 3, H, D] gradient.  The SFC head trains through ``attention_qkv``;
 ``attention_bthd``'s grad branch stacks q, k and v into one copy first and
 exists to keep the JAX function's differentiable signature (its tests use
 it).  ``attention_packed`` has no backward yet and refuses a
@@ -44,6 +47,7 @@ import torch
 from . import _build, backend
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 backend.register_kernel("attention_packed")
 backend.register_kernel("attention_bthd")
@@ -70,6 +74,22 @@ def attention_bthd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out / e.sum(dim=-1).permute(0, 2, 1)[..., None]).to(q.dtype)
 
 
+def attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
+                          key_mask: torch.Tensor | None,
+                          scale: float) -> torch.Tensor:
+    """The softmax statistics the bf16 forward kernel writes under grad:
+    [B, H, Tq, 2] float32, per query row its largest score in log2 units,
+    m = max_j s_j with s_j = q.k_j * scale * log2 e + bias_j (bias_j 0 or
+    -1e30, as the kernel adds it), and l = sum_j exp2(s_j - m), so that
+    P_ij = exp2(s_ij - m_i) / l_i."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
+        scale * LOG2E)
+    if key_mask is not None:
+        s = s + torch.where(key_mask[:, None, None, :], 0.0, NEG_INF)
+    m = s.amax(dim=-1)
+    return torch.stack([m, torch.exp2(s - m[..., None]).sum(-1)], -1)
+
+
 def _unpack_qkv(proj: torch.Tensor, num_heads: int):
     b, t, th = proj.shape
     d = th // 3 // num_heads
@@ -85,13 +105,17 @@ def attention_packed_plain(proj: torch.Tensor, key_mask: torch.Tensor | None,
 
 
 def _chunk_aligned(a: torch.Tensor) -> bool:
-    """What the bf16 kernels' bulk copies (TMA, cp.async) need of an
+    """What the bf16 kernels' TMA loads need of an
     operand: a 16-byte-aligned start and (batch, time, head) strides of
     whole 16-byte units."""
     return a.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in a.stride()[:3])
 
 
-def _launch(q, k, v, key_mask, scale, out, name: str) -> torch.Tensor:
+def _launch(q, k, v, key_mask, scale, out, name: str,
+            stats=None) -> torch.Tensor:
+    """Launch the forward kernel into ``out``; ``stats``, when given (bf16
+    only), is a contiguous [B, H, Tq, 2] float32 tensor that gets each
+    query row's (m, l) (``attention_stats_plain``)."""
     b, tq, heads, d = q.shape
     tk = k.shape[1]
     if d not in (64, 128):
@@ -109,16 +133,19 @@ def _launch(q, k, v, key_mask, scale, out, name: str) -> torch.Tensor:
                          "each needs a 16-byte-aligned start, strides that "
                          "are multiples of 8 elements and heads that do not "
                          "overlap")
-    mask_ptr = None
-    if key_mask is not None:
-        if key_mask.shape != (b, tk):
-            raise ValueError("key_mask must be [B, T_k]")
-        key_mask = key_mask.to(device=q.device, dtype=torch.bool).contiguous()
-        mask_ptr = key_mask.data_ptr()
+    if stats is not None and (
+            q.dtype != torch.bfloat16 or stats.shape != (b, heads, tq, 2)
+            or stats.dtype != torch.float32 or not stats.is_contiguous()
+            or stats.device != q.device):
+        raise ValueError("the forward's statistics come from the bf16 "
+                         "kernel, into a contiguous [B, H, Tq, 2] float32 "
+                         "tensor on q's device")
+    mask = _device_mask(key_mask, b, tk, q.device)
     lib = _build.library()
     status = lib.w2v_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        b, tq, tk, heads, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        None if stats is None else stats.data_ptr(), b, tq, tk, heads, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         float(scale), _build.dtype_code(q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -127,11 +154,31 @@ def _launch(q, k, v, key_mask, scale, out, name: str) -> torch.Tensor:
     return out
 
 
-def _attention_bthd(q, k, v, key_mask, scale) -> torch.Tensor:
+def _device_mask(key_mask, b: int, tk: int, device):
+    """The key mask as [B, T_k] bytes on the device (kept alive by the
+    caller's reference until the launch is queued), or None."""
+    if key_mask is None:
+        return None
+    if key_mask.shape != (b, tk):
+        raise ValueError("key_mask must be [B, T_k]")
+    return key_mask.to(device=device, dtype=torch.bool).contiguous()
+
+
+def _attention_bthd(q, k, v, key_mask, scale, with_stats: bool = False):
+    """The forward on the kernel or the plain path; with ``with_stats``
+    -> (out, stats), stats the bf16 kernel's [B, H, Tq, 2] statistics and
+    None elsewhere (the float32 and plain backwards recompute theirs)."""
     if not backend.use_kernel(q):
-        return attention_bthd_plain(q, k, v, key_mask, scale)
+        out = attention_bthd_plain(q, k, v, key_mask, scale)
+        return (out, None) if with_stats else out
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return _launch(q, k, v, key_mask, scale, out, "attention_bthd")
+    stats = None
+    if with_stats and q.dtype == torch.bfloat16:
+        b, tq, heads, _ = q.shape
+        stats = torch.empty((b, heads, tq, 2), dtype=torch.float32,
+                            device=q.device)
+    _launch(q, k, v, key_mask, scale, out, "attention_bthd", stats)
+    return (out, stats) if with_stats else out
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -162,10 +209,14 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_mask: torch.Tensor | None, do: torch.Tensor,
-                  scale: float, out=None):
+                  scale: float, o: torch.Tensor | None = None,
+                  stats: torch.Tensor | None = None, out=None):
     """(dq, dk, dv) of ``attention_bthd`` from the output gradient ``do``
     [B, T, H, D]; ``out``, when given, is the (dq, dk, dv) destination
-    (views allowed, head dim contiguous)."""
+    (views allowed, head dim contiguous).  The bf16 kernels take the
+    forward's output ``o`` and statistics ``stats`` (``_attention_bthd``
+    with ``with_stats``); the float32 kernels and the plain version
+    recompute what they need and take neither."""
     if not backend.use_kernel(q):
         grads = attention_bwd_plain(q, k, v, key_mask, do, scale)
         if out is None:
@@ -173,10 +224,10 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for dst, src in zip(out, grads):
             dst.copy_(src)
         return out
-    return _launch_bwd(q, k, v, key_mask, do, scale, out)
+    return _launch_bwd(q, k, v, key_mask, do, scale, o, stats, out)
 
 
-def _launch_bwd(q, k, v, key_mask, do, scale, out):
+def _launch_bwd(q, k, v, key_mask, do, scale, o, stats, out):
     b, tq, heads, d = q.shape
     tk = k.shape[1]
     if d not in (64, 128):
@@ -185,6 +236,20 @@ def _launch_bwd(q, k, v, key_mask, do, scale, out):
     if k.shape != (b, tk, heads, d) or v.shape != k.shape \
             or do.shape != q.shape:
         raise ValueError("attention backward kernel: shapes disagree")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        if o is None or stats is None:
+            raise ValueError("the bf16 attention backward takes the "
+                             "forward's output o and statistics stats")
+        if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device \
+                or stats.shape != (b, heads, tq, 2) \
+                or stats.dtype != torch.float32 \
+                or not stats.is_contiguous() or stats.device != q.device:
+            raise ValueError("o must be [B, Tq, H, D] in q's type and stats "
+                             "a contiguous [B, H, Tq, 2] float32 tensor")
+        if o.stride(-1) != 1 or o.data_ptr() % 4 \
+                or any(st % 2 for st in o.stride()[:3]):
+            o = o.contiguous()
     do = do.to(q.dtype)
     if do.stride(-1) != 1 or not _chunk_aligned(do):
         do = do.contiguous()
@@ -201,24 +266,25 @@ def _launch_bwd(q, k, v, key_mask, do, scale, out):
     if out[0].shape != q.shape or out[1].shape != k.shape \
             or out[2].shape != k.shape:
         raise ValueError("attention backward kernel: out shapes disagree")
-    if q.dtype == torch.bfloat16 and not all(
-            _chunk_aligned(a) for a in (q, k, v)):
-        raise ValueError("the bf16 attention backward kernel reads q, k and "
-                         "v by cp.async: each needs a 16-byte-aligned start "
-                         "and strides that are multiples of 8 elements")
-    mask_ptr = None
-    if key_mask is not None:
-        if key_mask.shape != (b, tk):
-            raise ValueError("key_mask must be [B, T_k]")
-        key_mask = key_mask.to(device=q.device, dtype=torch.bool).contiguous()
-        mask_ptr = key_mask.data_ptr()
-    strides = (ctypes.c_longlong * 21)(
-        *(s for a in operands for s in a.stride()[:3]))
-    stats = torch.empty((b, heads, tq, 3), dtype=torch.float32,
-                        device=q.device)
+    if bf16 and not all(_chunk_aligned(a) and (heads == 1 or a.stride(2) >= d)
+                        for a in (q, k, v, do)):
+        raise ValueError("the bf16 attention backward kernel reads q, k, v "
+                         "and do by TMA: each needs a 16-byte-aligned "
+                         "start, strides that are multiples of 8 elements "
+                         "and heads that do not overlap")
+    mask = _device_mask(key_mask, b, tk, q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(st for a in operands for st in a.stride()[:3]),
+        *(o.stride()[:3] if bf16 else (0, 0, 0)))
+    # bf16: each query row's (m, 1/l, delta, 0), written by the pre-pass;
+    # float32: the scalar dq kernel's (m, l, delta)
+    rows = torch.empty((b, heads, tq, 4 if bf16 else 3), dtype=torch.float32,
+                       device=q.device)
     status = _build.library().w2v_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
-        *(a.data_ptr() for a in out), stats.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), do.data_ptr(),
+        *(a.data_ptr() for a in out), o.data_ptr() if bf16 else None,
+        stats.data_ptr() if bf16 else None, rows.data_ptr(),
         ctypes.addressof(strides), b, tq, tk, heads, d, float(scale),
         _build.dtype_code(q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -230,20 +296,23 @@ def _launch_bwd(q, k, v, key_mask, do, scale, out):
 class _AttentionFn(torch.autograd.Function):
     """Attention on the QKV projection viewed [B, T, 3, H, D], whose
     backward is ``attention_bwd`` (K10 on CUDA) writing one packed
-    gradient."""
+    gradient.  The forward's output and, from the bf16 kernel, its
+    statistics are saved for the backward."""
 
     @staticmethod
     def forward(ctx, qkv, key_mask, scale):
-        ctx.save_for_backward(qkv, key_mask)
+        out, stats = _attention_bthd(*qkv.unbind(2), key_mask, scale,
+                                     with_stats=True)
+        ctx.save_for_backward(qkv, key_mask, out, stats)
         ctx.scale = scale
-        return _attention_bthd(*qkv.unbind(2), key_mask, scale)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
-        qkv, key_mask = ctx.saved_tensors
+        qkv, key_mask, out, stats = ctx.saved_tensors
         dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
-        attention_bwd(*qkv.unbind(2), key_mask, do, ctx.scale,
+        attention_bwd(*qkv.unbind(2), key_mask, do, ctx.scale, out, stats,
                       out=dqkv.unbind(2))
         return dqkv, None, None
 

@@ -42,7 +42,11 @@
 //   kernel works this out from the mask bytes, so a mask that is not a
 //   prefix stays right.  Query tiles are never skipped: padded query rows
 //   stay finite.  Key tiles: 128 keys at D=64, 64 at D=128 (S holds BK/2
-//   floats a thread beside O's D/2).
+//   floats a thread beside O's D/2).  Under grad (the SFC head in
+//   training) the kernel also writes each query row's final running max
+//   and sum, (m, l), which the backward kernels (attention_bwd.cu) read
+//   instead of sweeping the keys for them; the inference launch passes no
+//   pointer and writes nothing more.
 // float32 (the oracle arm, TF32 off): attn_fwd_kernel, scalar FMAs, as
 //   before.  One block of 128 threads per (batch, head, tile of 4096/D
 //   queries); a query row is owned by D/32 neighbouring lanes, 32 head dims
@@ -246,24 +250,19 @@ struct TcFwd {
   }
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = hop_smem(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const unsigned char* __restrict__ key_mask,
-                   __nv_bfloat16* __restrict__ out, int tq, int tk,
-                   int q_sh, int k_sh, int v_sh, Strides os,
-                   float scale_log2) {
+                   __nv_bfloat16* __restrict__ out,
+                   float2* __restrict__ stats, int tq, int tk, int q_sh,
+                   int k_sh, int v_sh, Strides os, float scale_log2) {
   using L = TcFwd<D>;
   constexpr int BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
+  unsigned char* smem = hop_align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kTcStages;
@@ -413,6 +412,8 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= tq) continue;
+    if (stats != nullptr && quad == 0)
+      stats[((long long)b * gridDim.y + h) * tq + row] = make_float2(m[r], l[r]);
     __nv_bfloat16* orow = ob + (long long)row * os.t;
     const float inv = 1.f / l[r];
 #pragma unroll
@@ -423,70 +424,21 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda function), looked up through the
-// runtime: the library links only the runtime
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 3-D map over one bf16 operand as it lies: [b, t, row] with the row
-// holding every head ((heads - 1) * sh + D elements from the operand's
-// first), boxes of 64 columns x box_rows rows x 1, 128-byte swizzle;
-// rows past t read as zeros.
 bool make_map(CUtensorMap* map, const void* base, int b, int t, int heads,
               int d, Strides st, int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const long long row_bytes = 2 * st.t;
-  const long long batch_bytes = b == 1 ? row_bytes * t : 2 * st.b;
-  const cuuint64_t dims[3] = {
-      static_cast<cuuint64_t>((heads - 1) * st.h + d),
-      static_cast<cuuint64_t>(t), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
-                                 static_cast<cuuint64_t>(batch_bytes)};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hop_operand_map(map, base, b, t, heads, d, st.b, st.t, st.h,
+                         box_rows);
 }
 
-// what TMA needs of an operand: a 16-byte-aligned base and strides that are
-// whole 16-byte units; heads that do not overlap
 bool tma_ok(const void* p, Strides st, int heads, int d) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.t % 8 == 0 &&
-         st.b % 8 == 0 && st.h % 8 == 0 && (heads == 1 || st.h >= d) &&
-         st.t > 0 && (long long)(heads - 1) * st.h + d <= st.t;
+  return hop_operand_ok(p, st.b, st.t, st.h, heads, d);
 }
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v,
-              const unsigned char* key_mask, void* out, int b, int tq, int tk,
-              int heads, Strides qs, Strides ks, Strides vs, Strides os,
-              float scale, cudaStream_t stream) {
+              const unsigned char* key_mask, void* out, float2* stats, int b,
+              int tq, int tk, int heads, Strides qs, Strides ks, Strides vs,
+              Strides os, float scale, cudaStream_t stream) {
   using L = TcFwd<D>;
   if (!tma_ok(q, qs, heads, D) || !tma_ok(k, ks, heads, D) ||
       !tma_ok(v, vs, heads, D) || reinterpret_cast<uintptr_t>(out) % 4 ||
@@ -506,21 +458,23 @@ int launch_tc(const void* q, const void* k, const void* v,
   if (status != 0) return status;
   const dim3 grid((tq + kTcRows - 1) / kTcRows, heads, b);
   attn_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
-      qmap, kmap, vmap, key_mask, static_cast<__nv_bfloat16*>(out), tq, tk,
-      (int)qs.h, (int)ks.h, (int)vs.h, os, scale * 1.4426950408889634f);
+      qmap, kmap, vmap, key_mask, static_cast<__nv_bfloat16*>(out), stats,
+      tq, tk, (int)qs.h, (int)ks.h, (int)vs.h, os,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 int dispatch_tc(const void* q, const void* k, const void* v,
-                const unsigned char* key_mask, void* out, int b, int tq,
-                int tk, int heads, int d, Strides qs, Strides ks, Strides vs,
-                Strides os, float scale, cudaStream_t stream) {
+                const unsigned char* key_mask, void* out, float2* stats,
+                int b, int tq, int tk, int heads, int d, Strides qs,
+                Strides ks, Strides vs, Strides os, float scale,
+                cudaStream_t stream) {
   if (d == 64)
-    return launch_tc<64>(q, k, v, key_mask, out, b, tq, tk, heads, qs, ks,
-                         vs, os, scale, stream);
+    return launch_tc<64>(q, k, v, key_mask, out, stats, b, tq, tk, heads, qs,
+                         ks, vs, os, scale, stream);
   if (d == 128)
-    return launch_tc<128>(q, k, v, key_mask, out, b, tq, tk, heads, qs, ks,
-                          vs, os, scale, stream);
+    return launch_tc<128>(q, k, v, key_mask, out, stats, b, tq, tk, heads,
+                          qs, ks, vs, os, scale, stream);
   return W2V_BAD_ARGS;
 }
 
@@ -531,10 +485,15 @@ int dispatch_tc(const void* q, const void* k, const void* v,
 // no padding.  dtype W2V_F32 runs the scalar kernel, W2V_BF16 the tensor-core
 // one, which also needs q, k and v 16-byte aligned with strides that are
 // multiples of 8 elements, and out's strides even (else W2V_BAD_ARGS).
-// Launches on `stream`; returns the launch's cudaError_t.
+// stats: NULL, or (bf16 only) a [b, heads, tq] array of float pairs that
+// gets each query row's (m, l): its largest score in log2 units and
+// sum_j exp2(s_j - m) in float32, so that P_ij = exp2(s_ij - m_i) / l_i
+// (the backward kernels' input).  Launches on `stream`; returns the
+// launch's cudaError_t.
 extern "C" int w2v_attention(
     const void* q, const void* k, const void* v, const void* key_mask,
-    void* out, int b, int tq, int tk, int heads, int d, long long q_sb,
+    void* out, void* stats, int b, int tq, int tk, int heads, int d,
+    long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh, float scale, int dtype,
@@ -546,11 +505,11 @@ extern "C" int w2v_attention(
       vs{v_sb, v_st, v_sh}, os{o_sb, o_st, o_sh};
   const unsigned char* mask = static_cast<const unsigned char*>(key_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == W2V_F32)
+  if (dtype == W2V_F32 && stats == nullptr)
     return dispatch_d<float>(q, k, v, mask, out, b, tq, tk, heads, d, qs, ks,
                              vs, os, scale, s);
   if (dtype == W2V_BF16)
-    return dispatch_tc(q, k, v, mask, out, b, tq, tk, heads, d, qs, ks, vs,
-                       os, scale, s);
+    return dispatch_tc(q, k, v, mask, out, static_cast<float2*>(stats), b,
+                       tq, tk, heads, d, qs, ks, vs, os, scale, s);
   return W2V_BAD_ARGS;
 }

@@ -22,50 +22,64 @@
 // No atomics, so the sums run in a fixed order and two runs give the same
 // bits.  The TPU kernel walked query blocks in grid order and accumulated dK
 // and dV in revisited output blocks; blocks on the card run in parallel, so
-// the work splits by what each output sums over:
-//   1. attn_bwd_dq_*kernel, one block per (batch, head, tile of queries): a
-//      first sweep over the keys computes each query row's max, sum of
-//      exponentials and delta (online, rescaled per tile of keys, as the
-//      forward kernel does its softmax); a second sweep forms dS and dq.
-//      The row statistics go to a [B, H, Tq, 3] float32 workspace.
-//   2. attn_bwd_dkdv_*kernel, one block per (batch, head, tile of keys): a
-//      sweep over all query rows (q, do and the statistics through shared
-//      memory) forms P and dS for its keys and accumulates dk and dv.
-// Masked keys score -1e30, so a row whose keys are all masked gets a
-// uniform finite P.  The TPU-only padding of the query axis to block_q =
-// 256 and the [B,T,H,D] -> [B,H,T,D] transposes are not rebuilt: the
-// kernels take (batch, time, head) strides.  Two designs:
+// the work splits by what each output sums over: a query-major kernel for
+// dq, a key-major one for dk and dv.  Masked keys score -1e30, so a row
+// whose keys are all masked gets a uniform finite P.  The TPU-only padding
+// of the query axis to block_q = 256 and the [B,T,H,D] -> [B,H,T,D]
+// transposes are not rebuilt: the kernels take (batch, time, head) strides.
+// Two designs:
 //
-// bf16: attn_bwd_{dq,dkdv}_tc_kernel, tensor cores through mma.sync
-//   m16n8k16 (bf16 in, float32 sums).  Four warps a block, 16 rows of the
-//   block's 64-row tile each (query rows in kernel 1, key rows in kernel 2);
-//   the block's own rows (Q and dO, or K and V) sit in shared memory, and
-//   the other side streams through a double-buffered cp.async ring of bf16
-//   tiles (64 rows at D=64, 32 at D=128, where dk and dv hold 128 floats a
-//   thread), rows past T zero-filled by the copy.  Every product is an
-//   mma.sync: S = Q K^T and dP = dO V^T (kernel 2: their transposes K Q^T,
-//   V dO^T) with both operands by ldmatrix; dq += T(dS) K, dv += T(P)^T dO
-//   and dk += T(dS)^T Q take the rounded P or dS from the accumulator (its
-//   C fragment is the A fragment) and the other operand by ldmatrix.trans.
-//   Shared rows are D + 8 bf16 wide, so the eight rows of an ldmatrix phase
-//   hit distinct banks.  Scores are kept in log2 units (exp2).  Skip rules:
-//   kernel 1 visits only the key tiles holding a valid key (all of them
-//   when the batch row has none), and kernel 2 writes zeros for a key tile
-//   whose keys are all masked in a batch row with a valid key (P = 0 there
-//   exactly).  Under tensor cores kernel 2's recomputed scores need not
-//   equal kernel 1's bit for bit (another summation order), as the scalar
-//   kernels' shared dot32 made them; the bf16 tolerances cover that.
+// bf16: three launches, seven products, all on wgmma (hopper.cuh).
+//   0. The row statistics come from the forward: under grad, the forward
+//      kernel (attention.cu) writes each query row's running max m (log2
+//      units) and sum l at its end, so no kernel here sweeps the keys for
+//      them.  attn_bwd_rows_kernel, a pre-pass, forms per query row
+//      delta = do . o from the forward's bf16 output o and writes the rows
+//      table (m, 1/l, delta, 0), one float4 a row.  (The TPU kernel takes
+//      delta = sum_j P dP from float32 P; do . o differs from it by o's
+//      bf16 rounding, and the CPU emulation of this schedule
+//      (tests/test_torch_attention_tiles_bwd.py) meets the limits the
+//      kernels are held to against the TPU kernel, so no float32 copy of
+//      the output is kept.)
+//   1. attn_bwd_dq_tc_kernel, one CTA per (batch, head, 128 query rows):
+//      S = Q K^T and dP = dO V^T from shared memory, P and dS in registers
+//      from the rows table, dQ += T(dS) K with dS as the register A
+//      fragment: three products a key tile.  It visits only the key tiles
+//      that hold a valid key (all of them when the batch row has none).
+//   2. attn_bwd_dkdv_tc_kernel, one CTA per (batch, head, 128 key rows):
+//      S^T = K Q^T and dP^T = V dO^T, P^T and dS^T from the statistics of
+//      the tile's queries (broadcast along its columns), dV += T(P^T) dO and
+//      dK += T(dS^T) Q: four products a query tile.  A CTA whose keys are
+//      all masked, in a batch row with a valid key, writes zeros (P = 0
+//      there exactly).
+//   Each CTA is two consumer warpgroups of 64 own rows and a producer
+//   warpgroup; one producer thread loads the own tiles once and streams the
+//   other side (K/V, or Q/dO and their rows) through a two-stage ring by
+//   TMA with full/empty mbarriers.  The operands have 3-D tensor maps over
+//   their strided [B, T, row] views (128-byte swizzle), so rows past T
+//   arrive as zeros; the rows table has one over [B*H, Tq, 4] floats, whose
+//   zero rows give P = 0.  The producer gives its registers to the
+//   consumers (setmaxnreg), which hold S, dP and dq (or dk and dv) in
+//   float32: at D=128 dk + dv are 128 floats a thread.  Streamed tiles: 128
+//   rows at D=64, 64 at D=128.  Under tensor cores the dk/dv kernel's
+//   recomputed scores need not equal the forward's bit for bit (another
+//   summation order); the bf16 tolerances cover that.
 // float32 (the oracle arm, TF32 off): attn_bwd_{dq,dkdv}_kernel, scalar
-//   FMAs, as before: a row (query or key) is owned by D/32 neighbouring
-//   lanes, 32 head dims each, its operands and accumulators in registers;
-//   the other side streams through shared memory as float32 tiles of 4096/D
-//   rows, each 32-dim segment padded by 4 floats; partial dot products meet
-//   through warp shuffles.  TF32 tensor cores would miss the arm's 1e-4
-//   gradient tolerance.
+//   FMAs, as before: a query-major kernel computes each row's max, sum of
+//   exponentials and delta in a first sweep over the keys (online, rescaled
+//   per tile of keys) and dq in a second, through a [B, H, Tq, 3]
+//   workspace; a key-major kernel sweeps all query rows for dk and dv.  A
+//   row (query or key) is owned by D/32 neighbouring lanes, 32 head dims
+//   each, its operands and accumulators in registers; the other side
+//   streams through shared memory as float32 tiles of 4096/D rows, each
+//   32-dim segment padded by 4 floats; partial dot products meet through
+//   warp shuffles.  TF32 tensor cores would miss the arm's 1e-4 gradient
+//   tolerance.
 
+#include <limits.h>
 #include <math.h>
 
-#include "gemm.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -370,285 +384,319 @@ int dispatch_d(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync m16n8k16
+// bf16: wgmma + TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kTcRows = 64;      // rows of a CTA's own tile: 4 warps x 16
-constexpr int kTcThreads = 128;
-constexpr int kTcStream64 = 64;  // rows a streamed tile at D=64
-constexpr int kTcStream128 = 32;  // and at D=128 (registers: dk and dv)
+constexpr int kTcRows = 128;       // a CTA's own rows: two warpgroups of 64
+constexpr int kTcConsumers = 256;  // threads of the two consumer warpgroups
+constexpr int kTcThreads = kTcConsumers + 128;  // + the producer warpgroup
+constexpr int kTcStages = 2;       // ring depth of the streamed tiles
+constexpr int kTcStream64 = 128;   // streamed rows a tile at D=64
+constexpr int kTcStream128 = 64;   // and at D=128 (dk and dv: 128 floats)
+constexpr int kTcProducerRegs = 24;   // setmaxnreg: the producer gives up
+constexpr int kTcConsumerRegs = 240;  // what the consumers take
+constexpr int kTcSmemMax = 227 * 1024;
+constexpr int kRowsThreads = 256;  // the pre-pass: one warp a query row
 
 template <int D>
 struct TcBwd {
   static constexpr int BN = D == 64 ? kTcStream64 : kTcStream128;
-  static constexpr int LD = D + 8;   // shared-memory row in bf16: the eight
-                                     // rows of an ldmatrix hit distinct banks
-  static constexpr int CPR = D / 8;  // 16-byte copies a row
-  static constexpr int kOwn = kTcRows * LD;   // bf16 of an own tile
-  static constexpr int kStream = BN * LD;     // bf16 of a streamed tile
-  // two own tiles, then two ring stages of two streamed tiles
-  static constexpr int kTileBytes = 2 * (2 * kOwn + 4 * kStream);
+  static constexpr int kBoxes = D / 64;          // 64-column boxes a row
+  static constexpr int kOwnBytes = kTcRows * D * 2;  // Q or dO; K or V
+  static constexpr int kStrBytes = BN * D * 2;       // a streamed tile
+  static constexpr int kRowsBytes = BN * 16;         // its (m, 1/l, delta, 0)
+  // own tiles at 0 and kOwnBytes; stage s at kStream + s * kStage: two
+  // streamed tiles, then (dk/dv kernel) the rows of their queries
+  static constexpr int kStream = 2 * kOwnBytes;
+  static constexpr int kStage = 2 * kStrBytes + kRowsBytes;
+  static constexpr int kBars = kStream + kTcStages * kStage;
+  // own_full, full[stages], empty[stages]; then (dq kernel) the key-tile
+  // count and list, the per-tile flags and the key mask row
+  static constexpr int kCount = kBars + 8 * (1 + 2 * kTcStages);
+  static constexpr int kList = kCount + 16;
+  static_assert(kOwnBytes % 1024 == 0 && kStage % 1024 == 0, "swizzle atoms");
+
+  // bytes of dynamic shared memory (+1024 to align the base): the dk/dv
+  // kernel's, and the dq kernel's for tk keys
+  static constexpr long long kSmemDkdv = 1024 + kList;
+  static long long smem_dq(int tk) {
+    const long long ntiles = (tk + BN - 1) / BN;
+    return 1024 + kList + 4 * ntiles + ntiles + tk;
+  }
 };
 
-// rows [r0, r0 + rows) of one (batch, head) of an operand into a padded
-// shared tile by cp.async, rows at or past n as zeros
+// The pre-pass: per query row, delta = do . o (float32 sums of the bf16
+// values; o as the forward stored it) beside the forward's statistics, as
+// rows[b, h, t] = (m, 1/l, delta, 0).  One warp a row, rows in (b, t, h)
+// order so that neighbouring warps read neighbouring heads.
 template <int D>
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long st, int r0, int rows,
-                                          int n) {
-  using L = TcBwd<D>;
-  for (int idx = threadIdx.x; idx < rows * L::CPR; idx += kTcThreads) {
-    const int r = idx / L::CPR, ch = idx % L::CPR;
-    const bool ok = r0 + r < n;
-    w2v_cp_async16(dst + r * L::LD + ch * 8,
-                   src + (ok ? (long long)(r0 + r) * st : 0) + ch * 8, ok);
-  }
-}
-
-// acc[NT][4] += A (16 rows of `a`, from row 16 * warp) . B^T, B the rows of
-// `bt` (NT * 8 of them): K = D, both operands row-major in shared memory
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4],
-                                        const __nv_bfloat16* a,
-                                        const __nv_bfloat16* bt) {
-  constexpr int LD = TcBwd<D>::LD;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    unsigned af[4];
-    w2v_ldmatrix_x4(af, a + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                            (lane >> 4) * 8);
-#pragma unroll
-    for (int nj = 0; nj < NT / 2; ++nj) {
-      unsigned bf[4];
-      w2v_ldmatrix_x4(bf, bt + (nj * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
-                              kk * 16 + ((lane >> 3) & 1) * 8);
-      w2v_mma_bf16(acc[2 * nj], af, bf[0], bf[1]);
-      w2v_mma_bf16(acc[2 * nj + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[D/8][4] += T(x) . B, x a [16, KT*8] accumulator in registers (rounded
-// to bf16 here: its C fragment is the A fragment), B the KT*8 rows of `b`
-// in shared memory (row = the product's K, D contiguous; ldmatrix.trans)
-template <int D, int KT>
-__device__ __forceinline__ void mma_xb(float (&acc)[D / 8][4],
-                                       const float (&x)[KT][4],
-                                       const __nv_bfloat16* b) {
-  constexpr int LD = TcBwd<D>::LD;
+__global__ void __launch_bounds__(kRowsThreads)
+attn_bwd_rows_kernel(const __nv_bfloat16* __restrict__ o,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float2* __restrict__ stats,
+                     float4* __restrict__ rows, long long n_rows, int tq,
+                     int heads, Strides os, Strides dos) {
+  const long long w = (long long)blockIdx.x * (kRowsThreads / 32) +
+                      threadIdx.x / 32;
+  if (w >= n_rows) return;
   const int lane = threadIdx.x % 32;
+  const int h = (int)(w % heads);
+  const long long bt = w / heads;
+  const int t = (int)(bt % tq);
+  const long long b = bt / tq;
+  const __nv_bfloat16* op = o + b * os.b + t * os.t + h * os.h;
+  const __nv_bfloat16* dp = dout + b * dos.b + t * dos.t + h * dos.h;
+  float acc = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < KT / 2; ++kk) {
-    const unsigned af[4] = {w2v_pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            w2v_pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            w2v_pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            w2v_pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
-      unsigned bf[4];
-      w2v_ldmatrix_x4_trans(
-          bf, b + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                  dj * 16 + (lane >> 4) * 8);
-      w2v_mma_bf16(acc[2 * dj], af, bf[0], bf[1]);
-      w2v_mma_bf16(acc[2 * dj + 1], af, bf[2], bf[3]);
-    }
+  for (int c = 2 * lane; c < D; c += 64) {
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(op + c));
+    const float2 g = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(dp + c));
+    acc += a.x * g.x + a.y * g.y;
+  }
+  acc = w2v_warp_sum(acc);
+  if (lane == 0) {
+    const long long i = (b * heads + h) * tq + t;
+    const float2 st = stats[i];
+    rows[i] = make_float4(st.x, 1.f / st.y, acc, 0.f);
   }
 }
 
-// rows of a [16 * 4, D] accumulator (row0 + 16 warp + lane / 4, + 8) below
-// n to dst through its time stride, times `mul`, as bf16 pairs
+// dq: one CTA per (batch, head, 128 query rows); warpgroup wg owns rows
+// q0 + 64 wg .. + 63, and a thread rows r0 = q0 + 64 wg + 16 (warp in
+// group) + lane / 4 and r0 + 8, columns 8 j + 2 (lane % 4) + {0, 1} of
+// every accumulator (the wgmma m64 layout).  Per visited key tile:
+//   S = Q K^T, dP = dO V^T            (wgmma, both from shared memory)
+//   P = exp2(S c + bias - m) / l,  dS = T(P (dP - delta))   (registers)
+//   dQ += dS K                        (dS the register A fragment, K
+//                                      MN-major in shared memory)
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long st,
-                                           const float (&acc)[D / 8][4],
-                                           int row0, int n, float mul) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + warp * 16 + lane / 4 + 8 * r;
-    if (row >= n) continue;
-    __nv_bfloat16* p = dst + (long long)row * st + 2 * (lane % 4);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
-          acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-attn_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kTcThreads, 1)
+attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap domap,
                       const unsigned char* __restrict__ key_mask,
-                      const __nv_bfloat16* __restrict__ dout,
-                      __nv_bfloat16* __restrict__ dq, float* __restrict__ stats,
-                      int tq, int tk, Strides qs, Strides ks, Strides vs,
-                      Strides dos, Strides dqs, float scale_log2,
-                      float scale) {
+                      const float4* __restrict__ rows,
+                      __nv_bfloat16* __restrict__ dq, int tq, int tk,
+                      int q_sh, int k_sh, int v_sh, int do_sh, Strides dqs,
+                      float scale_log2, float scale) {
   using L = TcBwd<D>;
-  constexpr int BN = L::BN, NT = BN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* do_s = q_s + L::kOwn;
-  __nv_bfloat16* ring = do_s + L::kOwn;  // stage s: k at 2 s kStream, v after
+  constexpr int BN = L::BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop_align1024(smem_raw);
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + kTcStages;
+  int* count = reinterpret_cast<int*>(smem + L::kCount);
+  int* tiles = reinterpret_cast<int*>(smem + L::kList);
   const int ntiles = (tk + BN - 1) / BN;
-  int* count = reinterpret_cast<int*>(smem + L::kTileBytes);
-  int* tiles = count + 4;
-  unsigned char* flag_s = reinterpret_cast<unsigned char*>(tiles + ntiles);
+  unsigned char* flag_s = smem + L::kList + 4 * ntiles;
   unsigned char* mask_s = flag_s + ntiles;
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int quad = lane % 4;
+  const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kTcRows;
   const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
 
-  copy_rows<D>(q_s, q + b * qs.b + h * qs.h, qs.t, q0, kTcRows, tq);
-  copy_rows<D>(do_s, dout + b * dos.b + h * dos.h, dos.t, q0, kTcRows, tq);
-  w2v_cp_async_commit();
+  if (tid == 0) {
+    hop_mbar_init(own_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      hop_mbar_init(&full[s], 1);
+      hop_mbar_init(&empty[s], kTcConsumers);
+    }
+    hop_mbar_init_fence();
+  }
   w2v_key_tiles(key_mask ? key_mask + (long long)b * tk : nullptr, tk, BN,
                 mask_s, flag_s, count, tiles);
   const int n = *count;
 
-  auto load = [&](int it) {
-    __nv_bfloat16* st = ring + (it & 1) * 2 * L::kStream;
-    const int k0 = tiles[it % n] * BN;
-    copy_rows<D>(st, kb, ks.t, k0, BN, tk);
-    copy_rows<D>(st + L::kStream, vb, vs.t, k0, BN, tk);
-  };
-
-  // sweep 1 (it < n): row max m, sum of exponentials l and sum of
-  // exp * dP online; sweep 2 (it >= n): dS and dq over the same tiles
-  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
-  float delta[2];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  load(0);
-  w2v_cp_async_commit();
-  for (int it = 0; it < 2 * n; ++it) {
-    if (it + 1 < 2 * n) load(it + 1);
-    w2v_cp_async_commit();
-    w2v_cp_async_wait<1>();
-    __syncthreads();  // tile it has landed
-    if (it == n) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
-        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
-        delta[r] = dsum[r] / l[r];
+  if (tid >= kTcConsumers) {  // the producer warpgroup: one thread issues
+    hop_setmaxnreg_dec<kTcProducerRegs>();
+    if (tid == kTcConsumers) {
+      hop_mbar_expect_tx(own_full, 2 * L::kOwnBytes);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        hop_tma_load_3d(smem + c * kTcRows * 128, &qmap, own_full,
+                        h * q_sh + 64 * c, q0, b);
+        hop_tma_load_3d(smem + L::kOwnBytes + c * kTcRows * 128, &domap,
+                        own_full, h * do_sh + 64 * c, q0, b);
+      }
+      for (int it = 0; it < n; ++it) {
+        const int s = it % kTcStages;
+        unsigned char* st = smem + L::kStream + s * L::kStage;
+        hop_mbar_wait(&empty[s], ((it / kTcStages) & 1) ^ 1);
+        hop_mbar_expect_tx(&full[s], 2 * L::kStrBytes);
+        const int k0 = tiles[it] * BN;
+        for (int c = 0; c < L::kBoxes; ++c) {
+          hop_tma_load_3d(st + c * BN * 128, &kmap, &full[s],
+                          h * k_sh + 64 * c, k0, b);
+          hop_tma_load_3d(st + L::kStrBytes + c * BN * 128, &vmap, &full[s],
+                          h * v_sh + 64 * c, k0, b);
+        }
       }
     }
-    const __nv_bfloat16* k_s = ring + (it & 1) * 2 * L::kStream;
-    const __nv_bfloat16* v_s = k_s + L::kStream;
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<D, NT>(s, q_s, k_s);
-    mma_abt<D, NT>(dp, do_s, v_s);
-    const int k0 = tiles[it % n] * BN;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * quad + (e & 1);
-        const float bias =
-            key < tk ? (mask_s[key] ? 0.f : -1e30f) : -INFINITY;
-        s[j][e] = s[j][e] * scale_log2 + bias;
-      }
-    if (it < n) {
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        const float alpha = exp2f(m[r] - m_new);
-        l[r] *= alpha;
-        dsum[r] *= alpha;
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[j][e] - m[e >> 1]);
-          l[e >> 1] += p;
-          dsum[e >> 1] += p * dp[j][e];
-        }
-    } else {
-      // dS = P (dP - delta), P normalised; rounded to bf16 in mma_xb
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const float p = exp2f(s[j][e] - m[r]) / l[r];
-          s[j][e] = p * (dp[j][e] - delta[r]);
-        }
-      mma_xb<D, NT>(acc, s, k_s);
-    }
-    __syncthreads();  // this stage is free for the load of tile it + 2
+    return;
   }
-  w2v_cp_async_wait<0>();
+  hop_setmaxnreg_inc<kTcConsumerRegs>();
 
-  store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.t, acc, q0, tq, scale);
-  if (quad == 0) {
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  const int r0 = q0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  // this thread's rows: (m, 1/l, delta); rows past tq get P = 0
+  float m[2], il[2], dl[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + warp * 16 + lane / 4 + 8 * r;
-      if (row >= tq) continue;
-      float* st = stats + (((long long)b * heads + h) * tq + row) * 3;
-      st[0] = m[r];
-      st[1] = l[r];
-      st[2] = delta[r];
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const float4 rw = row < tq ? rows[((long long)b * heads + h) * tq + row]
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    m[r] = rw.x;
+    il[r] = rw.y;
+    dl[r] = rw.z;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  const unsigned char* q_s = smem + wg * 64 * 128;
+  const unsigned char* do_s = smem + L::kOwnBytes + wg * 64 * 128;
+  hop_mbar_wait(own_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int s = it % kTcStages;
+    hop_mbar_wait(&full[s], (it / kTcStages) & 1);
+    const unsigned char* k_s = smem + L::kStream + s * L::kStage;
+    const unsigned char* v_s = k_s + L::kStrBytes;
+
+    float sc[BN / 2], dp[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+    hop_fence_regs(sc);
+    hop_fence_regs(dp);
+    hop_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int box = kk / 4, off = (kk % 4) * 32;
+      hop_wgmma_ss<BN>(
+          sc, hop_desc_sw128(q_s + box * kTcRows * 128 + off, 16, 1024),
+          hop_desc_sw128(k_s + box * BN * 128 + off, 16, 1024), kk > 0);
+      hop_wgmma_ss<BN>(
+          dp, hop_desc_sw128(do_s + box * kTcRows * 128 + off, 16, 1024),
+          hop_desc_sw128(v_s + box * BN * 128 + off, 16, 1024), kk > 0);
     }
+    hop_wgmma_commit();
+    hop_wgmma_wait<0>();
+    hop_fence_regs(sc);
+    hop_fence_regs(dp);
+
+    // dS = P (dP - delta), rounded to bf16 pairs: the A fragment of
+    // k-step kk is accumulator pairs 8 kk + {0, 2, 4, 6}
+    const int k0 = tiles[it] * BN;
+    uint32_t ds[BN / 4];
+#pragma unroll
+    for (int i = 0; i < BN / 2; i += 2) {
+      const int r = (i >> 1) & 1;
+      const int j = k0 + 8 * (i / 4) + 2 * quad;
+      float v2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bias =
+            j + e < tk ? (mask_s[j + e] ? 0.f : -1e30f) : -INFINITY;
+        const float p = exp2f(sc[i + e] * scale_log2 + bias - m[r]) * il[r];
+        v2[e] = p * (dp[i + e] - dl[r]);
+      }
+      ds[i / 2] = w2v_pack_bf16(v2[0], v2[1]);
+    }
+
+    // dQ += dS K: K MN-major, k-steps of 16 key rows (2048 bytes), the two
+    // 64-column boxes of D=128 one leading byte offset apart
+    hop_fence_regs(acc);
+    hop_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t a[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2],
+                             ds[4 * kk + 3]};
+      hop_wgmma_rs_tb<D>(acc, a, hop_desc_sw128(k_s + kk * 2048, BN * 128,
+                                                1024));
+    }
+    hop_wgmma_commit();
+    hop_wgmma_wait<0>();
+    hop_fence_regs(acc);
+    hop_mbar_arrive(&empty[s]);
+  }
+
+  __nv_bfloat16* ob = dq + b * dqs.b + h * dqs.h + 2 * quad;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= tq) continue;
+    __nv_bfloat16* orow = ob + (long long)row * dqs.t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale,
+                                acc[4 * j + 2 * r + 1] * scale);
   }
 }
 
+// rows of a [64, D] warpgroup accumulator (this thread's r0, r0 + 8) below
+// n to dst through its time stride, times `mul`, as bf16 pairs
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-attn_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const unsigned char* __restrict__ key_mask,
-                        const __nv_bfloat16* __restrict__ dout,
-                        __nv_bfloat16* __restrict__ dk,
-                        __nv_bfloat16* __restrict__ dv,
-                        const float* __restrict__ stats, int tq, int tk,
-                        Strides qs, Strides ks, Strides vs, Strides dos,
-                        Strides dks, Strides dvs, float scale_log2,
-                        float scale) {
-  using L = TcBwd<D>;
-  constexpr int BN = L::BN, NT = BN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* v_s = k_s + L::kOwn;
-  __nv_bfloat16* ring = v_s + L::kOwn;  // stage s: q at 2 s kStream, do after
-  float* st_s = reinterpret_cast<float*>(smem + L::kTileBytes);  // [2][BN][3]
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long st,
+                                           const float (&acc)[D / 2], int r0,
+                                           int n, float mul) {
+  const int quad = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= n) continue;
+    __nv_bfloat16* p = dst + (long long)row * st + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int quad = lane % 4;
+// dk/dv: one CTA per (batch, head, 128 key rows), warpgroup wg owning key
+// rows k0 + 64 wg .. + 63 (a thread's rows and columns as in the dq
+// kernel).  Per tile of BN query rows (all of them: every query sees every
+// key), with their (m, 1/l, delta) in shared memory beside Q and dO:
+//   S^T = K Q^T, dP^T = V dO^T        (wgmma, both from shared memory)
+//   P^T = exp2(S^T c + bias - m) / l, dS^T = P^T (dP^T - delta)  (the
+//                                      statistics broadcast along columns)
+//   dV += T(P^T) dO, dK += T(dS^T) Q  (register A fragments, dO and Q
+//                                      MN-major in shared memory)
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap domap,
+                        const __grid_constant__ CUtensorMap rowmap,
+                        const unsigned char* __restrict__ key_mask,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int tq, int tk,
+                        int q_sh, int k_sh, int v_sh, int do_sh, Strides dks,
+                        Strides dvs, float scale_log2, float scale) {
+  using L = TcBwd<D>;
+  constexpr int BN = L::BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop_align1024(smem_raw);
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + kTcStages;
+
+  const int tid = threadIdx.x;
   const int k0 = blockIdx.x * kTcRows;
   const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int r0 = k0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
   __nv_bfloat16* dkb = dk + b * dks.b + h * dks.h;
   __nv_bfloat16* dvb = dv + b * dvs.b + h * dvs.h;
 
   // skip rule: keys that are all masked, in a batch row with a valid key,
-  // get P = 0 for every query, so dk = dv = 0 exactly
+  // get P = 0 from every query, so dk = dv = 0 exactly
   const unsigned char* mrow = key_mask ? key_mask + (long long)b * tk : nullptr;
   int row_any = 1, tile_any = 1;
   if (mrow != nullptr) {
@@ -658,145 +706,247 @@ attn_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     any = tid < kTcRows && k0 + tid < tk && mrow[k0 + tid] != 0;
     tile_any = __syncthreads_or(any);
   }
-  float ka[D / 8][4], va[D / 8][4];  // dk and dv sums
+  float ka[D / 2], va[D / 2];  // the dk and dv sums
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ka[j][e] = va[j][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) ka[i] = va[i] = 0.f;
   if (row_any && !tile_any) {
-    store_rows<D>(dkb, dks.t, ka, k0, tk, 0.f);
-    store_rows<D>(dvb, dvs.t, va, k0, tk, 0.f);
+    if (tid < kTcConsumers) {
+      store_rows<D>(dkb, dks.t, ka, r0, tk, 0.f);
+      store_rows<D>(dvb, dvs.t, va, r0, tk, 0.f);
+    }
     return;
   }
 
-  copy_rows<D>(k_s, k + b * ks.b + h * ks.h, ks.t, k0, kTcRows, tk);
-  copy_rows<D>(v_s, v + b * vs.b + h * vs.h, vs.t, k0, kTcRows, tk);
-  w2v_cp_async_commit();
-  // this thread's key rows k0 + 16 warp + lane / 4 (+ 8): their biases
+  if (tid == 0) {
+    hop_mbar_init(own_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      hop_mbar_init(&full[s], 1);
+      hop_mbar_init(&empty[s], kTcConsumers);
+    }
+    hop_mbar_init_fence();
+  }
+  __syncthreads();
+  const int nq = (tq + BN - 1) / BN;
+
+  if (tid >= kTcConsumers) {  // the producer warpgroup: one thread issues
+    hop_setmaxnreg_dec<kTcProducerRegs>();
+    if (tid == kTcConsumers) {
+      hop_mbar_expect_tx(own_full, 2 * L::kOwnBytes);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        hop_tma_load_3d(smem + c * kTcRows * 128, &kmap, own_full,
+                        h * k_sh + 64 * c, k0, b);
+        hop_tma_load_3d(smem + L::kOwnBytes + c * kTcRows * 128, &vmap,
+                        own_full, h * v_sh + 64 * c, k0, b);
+      }
+      for (int it = 0; it < nq; ++it) {
+        const int s = it % kTcStages;
+        unsigned char* st = smem + L::kStream + s * L::kStage;
+        hop_mbar_wait(&empty[s], ((it / kTcStages) & 1) ^ 1);
+        hop_mbar_expect_tx(&full[s], 2 * L::kStrBytes + L::kRowsBytes);
+        for (int c = 0; c < L::kBoxes; ++c) {
+          hop_tma_load_3d(st + c * BN * 128, &qmap, &full[s],
+                          h * q_sh + 64 * c, it * BN, b);
+          hop_tma_load_3d(st + L::kStrBytes + c * BN * 128, &domap,
+                          &full[s], h * do_sh + 64 * c, it * BN, b);
+        }
+        hop_tma_load_3d(st + 2 * L::kStrBytes, &rowmap, &full[s], 0, it * BN,
+                        b * heads + h);
+      }
+    }
+    return;
+  }
+  hop_setmaxnreg_inc<kTcConsumerRegs>();
+
+  const int quad = lane % 4;
+  // this thread's key rows r0, r0 + 8: their biases
   float bias[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = k0 + warp * 16 + lane / 4 + 8 * r;
+    const int key = r0 + 8 * r;
     bias[r] = key >= tk ? -INFINITY
                         : (mrow == nullptr || mrow[key] ? 0.f : -1e30f);
   }
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* db = dout + b * dos.b + h * dos.h;
-  const float* sb = stats + ((long long)b * heads + h) * tq * 3;
-  const int nq = (tq + BN - 1) / BN;
-  auto load = [&](int it) {
-    __nv_bfloat16* st = ring + (it & 1) * 2 * L::kStream;
-    copy_rows<D>(st, qb, qs.t, it * BN, BN, tq);
-    copy_rows<D>(st + L::kStream, db, dos.t, it * BN, BN, tq);
-    float* ss = st_s + (it & 1) * BN * 3;
-    for (int idx = tid; idx < BN * 3; idx += kTcThreads)
-      ss[idx] = it * BN + idx / 3 < tq ? sb[(long long)it * BN * 3 + idx]
-                                       : 0.f;
-  };
-
-  load(0);
-  w2v_cp_async_commit();
+  // shared memory by 32-bit addresses: the own tiles (K, V), and per stage
+  // Q, dO and the rows table (m, 1/l, delta, 0) of its queries
+  const uint32_t k_addr = hop_smem(smem) + wg * 64 * 128;
+  const uint32_t v_addr = k_addr + L::kOwnBytes;
+  hop_mbar_wait(own_full, 0);
   for (int it = 0; it < nq; ++it) {
-    if (it + 1 < nq) load(it + 1);
-    w2v_cp_async_commit();
-    w2v_cp_async_wait<1>();
-    __syncthreads();  // query tile it (and its statistics) has landed
-    const __nv_bfloat16* q_t = ring + (it & 1) * 2 * L::kStream;
-    const __nv_bfloat16* do_t = q_t + L::kStream;
-    const float* ss = st_s + (it & 1) * BN * 3;
-    // S^T = K Q^T and dP^T = V dO^T: rows = this CTA's keys
-    float s[NT][4], dp[NT][4];
+    const int s = it % kTcStages;
+    hop_mbar_wait(&full[s], (it / kTcStages) & 1);
+    const uint32_t q_addr = hop_smem(smem) + L::kStream + s * L::kStage;
+    const uint32_t do_addr = q_addr + L::kStrBytes;
+    // rows past tq arrive as zeros: 1/l = 0 there, so P = dS = 0
+    const uint32_t rw_addr = q_addr + 2 * L::kStrBytes;
+
+    float sc[BN / 2], dp[BN / 2];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+    hop_fence_regs(sc);
+    hop_fence_regs(dp);
+    hop_wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<D, NT>(s, k_s, q_t);
-    mma_abt<D, NT>(dp, v_s, do_t);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // the descriptors of k-step kk are built here, one step at a time
+      const int box = kk / 4, off = (kk % 4) * 32;
+      const uint32_t own = hop_opaque(box * kTcRows * 128 + off);
+      const uint32_t str = hop_opaque(box * BN * 128 + off);
+      hop_wgmma_ss<BN>(sc, hop_desc_sw128_at(k_addr + own, 16, 1024),
+                       hop_desc_sw128_at(q_addr + str, 16, 1024), kk > 0);
+      hop_wgmma_ss<BN>(dp, hop_desc_sw128_at(v_addr + own, 16, 1024),
+                       hop_desc_sw128_at(do_addr + str, 16, 1024), kk > 0);
+    }
+    hop_wgmma_commit();
+    hop_wgmma_wait<0>();
+    hop_fence_regs(sc);
+    hop_fence_regs(dp);
+
+    // P^T and dS^T, rounded to bf16 pairs (the A fragments); a column's
+    // statistics are loaded where they are used
+    uint32_t pa[BN / 4], da[BN / 4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int i = 0; i < BN / 2; i += 2) {
+      const int r = (i >> 1) & 1;
+      const int col = 8 * (i / 4) + 2 * quad;  // query in the tile
+      float p2[2], d2[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * quad + (e & 1);  // query in the tile
-        float p = 0.f, ds = 0.f;
-        if (it * BN + col < tq) {
-          p = exp2f(s[j][e] * scale_log2 + bias[e >> 1] - ss[3 * col]) /
-              ss[3 * col + 1];
-          ds = p * (dp[j][e] - ss[3 * col + 2]);
-        }
-        s[j][e] = p;
-        dp[j][e] = ds;
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t at = rw_addr + 16 * (col + e);
+        const float2 ml = hop_lds_f2(at);
+        const float p = exp2f(sc[i + e] * scale_log2 + bias[r] - ml.x) * ml.y;
+        p2[e] = p;
+        d2[e] = p * (dp[i + e] - hop_lds_f(at + 8));
       }
-    mma_xb<D, NT>(va, s, do_t);  // dv += T(P^T) dO
-    mma_xb<D, NT>(ka, dp, q_t);  // dk += T(dS^T) Q
-    __syncthreads();  // this stage is free for the load of tile it + 2
+      pa[i / 2] = w2v_pack_bf16(p2[0], p2[1]);
+      da[i / 2] = w2v_pack_bf16(d2[0], d2[1]);
+    }
+
+    // dV += T(P^T) dO and dK += T(dS^T) Q: dO and Q MN-major, k-steps of
+    // 16 query rows (2048 bytes)
+    hop_fence_regs(va);
+    hop_fence_regs(ka);
+    hop_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t ap[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                              pa[4 * kk + 3]};
+      const uint32_t ad[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                              da[4 * kk + 3]};
+      const uint32_t off = hop_opaque(kk * 2048);
+      hop_wgmma_rs_tb<D>(va, ap, hop_desc_sw128_at(do_addr + off, BN * 128,
+                                                   1024));
+      hop_wgmma_rs_tb<D>(ka, ad, hop_desc_sw128_at(q_addr + off, BN * 128,
+                                                   1024));
+    }
+    hop_wgmma_commit();
+    hop_wgmma_wait<0>();
+    hop_fence_regs(va);
+    hop_fence_regs(ka);
+    hop_mbar_arrive(&empty[s]);
   }
-  w2v_cp_async_wait<0>();
-  store_rows<D>(dkb, dks.t, ka, k0, tk, scale);
-  store_rows<D>(dvb, dvs.t, va, k0, tk, 1.f);
+  store_rows<D>(dkb, dks.t, ka, r0, tk, scale);
+  store_rows<D>(dvb, dvs.t, va, r0, tk, 1.f);
 }
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v,
               const unsigned char* key_mask, const void* dout, void* dq,
-              void* dk, void* dv, float* stats, int b, int tq, int tk,
-              int heads, const Strides* st, float scale,
-              cudaStream_t stream) {
+              void* dk, void* dv, const void* o, const void* stats,
+              float* rows, int b, int tq, int tk, int heads, const Strides* st,
+              float scale, cudaStream_t stream) {
   using L = TcBwd<D>;
-  // cp.async moves 16-byte chunks: q, k, v and do need 16-byte alignment
-  // and strides of whole chunks; the bf16 pair stores of dq, dk and dv
-  // 4-byte alignment and even strides
+  // TMA reads q, k, v and do (16-byte-aligned starts, strides of whole
+  // 16-byte units, heads apart); the pre-pass reads o, and the epilogues
+  // write dq, dk and dv, as bf16 pairs (4-byte alignment, even strides)
   const void* in[4] = {q, k, v, dout};
-  const void* outs[3] = {dq, dk, dv};
   for (int n = 0; n < 4; ++n)
-    if (reinterpret_cast<uintptr_t>(in[n]) % 16 || st[n].b % 8 ||
-        st[n].t % 8 || st[n].h % 8)
+    if (!hop_operand_ok(in[n], st[n].b, st[n].t, st[n].h, heads, D) ||
+        st[n].h > INT_MAX / heads)
       return W2V_BAD_ARGS;
-  for (int n = 0; n < 3; ++n)
-    if (reinterpret_cast<uintptr_t>(outs[n]) % 4 || st[4 + n].b % 2 ||
-        st[4 + n].t % 2 || st[4 + n].h % 2)
+  const void* pairs[4] = {dq, dk, dv, o};
+  for (int n = 0; n < 4; ++n)
+    if (pairs[n] == nullptr || reinterpret_cast<uintptr_t>(pairs[n]) % 4 ||
+        st[4 + n].b % 2 || st[4 + n].t % 2 || st[4 + n].h % 2)
       return W2V_BAD_ARGS;
-  const int ntiles = (tk + L::BN - 1) / L::BN;
-  const long long smem1 = L::kTileBytes + 16 + 5LL * ntiles + tk;
-  const long long smem2 = L::kTileBytes + 2 * L::BN * 3 * 4;
-  if (smem1 > 227 * 1024) return W2V_BAD_ARGS;
+  if (stats == nullptr || rows == nullptr || (long long)b * heads > INT_MAX)
+    return W2V_BAD_ARGS;
+  const long long smem1 = L::smem_dq(tk);
+  if (smem1 > kTcSmemMax || L::kSmemDkdv > kTcSmemMax) return W2V_BAD_ARGS;
   const float scale_log2 = scale * 1.4426950408889634f;
-  const auto* qt = static_cast<const __nv_bfloat16*>(q);
-  const auto* kt = static_cast<const __nv_bfloat16*>(k);
-  const auto* vt = static_cast<const __nv_bfloat16*>(v);
-  const auto* dot = static_cast<const __nv_bfloat16*>(dout);
-  int status = (int)cudaFuncSetAttribute(
-      attn_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem1);
+  // the pre-pass: the rows table from the forward's statistics and delta
+  const long long n_rows = (long long)b * tq * heads;
+  const long long blocks = (n_rows + kRowsThreads / 32 - 1) /
+                           (kRowsThreads / 32);
+  if (blocks > 0x7fffffffLL) return W2V_BAD_ARGS;
+  attn_bwd_rows_kernel<D><<<(unsigned)blocks, kRowsThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float2*>(stats), reinterpret_cast<float4*>(rows),
+      n_rows, tq, heads, st[7], st[3]);
+  int status = (int)cudaGetLastError();
   if (status != 0) return status;
-  const dim3 grid1((tq + kTcRows - 1) / kTcRows, heads, b);
-  attn_bwd_dq_tc_kernel<D><<<grid1, kTcThreads, smem1, stream>>>(
-      qt, kt, vt, key_mask, dot, static_cast<__nv_bfloat16*>(dq), stats, tq,
-      tk, st[0], st[1], st[2], st[3], st[4], scale_log2, scale);
-  status = (int)cudaGetLastError();
-  if (status != 0) return status;
-  status = (int)cudaFuncSetAttribute(
-      attn_bwd_dkdv_tc_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (status != 0) return status;
-  const dim3 grid2((tk + kTcRows - 1) / kTcRows, heads, b);
-  attn_bwd_dkdv_tc_kernel<D><<<grid2, kTcThreads, smem2, stream>>>(
-      qt, kt, vt, key_mask, dot, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), stats, tq, tk, st[0], st[1], st[2],
-      st[3], st[5], st[6], scale_log2, scale);
-  return (int)cudaGetLastError();
+  // q and do in boxes of `qrows` rows, k and v in boxes of `krows`
+  auto maps = [&](CUtensorMap* m4, int qrows, int krows) {
+    return hop_operand_map(&m4[0], q, b, tq, heads, D, st[0].b, st[0].t,
+                           st[0].h, qrows) &&
+           hop_operand_map(&m4[1], k, b, tk, heads, D, st[1].b, st[1].t,
+                           st[1].h, krows) &&
+           hop_operand_map(&m4[2], v, b, tk, heads, D, st[2].b, st[2].t,
+                           st[2].h, krows) &&
+           hop_operand_map(&m4[3], dout, b, tq, heads, D, st[3].b, st[3].t,
+                           st[3].h, qrows);
+  };
+  {  // dq: owns query rows, streams keys
+    CUtensorMap m4[4];
+    if (!maps(m4, kTcRows, L::BN)) return W2V_BAD_ARGS;
+    status = (int)cudaFuncSetAttribute(
+        attn_bwd_dq_tc_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+    if (status != 0) return status;
+    const dim3 grid((tq + kTcRows - 1) / kTcRows, heads, b);
+    attn_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem1, stream>>>(
+        m4[0], m4[1], m4[2], m4[3], key_mask,
+        reinterpret_cast<const float4*>(rows),
+        static_cast<__nv_bfloat16*>(dq), tq, tk, (int)st[0].h, (int)st[1].h,
+        (int)st[2].h, (int)st[3].h, st[4], scale_log2, scale);
+    status = (int)cudaGetLastError();
+    if (status != 0) return status;
+  }
+  {  // dk/dv: owns key rows, streams queries and their rows table
+    CUtensorMap m4[4], rowmap;
+    const cuuint64_t rdims[3] = {4, static_cast<cuuint64_t>(tq),
+                                 static_cast<cuuint64_t>(b) * heads};
+    const cuuint64_t rstrides[2] = {16, 16 * static_cast<cuuint64_t>(tq)};
+    const cuuint32_t rbox[3] = {4, static_cast<cuuint32_t>(L::BN), 1};
+    if (!maps(m4, L::BN, kTcRows) ||
+        !hop_make_map(&rowmap, false, 3, rows, rdims, rstrides, rbox))
+      return W2V_BAD_ARGS;
+    status = (int)cudaFuncSetAttribute(
+        attn_bwd_dkdv_tc_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmemDkdv);
+    if (status != 0) return status;
+    const dim3 grid((tk + kTcRows - 1) / kTcRows, heads, b);
+    attn_bwd_dkdv_tc_kernel<D><<<grid, kTcThreads, L::kSmemDkdv, stream>>>(
+        m4[0], m4[1], m4[2], m4[3], rowmap, key_mask,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), tq,
+        tk, (int)st[0].h, (int)st[1].h, (int)st[2].h, (int)st[3].h, st[5],
+        st[6], scale_log2, scale);
+    status = (int)cudaGetLastError();
+  }
+  return status;
 }
 
 int dispatch_tc(const void* q, const void* k, const void* v,
                 const unsigned char* key_mask, const void* dout, void* dq,
-                void* dk, void* dv, float* stats, int b, int tq, int tk,
-                int heads, int d, const Strides* st, float scale,
-                cudaStream_t stream) {
+                void* dk, void* dv, const void* o, const void* stats,
+                float* rows, int b, int tq, int tk, int heads, int d,
+                const Strides* st, float scale, cudaStream_t stream) {
   if (d == 64)
-    return launch_tc<64>(q, k, v, key_mask, dout, dq, dk, dv, stats, b, tq,
-                         tk, heads, st, scale, stream);
+    return launch_tc<64>(q, k, v, key_mask, dout, dq, dk, dv, o, stats, rows,
+                         b, tq, tk, heads, st, scale, stream);
   if (d == 128)
-    return launch_tc<128>(q, k, v, key_mask, dout, dq, dk, dv, stats, b, tq,
-                          tk, heads, st, scale, stream);
+    return launch_tc<128>(q, k, v, key_mask, dout, dq, dk, dv, o, stats,
+                          rows, b, tq, tk, heads, st, scale, stream);
   return W2V_BAD_ARGS;
 }
 
@@ -804,17 +954,22 @@ int dispatch_tc(const void* q, const void* k, const void* v,
 
 // q, do, dq: [b, tq, heads, d]; k, v, dk, dv: [b, tk, heads, d]; element
 // (b, t, h, 0..d) of operand n at ptr + b*s[3n] + t*s[3n+1] + h*s[3n+2],
-// head dim contiguous, operands in the order q, k, v, do, dq, dk, dv of the
-// host array `strides` (21 long longs).  key_mask: [b, tk] bytes (nonzero =
-// valid key) or NULL.  stats: [b, heads, tq, 3] float32 workspace.  d is 64
-// or 128.  dtype W2V_F32 runs the scalar kernels, W2V_BF16 the tensor-core
-// ones, which also need q, k, v and do 16-byte aligned with strides that
-// are multiples of 8 elements, and dq, dk, dv with even strides (else
-// W2V_BAD_ARGS).  Launches two kernels on `stream`; returns the first
-// non-zero cudaError_t.
+// head dim contiguous, operands in the order q, k, v, do, dq, dk, dv, o of
+// the host array `strides` (24 long longs).  key_mask: [b, tk] bytes
+// (nonzero = valid key) or NULL.  d is 64 or 128.
+// dtype W2V_F32 runs the scalar kernels (o and stats unused; rows a
+// [b, heads, tq, 3] float32 workspace).  W2V_BF16 runs the
+// tensor-core ones: o [b, tq, heads, d] is the forward's output and stats
+// [b, heads, tq, 2] float32 its (m, l) (w2v_attention); rows is a
+// [b, heads, tq, 4] float32 workspace; q, k, v and do need 16-byte-aligned
+// starts and strides that are multiples of 8 elements, o, dq, dk and dv
+// even strides (else W2V_BAD_ARGS).  Launches the pre-pass, the dq kernel
+// and the dk/dv kernel on `stream`; returns the first non-zero
+// cudaError_t.
 extern "C" int w2v_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* key_mask, const void* dout,
-                                 void* dq, void* dk, void* dv, void* stats,
+                                 void* dq, void* dk, void* dv, const void* o,
+                                 const void* stats, void* rows,
                                  const void* strides, int b, int tq, int tk,
                                  int heads, int d, float scale, int dtype,
                                  void* stream) {
@@ -822,17 +977,17 @@ extern "C" int w2v_attention_bwd(const void* q, const void* k, const void* v,
       heads > 65535 || strides == nullptr)
     return W2V_BAD_ARGS;
   const long long* s = static_cast<const long long*>(strides);
-  Strides st[7];
-  for (int n = 0; n < 7; ++n) st[n] = Strides{s[3 * n], s[3 * n + 1],
+  Strides st[8];
+  for (int n = 0; n < 8; ++n) st[n] = Strides{s[3 * n], s[3 * n + 1],
                                               s[3 * n + 2]};
   const unsigned char* mask = static_cast<const unsigned char*>(key_mask);
-  float* ws = static_cast<float*>(stats);
+  float* ws = static_cast<float*>(rows);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (dtype == W2V_F32)
     return dispatch_d<float>(q, k, v, mask, dout, dq, dk, dv, ws, b, tq, tk,
                              heads, d, st, scale, cs);
   if (dtype == W2V_BF16)
-    return dispatch_tc(q, k, v, mask, dout, dq, dk, dv, ws, b, tq, tk, heads,
-                       d, st, scale, cs);
+    return dispatch_tc(q, k, v, mask, dout, dq, dk, dv, o, stats, ws, b, tq,
+                       tk, heads, d, st, scale, cs);
   return W2V_BAD_ARGS;
 }

@@ -10,23 +10,113 @@
 // at [14 * 999, 1024] x 4096) against ~0.26 GB of operands.  The TPU kernel
 // kept the [rows, F] activation in 16+ MB of VMEM; on the card even 64 rows
 // of it (512 KB in bf16) exceed the 227 KB of shared memory, so this port
-// writes it once to device memory instead: two launches of one tensor-core
-// GEMM mainloop (gemm.cuh), the first with a bias + GELU + cast epilogue,
-// the second with a bias epilogue.  The activation's round trip costs
-// ~0.23 GB a layer (~0.07 ms at 3.35 TB/s) against a ~0.24 ms tensor-core
-// bound.  The last row tile is ragged (T = 999 or 1099 frames a window):
-// its rows past the end read zeros and are not written.  The float32 arm
-// (the oracle run) uses the scalar-FMA mainloop with the same epilogues.
+// writes it once to device memory instead: two launches of one GEMM
+// mainloop, the first with a bias + GELU + cast epilogue, the second with a
+// bias epilogue.  The activation's round trip costs ~0.23 GB a layer
+// (~0.07 ms at 3.35 TB/s) against a ~0.24 ms tensor-core bound.  The last
+// row tile is ragged (T = 999 or 1099 frames a window; 1, 2 or 4 windows
+// in the remainder ladder's buckets): its rows past the end read zeros and
+// are not written.
+//
+// bf16: the persistent wgmma + TMA GEMM of wgmma_gemm.cuh: one CTA an SM,
+//   a producer warpgroup streaming A and B boxes of 64 K-steps through a
+//   ring of stages, two consumer warpgroups taking the CTA's output tiles
+//   in turns, so that one's epilogue (bias, the exact-erf GELU, the bf16
+//   stores) runs while the other's wgmma mainloop keeps the tensor cores
+//   busy.  The tensor maps are built on the host for each call (A over x or
+//   the activation, B over w1 or w2).
+// float32 (the oracle run): the scalar-FMA mainloop of gemm.cuh with the
+//   same epilogues.
 
 #include "gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-// 128 x 128 tiles, 8 warps of 64 x 32, 64 K-steps a stage in 3 stages,
-// two blocks an SM (registers capped at 128 a thread): 1.39x the one-block,
-// 32-deep-stage variant on the H100 (PERF.md, ops/tile_sweep.py)
-using FfnTc = TcGemm<128, 128, 2, 4, 3, 64, 2>;
+// 128 x 128 tiles a warpgroup, 4 stages of 32 KB (ops/tile_sweep.py sweeps
+// the tile shape and the stage count; PERF.md)
+using FfnWg = WgGemm<128, 128, 4>;
 using FfnSimt = SimtGemm<128, 128, 8, 8>;
+
+// out[m, c] = epilogue(A[m, :] . B[c, :] + bias[c]) over the CTA's tiles
+template <class G, bool GELU>
+__global__ void __launch_bounds__(G::kThreads, 1)
+ffn_wg_kernel(const __grid_constant__ CUtensorMap amap,
+              const __grid_constant__ CUtensorMap bmap,
+              const float* __restrict__ bias,
+              __nv_bfloat16* __restrict__ out, int rows, int n, int k) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop_align1024(smem_raw);
+  const int m_tiles = (rows + G::kBM - 1) / G::kBM, n_tiles = n / G::kBN;
+  if (threadIdx.x == 0) G::init(smem);
+  __syncthreads();
+  if (threadIdx.x >= G::kConsumers) {  // the producer warpgroup
+    hop_setmaxnreg_dec<G::kProducerRegs>();
+    if (threadIdx.x == G::kConsumers)
+      G::produce(smem, &amap, &bmap, m_tiles, n_tiles, k / G::kBK);
+    return;
+  }
+  hop_setmaxnreg_inc<G::kConsumerRegs>();
+  G g;
+  g.consume(smem, m_tiles, n_tiles, k / G::kBK,
+            [&](int m, int c, float v0, float v1) {
+    if (m >= rows) return;
+    const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+    v0 += bb.x;
+    v1 += bb.y;
+    if (GELU) {
+      v0 = w2v_gelu(v0);
+      v1 = w2v_gelu(v1);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(out + (long long)m * n + c) =
+        __floats2bfloat162_rn(v0, v1);
+  });
+}
+
+// the card's SM count: the persistent grid's size
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// a 3-D map [1, rows, k] over a row-major bf16 matrix, boxes of 64 x
+// box_rows
+bool matrix_map(CUtensorMap* map, const void* base, long long rows, int k,
+                int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k),
+                              static_cast<cuuint64_t>(rows), 1};
+  const cuuint64_t strides[2] = {2 * static_cast<cuuint64_t>(k),
+                                 2 * static_cast<cuuint64_t>(k) * rows};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  return hop_make_map(map, true, 3, base, dims, strides, box);
+}
+
+template <class G, bool GELU>
+int launch_wg(const void* a, long long rows, int k, const void* b,
+              const float* bias, void* out, int n, cudaStream_t stream) {
+  const long long tiles = (rows + G::kBM - 1) / G::kBM * (n / G::kBN);
+  if (rows > 0x7fffffffLL || tiles > 0x7fffffffLL || sm_count() == 0)
+    return W2V_BAD_ARGS;
+  CUtensorMap amap, bmap;
+  if (!matrix_map(&amap, a, rows, k, G::kBM) ||
+      !matrix_map(&bmap, b, n, k, G::kBN))
+    return W2V_BAD_ARGS;
+  auto kernel = ffn_wg_kernel<G, GELU>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)(tiles < sm_count() ? tiles : sm_count());
+  kernel<<<grid, G::kThreads, G::kSmemBytes, stream>>>(
+      amap, bmap, bias, static_cast<__nv_bfloat16*>(out), (int)rows, n, k);
+  return (int)cudaGetLastError();
+}
 
 // out[m, n] = epilogue(A[m, :] . B[n, :] + bias[n]) for one block tile
 template <class Gemm, typename T, bool GELU>
@@ -63,26 +153,46 @@ int launch_gemm(const T* a, long long rows, int k, const T* b,
   return (int)cudaGetLastError();
 }
 
-template <class Gemm, typename T>
-int launch_ffn(const void* x, const void* w1, const float* b1,
-               const void* w2, const float* b2, void* hidden, void* out,
-               long long rows, int h, int f, cudaStream_t stream) {
-  if (h % Gemm::kBN || f % Gemm::kBN || h % Gemm::kKAlign ||
-      f % Gemm::kKAlign)
+// both GEMMs: x . w1^T -> hidden (bias, GELU, cast), hidden . w2^T -> out
+template <class Gemm>
+bool shapes_ok(int h, int f) {
+  return h % Gemm::kBN == 0 && f % Gemm::kBN == 0 && h % Gemm::kKAlign == 0 &&
+         f % Gemm::kKAlign == 0;
+}
+
+int launch_ffn_bf16(const void* x, const void* w1, const float* b1,
+                    const void* w2, const float* b2, void* hidden, void* out,
+                    long long rows, int h, int f, cudaStream_t stream) {
+  const void* ptrs[4] = {x, w1, w2, hidden};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return W2V_BAD_ARGS;
+  if (!shapes_ok<FfnWg>(h, f) || reinterpret_cast<uintptr_t>(b1) % 8 ||
+      reinterpret_cast<uintptr_t>(b2) % 8)
     return W2V_BAD_ARGS;
-  int status = launch_gemm<Gemm, T, true>(
-      static_cast<const T*>(x), rows, h, static_cast<const T*>(w1), b1,
-      static_cast<T*>(hidden), f, stream);
+  const int status =
+      launch_wg<FfnWg, true>(x, rows, h, w1, b1, hidden, f, stream);
   if (status != 0) return status;
-  return launch_gemm<Gemm, T, false>(
-      static_cast<const T*>(hidden), rows, f, static_cast<const T*>(w2), b2,
-      static_cast<T*>(out), h, stream);
+  return launch_wg<FfnWg, false>(hidden, rows, f, w2, b2, out, h, stream);
+}
+
+int launch_ffn_f32(const void* x, const void* w1, const float* b1,
+                   const void* w2, const float* b2, void* hidden, void* out,
+                   long long rows, int h, int f, cudaStream_t stream) {
+  if (!shapes_ok<FfnSimt>(h, f)) return W2V_BAD_ARGS;
+  const int status = launch_gemm<FfnSimt, float, true>(
+      static_cast<const float*>(x), rows, h, static_cast<const float*>(w1),
+      b1, static_cast<float*>(hidden), f, stream);
+  if (status != 0) return status;
+  return launch_gemm<FfnSimt, float, false>(
+      static_cast<const float*>(hidden), rows, f,
+      static_cast<const float*>(w2), b2, static_cast<float*>(out), h, stream);
 }
 
 }  // namespace
 
 // x, out: [rows, h]; hidden: [rows, f] scratch; w1 [f, h], w2 [h, f] in x's
-// type; b1 [f], b2 [h] float32.  All contiguous.  Launches on `stream`;
+// type; b1 [f], b2 [h] float32.  All contiguous; in bf16 x, w1, w2 and
+// hidden 16-byte aligned; h, f multiples of 128.  Launches on `stream`;
 // returns the first failing launch's cudaError_t, or W2V_BAD_ARGS.
 extern "C" int w2v_ffn(const void* x, const void* w1, const void* b1,
                        const void* w2, const void* b2, void* hidden,
@@ -93,10 +203,8 @@ extern "C" int w2v_ffn(const void* x, const void* w1, const void* b1,
   const float* b2f = static_cast<const float*>(b2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == W2V_BF16)
-    return launch_ffn<FfnTc, __nv_bfloat16>(x, w1, b1f, w2, b2f, hidden, out,
-                                            rows, h, f, s);
+    return launch_ffn_bf16(x, w1, b1f, w2, b2f, hidden, out, rows, h, f, s);
   if (dtype == W2V_F32)
-    return launch_ffn<FfnSimt, float>(x, w1, b1f, w2, b2f, hidden, out, rows,
-                                      h, f, s);
+    return launch_ffn_f32(x, w1, b1f, w2, b2f, hidden, out, rows, h, f, s);
   return W2V_BAD_ARGS;
 }

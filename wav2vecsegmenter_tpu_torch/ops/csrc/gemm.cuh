@@ -1,5 +1,6 @@
-// Block-tile GEMM mainloops shared by the FFN (ffn.cu) and conv (convfuse.cu)
-// kernels, each followed by its own epilogue.
+// Block-tile GEMM mainloops of the conv kernels (convfuse.cu) and of the
+// FFN's float32 arm (ffn.cu), each followed by its own epilogue.  (The
+// FFN's bf16 arm runs on wgmma_gemm.cuh.)
 //
 // A block computes the tile C[m0 : m0+BM, n0 : n0+BN] of C = A . B^T with
 // float32 sums:
@@ -65,18 +66,6 @@ __device__ __forceinline__ void w2v_ldmatrix_x4(unsigned (&r)[4],
                                                 const void* smem) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(w2v_smem_addr(smem)));
-}
-
-// four 8x8 bf16 matrices, each transposed on the way: lane l gets rows
-// 2 (l % 4) and 2 (l % 4) + 1 of column l / 4 (a B fragment of mma.sync
-// from a tile whose rows run along the product's K)
-__device__ __forceinline__ void w2v_ldmatrix_x4_trans(unsigned (&r)[4],
-                                                      const void* smem) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(w2v_smem_addr(smem)));
 }

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) primitives of the bf16 attention forward kernel
-// (attention.cu): mbarriers, TMA tensor loads, and warpgroup MMA (wgmma) on
-// bf16 operands with float32 accumulators.
+// Hopper (sm_90a) primitives of the bf16 attention kernels (attention.cu,
+// attention_bwd.cu) and the FFN's GEMM mainloop (wgmma_gemm.cuh): mbarriers,
+// TMA tensor loads, warpgroup MMA (wgmma) on bf16 operands with float32
+// accumulators, and setmaxnreg; on the host, the tensor maps TMA reads.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: rows of
 // 64 bf16 (128 bytes), 8-row atoms of 1024 bytes, the 16-byte chunks of row
@@ -76,18 +77,49 @@ __device__ __forceinline__ void hop_tma_load_3d(void* dst,
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading byte offset (MN-major: the step between 64-column
-// boxes; unused for K-major), stride byte offset (the step between 8-row
-// atoms), all >> 4; layout type 1 = 128-byte swizzle
-__device__ __forceinline__ uint64_t hop_desc_sw128(const void* smem,
-                                                   uint32_t lbo_bytes,
-                                                   uint32_t sbo_bytes) {
-  uint64_t d = (hop_smem(smem) & 0x3FFFFu) >> 4;
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at a
+// shared-memory address: start address, leading byte offset (MN-major:
+// the step between 64-column boxes; unused for K-major), stride byte offset
+// (the step between 8-row atoms), all >> 4; layout type 1 = 128-byte
+// swizzle
+__device__ __forceinline__ uint64_t hop_desc_sw128_at(uint32_t addr,
+                                                      uint32_t lbo_bytes,
+                                                      uint32_t sbo_bytes) {
+  uint64_t d = (addr & 0x3FFFFu) >> 4;
   d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFFu) << 16;
   d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32;
   d |= static_cast<uint64_t>(1) << 62;
   return d;
+}
+
+__device__ __forceinline__ uint64_t hop_desc_sw128(const void* smem,
+                                                   uint32_t lbo_bytes,
+                                                   uint32_t sbo_bytes) {
+  return hop_desc_sw128_at(hop_smem(smem), lbo_bytes, sbo_bytes);
+}
+
+// a value the compiler cannot compute ahead of the statement that asks for
+// it: a wgmma descriptor built from it is built right before its wgmma, not
+// hoisted with the others of a loop, where they would all hold registers
+__device__ __forceinline__ uint32_t hop_opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// shared-memory loads at a 32-bit shared address, issued where they stand
+// (volatile: after the mbarrier wait that guards the data, and not hoisted
+// ahead of their use, where they would hold registers)
+__device__ __forceinline__ float2 hop_lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float hop_lds_f(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
 }
 
 __device__ __forceinline__ void hop_wgmma_fence() {
@@ -204,4 +236,103 @@ __device__ __forceinline__ void hop_wgmma_rs_tb(float (&d)[N / 2],
     hop_wgmma_rs_n64_tb(d, a, db);
   else
     hop_wgmma_rs_n128_tb(d, a, db);
+}
+
+// Register budget of a warp-specialised block: the producer warpgroup gives
+// registers back, the consumer warpgroups take them (every warp of a
+// warpgroup executes it; the two roles never reconverge)
+template <int N>
+__device__ __forceinline__ void hop_setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void hop_setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// 1024-byte-aligned start of dynamic shared memory (the 128-byte swizzle's
+// atom); the launch asks for 1024 bytes more than the layout needs
+__device__ __forceinline__ unsigned char* hop_align1024(unsigned char* p) {
+  const uint32_t a = hop_smem(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*HopEncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                     cuuint32_t, void*, const cuuint64_t*,
+                                     const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave,
+                                     CUtensorMapSwizzle,
+                                     CUtensorMapL2promotion,
+                                     CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda function), looked up through the
+// runtime: the library links only the runtime
+inline HopEncodeTiledFn hop_encode_tiled() {
+  static HopEncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<HopEncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A map of `rank` (2 or 3) dims over `base`: dims[0] innermost, in
+// elements; strides[i] the byte step of dim i + 1; boxes of `box`
+// elements; elements outside the dims arrive as zeros.  bf16 maps take
+// the 128-byte swizzle (box[0] = 64), float32 ones none.
+inline bool hop_make_map(CUtensorMap* map, bool bf16, int rank,
+                         const void* base, const cuuint64_t* dims,
+                         const cuuint64_t* strides, const cuuint32_t* box) {
+  const HopEncodeTiledFn encode = hop_encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map,
+                bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                rank, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map over one bf16 attention operand as it lies, element
+// (b, t, h, 0..d) at base + b sb + t st + h sh (in elements): [b, t, row]
+// with the row holding every head ((heads - 1) sh + d elements from the
+// operand's first), boxes of 64 columns x box_rows rows x 1, 128-byte
+// swizzle; rows past t read as zeros.
+inline bool hop_operand_map(CUtensorMap* map, const void* base, int b, int t,
+                            int heads, int d, long long sb, long long st,
+                            long long sh, int box_rows) {
+  const long long row_bytes = 2 * st;
+  const long long batch_bytes = b == 1 ? row_bytes * t : 2 * sb;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>((heads - 1) * sh + d),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
+                                 static_cast<cuuint64_t>(batch_bytes)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  return hop_make_map(map, true, 3, base, dims, strides, box);
+}
+
+// what TMA needs of such an operand: a 16-byte-aligned base and strides that
+// are whole 16-byte units; heads that do not overlap
+inline bool hop_operand_ok(const void* p, long long sb, long long st,
+                           long long sh, int heads, int d) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st % 8 == 0 &&
+         sb % 8 == 0 && sh % 8 == 0 && (heads == 1 || sh >= d) && st > 0 &&
+         (long long)(heads - 1) * sh + d <= st;
 }

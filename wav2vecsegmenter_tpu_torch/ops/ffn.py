@@ -2,11 +2,13 @@
 
 Counterpart of ``wav2vecsegmenter_tpu/ops/ffn.py``: ``ffn`` replaces the
 Pallas ``_ffn_kernel`` (K5).  On CUDA tensors it runs the kernels of
-``csrc/ffn.cu`` (two launches of one tensor-core GEMM mainloop, a bias +
-GELU + cast epilogue and a bias epilogue; the source says why the
-activation is not kept on chip as on the TPU); on CPU tensors the plain
-version.  It takes float32 and bfloat16: the JAX kernel's bf16-only and
-inference-only gates came from the TPU's 16 MB scoped-VMEM limit.
+``csrc/ffn.cu`` (two launches of one GEMM mainloop, a bias + GELU + cast
+epilogue and a bias epilogue: in bf16 ``wgmma`` fed by TMA, which reads x,
+the weights and the activation through tensor maps and so needs them
+16-byte aligned; the source says why the activation is not kept on chip as
+on the TPU); on CPU tensors the plain version.  It takes float32 and
+bfloat16: the JAX kernel's bf16-only and inference-only gates came from the
+TPU's 16 MB scoped-VMEM limit.
 
 Weights are in ``torch.nn.Linear`` layout (w1 [F, H], w2 [H, F]) and are
 cast to x's type per call, biases go in as float32.  Rounding points (the
@@ -65,6 +67,8 @@ def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     w2 = w2.to(x.dtype).contiguous()
     b1 = b1.float().contiguous()
     b2 = b2.float().contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("ffn kernel takes a 16-byte-aligned input")
     rows = x.numel() // h
     hidden = torch.empty((rows, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)

@@ -1,16 +1,17 @@
-"""Time tile-shape variants of the tensor-core FFN and conv kernels on one
-CUDA card, side by side in one process.
+"""Time tile-shape variants of the bf16 FFN and conv kernels on one CUDA
+card, side by side in one process.
 
     python3 -m wav2vecsegmenter_tpu_torch.ops.tile_sweep
 
-Each variant is a copy of ``csrc/`` with the ``using FfnTc = ...`` or
+Each variant is a copy of ``csrc/`` with the ``using FfnWg = ...`` or
 ``using ConvTc = ...`` line replaced, built by nvcc (all at once) into its
 own library and loaded with the same C signatures.  Every variant is held
 against the plain version at the main path's shapes (bf16: the FFN at
 [14, 999, 1024] x 4096, conv layer 1 at [14, 63999, 512], k=3, s=2), then
-timed in two rounds with CUDA events.  Prints the card's name and power
-limit, then one JSON line per variant and round; writes nothing.  A
-measurement tool: nothing imports it.
+timed in two rounds with CUDA events; the FFN's two GEMM launches (bias +
+GELU, then bias) also get their device times from torch.profiler.
+Prints the card's name and power limit, then one JSON line per variant
+and round; writes nothing.  A measurement tool: nothing imports it.
 """
 
 from __future__ import annotations
@@ -23,14 +24,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-# TcGemm<BM, BN, WARPS_M, WARPS_N, STAGES, BK, MIN_BLOCKS>
+# WgGemm<BM, BN, STAGES> (wgmma_gemm.cuh): BM x BN tiles a warpgroup
 FFN = {
-    "128x128 w2x4 s4 bk32 mb1": "TcGemm<128, 128, 2, 4, 4, 32, 1>",
-    "128x128 w2x4 s4 bk32 mb2": "TcGemm<128, 128, 2, 4, 4, 32, 2>",
-    "128x128 w2x4 s3 bk64 mb1": "TcGemm<128, 128, 2, 4, 3, 64, 1>",
-    "128x128 w2x4 s3 bk64 mb2": "TcGemm<128, 128, 2, 4, 3, 64, 2>",
-    "128x128 w2x4 s2 bk64 mb2": "TcGemm<128, 128, 2, 4, 2, 64, 2>",
-    "128x256 w2x4 s3 bk64 mb1": "TcGemm<128, 256, 2, 4, 3, 64, 1>",
+    "128x128 s4": "WgGemm<128, 128, 4>",
+    "128x128 s3": "WgGemm<128, 128, 3>",
+    "128x128 s5": "WgGemm<128, 128, 5>",
+    "64x128 s4": "WgGemm<64, 128, 4>",
+    "128x64 s6": "WgGemm<128, 64, 6>",
 }
 CONV = {
     "64x512 w2x4 s3 bk32": "TcGemm<64, kConvN, 2, 4, 3, 32, 1>",
@@ -45,7 +45,7 @@ def _build_variants(work: Path) -> dict:
     nvcc = _build._nvcc()
     jobs = {}
     for kind, variants, source, alias in (
-            ("ffn", FFN, "ffn.cu", "FfnTc"),
+            ("ffn", FFN, "ffn.cu", "FfnWg"),
             ("conv", CONV, "convfuse.cu", "ConvTc")):
         for tag, decl in variants.items():
             d = work / f"{kind}_{len(jobs)}"
@@ -80,6 +80,7 @@ def main() -> int:
     import torch
 
     from . import convfuse, ffn
+    from .timing import cuda_ms, device_ms
 
     if not torch.cuda.is_available():
         raise SystemExit("tile_sweep: no CUDA device")
@@ -94,18 +95,6 @@ def main() -> int:
 
     def randn(*shape, std=1.0):
         return torch.randn(*shape, generator=g, device=dev) * std
-
-    def cuda_ms(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
 
     with tempfile.TemporaryDirectory() as tmp:
         libs = _build_variants(Path(tmp))
@@ -142,10 +131,15 @@ def main() -> int:
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 ms = cuda_ms(lambda: launch(lib), iters)
+                # device ms of the FFN's first (GELU) and second GEMM
+                split = ({f"{which}_gemm_ms": ms_ for which, ms_ in zip(
+                    ("gelu", "bias"), device_ms(lambda: launch(lib), iters,
+                                                ("true>", "false>")).values())}
+                         if kind == "ffn" else {})
                 print(json.dumps({"kernel": kind, "tile": tag, "round": rnd,
                                   "status": status, "max_abs_err": err,
-                                  "ms": ms, "tflops": flops / ms / 1e9}),
-                      flush=True)
+                                  "ms": ms, "tflops": flops / ms / 1e9,
+                                  **split}), flush=True)
     return 0
 
 
