@@ -7,7 +7,8 @@ Phases, each printed on its own line; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the kernels of wav2vecsegmenter_tpu_torch/ops/csrc
    (one process per source file, in parallel); the line carries ptxas's
-   registers and spills of every kernel;
+   registers and spills of every kernel (the bf16 conv kernels must show
+   none: checked after the kernel phase);
 3. kernels: each hand kernel against its plain PyTorch version on the card,
    at the shapes the segmentation and training paths give it, float32
    (TF32 off) and bf16, with ragged lengths; times from CUDA events,
@@ -21,8 +22,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    profiler's device time of each of K10's three kernels; the FFN rows
    (the full batch, the tail bucket and the remainder ladder's 1, 2 and 4
    windows) add the cuBLAS chain linear -> GELU -> linear as a reference
-   time and the device time of the two GEMM launches; the LayerNorm
-   backward is timed three times against its library call, in turns;
+   time and the device time of the two GEMM launches; the conv rows
+   (layers 0-6 of a batch) run twice, bitwise, are timed three times (the
+   median on record) and add the cuDNN chain conv1d -> layer_norm -> gelu
+   as a reference time and the device time of the conv kernels; the
+   LayerNorm backward is timed three times against its library call, in
+   turns;
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
@@ -33,8 +38,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    the kernels (counters reset just before; the path of the conv epilogue
    kernel).  The kernels' bf16 probabilities must be as close to the
    float32 ones as the eager path's (within KERNEL_SLACK), the kernels and
-   eager no further apart than bf16 is from float32, and the two
-   configurations within BF16_PAIR of their distance to float32;
+   eager no further apart than bf16 is from float32, the two
+   configurations within BF16_PAIR of their distance to float32, and six
+   conv_bias_ln_gelu launches (layers 1-6) to each conv_audio_ln_gelu;
 5. batch: one full batch of 14 x 20 s windows timed in both configurations
    with the kernels, and eager, in turns (``--profile`` adds a
    torch.profiler table of one default-configuration batch on standard
@@ -173,6 +179,14 @@ UNFUSED_PATH = ("layer_norm", "attention_packed", "attention_bthd",
 # the trainer's path: the default configuration's forward kernels and the
 # head's backward kernels
 TRAIN_PATH = DEFAULT_PATH + ("layer_norm_bwd", "attention_bwd")
+# conv layers 2-5 of a 14 x 20 s batch (t_in, k, s); layers 1 and 6 have
+# rows of their own, as has the raw-audio layer 0
+CONV_MIDDLE = ((31999, 3, 2), (15999, 3, 2), (7999, 3, 2), (3999, 2, 2))
+# the conv kernels by name (bf16: wgmma + TMA, tensor-core taps; float32:
+# the scalar oracle kernels), for the profiler's device times and the
+# build phase's spill check
+CONV_KERNELS = ("conv_wg_kernel", "conv_audio_tc_kernel",
+                "conv_ln_gelu_kernel", "conv_audio_kernel")
 
 
 def phase(tag: str, **fields) -> None:
@@ -463,12 +477,27 @@ def check_kernels(dev) -> dict:
             + w.numel() * x.element_size() + nbytes(cb, scale, bias)
         product = 2 * rows * k * c * 512
         epilogue = rows * 512 * (1 + LN_OPS + GELU_OPS)
-        # the narrow raw-audio product runs on scalar FMAs
-        rate = "f32" if k * c <= conv.AUDIO_MAX_K else tc(dtype)
+        # a reference point, not the library column: the cuDNN chain of
+        # three calls in x's type, conv1d on the channels-first view ->
+        # layer_norm -> gelu
+        lw, lcb, lsc, lbi = (a.to(dtype) for a in (w, cb, scale, bias))
+
+        def chain():
+            y = F.conv1d(x.transpose(1, 2), lw, lcb, stride=s)
+            return F.gelu(F.layer_norm(y.transpose(1, 2), (512,), lsc, lbi,
+                                       ln.EPS))
+
+        # every conv row twice (bitwise), three timings (the median on
+        # record), and the profiler's device time of the conv kernels
         return dict(fn=lambda: conv.conv_bias_ln_gelu(*args),
                     plain=lambda: conv.conv_bias_ln_gelu_plain(*args),
-                    bound=bound(moved, (rate, product), ("f32", epilogue)),
-                    library=None)
+                    bound=bound(moved, (tc(dtype), product),
+                                ("f32", epilogue)),
+                    library=None, twice=True, repeats=3,
+                    extra=lambda: {"cudnn_chain_ms": cuda_ms(chain, 3),
+                                   "device_ms": device_ms(
+                                       lambda: conv.conv_bias_ln_gelu(*args),
+                                       3, CONV_KERNELS)})
 
     cases = []  # (kernel, label, dtype, case)
     for dtype in (torch.float32, torch.bfloat16):
@@ -507,6 +536,13 @@ def check_kernels(dev) -> dict:
         for w in (1, 2, 4):
             cases.append(("ffn", f"[{w},{T},1024]x4096", dtype,
                           lambda d=dtype, w=w: ffn_case(T, d, w)))
+    # conv layers 2-5, after every earlier row for the same reason
+    for dtype in (torch.float32, torch.bfloat16):
+        for t, k, s in CONV_MIDDLE:
+            cases.append(("conv_bias_ln_gelu", f"[{B},{t},512] k={k} s={s}",
+                          dtype,
+                          lambda t=t, k=k, s=s, d=dtype: conv_case(
+                              t, 512, k, s, d)))
 
     results: dict = {}
     for name, label, dtype, make in cases:
@@ -655,6 +691,10 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
     for name in DEFAULT_PATH:
         check(counts.get(name, 0) > 0,
               f"kernel {name} never launched on the default path")
+    # six conv layers on conv_bias_ln_gelu for each raw-audio layer 0
+    check(counts["conv_bias_ln_gelu"] == 6 * counts["conv_audio_ln_gelu"],
+          f"conv launches {counts['conv_bias_ln_gelu']} / "
+          f"{counts['conv_audio_ln_gelu']}, not six layers to one")
     for name in UNFUSED_PATH:
         check(counts_unfused.get(name, 0) > 0,
               f"kernel {name} never launched on the unfused path")
@@ -947,11 +987,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.library()
+    ptxas = ptxas_report(_build.build_log)
     phase("build", seconds=time.perf_counter() - t0,
-          nvcc_seconds=_build.build_seconds,
-          ptxas=ptxas_report(_build.build_log))
+          nvcc_seconds=_build.build_seconds, ptxas=ptxas)
 
     kernels = check_kernels(dev)
+    # the bf16 conv kernels: no spills (checked after the kernel rows, so
+    # that this script run on an earlier checkout still times its conv
+    # layers before it stops here)
+    for name in CONV_KERNELS[:2]:
+        found = [v for k, v in ptxas.items() if k.startswith(name + " ")]
+        check(bool(found) and all(v.endswith("spills 0/0 bytes")
+                                  for v in found),
+              f"{name}: {found or 'not in the ptxas report'}")
     counts, counts_unfused, model = run_slice(dev)
     time_batch(dev, model, profile="--profile" in sys.argv)
     del model

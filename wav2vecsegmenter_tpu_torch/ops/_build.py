@@ -63,7 +63,8 @@ _SIGNATURES = {
 
 _lib = None
 build_seconds: float | None = None  # wall time of the nvcc run, None if cached
-build_log: str = ""                  # nvcc's output (ptxas register report)
+build_log: str = ""  # nvcc's output (ptxas register report), kept beside
+                     # the library and read back when it is cached
 
 
 def _nvcc() -> str:
@@ -98,7 +99,9 @@ def build() -> Path:
     one nvcc process per ``.cu`` file, all started together, then a link."""
     global build_seconds, build_log
     out = library_path()
+    log = out.with_suffix(".log")
     if out.is_file():
+        build_log = log.read_text() if log.is_file() else ""
         return out
     nvcc = _nvcc()
     work = BUILD_DIR / f"{out.stem}.{os.getpid()}"
@@ -125,6 +128,7 @@ def build() -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{build_log}")
+        log.write_text(build_log)
         os.replace(tmp, out)
     finally:
         build_seconds = time.perf_counter() - t0

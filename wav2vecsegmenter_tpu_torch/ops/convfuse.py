@@ -5,15 +5,20 @@ Counterpart of ``wav2vecsegmenter_tpu/ops/convfuse.py``:
 (K6), ``_kernel_2tap`` (K8, the same function) and ``_kernel_1tap`` (K7).
 On CUDA tensors it runs a kernel of ``csrc/convfuse.cu``:
 
-* ``conv_bias_ln_gelu`` (launch counter of that name): a tensor-core GEMM
-  over the input read in place as an overlapping strided view (row r is
-  ``x[b, r*s : r*s + k]`` flattened, K = k*C), the LayerNorm epilogue in the
-  same block — conv layers 1-6;
-* ``conv_audio_ln_gelu``: scalar taps for a narrow product (k*C <= 16, the
-  raw-audio layer 0), the same epilogue.
+* ``conv_bias_ln_gelu`` (launch counter of that name), conv layers 1-6: in
+  bf16 a ``wgmma`` + TMA kernel in clusters of two CTAs, each owning 128
+  rows x 256 channels, the A operand loaded by TMA from x as it lies (the
+  stride fold: one map for taps [0, s), one for [s, k)) and multicast to
+  the pair, the LayerNorm statistics merged through distributed shared
+  memory, the output stored by TMA; in float32 scalar FMAs over the input
+  read in place as an overlapping strided view (row r is
+  ``x[b, r*s : r*s + k]`` flattened, K = k*C);
+* ``conv_audio_ln_gelu``: a narrow product (k*C <= 16, the raw-audio layer
+  0): in bf16 the taps on the tensor cores (``mma.sync``, K padded to 16)
+  from a staged span of samples, in float32 scalar taps.
 
-No stride fold, tap split or halo: those kept the TPU's blocks aligned.  On
-CPU tensors the plain version runs.
+Both end in the same block with the LayerNorm and GELU.  On CPU tensors
+the plain version runs.
 
 Semantics: x [B, T, C], weight [O, C, k] (torch ``Conv1d`` layout, cast to
 x's type per call), VALID, stride s -> [B, T', O], T' = (T - k)//s + 1.
@@ -32,7 +37,7 @@ import torch
 from . import _build, backend
 from .layernorm import EPS, bias_layer_norm_gelu_plain
 
-AUDIO_MAX_K = 16  # widest product (k*C) of the scalar-tap kernel
+AUDIO_MAX_K = 16  # widest product (k*C) of conv_audio_ln_gelu
 
 backend.register_kernel("conv_bias_ln_gelu")
 backend.register_kernel("conv_audio_ln_gelu")
@@ -91,6 +96,9 @@ def conv_bias_ln_gelu(x: torch.Tensor, weight: torch.Tensor,
     b, t, c, o, k, t_out = _geometry(x, weight, stride)
     if not x.is_contiguous():
         raise ValueError("conv kernel takes a contiguous [B, T, C] input")
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        raise ValueError("the bf16 conv kernels read x by TMA: its storage "
+                         "must start on a 16-byte boundary")
     for p in (weight, conv_bias, scale, bias):
         if p.device != x.device:
             raise ValueError("conv parameters must be on x's device")

@@ -73,19 +73,6 @@ ffn_wg_kernel(const __grid_constant__ CUtensorMap amap,
   });
 }
 
-// the card's SM count: the persistent grid's size
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n = 0;
-  }
-  return n;
-}
-
 // a 3-D map [1, rows, k] over a row-major bf16 matrix, boxes of 64 x
 // box_rows
 bool matrix_map(CUtensorMap* map, const void* base, long long rows, int k,
@@ -102,7 +89,7 @@ template <class G, bool GELU>
 int launch_wg(const void* a, long long rows, int k, const void* b,
               const float* bias, void* out, int n, cudaStream_t stream) {
   const long long tiles = (rows + G::kBM - 1) / G::kBM * (n / G::kBN);
-  if (rows > 0x7fffffffLL || tiles > 0x7fffffffLL || sm_count() == 0)
+  if (rows > 0x7fffffffLL || tiles > 0x7fffffffLL || hop_sm_count() == 0)
     return W2V_BAD_ARGS;
   CUtensorMap amap, bmap;
   if (!matrix_map(&amap, a, rows, k, G::kBM) ||
@@ -112,7 +99,8 @@ int launch_wg(const void* a, long long rows, int k, const void* b,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)(tiles < sm_count() ? tiles : sm_count());
+  const int sms = hop_sm_count();
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   kernel<<<grid, G::kThreads, G::kSmemBytes, stream>>>(
       amap, bmap, bias, static_cast<__nv_bfloat16*>(out), (int)rows, n, k);
   return (int)cudaGetLastError();

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) primitives of the bf16 attention kernels (attention.cu,
-// attention_bwd.cu) and the FFN's GEMM mainloop (wgmma_gemm.cuh): mbarriers,
-// TMA tensor loads, warpgroup MMA (wgmma) on bf16 operands with float32
-// accumulators, and setmaxnreg; on the host, the tensor maps TMA reads.
+// attention_bwd.cu), the FFN's GEMM mainloop (wgmma_gemm.cuh) and the conv
+// kernels (convfuse.cu): mbarriers, TMA tensor loads (also multicast to a
+// cluster) and stores, warpgroup MMA (wgmma) on bf16 operands with float32
+// accumulators, setmaxnreg, and the cluster's barrier and distributed
+// shared memory; on the host, the tensor maps TMA reads and writes.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: rows of
 // 64 bf16 (128 bytes), 8-row atoms of 1024 bytes, the 16-byte chunks of row
@@ -75,6 +77,111 @@ __device__ __forceinline__ void hop_tma_load_3d(void* dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(hop_smem(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// TMA multicast: the box into the shared memory of every CTA of the
+// cluster named in `mask` (bit r: cluster rank r), at dst's offset in each,
+// the completion counted on each one's barrier at bar's offset
+__device__ __forceinline__ void hop_tma_load_3d_mc(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c0,
+                                                   int c1, int c2,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          hop_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(hop_smem(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+
+// TMA store: a box from shared memory into the tensor of a 3-D map at
+// element coordinates (c0 innermost); elements outside the tensor are not
+// written.  Completion is tracked by bulk groups (hop_bulk_*).
+__device__ __forceinline__ void hop_tma_store_3d(const CUtensorMap* map,
+                                                 const void* src, int c0,
+                                                 int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(hop_smem(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void hop_bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void hop_bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void hop_bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// orders this thread's shared-memory writes before later reads of them by
+// the async proxy (a TMA store)
+__device__ __forceinline__ void hop_fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void hop_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- thread block clusters
+__device__ __forceinline__ unsigned hop_cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster (all warps converged)
+__device__ __forceinline__ void hop_cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+// the shared::cluster address of this CTA's shared address `addr` in the
+// CTA of cluster rank `rank`
+__device__ __forceinline__ uint32_t hop_mapa(uint32_t addr, unsigned rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void hop_st_cluster_f32(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+// one arrival on a barrier at a shared::cluster address (this CTA's or
+// another's), releasing this thread's earlier writes at cluster scope
+__device__ __forceinline__ void hop_mbar_arrive_cluster(uint32_t addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+// hop_mbar_wait with acquire at cluster scope: what other CTAs released
+// with their arrivals is visible after it
+__device__ __forceinline__ void hop_mbar_wait_cluster(uint64_t* bar,
+                                                      unsigned parity) {
+  const uint32_t addr = hop_smem(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand at a
@@ -177,6 +284,35 @@ __device__ __forceinline__ void hop_wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A . B for one m64n256k16 step, A and B from shared memory (both
+// K-major); scale_d 0 discards d's previous value
+__device__ __forceinline__ void hop_wgmma_ss_n256(float (&d)[128], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d += A . B for one m64n64k16 step, A from registers (the m64k16 bf16
 // fragment: four packed pairs a thread), B from shared memory MN-major
 // (transposed: N contiguous)
@@ -220,11 +356,13 @@ __device__ __forceinline__ void hop_wgmma_rs_n128_tb(float (&d)[64],
 template <int N>
 __device__ __forceinline__ void hop_wgmma_ss(float (&d)[N / 2], uint64_t da,
                                              uint64_t db, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma N");
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma N");
   if constexpr (N == 64)
     hop_wgmma_ss_n64(d, da, db, scale_d);
-  else
+  else if constexpr (N == 128)
     hop_wgmma_ss_n128(d, da, db, scale_d);
+  else
+    hop_wgmma_ss_n256(d, da, db, scale_d);
 }
 
 template <int N>
@@ -260,6 +398,19 @@ __device__ __forceinline__ unsigned char* hop_align1024(unsigned char* p) {
 // ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
+
+// the card's SM count (0 if it cannot be read): a persistent grid's size
+inline int hop_sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
 
 typedef CUresult (*HopEncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                      cuuint32_t, void*, const cuuint64_t*,

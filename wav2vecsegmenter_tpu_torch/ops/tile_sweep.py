@@ -3,15 +3,18 @@ card, side by side in one process.
 
     python3 -m wav2vecsegmenter_tpu_torch.ops.tile_sweep
 
-Each variant is a copy of ``csrc/`` with the ``using FfnWg = ...`` or
-``using ConvTc = ...`` line replaced, built by nvcc (all at once) into its
-own library and loaded with the same C signatures.  Every variant is held
-against the plain version at the main path's shapes (bf16: the FFN at
-[14, 999, 1024] x 4096, conv layer 1 at [14, 63999, 512], k=3, s=2), then
-timed in two rounds with CUDA events; the FFN's two GEMM launches (bias +
-GELU, then bias) also get their device times from torch.profiler.
-Prints the card's name and power limit, then one JSON line per variant
-and round; writes nothing.  A measurement tool: nothing imports it.
+Each variant is a copy of ``csrc/`` with its configuration lines replaced
+(``using FfnWg = ...`` of ffn.cu; ``using ConvWgCfg = ...`` and
+``kConvPersistent`` or ``using AudioTcCfg = ...`` and ``kAudioPersistent``
+of convfuse.cu), built by nvcc (all at once) into its own library and
+loaded with the same C signatures.  Every variant is held against the
+plain version at the main path's shapes (bf16: the FFN at [14, 999, 1024]
+x 4096, conv layer 1 at [14, 63999, 512], k=3, s=2, the raw-audio layer 0
+at [14, 320000, 1], k=10, s=5), then timed in two rounds with CUDA events;
+the FFN's two GEMM launches (bias + GELU, then bias) also get their device
+times from torch.profiler.  Prints the card's name and power limit, then
+one JSON line per variant and round; writes nothing.  A measurement tool:
+nothing imports it.
 """
 
 from __future__ import annotations
@@ -32,10 +35,31 @@ FFN = {
     "64x128 s4": "WgGemm<64, 128, 4>",
     "128x64 s6": "WgGemm<128, 64, 6>",
 }
+# ConvWg<STAGES, CM, MC> (convfuse.cu): stages of 64 K-steps, clusters of
+# CM row tiles x 2 channel halves (CM = 2 multicasts the weight's halves),
+# MC: each CTA loads half of the A box and multicasts it to its partner;
+# persistent grid, or one cluster a tile
 CONV = {
-    "64x512 w2x4 s3 bk32": "TcGemm<64, kConvN, 2, 4, 3, 32, 1>",
-    "64x512 w2x4 s4 bk32": "TcGemm<64, kConvN, 2, 4, 4, 32, 1>",
-    "64x512 w2x4 s2 bk64": "TcGemm<64, kConvN, 2, 4, 2, 64, 1>",
+    "s4 1x2 persistent": ("ConvWg<4, 1, false>", "true"),
+    "s3 1x2 persistent": ("ConvWg<3, 1, false>", "true"),
+    "s4 1x2 persistent, A multicast": ("ConvWg<4, 1, true>", "true"),
+    "s4 2x2 persistent": ("ConvWg<4, 2, false>", "true"),
+    "s4 1x2 a cluster a tile": ("ConvWg<4, 1, false>", "false"),
+}
+# AudioTc<STRIPS> (convfuse.cu): tiles of 16 * STRIPS rows; persistent
+# grid, or one block a tile
+AUDIO = {
+    "64 rows persistent": ("AudioTc<4>", "true"),
+    "64 rows a block a tile": ("AudioTc<4>", "false"),
+    "32 rows persistent": ("AudioTc<2>", "true"),
+}
+# the lines of each kind's source that a variant replaces
+PATTERNS = {
+    "ffn": (r"using FfnWg = [^;]*;",),
+    "conv": (r"using ConvWgCfg = [^;]*;",
+             r"constexpr bool kConvPersistent = [^;]*;"),
+    "audio": (r"using AudioTcCfg = [^;]*;",
+              r"constexpr bool kAudioPersistent = [^;]*;"),
 }
 
 
@@ -44,17 +68,19 @@ def _build_variants(work: Path) -> dict:
 
     nvcc = _build._nvcc()
     jobs = {}
-    for kind, variants, source, alias in (
-            ("ffn", FFN, "ffn.cu", "FfnWg"),
-            ("conv", CONV, "convfuse.cu", "ConvTc")):
+    for kind, variants, source in (("ffn", FFN, "ffn.cu"),
+                                   ("conv", CONV, "convfuse.cu"),
+                                   ("audio", AUDIO, "convfuse.cu")):
         for tag, decl in variants.items():
             d = work / f"{kind}_{len(jobs)}"
             shutil.copytree(_build.CSRC_DIR, d)
-            text, n = re.subn(rf"using {alias} = [^;]*;",
-                              f"using {alias} = {decl};",
-                              (d / source).read_text())
-            if n != 1:
-                raise RuntimeError(f"no '{alias}' line in {source}")
+            text = (d / source).read_text()
+            decls = (decl,) if isinstance(decl, str) else decl
+            for pattern, value in zip(PATTERNS[kind], decls):
+                head = pattern.split(" = ")[0]
+                text, n = re.subn(pattern, f"{head} = {value};", text)
+                if n != 1:
+                    raise RuntimeError(f"no '{head}' line in {source}")
             (d / source).write_text(text)
             lib = d / "lib.so"
             cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
@@ -113,6 +139,11 @@ def main() -> int:
         wk = wc.permute(0, 2, 1).reshape(512, 1536).contiguous()
         ref_c = convfuse.conv_bias_ln_gelu_plain(xc, wc, cb, sc, bi, 2)
         out_c = torch.empty(14, 31999, 512, dtype=xc.dtype, device=dev)
+        xa = randn(14, 320000, 1).bfloat16()
+        wa = randn(512, 1, 10, std=10 ** -0.5).bfloat16()
+        wak = wa.reshape(512, 10).contiguous()
+        ref_a = convfuse.conv_bias_ln_gelu_plain(xa, wa, cb, sc, bi, 5)
+        out_a = torch.empty(14, 63999, 512, dtype=xa.dtype, device=dev)
         calls = {
             "ffn": (lambda lib: lib.w2v_ffn(
                 x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -121,8 +152,13 @@ def main() -> int:
             "conv": (lambda lib: lib.w2v_conv_ln_gelu(
                 xc.data_ptr(), wk.data_ptr(), cb.data_ptr(), sc.data_ptr(),
                 bi.data_ptr(), out_c.data_ptr(), 14, 63999, 512, 3, 2, 31999,
-                512, 1e-5, 1, stream), out_c, ref_c, 2 * 14 * 31999 * 1536 * 512,
-                5),
+                512, 1e-5, 1, stream), out_c, ref_c,
+                2 * 14 * 31999 * 1536 * 512, 10),
+            "audio": (lambda lib: lib.w2v_conv_audio_ln_gelu(
+                xa.data_ptr(), wak.data_ptr(), cb.data_ptr(), sc.data_ptr(),
+                bi.data_ptr(), out_a.data_ptr(), 14, 320000, 1, 10, 5, 63999,
+                512, 1e-5, 1, stream), out_a, ref_a,
+                2 * 14 * 63999 * 10 * 512, 10),
         }
         for rnd in range(2):
             for (kind, tag), lib in libs.items():
