@@ -7,8 +7,8 @@ Phases, each printed on its own line; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the kernels of wav2vecsegmenter_tpu_torch/ops/csrc
    (one process per source file, in parallel); the line carries ptxas's
-   registers and spills of every kernel (the bf16 conv kernels must show
-   none: checked after the kernel phase);
+   registers and spills of every kernel (the bf16 conv and LayerNorm
+   kernels must show none: checked after the kernel phase);
 3. kernels: each hand kernel against its plain PyTorch version on the card,
    at the shapes the segmentation and training paths give it, float32
    (TF32 off) and bf16, with ragged lengths; times from CUDA events,
@@ -26,8 +26,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    (layers 0-6 of a batch) run twice, bitwise, are timed three times (the
    median on record) and add the cuDNN chain conv1d -> layer_norm -> gelu
    as a reference time and the device time of the conv kernels; the
-   LayerNorm backward is timed three times against its library call, in
-   turns;
+   LayerNorm rows (K1 at h = 1024 and 512, the tail bucket's rows and a
+   width with a masked tail; K2 at conv layers 0, 1 and 6's outputs) run
+   twice, bitwise, are timed three times (K1 in turns with F.layer_norm)
+   and add the profiler's device time of the kernel and, for K1, of
+   F.layer_norm and both calls' host time a call; the LayerNorm backward
+   is timed three times against its library call, in turns;
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
@@ -39,12 +43,13 @@ Phases, each printed on its own line; any failure exits non-zero:
    kernel).  The kernels' bf16 probabilities must be as close to the
    float32 ones as the eager path's (within KERNEL_SLACK), the kernels and
    eager no further apart than bf16 is from float32, the two
-   configurations within BF16_PAIR of their distance to float32, and six
-   conv_bias_ln_gelu launches (layers 1-6) to each conv_audio_ln_gelu;
+   configurations within BF16_PAIR of their distance to float32, six
+   conv_bias_ln_gelu launches (layers 1-6) to each conv_audio_ln_gelu,
+   34 layer_norm launches a batch in both configurations and 7
+   bias_layer_norm_gelu launches a batch in the unfused one;
 5. batch: one full batch of 14 x 20 s windows timed in both configurations
-   with the kernels, and eager, in turns (``--profile`` adds a
-   torch.profiler table of one default-configuration batch on standard
-   error);
+   with the kernels, and eager, in turns (``--profile`` adds torch.profiler
+   tables of one batch in each configuration on standard error);
 6. train: the same full-width SHAS trains its SFC head on a frozen backbone
    through the port's loop (``train.loop.train``) on a synthetic corpus
    written to a temporary directory, batch 14, 20 s windows,
@@ -96,7 +101,7 @@ from wav2vecsegmenter_tpu_torch.ops import attention as attn
 from wav2vecsegmenter_tpu_torch.ops import convfuse as conv
 from wav2vecsegmenter_tpu_torch.ops import ffn as tffn
 from wav2vecsegmenter_tpu_torch.ops import layernorm as ln
-from wav2vecsegmenter_tpu_torch.ops.timing import cuda_ms, device_ms
+from wav2vecsegmenter_tpu_torch.ops.timing import cuda_ms, device_ms, host_us
 
 B = 14              # conf/segment.yaml batch_size
 T, T_TAIL = 999, 1099   # frames of a 20 s window and of the 22 s tail bucket
@@ -187,6 +192,17 @@ CONV_MIDDLE = ((31999, 3, 2), (15999, 3, 2), (7999, 3, 2), (3999, 2, 2))
 # build phase's spill check
 CONV_KERNELS = ("conv_wg_kernel", "conv_audio_tc_kernel",
                 "conv_ln_gelu_kernel", "conv_audio_kernel")
+# the LayerNorm kernels by name (bf16: the vector kernel; float32: the
+# simple oracle kernel) and F.layer_norm's, for the profiler's device times
+# (the bf16 kernel also for the spill check)
+LN_KERNELS = ("ln_vec_kernel", "ln_rows_kernel")
+LIB_LN_KERNELS = ("layer_norm_kernel",)
+# a K1 row width with a masked tail: not a multiple of 8, a partial pass
+LN_TAIL_H = 1020
+# LayerNorm launches a batch: the feature projection, two in each of the 15
+# encoder layers and three in the SFC head; the unfused arm's conv epilogue
+# runs once a conv layer.  The slice segments its two talks in two batches.
+LN_PER_BATCH, CONV_LAYERS, SLICE_BATCHES = 34, 7, 2
 
 
 def phase(tag: str, **fields) -> None:
@@ -295,20 +311,38 @@ def check_kernels(dev) -> dict:
         x = randn(rows, h, std=2.0, mean=0.5, dtype=dtype)
         scale, bias = randn(h, std=0.1, mean=1.0), randn(h, std=0.1)
         moved = nbytes(x, x, scale, bias)
+        # every LayerNorm row twice (bitwise), three timings (the median on
+        # record), and the profiler's device time of the kernel; for K1
+        # also F.layer_norm's, and both calls' host time a call (a short
+        # kernel's events time is its host path's where that is longer)
+        iters = 3 if rows > B * 32000 else 50
         if gelu:
             cb = randn(h, std=0.3)
             args = (x, cb, scale, bias)
-            return dict(fn=lambda: ln.bias_layer_norm_gelu(*args),
+            fn = lambda: ln.bias_layer_norm_gelu(*args)  # noqa: E731
+            return dict(fn=fn,
                         plain=lambda: ln.bias_layer_norm_gelu_plain(*args),
                         bound=bound(moved + nbytes(cb), (
                             "f32", rows * h * (1 + LN_OPS + GELU_OPS))),
-                        library=None)
+                        library=None, twice=True, repeats=3, iters=iters,
+                        extra=lambda: {"device_ms": device_ms(fn, iters,
+                                                              LN_KERNELS)})
         lib_scale, lib_bias = scale.to(dtype), bias.to(dtype)
-        return dict(fn=lambda: ln.layer_norm(x, scale, bias),
+        fn = lambda: ln.layer_norm(x, scale, bias)  # noqa: E731
+
+        def library():
+            return F.layer_norm(x, (h,), lib_scale, lib_bias, ln.EPS)
+
+        return dict(fn=fn,
                     plain=lambda: ln.layer_norm_plain(x, scale, bias),
                     bound=bound(moved, ("f32", rows * h * LN_OPS)),
-                    library=lambda: F.layer_norm(x, (h,), lib_scale, lib_bias,
-                                                 ln.EPS))
+                    library=library, twice=True, repeats=3, iters=iters,
+                    extra=lambda: {
+                        "device_ms": device_ms(fn, iters, LN_KERNELS),
+                        "library_device_ms": device_ms(library, iters,
+                                                       LIB_LN_KERNELS),
+                        "host_us": host_us(fn, iters),
+                        "library_host_us": host_us(library, iters)})
 
     def pairs(mask):
         # (query, key) pairs per head that need the products: the valid
@@ -543,6 +577,17 @@ def check_kernels(dev) -> dict:
                           dtype,
                           lambda t=t, k=k, s=s, d=dtype: conv_case(
                               t, 512, k, s, d)))
+    # K1 at the tail bucket's ragged row count and at a width with a
+    # masked tail (not a multiple of 8: element-wise loads and stores), K2
+    # at conv layer 1's output (the unfused arm), after every earlier row
+    # for the same reason
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, h in ((B * T_TAIL, 1024), (B * T, LN_TAIL_H)):
+            cases.append(("layer_norm", f"[{B}*{rows // B},{h}]", dtype,
+                          lambda h=h, r=rows, d=dtype: ln_case(h, r, False,
+                                                               d)))
+        cases.append(("bias_layer_norm_gelu", f"[{B},31999,512]", dtype,
+                      lambda d=dtype: ln_case(512, B * 31999, True, d)))
 
     results: dict = {}
     for name, label, dtype, make in cases:
@@ -698,6 +743,15 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
     for name in UNFUSED_PATH:
         check(counts_unfused.get(name, 0) > 0,
               f"kernel {name} never launched on the unfused path")
+    check(counts["layer_norm"] == LN_PER_BATCH * SLICE_BATCHES
+          and counts_unfused["layer_norm"] == LN_PER_BATCH * SLICE_BATCHES,
+          f"layer_norm launches {counts['layer_norm']} / "
+          f"{counts_unfused['layer_norm']}, not {LN_PER_BATCH} a batch")
+    check(counts_unfused["bias_layer_norm_gelu"]
+          == CONV_LAYERS * SLICE_BATCHES,
+          f"bias_layer_norm_gelu launches "
+          f"{counts_unfused['bias_layer_norm_gelu']}, not {CONV_LAYERS} a "
+          f"batch")
     for rows in (rows_k, rows_e, rows_u):
         check({r["wav"] for r in rows} == {w.name for w in wavs},
               "a talk got no segments")
@@ -752,8 +806,8 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
 def time_batch(dev, model, profile: bool) -> None:
     """One full batch (14 windows of 20 s) through the engine: the default
     configuration with the kernels, the unfused one with the kernels, and
-    eager, in turns; with ``profile``, a torch.profiler table of one
-    default-configuration batch goes to standard error."""
+    eager, in turns; with ``profile``, a torch.profiler table of one batch
+    in each configuration goes to standard error."""
     from wav2vecsegmenter_tpu_torch.data.windows import BatchIterator
     from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
 
@@ -791,11 +845,14 @@ def time_batch(dev, model, profile: bool) -> None:
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof
 
-        with prof(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as p:
-            once("auto")
-        print(p.key_averages().table(sort_by="cuda_time_total", row_limit=40),
-              file=sys.stderr, flush=True)
+        for arm in ("auto", "unfused"):
+            with prof(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as p:
+                once(arm)
+            print(f"batch profile, {arm} arm", file=sys.stderr)
+            print(p.key_averages().table(sort_by="cuda_time_total",
+                                         row_limit=40),
+                  file=sys.stderr, flush=True)
 
 
 # conf/task/shas.yaml: the frozen-backbone task the trainer runs
@@ -992,10 +1049,10 @@ def main() -> int:
           nvcc_seconds=_build.build_seconds, ptxas=ptxas)
 
     kernels = check_kernels(dev)
-    # the bf16 conv kernels: no spills (checked after the kernel rows, so
-    # that this script run on an earlier checkout still times its conv
-    # layers before it stops here)
-    for name in CONV_KERNELS[:2]:
+    # the bf16 conv and LayerNorm kernels: no spills (checked after the
+    # kernel rows, so that this script run on an earlier checkout still
+    # times its kernels before it stops here)
+    for name in CONV_KERNELS[:2] + LN_KERNELS[:1]:
         found = [v for k, v in ptxas.items() if k.startswith(name + " ")]
         check(bool(found) and all(v.endswith("spills 0/0 bytes")
                                   for v in found),

@@ -33,7 +33,7 @@ backend.register_kernel("layer_norm")
 backend.register_kernel("bias_layer_norm_gelu")
 backend.register_kernel("layer_norm_bwd")
 
-MAX_H = 1024          # widest row the kernels take (one warp, 32 per lane)
+MAX_H = 1024          # widest row the kernels take (one warp a row)
 BWD_ROWS_PER_BLOCK = 32   # kRowsPerBlock of csrc/layernorm_bwd.cu
 
 
@@ -64,21 +64,32 @@ def _launch(x, conv_bias, scale, bias, eps, gelu: bool) -> torch.Tensor:
     for p in params:
         if p.shape != (h,) or p.device != x.device:
             raise ValueError("layer norm parameters must be [h] on x's device")
+    # the bf16 kernel reads x and writes out in 16-byte vectors
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        raise ValueError("layer norm kernel takes a 16-byte aligned bf16 "
+                         "input")
     # parameters go in as float32 (a no-op for the float32 masters; the
-    # encoder's bf16 copies widen exactly)
-    scale, bias = scale.float().contiguous(), bias.float().contiguous()
-    cb = conv_bias.float().contiguous() if gelu else None
+    # encoder's bf16 copies widen exactly), 16-byte aligned for the bf16
+    # kernel's vector loads (a view at another offset is copied)
+    scale, bias = _aligned_f32(scale), _aligned_f32(bias)
+    cb = _aligned_f32(conv_bias) if gelu else None
     out = torch.empty_like(x)
-    lib = _build.library()
-    status = lib.w2v_layer_norm(
+    # the current stream's handle without building a torch.cuda.Stream
+    # (about 3 us a call on the card's host, against K1's ~20 us)
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    status = _build.library().w2v_layer_norm(
         x.data_ptr(), cb.data_ptr() if gelu else None, scale.data_ptr(),
         bias.data_ptr(), out.data_ptr(), x.numel() // h, h, float(eps),
-        _build.dtype_code(x.dtype), int(gelu),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.dtype_code(x.dtype), int(gelu), stream)
     name = "bias_layer_norm_gelu" if gelu else "layer_norm"
     _build.check(status, name)
     backend.count_launch(name)
     return out
+
+
+def _aligned_f32(p: torch.Tensor) -> torch.Tensor:
+    p = p.float().contiguous()
+    return p.clone() if p.data_ptr() % 16 else p
 
 
 def layer_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,

@@ -1,8 +1,11 @@
 """Timing helpers of the measurement scripts (``chip_smoke.py`` and
-``ops.tile_sweep``) on a CUDA card: CUDA events and torch.profiler device
-times.  Nothing on the segment or train path imports this module."""
+``ops.tile_sweep``) on a CUDA card: CUDA events, torch.profiler device
+times and the host's time a call.  Nothing on the segment or train path
+imports this module."""
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -42,3 +45,17 @@ def device_ms(fn, iters: int, names: tuple[str, ...]) -> dict:
             if name in event.key:
                 out[name] += us / 1e3 / iters
     return out
+
+
+def host_us(fn, iters: int) -> float:
+    """Mean host microseconds per call: the time ``iters`` calls take to
+    enqueue their work, after one warm call, without waiting for the
+    device (where it exceeds the device time, CUDA events measure it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
