@@ -31,7 +31,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    twice, bitwise, are timed three times (K1 in turns with F.layer_norm)
    and add the profiler's device time of the kernel and, for K1, of
    F.layer_norm and both calls' host time a call; the LayerNorm backward
-   is timed three times against its library call, in turns;
+   (K9: h = 1024 and, last, A4's 512, the masked-tail width and the
+   variant without dx) runs twice, bitwise, is timed three times against
+   its library call, in turns, and adds the profiler's device time of each
+   of its kernels and of the library call;
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
@@ -55,7 +58,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    written to a temporary directory, batch 14, 20 s windows,
    update_freq=2, two epochs of three micro-steps (a full accumulation and
    an epoch-end flush each): bf16 through the kernels (launch counters
-   reset just before; the path of the backward kernels K9 and K10), bf16
+   reset just before; the path of the backward kernels K9 and K10, and
+   K9 without dx on the head's first LayerNorm, whose input is the frozen
+   backbone's), bf16
    eager (counters must not move), float32 through the kernels and
    float32 eager, from the same weights and generator seed.  Checked:
    finite losses, the backbone bitwise unchanged, the head moved, the
@@ -101,7 +106,8 @@ from wav2vecsegmenter_tpu_torch.ops import attention as attn
 from wav2vecsegmenter_tpu_torch.ops import convfuse as conv
 from wav2vecsegmenter_tpu_torch.ops import ffn as tffn
 from wav2vecsegmenter_tpu_torch.ops import layernorm as ln
-from wav2vecsegmenter_tpu_torch.ops.timing import cuda_ms, device_ms, host_us
+from wav2vecsegmenter_tpu_torch.ops.timing import (cuda_ms, device_ms,
+                                                    device_busy_ms, host_us)
 
 B = 14              # conf/segment.yaml batch_size
 T, T_TAIL = 999, 1099   # frames of a 20 s window and of the 22 s tail bucket
@@ -197,6 +203,11 @@ CONV_KERNELS = ("conv_wg_kernel", "conv_audio_tc_kernel",
 # (the bf16 kernel also for the spill check)
 LN_KERNELS = ("ln_vec_kernel", "ln_rows_kernel")
 LIB_LN_KERNELS = ("layer_norm_kernel",)
+# K9's kernels (bf16: the vector kernel, also for the spill check; float32:
+# the simple oracle kernel; both: the cross-block pass), for the profiler's
+# device times; the library call's device time sums every kernel it runs
+LN_BWD_KERNELS = ("ln_bwd_vec_kernel", "ln_bwd_rows_kernel",
+                  "ln_bwd_reduce_kernel")
 # a K1 row width with a masked tail: not a multiple of 8, a partial pass
 LN_TAIL_H = 1020
 # LayerNorm launches a batch: the feature projection, two in each of the 15
@@ -263,7 +274,7 @@ def _kernel_name(mangled: str) -> str:
         return mangled[:48]
     n = int(m.group(1))
     name = rest[m.end():m.end() + n]
-    return f"{name} {rest[m.end() + n:][:24]}"
+    return f"{name} {rest[m.end() + n:][:64]}"
 
 
 def ptxas_report(log: str) -> dict:
@@ -395,7 +406,7 @@ def check_kernels(dev) -> dict:
                     bound=attn_bound(q, mask, 8, 128, dtype),
                     library=sdpa(q, k, v, mask))
 
-    def ln_bwd_case(h, rows, dtype):
+    def ln_bwd_case(h, rows, dtype, need_dx=True):
         x = randn(rows, h, std=2.0, mean=0.5, dtype=dtype)
         gr = randn(rows, h, dtype=dtype)
         scale = randn(h, std=0.1, mean=1.0)
@@ -403,16 +414,42 @@ def check_kernels(dev) -> dict:
         lib_b = torch.zeros(h, device=dev, dtype=dtype)
         _, mean, rstd = torch.ops.aten.native_layer_norm(x, [h], lib_w, lib_b,
                                                          ln.EPS)
-        moved = nbytes(x, gr, x, scale) + 2 * h * 4
+        # x and g read, dx written (where asked), scale read, dscale and
+        # dbias written
+        moved = nbytes(x, gr, scale) + 2 * h * 4 + (nbytes(x) if need_dx
+                                                    else 0)
+        # without dx the wrapper returns None in its place: held here, the
+        # rows compare dscale and dbias
+        # (the rows with dx pass no flag, so that this script also times
+        # an earlier checkout's kernel on the same inputs)
+        kw = {} if need_dx else {"need_dx": False}
+        check(need_dx or ln.layer_norm_bwd(x, scale, gr, **kw)[0] is None,
+              "layer_norm_bwd wrote a dx it was not asked for")
+        keep = slice(0 if need_dx else 1, None)
+        fn = lambda: ln.layer_norm_bwd(x, scale, gr, **kw)[keep]  # noqa: E731
+
+        def library():
+            return torch.ops.aten.native_layer_norm_backward(
+                gr, x, [h], mean, rstd, lib_w, lib_b, [need_dx, True, True])
+
         # K9 sits within a few percent of its library call: 50 launches a
         # timing, three timings of each in turns, the spread reported
-        return dict(fn=lambda: ln.layer_norm_bwd(x, scale, gr),
-                    plain=lambda: ln.layer_norm_bwd_plain(x, scale, gr),
+        return dict(fn=fn,
+                    plain=lambda: ln.layer_norm_bwd_plain(x, scale, gr,
+                                                          **kw)[keep],
                     bound=bound(moved, ("f32", rows * h * LN_BWD_OPS)),
-                    library=lambda: torch.ops.aten.native_layer_norm_backward(
-                        gr, x, [h], mean, rstd, lib_w, lib_b,
-                        [True, True, True]),
-                    rtol=BWD_RTOL, twice=True, iters=50, repeats=3)
+                    library=library, rtol=BWD_RTOL, twice=True, iters=50,
+                    repeats=3,
+                    extra=lambda: {
+                        "device_ms": device_ms(fn, 50, LN_BWD_KERNELS),
+                        "device_ms_total": device_ms(fn, 50, ("",))[""],
+                        # the second kernel's launch overlaps the first's
+                        # tail: the call's time on the device, overlap once
+                        "device_busy_ms": device_busy_ms(fn, 50),
+                        "library_device_ms": device_ms(library, 50,
+                                                       ("",))[""],
+                        "host_us": host_us(fn, 50),
+                        "library_host_us": host_us(library, 50)})
 
     def attn_bwd_case(t, heads, d, dtype):
         qkv = randn(B, t, 3, heads, d, dtype=dtype)  # the head's gradient
@@ -588,6 +625,15 @@ def check_kernels(dev) -> dict:
                                                                d)))
         cases.append(("bias_layer_norm_gelu", f"[{B},31999,512]", dtype,
                       lambda d=dtype: ln_case(512, B * 31999, True, d)))
+    # K9 at A4's feature-projection width and at a width with a masked
+    # tail, then without dx (the head's first LayerNorm in training), after
+    # every earlier row for the same reason
+    for h, need_dx in ((512, True), (LN_TAIL_H, True), (1024, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append(("layer_norm_bwd",
+                          f"[{B}*{T},{h}]" + ("" if need_dx else " no dx"),
+                          dtype, lambda h=h, d=dtype, n=need_dx: ln_bwd_case(
+                              h, B * T, d, n)))
 
     results: dict = {}
     for name, label, dtype, make in cases:
@@ -969,9 +1015,9 @@ def run_train(dev, profile: bool) -> dict:
             from torch.profiler import ProfilerActivity, schedule
             from torch.profiler import profile as prof
 
-            def table(p):
+            def table(p):  # deep enough to list K9's two kernels
                 print(p.key_averages().table(sort_by="cuda_time_total",
-                                             row_limit=40),
+                                             row_limit=60),
                       file=sys.stderr, flush=True)
 
             # steps end at on_step: the first micro-step warms up, the
@@ -995,6 +1041,13 @@ def run_train(dev, profile: bool) -> dict:
           f"{micro_steps} micro-steps")
     check(counts["ffn"] % 15 == 0,
           f"ffn launched {counts['ffn']} times, not 15 a forward")
+    # K9 three times a micro-step (the head's norm1, norm2 and final
+    # LayerNorm), norm1's without dx: its input is the frozen backbone's
+    check(counts["layer_norm_bwd"] == 3 * micro_steps
+          and counts["layer_norm_bwd_no_dx"] == micro_steps,
+          f"layer_norm_bwd launched {counts['layer_norm_bwd']} times, "
+          f"{counts['layer_norm_bwd_no_dx']} without dx, in {micro_steps} "
+          f"micro-steps")
     k_vs_f, e_vs_f = grad_dist(grads_k, grads_f), grad_dist(grads_e, grads_f)
     f32_k_vs_e = grad_dist(grads_f, grads_fe)
 
@@ -1018,6 +1071,8 @@ def run_train(dev, profile: bool) -> dict:
           eval_f32=out_f["eval"], peak_mem_gb=peak_gb,
           grad_dist_kernels_vs_f32=k_vs_f, grad_dist_eager_vs_f32=e_vs_f,
           grad_dist_f32_kernels_vs_eager=f32_k_vs_e, head_moved=moved,
+          layer_norm_bwd_launches=counts["layer_norm_bwd"],
+          layer_norm_bwd_no_dx=counts["layer_norm_bwd_no_dx"],
           launches=counts)
     check(k_vs_f <= KERNEL_SLACK * e_vs_f,
           f"kernels add error to the head gradients: {k_vs_f} from float32 "
@@ -1049,10 +1104,11 @@ def main() -> int:
           nvcc_seconds=_build.build_seconds, ptxas=ptxas)
 
     kernels = check_kernels(dev)
-    # the bf16 conv and LayerNorm kernels: no spills (checked after the
+    # the bf16 conv and LayerNorm kernels (K9's too): no spills (checked
+    # after the
     # kernel rows, so that this script run on an earlier checkout still
     # times its kernels before it stops here)
-    for name in CONV_KERNELS[:2] + LN_KERNELS[:1]:
+    for name in CONV_KERNELS[:2] + LN_KERNELS[:1] + LN_BWD_KERNELS[:1]:
         found = [v for k, v in ptxas.items() if k.startswith(name + " ")]
         check(bool(found) and all(v.endswith("spills 0/0 bytes")
                                   for v in found),

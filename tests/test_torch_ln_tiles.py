@@ -38,8 +38,9 @@ from wav2vecsegmenter_tpu.ops import layernorm as jln
 from wav2vecsegmenter_tpu.ops.backend import set_backend
 from wav2vecsegmenter_tpu_torch.ops import layernorm as tln
 
-SRC = (Path(tln.__file__).resolve().parent / "csrc" / "layernorm.cu"
-       ).read_text()
+CSRC = Path(tln.__file__).resolve().parent / "csrc"
+# the kernel and its shared pieces (chunk map, masked tail: ln_vec.cuh)
+SRC = (CSRC / "layernorm.cu").read_text() + (CSRC / "ln_vec.cuh").read_text()
 EPS = 1e-5
 # the limit chip_smoke.py holds the bf16 kernels to against the plain
 # version: one bf16 step at |y| in [4, 8)

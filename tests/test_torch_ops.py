@@ -250,9 +250,9 @@ def kernels_forced(monkeypatch):
             return out.copy_(tattn.attention_bthd_plain(q, k, v, key_mask,
                                                         scale))
 
-    def ln_bwd(x, scale, g, eps):
+    def ln_bwd(x, scale, g, eps, need_dx):
         calls["layer_norm_bwd"] += 1
-        return tln.layer_norm_bwd_plain(x, scale, g, eps)
+        return tln.layer_norm_bwd_plain(x, scale, g, eps, need_dx)
 
     def attn_bwd(q, k, v, key_mask, do, scale, o, stats, out):
         calls["attention_bwd"] += 1

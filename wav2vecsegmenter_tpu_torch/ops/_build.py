@@ -51,10 +51,12 @@ _SIGNATURES = {
                          _I, _F, _I, _P),
     "w2v_conv_audio_ln_gelu": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                                _L, _I, _F, _I, _P),
-    # x, scale, g, dx, dscale, dbias, partial, rows, h, n_blocks, eps,
-    # dtype, stream
+    # x, scale, g, dx (or None), dscale, dbias, partial, rows, h, n_part,
+    # eps, dtype, stream
     "w2v_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _F, _I,
                            _P),
+    # rows, h, dtype, dx -> n_part, the partial rows the call above needs
+    "w2v_layer_norm_bwd_partials": (_L, _I, _I, _I),
     # q, k, v, key_mask, do, dq, dk, dv, o, stats, rows, strides (host
     # array of 24), b, tq, tk, heads, d, scale, dtype, stream
     "w2v_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

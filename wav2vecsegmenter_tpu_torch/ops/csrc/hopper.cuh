@@ -108,6 +108,17 @@ __device__ __forceinline__ void hop_tma_store_3d(const CUtensorMap* map,
       "r"(hop_smem(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// 1-D bulk copy (TMA without a tensor map): `bytes` (a multiple of 16) from
+// global src to shared dst, both 16-byte aligned, completion counted on `bar`
+__device__ __forceinline__ void hop_bulk_load(void* dst, const void* src,
+                                              unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(hop_smem(dst)),
+      "l"(src), "r"(bytes), "r"(hop_smem(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void hop_bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

@@ -12,8 +12,10 @@ Where a gradient is needed, ``layer_norm`` goes through ``_LayerNormFn``
 (the counterpart of the JAX custom VJP ``_ln_2d``): its forward is the
 above, its backward ``layer_norm_bwd``, which replaces ``_ln_bwd_kernel``
 (K9, ``csrc/layernorm_bwd.cu``) on CUDA tensors and runs
-``layer_norm_bwd_plain`` on CPU tensors.  ``bias_layer_norm_gelu`` has no
-backward yet and refuses a grad-requiring input on the kernel path.
+``layer_norm_bwd_plain`` on CPU tensors; where autograd asks no gradient of
+x (the SFC head's first LayerNorm reads the frozen backbone's output), it
+computes no dx.  ``bias_layer_norm_gelu`` has no backward yet and refuses a
+grad-requiring input on the kernel path.
 
 Semantics (torch.nn.LayerNorm's): float32 mean and biased variance, eps
 inside the rsqrt, float32 scale and bias, the result cast back to the input
@@ -22,6 +24,8 @@ kernel does, and uses the exact erf GELU.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,9 +36,10 @@ EPS = 1e-5
 backend.register_kernel("layer_norm")
 backend.register_kernel("bias_layer_norm_gelu")
 backend.register_kernel("layer_norm_bwd")
+# the layer_norm_bwd launches that wrote no dx (counted beside them)
+backend.register_kernel("layer_norm_bwd_no_dx")
 
 MAX_H = 1024          # widest row the kernels take (one warp a row)
-BWD_ROWS_PER_BLOCK = 32   # kRowsPerBlock of csrc/layernorm_bwd.cu
 
 
 def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -93,34 +98,39 @@ def _aligned_f32(p: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
-                         g: torch.Tensor, eps: float = EPS):
+                         g: torch.Tensor, eps: float = EPS,
+                         need_dx: bool = True):
     """The formula of ``_ln_bwd_kernel``: float32 statistics recomputed
-    from x, ``dx = (g·γ − mean(g·γ) − x̂·mean(g·γ·x̂))·rstd`` in x's type,
-    ``dγ = Σ g·x̂`` and ``dβ = Σ g`` over the rows in float32."""
+    from x, ``dx = (g·γ − mean(g·γ) − x̂·mean(g·γ·x̂))·rstd`` in x's type
+    (None unless ``need_dx``), ``dγ = Σ g·x̂`` and ``dβ = Σ g`` over the rows
+    in float32."""
     h = x.shape[-1]
     x32, g32 = x.float(), g.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
     xhat = (x32 - mean) * rstd
-    gs = g32 * scale.float()
-    m1 = gs.mean(dim=-1, keepdim=True)
-    m2 = (gs * xhat).mean(dim=-1, keepdim=True)
-    dx = ((gs - m1 - xhat * m2) * rstd).to(x.dtype)
+    dx = None
+    if need_dx:
+        gs = g32 * scale.float()
+        m1 = gs.mean(dim=-1, keepdim=True)
+        m2 = (gs * xhat).mean(dim=-1, keepdim=True)
+        dx = ((gs - m1 - xhat * m2) * rstd).to(x.dtype)
     return (dx, (g32 * xhat).reshape(-1, h).sum(0),
             g32.reshape(-1, h).sum(0))
 
 
 def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
-                   eps: float = EPS):
-    """(dx in x's type, dscale float32, dbias float32) of a LayerNorm over
-    the last dim, from its input x, its scale and the output gradient g."""
+                   eps: float = EPS, need_dx: bool = True):
+    """(dx in x's type, or None unless ``need_dx``; dscale float32; dbias
+    float32) of a LayerNorm over the last dim, from its input x, its scale
+    and the output gradient g."""
     if not backend.use_kernel(x):
-        return layer_norm_bwd_plain(x, scale, g, eps)
-    return _launch_bwd(x, scale, g, eps)
+        return layer_norm_bwd_plain(x, scale, g, eps, need_dx)
+    return _launch_bwd(x, scale, g, eps, need_dx)
 
 
-def _launch_bwd(x, scale, g, eps):
+def _launch_bwd(x, scale, g, eps, need_dx):
     h = x.shape[-1]
     if h > MAX_H:
         raise ValueError(f"layer norm backward kernel takes rows up to "
@@ -130,22 +140,42 @@ def _launch_bwd(x, scale, g, eps):
     if scale.shape != (h,) or scale.device != x.device:
         raise ValueError("layer norm scale must be [h] on x's device")
     x, g = x.contiguous(), g.contiguous()
-    scale = scale.float().contiguous()
+    # the bf16 kernel reads x and g and writes dx in 16-byte vectors
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or g.data_ptr() % 16):
+        raise ValueError("layer norm backward kernel takes 16-byte aligned "
+                         "bf16 inputs")
+    scale = _aligned_f32(scale)
     rows = x.numel() // h
-    n_blocks = -(-rows // BWD_ROWS_PER_BLOCK)
-    dx = torch.empty_like(x)
-    dscale = torch.empty(h, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(h, dtype=torch.float32, device=x.device)
-    partial = torch.empty((n_blocks, 2, h), dtype=torch.float32,
-                          device=x.device)
+    code = _build.dtype_code(x.dtype)
+    n_part = _bwd_partials(rows, h, code, need_dx)
+    dx = torch.empty_like(x) if need_dx else None
+    # one float32 allocation: dscale, dbias, then the [n_part, 2, h]
+    # partial column sums the kernel adds across its CTAs
+    work = torch.empty((n_part + 1) * 2 * h, dtype=torch.float32,
+                       device=x.device)
+    base = work.data_ptr()
     status = _build.library().w2v_layer_norm_bwd(
-        x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        dscale.data_ptr(), dbias.data_ptr(), partial.data_ptr(), rows, h,
-        n_blocks, float(eps), _build.dtype_code(x.dtype),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), scale.data_ptr(), g.data_ptr(),
+        dx.data_ptr() if need_dx else None, base, base + 4 * h,
+        base + 8 * h, rows, h, n_part, float(eps), code,
+        torch._C._cuda_getCurrentRawStream(x.get_device()))
     _build.check(status, "layer_norm_bwd")
     backend.count_launch("layer_norm_bwd")
-    return dx, dscale, dbias
+    if not need_dx:
+        backend.count_launch("layer_norm_bwd_no_dx")
+    return dx, work[:h], work[h:2 * h]
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_partials(rows: int, h: int, code: int, need_dx: bool) -> int:
+    """The partial rows (the grid) of K9's call at this shape: a function
+    of the shape and the card, asked of the library once."""
+    n = _build.library().w2v_layer_norm_bwd_partials(rows, h, code,
+                                                     int(need_dx))
+    if n <= 0:
+        raise RuntimeError(f"layer norm backward kernel refused the shape "
+                           f"[{rows}, {h}]")
+    return n
 
 
 def _layer_norm(x, scale, bias, eps):
@@ -167,7 +197,8 @@ class _LayerNormFn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
-        dx, dscale, dbias = layer_norm_bwd(x, scale, g, ctx.eps)
+        dx, dscale, dbias = layer_norm_bwd(x, scale, g, ctx.eps,
+                                           ctx.needs_input_grad[0])
         return dx, dscale.to(scale.dtype), dbias.to(ctx.bias_dtype), None
 
 

@@ -1,22 +1,26 @@
 """Time tile-shape variants of the bf16 FFN, conv and LayerNorm kernels on
 one CUDA card, side by side in one process.
 
-    python3 -m wav2vecsegmenter_tpu_torch.ops.tile_sweep [ffn conv audio ln]
+    python3 -m wav2vecsegmenter_tpu_torch.ops.tile_sweep \
+        [ffn conv audio ln ln_bwd]
 
 Each variant is a copy of ``csrc/`` with its configuration lines replaced
 (``using FfnWg = ...`` of ffn.cu; ``using ConvWgCfg = ...`` and
 ``kConvPersistent`` or ``using AudioTcCfg = ...`` and ``kAudioPersistent``
 of convfuse.cu; ``using LnVecCfg = ...`` of layernorm.cu, and for the "no
-gelu" probe the bf16 kernel's GELU line), built by nvcc (all at once) into
+gelu" probe the bf16 kernel's GELU line; ``using LnBwdCfg = ...`` of
+layernorm_bwd.cu), built by nvcc (all at once) into
 its own library and loaded with the same C signatures.  Every variant is
 held against the plain version at the main path's shapes (bf16: the FFN
 at [14, 999, 1024] x 4096, conv layer 1 at [14, 63999, 512], k=3, s=2, the
 raw-audio layer 0 at [14, 320000, 1], k=10, s=5; the LayerNorm K1 at
 [14 * 999, 1024] and [14 * 999, 512], and K2 at [14 * 63999, 512], the
-probe against bias + LayerNorm without the GELU), then timed in two rounds
-with CUDA events; the FFN's two GEMM launches (bias + GELU, then bias) and
-the LayerNorm kernel also get their device times from torch.profiler, and
-each LayerNorm shape one ``copy_`` of its bytes as a yardstick.
+probe against bias + LayerNorm without the GELU; the LayerNorm backward K9
+at [14 * 999, 1024] with and without dx and at [14 * 999, 512], its dx,
+dscale and dbias), then timed in two rounds with CUDA events; the FFN's two
+GEMM launches (bias + GELU, then bias) and the LayerNorm kernels also get
+their device times from torch.profiler, and each LayerNorm shape one
+``copy_`` of its bytes (read and written) as a yardstick.
 The arguments pick the kinds (all by default).  Prints the card's name and
 power limit, then one JSON line per variant, shape and round; writes
 nothing.  A measurement tool: nothing imports it.
@@ -90,6 +94,31 @@ LN = {
     "8 warps, 1 row, 2 rows prefetched, no gelu": ("LnVec<8, 1, 1, 2>",
                                                   NO_GELU),
 }
+# LnBwd<WARPS, DEPTH, MINB, SMEM_SUMS, HANDOFF, BULK> (layernorm_bwd.cu):
+# warps a CTA, rows in flight a warp, CTAs an SM the registers must allow;
+# column sums in shared memory instead of registers; the cross-block pass
+# in the kernel (cooperative launch) instead of a second kernel launched
+# with programmatic dependent launch; rows staged in shared memory by bulk
+# copies instead of registers
+LN_BWD = {
+    "8 warps, 1 row": "LnBwd<8, 1, 1, false, false, false>",
+    "4 warps, 2 rows": "LnBwd<4, 2, 1, false, false, false>",
+    "4 warps, 1 row": "LnBwd<4, 1, 1, false, false, false>",
+    "2 warps, 2 rows": "LnBwd<2, 2, 1, false, false, false>",
+    "4 warps, 2 rows, handoff": "LnBwd<4, 2, 1, false, true, false>",
+    "smem sums, 4 warps, 2 rows": "LnBwd<4, 2, 1, true, false, false>",
+    "smem sums, 8 warps, 2 rows": "LnBwd<8, 2, 1, true, false, false>",
+    "smem sums, 4 warps, 3 rows, 2 CTAs an SM":
+        "LnBwd<4, 3, 2, true, false, false>",
+    "smem sums, 8 warps, 2 rows, handoff":
+        "LnBwd<8, 2, 1, true, true, false>",
+    "bulk, 4 warps, 4 rows": "LnBwd<4, 4, 1, false, false, true>",
+    "bulk, smem sums, 8 warps, 3 rows": "LnBwd<8, 3, 1, true, false, true>",
+    "bulk, smem sums, 4 warps, 4 rows, 2 CTAs an SM":
+        "LnBwd<4, 4, 2, true, false, true>",
+    "bulk, smem sums, 8 warps, 3 rows, handoff":
+        "LnBwd<8, 3, 1, true, true, true>",
+}
 # the lines of each kind's source that a variant replaces
 PATTERNS = {
     "ffn": (r"using FfnWg = [^;]*;",),
@@ -98,9 +127,22 @@ PATTERNS = {
     "audio": (r"using AudioTcCfg = [^;]*;",
               r"constexpr bool kAudioPersistent = [^;]*;"),
     "ln": (r"using LnVecCfg = [^;]*;", r"using LnVecGeluCfg = [^;]*;"),
+    "ln_bwd": (r"using LnBwdCfg = [^;]*;",),
 }
 SOURCES = {"ffn": ("ffn.cu", FFN), "conv": ("convfuse.cu", CONV),
-           "audio": ("convfuse.cu", AUDIO), "ln": ("layernorm.cu", LN)}
+           "audio": ("convfuse.cu", AUDIO), "ln": ("layernorm.cu", LN),
+           "ln_bwd": ("layernorm_bwd.cu", LN_BWD)}
+# the bf16 kernels whose ptxas registers and spills a variant prints
+PTXAS = {"ln": "ln_vec_kernel", "ln_bwd": "ln_bwd_vec_kernel"}
+
+
+def _template_args(mangled: str) -> str:
+    """The kernel's own template arguments from its mangled name, the
+    integers and booleans after its configuration type (e.g. "4 0 1 0":
+    PASSES, TAIL, DX, BULK)."""
+    m = re.search(r"(?:LnBwdI(?:L[ib]\d+E)+E+|kernelI)((?:L[ib]\d+E)+)",
+                  mangled)
+    return " ".join(re.findall(r"L[ib](\d+)E", m.group(1))) if m else ""
 
 
 def _build_variants(work: Path, kinds) -> dict:
@@ -129,9 +171,12 @@ def _build_variants(work: Path, kinds) -> dict:
                     raise RuntimeError(f"no '{head}' line in {source}")
             (d / source).write_text(text)
             lib = d / "lib.so"
-            # layernorm.cu also carries w2v_error_string
+            # layernorm.cu also carries w2v_error_string (K9's variants
+            # need none of it)
+            srcs = [d / source] + ([] if kind == "ln_bwd"
+                                   else [d / "layernorm.cu"])
             cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-                   *dict.fromkeys([str(d / source), str(d / "layernorm.cu")])]
+                   *dict.fromkeys(map(str, srcs))]
             jobs[(kind, tag)] = (lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -140,12 +185,13 @@ def _build_variants(work: Path, kinds) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{log}")
-        if key[0] == "ln":  # registers and spills of the bf16 kernels
-            print(json.dumps({"kernel": "ln", "tile": key[1], "ptxas": [
-                f"ln_vec_kernel {m[0].split('ln_vec_kernel')[1][:14]}: "
+        if key[0] in PTXAS:  # registers and spills of the bf16 kernels
+            name = PTXAS[key[0]]
+            print(json.dumps({"kernel": key[0], "tile": key[1], "ptxas": [
+                f"{name} {_template_args(m[0])}: "
                 f"{m[3]} registers, spills {m[1]}/{m[2]}"
                 for m in re.findall(
-                    r"entry function '(\w*ln_vec_kernel\w*)'[^\n]*\n"
+                    rf"entry function '(\w*{name}\w*)'[^\n]*\n"
                     r"(?:[^\n]*\n)*?[^\n]*?(\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads\n[^\n]*?Used (\d+) registers",
                     log)]}), flush=True)
@@ -246,8 +292,44 @@ def main() -> int:
                 s_.data_ptr(), b_.data_ptr(), out_l.data_ptr(), rows, h,
                 1e-5, 1, int(gelu), stream), out_l, (want, want_ln), None,
                 iters, ("ln_vec_kernel",)))
-            copies.append((calls["ln"][-1][0],
+            copies.append(("ln", calls["ln"][-1][0],
                            lambda xl=xl, out_l=out_l: out_l.copy_(xl), iters))
+    if "ln_bwd" in kinds:
+        calls["ln_bwd"] = []
+        # dscale, dbias and the partial rows of the largest grid any
+        # variant launches (132 SMs x 32 CTAs)
+        work = torch.empty((132 * 32 + 1) * 2 * 1024, device=dev)
+        for h, need_dx in ((1024, True), (1024, False), (512, True)):
+            rows = 14 * 999
+            xb = (randn(rows, h, std=2.0) + 0.5).bfloat16()
+            gb = randn(rows, h).bfloat16()
+            s_ = 1 + randn(h, std=0.1)
+            dxb = torch.empty_like(xb) if need_dx else None
+            dsc, dbi = work[:h], work[h:2 * h]
+            want = layernorm.layer_norm_bwd_plain(xb, s_, gb,
+                                                  need_dx=need_dx)
+            got = (dxb, dsc, dbi) if need_dx else (dsc, dbi)
+
+            def launch_bwd(lib, xb=xb, gb=gb, s_=s_, dxb=dxb, h=h,
+                           rows=rows, need_dx=need_dx):
+                n = lib.w2v_layer_norm_bwd_partials(rows, h, 1, int(need_dx))
+                return lib.w2v_layer_norm_bwd(
+                    xb.data_ptr(), s_.data_ptr(), gb.data_ptr(),
+                    dxb.data_ptr() if need_dx else None, work.data_ptr(),
+                    work[h:].data_ptr(), work[2 * h:].data_ptr(), rows, h,
+                    n, 1e-5, 1, stream)
+
+            calls["ln_bwd"].append((
+                f"[{rows},{h}]" + ("" if need_dx else " no dx"), launch_bwd,
+                got, want if need_dx else want[1:], None, 50,
+                ("ln_bwd_vec_kernel", "ln_bwd_reduce_kernel")))
+            # the same bytes read and written: x, g and dx
+            flat = torch.empty(rows * h * (3 if need_dx else 2) // 2,
+                               dtype=torch.bfloat16, device=dev)
+            out_f = torch.empty_like(flat)
+            copies.append(("ln_bwd", calls["ln_bwd"][-1][0],
+                           lambda flat=flat, out_f=out_f: out_f.copy_(flat),
+                           50))
 
     with tempfile.TemporaryDirectory() as tmp:
         libs = _build_variants(Path(tmp), kinds)
@@ -262,7 +344,10 @@ def main() -> int:
                         want = want[1] if probe else want[0]
                     status = launch(lib)
                     torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
+                    err = max((a.float() - b.float()).abs().max().item()
+                              for a, b in zip(*(
+                                  (t,) if torch.is_tensor(t) else t
+                                  for t in (got, want))))
                     ms = cuda_ms(lambda: launch(lib), iters)
                     row = {"kernel": kind, "tile": tag, "shape": label,
                            "round": rnd, "status": status,
@@ -274,12 +359,13 @@ def main() -> int:
                         row["device_ms"] = (
                             dict(zip(("gelu_gemm_ms", "bias_gemm_ms"),
                                      dev_ms.values())) if kind == "ffn"
+                            else dev_ms if kind == "ln_bwd"
                             else sum(dev_ms.values()))
                     print(json.dumps(row), flush=True)
             # the yardstick of the LayerNorm rows: one copy of their bytes
-            for label, copy, iters in copies:
+            for kind, label, copy, iters in copies:
                 print(json.dumps({
-                    "kernel": "ln", "tile": "copy_ of the same bytes",
+                    "kernel": kind, "tile": "copy_ of the same bytes",
                     "shape": label, "round": rnd, "ms": cuda_ms(copy, iters),
                     "device_ms": sum(device_ms(copy, iters,
                                                ("Memcpy DtoD",)).values())}),

@@ -47,6 +47,30 @@ def device_ms(fn, iters: int, names: tuple[str, ...]) -> dict:
     return out
 
 
+def device_busy_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call during which at least one of its
+    kernels runs (the union of the kernels' intervals), from a
+    torch.profiler trace of ``iters`` calls after one warm call: where a
+    call's kernels overlap (programmatic dependent launch), this, and not
+    the sum of their device times, is the call's time on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in prof.events()
+                              if e.device_type == DeviceType.CUDA):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / iters / 1e3
+
+
 def host_us(fn, iters: int) -> float:
     """Mean host microseconds per call: the time ``iters`` calls take to
     enqueue their work, after one warm call, without waiting for the
