@@ -69,8 +69,36 @@ Phases, each printed on its own line; any failure exits non-zero:
    float32 kernels and eager gradients within F32_GRAD (``--profile``
    adds a fifth run, bf16 with the kernels, and a torch.profiler table of
    its second micro-step on standard error);
-7. a JSON line of every kernel (launches on the path that runs it, error,
-   times, bound), the nvidia-smi line, and the last line:
+7. lna: LNA fine-tuning (``finetune_wav2vec=True``) through the port's loop:
+   (d) first, the autograd Functions whose backward replays a composition
+   (K5, K6 at conv layer 1, K7 at layer 0, K2 at layer 0's output; a
+   14 x 20 s batch's shapes): forward under grad through the kernel, then
+   the backward; gradients against autograd through the plain version
+   (float32 within F32_GRAD, bf16 as close to float32 as the Function with
+   the plain forward, within KERNEL_SLACK), times of both forwards and
+   backwards; the positional conv's forward and backward (cuDNN) timed at
+   batch 4 and 14, with cuDNN's heuristics and autotuned; (a) the
+   README's recipe (xls-r-300m, 24 layers, all
+   fine-tuned, no adapters, FFNs and feature encoder frozen, SFC 1 x 8
+   heads, seeded random weights) on two synthetic talks, batch 4,
+   update_freq=2, two epochs of three micro-steps, four runs from the same
+   weights and seed (bf16 / float32, kernels / eager; the launch counters
+   reset before each, eager must not move them): finite losses, every
+   frozen parameter bitwise unchanged and every trained one moved, each
+   kernels micro-step's launches equal to ``lna_launches``, the
+   first-micro-step gradients as in the train phase; (e) the bf16 kernels
+   run's final checkpoint (full layout) loaded back strictly and
+   segmenting one talk; (b) the same at the reference batch 14 on the
+   train phase's corpus; (a) and (b) report the wall and fetch ms of a
+   micro-step, the fetch's share, peak memory, and one micro-step's
+   device time and top ops from torch.profiler; (c) conf/task/shas.yaml's
+   adapters with the top 8 of 15 layers, their FFNs and the feature
+   encoder fine-tuned: one epoch of two micro-steps, layers 0-6 bitwise
+   unchanged, adapters in layers 7-14 only and moved, the conv stack
+   moved, each micro-step's launches checked;
+8. a JSON line of every kernel (launches on the LNA recipe's run, or for K2
+   the unfused slice's, error, times, bound; K5/K6/K7/K2 add their
+   Function row), the nvidia-smi line, and the last line:
    {"ok": true, "device": {...}}.
 
 The kernel phase runs each backward kernel twice on the same inputs: the
@@ -112,6 +140,7 @@ from wav2vecsegmenter_tpu_torch.ops.timing import (cuda_ms, device_ms,
 B = 14              # conf/segment.yaml batch_size
 T, T_TAIL = 999, 1099   # frames of a 20 s window and of the 22 s tail bucket
 L_AUDIO = 320000    # samples of a 20 s window
+T_CONV0 = (L_AUDIO - 10) // 5 + 1  # frames of conv layer 0's output
 F32_ATOL = 1e-4     # float32, TF32 off: summation order only
 BF16_ATOL = 2 ** -5  # one bf16 step at |y| in [4, 8): independent roundings
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): memory, bf16 tensor
@@ -919,12 +948,12 @@ SHAS_TASK = {
 TRAIN_TALKS, TRAIN_SECS, TRAIN_WINDOW = 6, 100.0, 20
 
 
-def write_corpus(root: Path) -> tuple[str, str]:
+def write_corpus(root: Path, n_talks: int = TRAIN_TALKS) -> tuple[str, str]:
     """Synthetic talks and their true segments (the speech bursts of
     write_talk), as the data prep writes the TSVs (an index column)."""
     talks = ["\tid\tpath\ttotal_frames"]
     segments = ["\ttalk_id\tstart\tend"]
-    for i in range(TRAIN_TALKS):
+    for i in range(n_talks):
         path = root / f"talk{i}.wav"
         write_talk(path, TRAIN_SECS, seed=10 + i)
         talks.append(f"{i}\ttalk{i}\t{path}\t{int(TRAIN_SECS * 16000)}")
@@ -937,6 +966,13 @@ def write_corpus(root: Path) -> tuple[str, str]:
     return str(root / "talks.tsv"), str(root / "segments.tsv")
 
 
+def grad_dist(a, b) -> float:
+    """Relative L2 distance of two gradient lists (b the reference)."""
+    num = sum((x - y).square().sum() for x, y in zip(a, b))
+    den = sum(y.square().sum() for y in b)
+    return float(torch.sqrt(num / den))
+
+
 def run_train(dev, profile: bool) -> dict:
     """The train phase; returns the launch counts of the kernels' bf16
     run.  With ``profile``, one more bf16 run with the kernels prints a
@@ -945,11 +981,6 @@ def run_train(dev, profile: bool) -> dict:
     from wav2vecsegmenter_tpu_torch.cli.common import build_model
     from wav2vecsegmenter_tpu_torch.config import Config, merge
     from wav2vecsegmenter_tpu_torch.train.loop import train
-
-    def grad_dist(a, b) -> float:
-        num = sum((x - y).square().sum() for x, y in zip(a, b))
-        den = sum(y.square().sum() for y in b)
-        return float(torch.sqrt(num / den))
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1081,6 +1112,442 @@ def run_train(dev, profile: bool) -> dict:
           f"float32 kernels vs eager head gradients {f32_k_vs_e} > {F32_GRAD}")
     return counts
 
+# The README's LNA recipe (finetune_wav2vec=True): xls-r-300m at 24 layers,
+# every layer fine-tuned, no adapters, the FFNs and the feature encoder
+# frozen
+LNA_TASK = {**SHAS_TASK["model"], "wav2vec_keep_layers": 24,
+            "finetune_wav2vec": True, "wav2vec_ft_layers": 24,
+            "ffn_adapter": False}
+# conf/task/shas.yaml (adapters on, 15 layers) fine-tuning its top 8 layers
+# with their FFNs and adapters, and the feature encoder
+LNA_DEFAULT_TASK = {**SHAS_TASK["model"], "finetune_wav2vec": True,
+                    "wav2vec_ft_layers": 8, "finetune_w2v_feat_enc": True,
+                    "finetune_w2v_ffn": True}
+# (a) batch 4 on two 100 s talks: 12 windows, three micro-steps an epoch;
+# (c) batch 6 on them: two micro-steps
+LNA_B, LNA_TALKS, LNA_DEFAULT_B = 4, 2, 6
+# the profiled micro-step of an LNA run (0-based: the second of epoch 2, an
+# optimizer update, after every shape's first micro-step) and the timed
+# ones (the others after the first two)
+PROFILED, TIMED_SKIP = 4, (0, 1, 4)
+
+
+def lna_launches(layers: int, feat_enc: bool) -> dict:
+    """A micro-step's launches on an LNA path of ``layers`` encoder layers,
+    from the code: K1 on the feature projection's LayerNorm, on two in each
+    layer and on three in the head; K9, with dx, on each of those that runs
+    under grad (the projection's only with the feature encoder trained; the
+    head's first LayerNorm reads a backbone output that needs a gradient);
+    K3 and K5 in each layer; K10 in each layer and the head; K4 in the head;
+    the seven conv layers (K7's layer 0, K6's 1-6) forward."""
+    ln = 1 + 2 * layers + 3
+    return {"layer_norm": ln, "layer_norm_bwd": ln - (0 if feat_enc else 1),
+            "layer_norm_bwd_no_dx": 0, "attention_packed": layers,
+            "attention_bthd": 1, "attention_bwd": layers + 1, "ffn": layers,
+            "conv_bias_ln_gelu": 6, "conv_audio_ln_gelu": 1,
+            "bias_layer_norm_gelu": 0}
+
+
+def lna_run(dev, tmp: str, split: dict, model_conf: dict, batch: int,
+            epochs: int, mode: str, dtype: str, profile: bool = False,
+            save: bool = False) -> dict:
+    """One run of the port's loop (``train.loop.train``) on the task
+    ``model_conf``, the launch counters reset just before.  Returns the
+    loop's output and: ``grads``, the first micro-step's gradients of every
+    trainable parameter (float32 copies); ``steps``, each micro-step's
+    launches (not the first of a later epoch, which follows an eval);
+    ``peak_gb``, the run's peak device memory; with ``profile``,
+    ``profiled``, the device time of micro-step PROFILED + 1 (the union of
+    its device intervals, and the 15 ops that launched the most device
+    time)."""
+    from torch.profiler import ProfilerActivity, schedule
+    from torch.profiler import profile as prof_
+
+    from wav2vecsegmenter_tpu_torch.config import Config, merge
+    from wav2vecsegmenter_tpu_torch.ops.timing import busy_ms, top_device_ops
+    from wav2vecsegmenter_tpu_torch.train.loop import train
+
+    config = merge(Config(), {
+        "exp_name": f"lna_{mode}_{dtype}_{batch}", "batch_size": batch,
+        "learning_rate": 2.5e-4, "max_epochs": epochs, "update_freq": 2,
+        "segment_length": TRAIN_WINDOW, "print_every_steps": 100,
+        "save_ckpts": save, "task": {**SHAS_TASK, "model": model_conf},
+        "data": {"train": split, "eval": split},
+        "runtime": {"device": dev.type, "compute_dtype": dtype,
+                    "kernels": mode, "seed": 0}})
+    grads, counts, profiled = [], [], {}
+
+    def ready(p):
+        profiled.update(busy_ms=busy_ms(p), top_ops=top_device_ops(p, 15))
+
+    prof = prof_(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=PROFILED - 1, warmup=1, active=1,
+                                   repeat=1),
+                 on_trace_ready=ready) if profile else None
+
+    def on_step(metrics):
+        if not grads:
+            grads.extend(g.detach().float().clone() for g in metrics["grads"])
+        counts.append(backend.launch_counts())
+        if prof is not None:
+            prof.step()
+
+    backend.reset_launch_counts()
+    zero = backend.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with prof if prof is not None else contextlib.nullcontext():
+        out = train(config, work_dir=tmp, on_step=on_step)
+    backend.set_kernels("auto")
+    launches = backend.launch_counts()
+    if mode == "eager":
+        check(backend.launch_counts() == zero,
+              "the eager LNA run launched kernels")
+    check(bool(np.isfinite(out["history"]["loss"]).all()),
+          f"non-finite LNA loss ({mode}, {dtype}, batch {batch})")
+    steps, prev, i = [], zero, 0
+    for epoch, n in enumerate(out["steps_per_epoch"]):
+        for j in range(n):
+            if epoch == 0 or j > 0:
+                steps.append({k: counts[i][k] - prev[k] for k in counts[i]})
+            prev, i = counts[i], i + 1
+    return {**out, "grads": grads, "steps": steps, "profiled": profiled,
+            "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def step_times(out, skip: tuple = (0, 1)) -> dict:
+    """Median wall and fetch ms a micro-step and the fetch's share, over
+    the micro-steps not in ``skip`` (the warm-up, a profiled one)."""
+    hist = out["history"]
+    keep = [i for i in range(len(hist["loss"])) if i not in skip]
+    wall = float(np.median([hist["step_seconds"][i] for i in keep]) * 1e3)
+    fetch = float(np.median([hist["fetch_seconds"][i] for i in keep]) * 1e3)
+    return {"ms_per_micro_step": wall, "fetch_ms": fetch,
+            "fetch_share": fetch / wall, "micro_steps_timed": len(keep)}
+
+
+def check_functions(dev) -> dict:
+    """The autograd Functions whose backward replays a composition in the
+    input's type (K5's ``_FFNFn``, K6/K7's ``_ConvLnGeluFn``, K2's
+    ``_BiasLnGeluFn``), at the shapes of a 14 x 20 s batch: forward under
+    grad through the kernel, then the backward.  Their gradients against
+    autograd through the plain version: float32 within F32_GRAD (relative
+    L2, each gradient); bf16 as close to the float32 plain gradients as the
+    same Function's with the plain forward (eager), within KERNEL_SLACK.
+    Times (CUDA events): the Function's forward under grad and backward
+    beside the plain version's (K5 also its backward with frozen weights,
+    dx only, the LNA recipe's).  Returns each kernel's bf16 row."""
+    gd = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype=torch.float32, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gd, device=dev) * std
+                + mean).to(dtype)
+
+    def ffn_case(dtype):
+        return (tffn.ffn, tffn.ffn_plain,
+                [randn(B, T, 1024, dtype=dtype), randn(4096, 1024, std=0.03),
+                 randn(4096, std=0.1), randn(1024, 4096, std=0.015),
+                 randn(1024, std=0.1)], [True] * 5)
+
+    def conv_case(t, c, k, s, dtype):
+        return ((lambda *a: conv.conv_bias_ln_gelu(*a, s)),
+                (lambda *a: conv.conv_bias_ln_gelu_plain(*a, s)),
+                [randn(B, t, c, dtype=dtype),
+                 randn(512, c, k, std=(c * k) ** -0.5), randn(512, std=0.3),
+                 randn(512, std=0.1, mean=1.0), randn(512, std=0.1)],
+                [c > 1] + [True] * 4)  # layer 0's input is the audio
+
+    def bln_case(dtype):
+        return (ln.bias_layer_norm_gelu, ln.bias_layer_norm_gelu_plain,
+                [randn(B, T_CONV0, 512, std=2.0, mean=0.5, dtype=dtype),
+                 randn(512, std=0.3), randn(512, std=0.1, mean=1.0),
+                 randn(512, std=0.1)], [True] * 4)
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [
+            ("ffn", f"[{B},{T},1024]x4096", dtype,
+             lambda d=dtype: ffn_case(d)),
+            ("conv_bias_ln_gelu", f"[{B},{T_CONV0},512] k=3 s=2", dtype,
+             lambda d=dtype: conv_case(T_CONV0, 512, 3, 2, d)),
+            ("conv_audio_ln_gelu", f"[{B},{L_AUDIO}] k=10 s=5", dtype,
+             lambda d=dtype: conv_case(L_AUDIO, 1, 10, 5, d)),
+            ("bias_layer_norm_gelu", f"[{B},{T_CONV0},512]", dtype,
+             lambda d=dtype: bln_case(d))]
+
+    def grads_of(f, inputs, needs, g) -> list:
+        out = f(*inputs)
+        got = torch.autograd.grad(out, [a for a, n in zip(inputs, needs)
+                                        if n], g)
+        return [x.float() for x in got]
+
+    def bwd_ms(f, inputs, needs, g) -> float:
+        out = f(*inputs)
+        want = [a for a, n in zip(inputs, needs) if n]
+        return cuda_ms(lambda: torch.autograd.grad(out, want, g,
+                                                   retain_graph=True), 3)
+
+    results = {}
+    for name, label, dtype, make in cases:
+        fn, plain, args, needs = make()
+        leaves = [a.requires_grad_(n) for a, n in zip(args, needs)]
+        out = fn(*leaves)
+        check(out.grad_fn is not None and "Fn" in out.grad_fn.name(),
+              f"{name} {label}: the forward under grad took no Function "
+              f"({out.grad_fn})")
+        g = randn(*out.shape, dtype=dtype)
+        del out
+        got = grads_of(fn, leaves, needs, g)
+        for x in got:
+            check(bool(torch.isfinite(x).all()), f"{name} {label}: non-finite")
+        backend.set_kernels("eager")
+        got_e = grads_of(fn, leaves, needs, g)
+        backend.set_kernels("auto")
+        if dtype == torch.bfloat16:  # the float32 oracle on the same values
+            ref = grads_of(plain, [a.detach().float().requires_grad_(n)
+                                   for a, n in zip(leaves, needs)], needs,
+                           g.float())
+        else:
+            ref = grads_of(plain, leaves, needs, g)
+        dists = [grad_dist([x], [r]) for x, r in zip(got, ref)]
+        dists_e = [grad_dist([x], [r]) for x, r in zip(got_e, ref)]
+        limit = F32_GRAD if dtype == torch.float32 else KERNEL_SLACK
+        ok = all(d <= (limit if dtype == torch.float32 else limit * de)
+                 for d, de in zip(dists, dists_e))
+        del got, got_e, ref
+        row = {"fwd_ms": cuda_ms(lambda: fn(*leaves), 3),
+               "bwd_ms": bwd_ms(fn, leaves, needs, g),
+               "plain_fwd_ms": cuda_ms(lambda: plain(*leaves), 3),
+               "plain_bwd_ms": bwd_ms(plain, leaves, needs, g),
+               "grad_dist": dists, "grad_dist_eager": dists_e}
+        if name == "ffn":  # the LNA recipe's: frozen weights, dx only
+            dx_only = [True] + [False] * 4
+            frozen = [leaves[0]] + [a.detach() for a in leaves[1:]]
+            row["bwd_ms_dx_only"] = bwd_ms(fn, frozen, dx_only, g)
+            row["plain_bwd_ms_dx_only"] = bwd_ms(plain, frozen, dx_only, g)
+        dname = str(dtype).replace("torch.", "")
+        phase("function", name=name, shape=label, dtype=dname,
+              inputs_with_grad=sum(needs), **row)
+        check(ok, f"{name} {label} {dname}: gradient distances {dists} "
+                  f"(eager {dists_e}) beyond {limit}")
+        del leaves, args, g
+        torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            results[name] = row
+    return results
+
+
+def time_pos_conv(dev) -> list:
+    """The positional conv (cuDNN, grouped, k=128) under LNA, bf16 at the
+    LNA batches 4 and 14 and both audio buckets: forward and backward
+    (CUDA events) and the device ms of the backward's data-gradient and
+    weight-gradient kernels, with cuDNN's heuristics and in its benchmark
+    mode (autotuned).  A reference point for the LNA micro-step's
+    breakdown, not a kernel of the port."""
+    from wav2vecsegmenter_tpu_torch.models.wav2vec2 import (
+        PositionalConvEmbedding, Wav2Vec2Config, positional_conv)
+
+    cfg = Wav2Vec2Config()
+    pe = PositionalConvEmbedding(cfg, dev)
+    init_from_numpy(pe, seed=0)
+    gd = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for benchmark in (False, True):
+        torch.backends.cudnn.benchmark = benchmark
+        for b in (LNA_B, B):
+            for t in (T, T_TAIL):
+                x = torch.randn(b, t, 1024, generator=gd, device=dev
+                                ).bfloat16().requires_grad_()
+                g = torch.randn(b, t, 1024, generator=gd, device=dev
+                                ).bfloat16()
+                y = positional_conv(pe, x, cfg, torch.bfloat16)
+                leaves = [x, *pe.parameters()]
+
+                def bwd():
+                    return torch.autograd.grad(y, leaves, g,
+                                               retain_graph=True)
+
+                rows.append({
+                    "cudnn_benchmark": benchmark, "shape": [b, t, 1024],
+                    "fwd_ms": cuda_ms(lambda: positional_conv(
+                        pe, x, cfg, torch.bfloat16), 5),
+                    "bwd_ms": cuda_ms(bwd, 5),
+                    "bwd_device_ms": device_ms(bwd, 3, ("dgrad", "wgrad"))})
+    torch.backends.cudnn.benchmark = False
+    phase("pos_conv", rows=rows)
+    return rows
+
+
+def run_lna(dev) -> dict:
+    """The lna phase ((a)-(e) of the module docstring); returns the
+    launches of the recipe's bf16 kernels run and the Function rows."""
+    from wav2vecsegmenter_tpu_torch.checkpoints.convert import (
+        load_reference_checkpoint)
+    from wav2vecsegmenter_tpu_torch.cli.common import build_model
+
+    t0 = time.perf_counter()
+    functions = check_functions(dev)
+    time_pos_conv(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "two").mkdir()
+        (root / "six").mkdir()
+        split = dict(zip(("talk_list", "segments_list"),
+                         write_corpus(root / "two", LNA_TALKS)),
+                     segment_length=TRAIN_WINDOW)
+        split14 = dict(zip(("talk_list", "segments_list"),
+                           write_corpus(root / "six")),
+                       segment_length=TRAIN_WINDOW)
+
+        # (a) the recipe, four runs from the same weights and seed
+        runs = {}
+        for mode, dtype in (("auto", "bfloat16"), ("eager", "bfloat16"),
+                            ("auto", "float32"), ("eager", "float32")):
+            runs[mode, dtype] = lna_run(
+                dev, tmp, split, LNA_TASK, LNA_B, 2, mode, dtype,
+                profile=(mode, dtype) == ("auto", "bfloat16"),
+                save=(mode, dtype) == ("auto", "bfloat16"))
+            check(runs[mode, dtype]["steps_per_epoch"] == [3, 3]
+                  and runs[mode, dtype]["updates"] == 4,
+                  f"LNA: not two epochs of a full accumulation and a "
+                  f"flush: {runs[mode, dtype]['steps_per_epoch']}")
+        k = runs["auto", "bfloat16"]
+        want = lna_launches(24, feat_enc=False)
+        for i, got in enumerate(k["steps"]):
+            check({n: got[n] for n in want} == want,
+                  f"LNA micro-step {i} launches {got}, not {want}")
+        model = k.pop("model")
+        fresh = build_model(LNA_TASK, dev)
+        init_from_numpy(fresh, seed=0)
+        trained = {n for n, p in model.named_parameters() if p.requires_grad}
+        frozen_n = moved_n = 0
+        for (name, p), (_, p0) in zip(model.named_parameters(),
+                                      fresh.named_parameters()):
+            same = torch.equal(p, p0)
+            check(same != (name in trained),
+                  f"LNA: {name} {'moved' if not same else 'did not move'}"
+                  f" ({'trained' if name in trained else 'frozen'})")
+            frozen_n += name not in trained
+            moved_n += name in trained
+        groups = ("layer_norm", "final_layer_norm", "q_proj", "k_proj",
+                  "v_proj", "out_proj", "pos_conv_embed", "seg_model")
+        check(all(any(f".{g}." in "." + n + "." for n in trained)
+                  for g in groups), f"LNA: a trained group is missing")
+        check(not any(".feed_forward." in n or ".feature_" in n
+                      for n in trained), "LNA: the FFNs or the feature "
+                                         "encoder were trained")
+        k_vs_f = grad_dist(k["grads"], runs["auto", "float32"]["grads"])
+        e_vs_f = grad_dist(runs["eager", "bfloat16"]["grads"],
+                           runs["auto", "float32"]["grads"])
+        f32_k_vs_e = grad_dist(runs["auto", "float32"]["grads"],
+                               runs["eager", "float32"]["grads"])
+        for r in runs.values():
+            r.pop("model", None)
+            del r["grads"]
+
+        # (e) the recipe's final checkpoint: full layout, loaded back
+        # strictly, segments one talk
+        path = k["checkpoint"]
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        check(set(saved["state_dict"]) == set(model.state_dict()),
+              "LNA checkpoint: not the full state_dict")
+        del saved
+        back = build_model(LNA_TASK, dev)
+        load_reference_checkpoint(path, back)
+        for (name, p), (_, q) in zip(model.state_dict().items(),
+                                     back.state_dict().items()):
+            check(torch.equal(p, q), f"LNA checkpoint: {name} differs")
+        del model, fresh
+        torch.cuda.empty_cache()
+        back.eval()
+        talk = root / "talk.wav"
+        write_talk(talk, 65.0, seed=3)
+        probs: dict = {}
+        rows = segment_wavs(back, [talk], PTHR, B, 20.0, 1, dev,
+                            torch.bfloat16, talk_probs=probs)
+        p = probs[talk.name]
+        check(bool(rows) and p.shape == (round(65.0 * 49.95),)
+              and bool(np.isfinite(p).all()),
+              "LNA checkpoint: the talk did not segment")
+        del back
+        torch.cuda.empty_cache()
+
+        # (b) the reference batch: 14 x 20 s windows, bf16 kernels
+        k14 = lna_run(dev, tmp, split14, LNA_TASK, B, 2, "auto", "bfloat16",
+                      profile=True)
+        k14.pop("model")
+        for i, got in enumerate(k14["steps"]):
+            check({n: got[n] for n in want} == want,
+                  f"LNA batch {B} micro-step {i} launches {got}")
+
+        # (c) the default task's adapters, FFNs and feature encoder
+        c = lna_run(dev, tmp, split, LNA_DEFAULT_TASK, LNA_DEFAULT_B, 1,
+                    "auto", "bfloat16")
+        check(c["steps_per_epoch"] == [2] and c["updates"] == 1,
+              f"LNA default task: {c['steps_per_epoch']} micro-steps")
+        want_c = lna_launches(15, feat_enc=True)
+        for i, got in enumerate(c["steps"]):
+            check({n: got[n] for n in want_c} == want_c,
+                  f"LNA default task micro-step {i} launches {got}, not "
+                  f"{want_c}")
+        model = c.pop("model")
+        fresh = build_model(LNA_DEFAULT_TASK, dev)
+        init_from_numpy(fresh, seed=0)
+        adapters = set()
+        for (name, p), (_, p0) in zip(model.named_parameters(),
+                                      fresh.named_parameters()):
+            layer = (int(name.split(".")[4]) if ".encoder.layers." in name
+                     else None)
+            if ".ffn_adapter." in name:
+                adapters.add(layer)
+            if layer is not None and layer < 7:
+                check(torch.equal(p, p0), f"LNA default task: {name} moved")
+            elif (".ffn_adapter." in name or ".feature_extractor." in name):
+                check(not torch.equal(p, p0),
+                      f"LNA default task: {name} did not move")
+        check(adapters == set(range(7, 15)),
+              f"LNA default task: adapters in layers {sorted(adapters)}")
+        del model, fresh
+        torch.cuda.empty_cache()
+
+    phase("lna", seconds=time.perf_counter() - t0,
+          micro_steps=len(k["history"]["loss"]), updates=k["updates"],
+          loss_kernels=k["history"]["loss"],
+          loss_eager=runs["eager", "bfloat16"]["history"]["loss"],
+          loss_f32=runs["auto", "float32"]["history"]["loss"],
+          grad_norm_kernels=k["history"]["grad_norm"],
+          eval_kernels=k["eval"],
+          grad_dist_kernels_vs_f32=k_vs_f, grad_dist_eager_vs_f32=e_vs_f,
+          grad_dist_f32_kernels_vs_eager=f32_k_vs_e,
+          params_frozen=frozen_n, params_trained=moved_n,
+          launches_per_micro_step=want,
+          launches_per_micro_step_default_task=want_c,
+          batch4={**step_times(k, TIMED_SKIP), "peak_mem_gb": k["peak_gb"],
+                  "device_busy_ms": k["profiled"]["busy_ms"],
+                  "ms_per_micro_step_eager": step_times(
+                      runs["eager", "bfloat16"])["ms_per_micro_step"],
+                  "ms_per_micro_step_f32": step_times(
+                      runs["auto", "float32"])["ms_per_micro_step"],
+                  "step_ms": [t * 1e3 for t in k["history"]["step_seconds"]],
+                  "top_ops": k["profiled"]["top_ops"]},
+          batch14={**step_times(k14, TIMED_SKIP),
+                   "peak_mem_gb": k14["peak_gb"],
+                   "device_busy_ms": k14["profiled"]["busy_ms"],
+                   "step_ms": [t * 1e3 for t in
+                               k14["history"]["step_seconds"]],
+                   "top_ops": k14["profiled"]["top_ops"]},
+          default_task={"loss": c["history"]["loss"],
+                        "peak_mem_gb": c["peak_gb"]},
+          segments=len(rows))
+    check(k_vs_f <= KERNEL_SLACK * e_vs_f,
+          f"LNA: kernels add error to the gradients: {k_vs_f} from float32 "
+          f"vs {e_vs_f} on the plain path")
+    check(f32_k_vs_e <= F32_GRAD,
+          f"LNA: float32 kernels vs eager gradients {f32_k_vs_e} > "
+          f"{F32_GRAD}")
+    return {"launches": k["launches"], "functions": functions}
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1118,17 +1585,23 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     counts_train = run_train(dev, profile="--profile" in sys.argv)
+    torch.cuda.empty_cache()
+    lna = run_lna(dev)
 
     def launches(name):
-        if name in DEFAULT_PATH:
-            return counts[name]
-        if name in UNFUSED_PATH:
-            return counts_unfused[name]
-        return counts_train[name]
+        # the LNA recipe's run: every kernel of the trainer's path; K2
+        # runs on the unfused arm only
+        if name in TRAIN_PATH:
+            return "lna", lna["launches"][name]
+        return "slice_unfused", counts_unfused[name]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches(name), **kernels[name]}
+         "launches": launches(name)[1], "launches_path": launches(name)[0],
+         "launches_slice": counts.get(name, 0),
+         "launches_train": counts_train.get(name, 0), **kernels[name],
+         **({"function": lna["functions"][name]}
+            if name in lna["functions"] else {})}
         for name, (src, rep) in SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

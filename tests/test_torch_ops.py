@@ -230,25 +230,42 @@ def test_attention_grad_matches_jax_vjp(dtype, heads, d):
 @pytest.fixture
 def kernels_forced(monkeypatch):
     """Every wrapper takes its kernel branch on CPU tensors; the launches
-    of K1, K4, K9 and K10 are stood in for by their plain versions, which,
-    like a kernel, return tensors with no autograd graph.  Nothing is
-    built or launched.  Yields the stand-ins' call counts."""
-    calls = {"layer_norm": 0, "attention_bthd": 0, "layer_norm_bwd": 0,
-             "attention_bwd": 0}
+    of every kernel (K1-K10) are stood in for by their plain versions,
+    which, like a kernel, return tensors with no autograd graph.  Nothing
+    is built or launched.  Yields the stand-ins' call counts, by the
+    launch counter's name."""
+    calls = dict.fromkeys(("layer_norm", "bias_layer_norm_gelu",
+                           "attention_bthd", "attention_packed", "ffn",
+                           "conv_bias_ln_gelu", "conv_audio_ln_gelu",
+                           "layer_norm_bwd", "attention_bwd"), 0)
 
     def ln_fwd(x, conv_bias, scale, bias, eps, gelu):
-        assert not gelu
-        calls["layer_norm"] += 1
+        calls["bias_layer_norm_gelu" if gelu else "layer_norm"] += 1
         with torch.no_grad():
+            if gelu:
+                return tln.bias_layer_norm_gelu_plain(x, conv_bias, scale,
+                                                      bias, eps)
             return tln.layer_norm_plain(x, scale, bias, eps)
 
     def attn_fwd(q, k, v, key_mask, scale, out, name, stats=None):
-        calls["attention_bthd"] += 1
+        calls[name] += 1
         with torch.no_grad():
             if stats is not None:
                 stats.copy_(tattn.attention_stats_plain(q, k, key_mask, scale))
             return out.copy_(tattn.attention_bthd_plain(q, k, v, key_mask,
                                                         scale))
+
+    def ffn_fwd(x, w1, b1, w2, b2):
+        calls["ffn"] += 1
+        with torch.no_grad():
+            return tffn.ffn_plain(x, w1, b1, w2, b2)
+
+    def conv_fwd(x, weight, conv_bias, scale, bias, stride, eps):
+        narrow = weight.shape[1] * weight.shape[2] <= tconv.AUDIO_MAX_K
+        calls["conv_audio_ln_gelu" if narrow else "conv_bias_ln_gelu"] += 1
+        with torch.no_grad():
+            return tconv.conv_bias_ln_gelu_plain(x, weight, conv_bias, scale,
+                                                 bias, stride, eps)
 
     def ln_bwd(x, scale, g, eps, need_dx):
         calls["layer_norm_bwd"] += 1
@@ -271,6 +288,8 @@ def kernels_forced(monkeypatch):
     monkeypatch.setattr(tln, "_launch_bwd", ln_bwd)
     monkeypatch.setattr(tattn, "_launch", attn_fwd)
     monkeypatch.setattr(tattn, "_launch_bwd", attn_bwd)
+    monkeypatch.setattr(tffn, "_launch", ffn_fwd)
+    monkeypatch.setattr(tconv, "_launch", conv_fwd)
     yield calls
 
 
@@ -315,11 +334,12 @@ def _sfc_grads(head, x, mask):
 
 
 def test_kernel_paths_keep_the_graph_or_refuse(kernels_forced):
-    """On the kernel path a raw launch cuts the graph; layer_norm and the
-    attention go through autograd Functions whose backwards are K9 and K10,
-    so every SFC head parameter gets the plain path's gradient; the kernels
-    without a backward refuse a grad-requiring input instead of falling
-    back."""
+    """On the kernel path a raw launch cuts the graph; every wrapper goes
+    through an autograd Function where a gradient is needed (layer_norm
+    and the attentions with the backward kernels K9 and K10, the FFN, the
+    fused conv layers and the conv epilogue with replayed compositions), so
+    every SFC head parameter gets the plain path's gradient and every
+    input of every wrapper gets a gradient through its kernel branch."""
     x, scale, bias, cbias = (torch.from_numpy(a) for a in
                              _ln_inputs((2, 5), 64, seed=3))
     scale.requires_grad_()
@@ -336,8 +356,10 @@ def test_kernel_paths_keep_the_graph_or_refuse(kernels_forced):
     got = _sfc_grads(head, hid, mask)
     inputs = kernels_forced.pop("attention_bwd_inputs")
     assert inputs[0] is not None and inputs[1] is None  # float32: no stats
-    assert kernels_forced == {"layer_norm": 3, "attention_bthd": 1,
-                              "layer_norm_bwd": 3, "attention_bwd": 1}
+    want_calls = dict.fromkeys(kernels_forced, 0)
+    want_calls.update(layer_norm=3, attention_bthd=1, layer_norm_bwd=3,
+                      attention_bwd=1)
+    assert kernels_forced == want_calls
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tbackend, "use_kernel", lambda x: False)
         want = _sfc_grads(head, hid, mask)
@@ -345,20 +367,35 @@ def test_kernel_paths_keep_the_graph_or_refuse(kernels_forced):
         assert g.abs().sum() > 0, name
         torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
 
-    grad_x = torch.randn(2, 5, 64, requires_grad=True)
-    w1, b1 = torch.randn(128, 64), torch.zeros(128)
-    w2, b2 = torch.randn(64, 128), torch.zeros(64)
-    refusals = {
-        "ffn": lambda: tffn.ffn(grad_x, w1, b1, w2, b2),
-        "bias_layer_norm_gelu": lambda: tln.bias_layer_norm_gelu(
-            grad_x, cbias, scale, bias),
-        "attention_packed": lambda: tattn.attention_packed(
-            torch.randn(2, 5, 192, requires_grad=True), None, 1),
-        "conv_bias_ln_gelu": lambda: tconv.conv_bias_ln_gelu(
-            grad_x, torch.randn(64, 64, 2), cbias, scale, bias, 2),
+    rng = np.random.RandomState(6)
+
+    def leaf(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                ).requires_grad_()
+
+    x3 = leaf(2, 5, 64)
+    wrappers = {
+        "ffn": (tffn.ffn, (x3, leaf(128, 64), leaf(128), leaf(64, 128),
+                           leaf(64))),
+        "bias_layer_norm_gelu": (tln.bias_layer_norm_gelu,
+                                 (x3, leaf(64), leaf(64), leaf(64))),
+        "attention_packed": (lambda p: tattn.attention_packed(p, None, 1),
+                             (leaf(2, 5, 192),)),
+        "conv_bias_ln_gelu": (
+            lambda *a: tconv.conv_bias_ln_gelu(*a, 2),
+            (leaf(2, 9, 64), leaf(64, 64, 2), leaf(64), leaf(64), leaf(64))),
+        "conv_audio_ln_gelu": (
+            lambda *a: tconv.conv_bias_ln_gelu(*a, 5),
+            (leaf(2, 40, 1), leaf(64, 1, 10), leaf(64), leaf(64), leaf(64))),
     }
-    for name, call in refusals.items():
-        with pytest.raises(RuntimeError, match="LNA fine-tuning slice"):
-            call()
-    with torch.no_grad(), pytest.raises(LookupError):
-        tffn.ffn(grad_x, w1, b1, w2, b2)  # refused only when grad is on
+    for name, (fn, args) in wrappers.items():
+        before = kernels_forced[name]
+        out = fn(*args)
+        assert kernels_forced[name] == before + 1, name
+        assert out.grad_fn is not None, name
+        grads = torch.autograd.grad(out.square().sum(), args)
+        for g in grads:
+            assert torch.isfinite(g).all() and g.abs().sum() > 0, name
+        with torch.no_grad():
+            assert fn(*args).grad_fn is None
+        assert kernels_forced[name] == before + 2, name

@@ -382,20 +382,8 @@ def test_train_cli_end_to_end_on_cpu(tmp_path, corpus, monkeypatch):
     assert set(saved) == set(model.seg_model.state_dict())
 
 
-def test_train_cli_refuses_without_gpu_and_finetuning(tmp_path, corpus,
-                                                      monkeypatch):
+def test_train_cli_refuses_without_gpu(tmp_path, corpus, monkeypatch):
     monkeypatch.chdir(tmp_path)
     args = _cli_args(tmp_path, corpus)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(args)
-    with pytest.raises(NotImplementedError, match="finetune_wav2vec"):
-        tcli.main(args + ["+runtime.device=cpu",
-                          "task.model.finetune_wav2vec=true"])
-    model = SHAS(w2v_cfg=tw2v.Wav2Vec2Config(**dataclasses.asdict(CFG)),
-                 finetune_wav2vec=True, n_transformer_enc_heads=4)
-    with pytest.raises(NotImplementedError, match="LNA"):
-        model.trainable_parameters()
-    with pytest.raises(NotImplementedError, match="LNA"):
-        model.train_forward(torch.zeros(1, 16000), torch.tensor([16000]),
-                            torch.ones(1, 50, dtype=torch.bool),
-                            torch.Generator())

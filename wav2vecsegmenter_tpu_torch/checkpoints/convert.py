@@ -6,9 +6,11 @@
   weights carry across for the parity tests.
 * :func:`load_reference_checkpoint` loads a reference ``.pt`` in both
   layouts (reference train.py:596-613): the full model
-  (``wav2vec_model.model.*`` + ``seg_model.*``) or the SFC head only, whose
-  backbone then comes from a local HF snapshot of the pretrained model.
-  Module names follow those keys, so loading is ``load_state_dict`` as is.
+  (``wav2vec_model.model.*`` + ``seg_model.*``, with the FFN adapters of
+  an LNA run's fine-tuned layers) or the SFC head only, whose backbone
+  then comes from a local HF snapshot of the pretrained model (which has
+  no adapters: a model with them keeps theirs).  Module names follow those
+  keys, so loading is ``load_state_dict`` as is.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ logger = logging.getLogger(__name__)
 
 # SpecAugment's learned vector is unused at inference; files without it load
 _OPTIONAL_KEYS = ("masked_spec_embed",)
+# a pretrained HF snapshot has no FFN adapters: they start from the init
+_ADAPTER = ".ffn_adapter."
 
 
 def _t(a) -> torch.Tensor:
@@ -67,6 +71,14 @@ def _wav2vec_sd(p: dict, prefix: str) -> dict:
             sd[f"{base}.feed_forward.{name}.weight"] = _t(
                 np.asarray(lin["w"])[i].T)
             sd[f"{base}.feed_forward.{name}.bias"] = _t(np.asarray(lin["b"])[i])
+        adapter = layers.get("adapter")
+        if adapter is not None and float(np.asarray(adapter["flag"])[i]) > 0:
+            for name, key in (("down_proj", "down"), ("up_proj", "up")):
+                lin = adapter[key]
+                sd[f"{base}.ffn_adapter.{name}.weight"] = _t(
+                    np.asarray(lin["w"])[i].T)
+                sd[f"{base}.ffn_adapter.{name}.bias"] = _t(
+                    np.asarray(lin["b"])[i])
     return sd
 
 
@@ -109,11 +121,14 @@ def state_dict_from_jax_params(np_tree: dict, model) -> dict:
     return sd
 
 
-def _load_strict(module: torch.nn.Module, sd: dict) -> None:
-    """load_state_dict(strict=True), except that the optional keys may be
-    absent from ``sd``."""
+def _load_strict(module: torch.nn.Module, sd: dict,
+                 adapters_optional: bool = False) -> None:
+    """load_state_dict(strict=True), except that the optional keys (and,
+    with ``adapters_optional``, the FFN adapters) may be absent from
+    ``sd``."""
     missing, unexpected = module.load_state_dict(sd, strict=False)
-    missing = [k for k in missing if not k.endswith(_OPTIONAL_KEYS)]
+    missing = [k for k in missing if not k.endswith(_OPTIONAL_KEYS)
+               and not (adapters_optional and _ADAPTER in k)]
     if missing or unexpected:
         raise KeyError(f"checkpoint does not fit the model: missing "
                        f"{missing}, unexpected {unexpected}")
@@ -183,7 +198,8 @@ def load_pretrained_backbone(model) -> bool:
         return False
     logger.info("Loading wav2vec2 weights from %s", snap)
     _load_strict(model.wav2vec_model.model,
-                 backbone_state_dict(snap, model.keep_layers))
+                 backbone_state_dict(snap, model.keep_layers),
+                 adapters_optional=True)
     return True
 
 

@@ -1,4 +1,5 @@
-"""Training CLI of the frozen-backbone SFC task.
+"""Training CLI of the SHAS tasks: the SFC head on a frozen backbone, or
+LNA fine-tuning (``task.model.finetune_wav2vec=True``).
 
 Counterpart of ``wav2vecsegmenter_tpu/cli/train.py``, with its override
 surface (the repo's ``conf/train.yaml`` composed with ``key=value``

@@ -6,15 +6,23 @@ plus an optional ``w2v_cfg`` that replaces the preset's architecture.
 Submodules are named ``wav2vec_model.model`` and ``seg_model`` after the
 reference checkpoint's full layout, so ``load_state_dict`` takes it as is.
 
-Training covers the product's default task only (``conf/task/shas.yaml``,
-``finetune_wav2vec: false``): a frozen backbone and a trained SFC head.
-``train_forward`` runs the backbone in train mode under ``torch.no_grad()``
-(the JAX ``stop_gradient`` on its output) and the head in train mode;
-``trainable_parameters`` is the head's parameters, the counterpart of the
-JAX ``trainable_mask``.  Both raise ``NotImplementedError`` under
-``finetune_wav2vec=True``: fine-tuning the backbone (LNA) is a later slice.
-The fine-tuning flags are accepted for inference, where they do not change
-the forward.
+Training covers both arms of the reference's ``finetune_wav2vec``:
+
+* ``False`` (the product's default task, ``conf/task/shas.yaml``): a
+  frozen backbone, run in train mode under ``torch.no_grad()`` (the JAX
+  ``stop_gradient`` on its output), and a trained SFC head;
+* ``True`` (LNA fine-tuning, reference lib/models.py:335-365): the
+  backbone under grad, with the JAX ``trainable_mask``'s split as
+  ``trainable_parameters``: the head, ``pos_conv``, ``masked_spec_embed``
+  where SpecAugment is on, the LayerNorms and attention of the top
+  ``wav2vec_ft_layers`` layers, their FFNs with ``finetune_w2v_ffn``, their
+  FFN adapters with ``ffn_adapter``, and the conv stack and feature
+  projection with ``finetune_w2v_feat_enc`` (without it they run without
+  a graph).  ``set_requires_grad`` freezes everything else.
+
+``save_full_state`` says which checkpoint layout a training run writes:
+the full model under LNA, the head alone otherwise (reference
+train.py:596-613).
 """
 
 from __future__ import annotations
@@ -26,21 +34,13 @@ from .sfc import SegmentationFrameClassifier
 from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, config_for
 
 
-def refuse_finetune(finetune_wav2vec: bool) -> None:
-    """Raise for a training run that would fine-tune the backbone."""
-    if finetune_wav2vec:
-        raise NotImplementedError(
-            "training with finetune_wav2vec=True (LNA fine-tuning of the "
-            "backbone) is not ported yet; the port trains the SFC head on "
-            "a frozen backbone")
-
-
 class _Backbone(nn.Module):
     """Holds the backbone under the reference's ``wav2vec_model.model``."""
 
-    def __init__(self, cfg: Wav2Vec2Config, device=None):
+    def __init__(self, cfg: Wav2Vec2Config, device=None,
+                 adapter_from: int = 0):
         super().__init__()
-        self.model = Wav2Vec2Model(cfg, device)
+        self.model = Wav2Vec2Model(cfg, device, adapter_from)
 
 
 class SHAS(nn.Module):
@@ -66,12 +66,18 @@ class SHAS(nn.Module):
         super().__init__()
         self.wav2vec_model_name = wav2vec_model_name
         self.finetune_wav2vec = bool(finetune_wav2vec)
+        self.finetune_w2v_feat_enc = bool(finetune_w2v_feat_enc)
+        self.finetune_w2v_ffn = bool(finetune_w2v_ffn)
         self.init_dropout = init_dropout
         self.w2v_cfg = w2v_cfg or config_for(
             wav2vec_model_name, wav2vec_keep_layers,
             ffn_adapter=bool(finetune_wav2vec and ffn_adapter))
         self.keep_layers = self.w2v_cfg.num_layers
-        self.wav2vec_model = _Backbone(self.w2v_cfg, device)
+        # the first fine-tuned layer; adapters live from it on (reference
+        # HFWav2Vec2WithAdapter, lib/models.py:443-461)
+        self.first_ft_layer = max(0, self.keep_layers - wav2vec_ft_layers)
+        self.wav2vec_model = _Backbone(self.w2v_cfg, device,
+                                       self.first_ft_layer)
         self.seg_model = SegmentationFrameClassifier(
             self.w2v_cfg.hidden_size, n_transformer_enc_layers,
             n_transformer_enc_heads, vocab_size=vocab_size, device=device)
@@ -90,21 +96,54 @@ class SHAS(nn.Module):
         return self.seg_model(_fit(h, out_mask.shape[1]), out_mask,
                               head_dtype or compute_dtype)
 
+    @property
+    def save_full_state(self) -> bool:
+        """A training run saves the full model (else the head alone)."""
+        return self.finetune_wav2vec
+
+    def _trains(self, name: str) -> bool:
+        """Whether the parameter ``name`` (a ``named_parameters`` key) is
+        in the trainable set: the JAX ``trainable_mask``'s 1 leaves."""
+        if name.startswith("seg_model."):
+            return True
+        if not self.finetune_wav2vec:
+            return False
+        name = name[len("wav2vec_model.model."):]
+        if name.startswith(("feature_extractor.", "feature_projection.")):
+            return self.finetune_w2v_feat_enc
+        if name == "masked_spec_embed":
+            # the JAX tree has the leaf only where SpecAugment is on
+            return self.w2v_cfg.apply_spec_augment
+        if name.startswith("encoder.pos_conv_embed."):
+            return True
+        layer, _, rest = name[len("encoder.layers."):].partition(".")
+        if int(layer) < self.first_ft_layer:
+            return False
+        return self.finetune_w2v_ffn or not rest.startswith("feed_forward.")
+
     def trainable_parameters(self) -> list[nn.Parameter]:
-        """The frozen-backbone trainable set: the SFC head's parameters."""
-        refuse_finetune(self.finetune_wav2vec)
-        return list(self.seg_model.parameters())
+        """The trainable set, in ``named_parameters`` order."""
+        return [p for n, p in self.named_parameters() if self._trains(n)]
+
+    def set_requires_grad(self) -> list[nn.Parameter]:
+        """Freeze every parameter outside the trainable set (requires_grad
+        False, so that it gets no weight-gradient product) and return the
+        trainable set."""
+        for name, p in self.named_parameters():
+            p.requires_grad_(self._trains(name))
+        return self.trainable_parameters()
 
     def train_forward(self, audio: torch.Tensor, in_lengths: torch.Tensor,
                       out_mask: torch.Tensor, generator: torch.Generator,
                       compute_dtype=torch.float32) -> torch.Tensor:
         """The training forward: dropout and SpecAugment drawn from
-        ``generator``; no gradient reaches the backbone -> frame logits
-        [B, T_out] float32."""
-        refuse_finetune(self.finetune_wav2vec)
-        with torch.no_grad():
-            h, _ = self.wav2vec_model.model(audio, in_lengths, compute_dtype,
-                                            generator)
+        ``generator``; the backbone under grad only under
+        ``finetune_wav2vec`` -> frame logits [B, T_out] float32."""
+        with torch.set_grad_enabled(self.finetune_wav2vec
+                                    and torch.is_grad_enabled()):
+            h, _ = self.wav2vec_model.model(
+                audio, in_lengths, compute_dtype, generator,
+                freeze_feature_encoder=not self.finetune_w2v_feat_enc)
         return self.seg_model(_fit(h, out_mask.shape[1]), out_mask,
                               compute_dtype, self.init_dropout, generator)
 

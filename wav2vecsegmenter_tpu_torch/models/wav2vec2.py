@@ -27,11 +27,23 @@ fused attention).  The fused FFN stays on in train mode;
 with ``activation_dropout`` above 0 (not xls-r-300m's) the FFN leaves it
 for the separate GEMMs with the dropout between them.  Masks are drawn with
 ``torch.rand`` from the generator, so they follow the JAX distributions,
-not its bits.  The port trains the SFC head only, so this forward runs
-under ``torch.no_grad()`` on the kernels of the inference path.
+not its bits.
+
+The forward is differentiable, for LNA fine-tuning: every kernel it runs
+sits behind an autograd Function (``ops``).  Freezing is
+``requires_grad``: a frozen weight gets no weight-gradient product, while
+activations still backprop through frozen layers (the JAX
+``n_frozen_layers`` / ``freeze_ffn``).  ``freeze_feature_encoder`` runs the
+conv stack and the feature projection under ``torch.no_grad()`` (the JAX
+``stop_gradient`` after the projection), which skips their backward.
+With ``cfg.ffn_adapter`` the layers from ``adapter_from`` on carry an FFN
+adapter (``ffn_adapter.{down_proj,up_proj}``, the reference's names):
+``relu(hn·down + b)·up + b``, times ``adapter_scale``, added to the FFN
+output before the residual; which layers carry one is structure, not a
+parameter (the JAX ``flag`` leaf).
 
 Not ported yet (they raise ``NotImplementedError``): the group-norm conv
-stack of the base models, post-LN encoders, FFN adapters.
+stack of the base models, post-LN encoders.
 """
 
 from __future__ import annotations
@@ -44,7 +56,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_packed
-from ..ops.convfuse import conv_bias_ln_gelu, convfuse_enabled
+from ..ops.convfuse import (conv_bias_ln_gelu, convfuse_enabled,
+                            strided_conv1d_as_matmul)
 from ..ops.ffn import ffn, ffnfuse_enabled
 from ..ops.layernorm import bias_layer_norm_gelu, layer_norm
 
@@ -209,49 +222,61 @@ class FeedForward(nn.Module):
         self.output_dense = nn.Linear(f, h, device=device)
 
 
+class Adapter(nn.Module):
+    def __init__(self, h, dim, device=None):
+        super().__init__()
+        self.down_proj = nn.Linear(h, dim, device=device)
+        self.up_proj = nn.Linear(dim, h, device=device)
+
+
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: Wav2Vec2Config, device=None):
+    def __init__(self, cfg: Wav2Vec2Config, adapter: bool = False,
+                 device=None):
         super().__init__()
         h = cfg.hidden_size
         self.attention = Attention(h, device)
         self.layer_norm = nn.LayerNorm(h, device=device)
         self.feed_forward = FeedForward(h, cfg.ffn_dim, device)
         self.final_layer_norm = nn.LayerNorm(h, device=device)
+        self.ffn_adapter = (Adapter(h, cfg.adapter_dim, device) if adapter
+                            else None)
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: Wav2Vec2Config, device=None):
+    def __init__(self, cfg: Wav2Vec2Config, adapter_from: int = 0,
+                 device=None):
         super().__init__()
         self.pos_conv_embed = PositionalConvEmbedding(cfg, device)
         self.layers = nn.ModuleList(
-            EncoderLayer(cfg, device) for _ in range(cfg.num_layers))
+            EncoderLayer(cfg, cfg.ffn_adapter and i >= adapter_from, device)
+            for i in range(cfg.num_layers))
 
 
 class Wav2Vec2Model(nn.Module):
-    """The truncated backbone: conv stack, projection, pos conv, layers."""
+    """The truncated backbone: conv stack, projection, pos conv, layers;
+    with ``cfg.ffn_adapter``, FFN adapters in layers ``adapter_from`` on."""
 
-    def __init__(self, cfg: Wav2Vec2Config, device=None):
+    def __init__(self, cfg: Wav2Vec2Config, device=None,
+                 adapter_from: int = 0):
         super().__init__()
         if cfg.feat_extract_norm != "layer" or not cfg.conv_bias:
             raise NotImplementedError(
                 "only the LayerNorm-mode conv stack with conv bias is ported")
         if not cfg.do_stable_layer_norm:
             raise NotImplementedError("post-LN encoders are not ported yet")
-        if cfg.ffn_adapter:
-            raise NotImplementedError("FFN adapters are not ported yet")
         self.cfg = cfg
         self.feature_extractor = FeatureExtractor(cfg, device)
         self.feature_projection = FeatureProjection(cfg, device)
-        self.encoder = Encoder(cfg, device)
+        self.encoder = Encoder(cfg, adapter_from, device)
         # SpecAugment's learned mask vector: a training-only parameter, kept
         # so that reference checkpoints load strictly
         self.masked_spec_embed = nn.Parameter(
             torch.zeros(cfg.hidden_size, device=device))
 
     def forward(self, audio, in_lengths, compute_dtype=torch.float32,
-                generator=None):
+                generator=None, freeze_feature_encoder: bool = False):
         return wav2vec2_forward(self, audio, in_lengths, compute_dtype,
-                                generator)
+                                generator, freeze_feature_encoder)
 
 
 # --------------------------------------------------------------------------
@@ -302,35 +327,6 @@ def sample_time_mask(generator: torch.Generator, b: int, t: int,
     active = torch.arange(k_max, device=dev)[None, :] < num[:, None]
     cover = (pos >= starts) & (pos < starts + length) & active[:, :, None]
     return cover.any(dim=1)
-
-
-def strided_conv1d_as_matmul(x: torch.Tensor, w: torch.Tensor, stride: int,
-                             dt) -> torch.Tensor:
-    """VALID strided conv as one GEMM over a stride-folded view.
-
-    x [B, T, C], w [O, C, k] (torch layout) -> [B, T', O], T' = (T-k)//s + 1.
-    Folding the stride into channels, ``y[b, i, j*C + c] = x[b, i*s + j, c]``,
-    turns tap p into the shifted view ``y[:, p:p+T']``; the taps concatenate
-    into one operand of depth ceil(k/s)*s*C against the weight rows of
-    kernel positions p*s + j (zero rows past k).  One GEMM accumulates every
-    tap in float32 and rounds once, as the JAX version's f32 tap sum does.
-    """
-    b, t, c = x.shape
-    o, _, k = w.shape
-    t_out = (t - k) // stride + 1
-    n_taps = -(-k // stride)
-    t_need = (n_taps + t_out - 1) * stride
-    if t_need > t:
-        x = F.pad(x, (0, 0, 0, t_need - t))
-    elif t_need < t:
-        x = x[:, :t_need]
-    y = x.reshape(b, n_taps + t_out - 1, stride * c).to(dt)
-    z = y if n_taps == 1 else torch.cat(
-        [y[:, p:p + t_out] for p in range(n_taps)], dim=-1)
-    w_full = w.to(dt).permute(2, 1, 0).reshape(k * c, o)
-    if n_taps * stride > k:
-        w_full = F.pad(w_full, (0, 0, 0, (n_taps * stride - k) * c))
-    return z @ w_full
 
 
 def feature_extractor(fe: FeatureExtractor, audio: torch.Tensor,
@@ -410,7 +406,7 @@ def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
     """Pre-LN transformer over [B, T, H]; padded frames are zeroed once,
     before the positional conv, and carry finite values after that.  With
     a generator, hidden dropout after the positional conv and after each
-    sub-block."""
+    sub-block; an FFN adapter's output joins the FFN's after its dropout."""
     eps = cfg.layer_norm_eps
     x = torch.where(frame_mask[:, :, None], x, 0)
     h = (x + positional_conv(enc.pos_conv_embed, x, cfg, dt)).to(dt)
@@ -421,8 +417,13 @@ def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
         h = h + dropout(a, cfg.hidden_dropout, generator)
         hn = layer_norm(h, layer.final_layer_norm.weight,
                         layer.final_layer_norm.bias, eps)
-        f = _ffn(layer.feed_forward, hn, cfg, dt, generator)
-        h = h + dropout(f, cfg.hidden_dropout, generator)
+        f = dropout(_ffn(layer.feed_forward, hn, cfg, dt, generator),
+                    cfg.hidden_dropout, generator)
+        if layer.ffn_adapter is not None:
+            ad = layer.ffn_adapter
+            a = _lin(ad.up_proj, F.relu(_lin(ad.down_proj, hn, dt)), dt)
+            f = f + a * cfg.adapter_scale
+        h = h + f
     return h
 
 
@@ -438,20 +439,25 @@ def frame_lengths(in_lengths: torch.Tensor,
 def wav2vec2_forward(model: Wav2Vec2Model, audio: torch.Tensor,
                      in_lengths: torch.Tensor,
                      compute_dtype=torch.float32,
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None,
+                     freeze_feature_encoder: bool = False):
     """audio [B, L] normalized, in_lengths [B] valid samples ->
     (hidden [B, T, H] float32, frame_mask [B, T] bool).  A ``generator``
-    selects train mode (dropout and SpecAugment, drawn from it)."""
+    selects train mode (dropout and SpecAugment, drawn from it);
+    ``freeze_feature_encoder`` runs the conv stack and the feature
+    projection without a graph."""
     cfg = model.cfg
-    feats = feature_extractor(model.feature_extractor, audio, cfg,
-                              compute_dtype)
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and not freeze_feature_encoder):
+        feats = feature_extractor(model.feature_extractor, audio, cfg,
+                                  compute_dtype)
+        fp = model.feature_projection
+        feats = layer_norm(feats, fp.layer_norm.weight, fp.layer_norm.bias,
+                           cfg.layer_norm_eps)
+        x = _lin(fp.projection, feats, compute_dtype)
     t = feats.shape[1]
     fl = frame_lengths(in_lengths.to(feats.device), cfg)
     frame_mask = torch.arange(t, device=feats.device)[None, :] < fl[:, None]
-    fp = model.feature_projection
-    feats = layer_norm(feats, fp.layer_norm.weight, fp.layer_norm.bias,
-                       cfg.layer_norm_eps)
-    x = _lin(fp.projection, feats, compute_dtype)
     x = dropout(x, cfg.feat_proj_dropout, generator)
     if (generator is not None and cfg.apply_spec_augment
             and cfg.mask_time_prob > 0):

@@ -26,11 +26,13 @@ each query row's softmax statistics (``attention_stats_plain`` is their
 plain version) and the Function hands them and the output to the backward,
 which then needs no sweep of its own for them.  The Function takes the
 packed projection, so K10 writes dq, dk and dv straight into one
-[B, T, 3, H, D] gradient.  The SFC head trains through ``attention_qkv``;
-``attention_bthd``'s grad branch stacks q, k and v into one copy first and
-exists to keep the JAX function's differentiable signature (its tests use
-it).  ``attention_packed`` has no backward yet and refuses a
-grad-requiring input on the kernel path.
+[B, T, 3, H, D] gradient.  The SFC head trains through ``attention_qkv``
+and the encoder through ``attention_packed``, whose grad branch takes the
+same Function on its projection viewed [B, T, 3, H, D] (its gradient is
+then the packed [B, T, 3H] one as it lies; the launch keeps the counter
+``attention_packed``); ``attention_bthd``'s grad branch stacks q, k and v
+into one copy first and exists to keep the JAX function's differentiable
+signature (its tests use it).
 
 Key padding: ``key_mask`` [B, T] bool, True = valid.  A padded key scores
 ``NEG_INF`` = -1e30 (not -inf), so a row whose keys are all masked gets a
@@ -164,10 +166,12 @@ def _device_mask(key_mask, b: int, tk: int, device):
     return key_mask.to(device=device, dtype=torch.bool).contiguous()
 
 
-def _attention_bthd(q, k, v, key_mask, scale, with_stats: bool = False):
-    """The forward on the kernel or the plain path; with ``with_stats``
-    -> (out, stats), stats the bf16 kernel's [B, H, Tq, 2] statistics and
-    None elsewhere (the float32 and plain backwards recompute theirs)."""
+def _attention_bthd(q, k, v, key_mask, scale, with_stats: bool = False,
+                    name: str = "attention_bthd"):
+    """The forward on the kernel or the plain path (the kernel's launch
+    counted as ``name``); with ``with_stats`` -> (out, stats), stats the
+    bf16 kernel's [B, H, Tq, 2] statistics and None elsewhere (the float32
+    and plain backwards recompute theirs)."""
     if not backend.use_kernel(q):
         out = attention_bthd_plain(q, k, v, key_mask, scale)
         return (out, None) if with_stats else out
@@ -177,7 +181,7 @@ def _attention_bthd(q, k, v, key_mask, scale, with_stats: bool = False):
         b, tq, heads, _ = q.shape
         stats = torch.empty((b, heads, tq, 2), dtype=torch.float32,
                             device=q.device)
-    _launch(q, k, v, key_mask, scale, out, "attention_bthd", stats)
+    _launch(q, k, v, key_mask, scale, out, name, stats)
     return (out, stats) if with_stats else out
 
 
@@ -300,9 +304,9 @@ class _AttentionFn(torch.autograd.Function):
     statistics are saved for the backward."""
 
     @staticmethod
-    def forward(ctx, qkv, key_mask, scale):
+    def forward(ctx, qkv, key_mask, scale, name):
         out, stats = _attention_bthd(*qkv.unbind(2), key_mask, scale,
-                                     with_stats=True)
+                                     with_stats=True, name=name)
         ctx.save_for_backward(qkv, key_mask, out, stats)
         ctx.scale = scale
         return out
@@ -314,7 +318,7 @@ class _AttentionFn(torch.autograd.Function):
         dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
         attention_bwd(*qkv.unbind(2), key_mask, do, ctx.scale, out, stats,
                       out=dqkv.unbind(2))
-        return dqkv, None, None
+        return dqkv, None, None, None
 
 
 def attention_qkv(qkv: torch.Tensor, key_mask: torch.Tensor | None = None,
@@ -324,7 +328,7 @@ def attention_qkv(qkv: torch.Tensor, key_mask: torch.Tensor | None = None,
     if scale is None:
         scale = qkv.shape[-1] ** -0.5
     if backend.needs_grad(qkv):
-        return _AttentionFn.apply(qkv, key_mask, scale)
+        return _AttentionFn.apply(qkv, key_mask, scale, "attention_bthd")
     return _attention_bthd(*qkv.unbind(2), key_mask, scale)
 
 
@@ -338,20 +342,24 @@ def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if backend.needs_grad(q, k, v):
         return _AttentionFn.apply(torch.stack((q, k, v), dim=2), key_mask,
-                                  scale)
+                                  scale, "attention_bthd")
     return _attention_bthd(q, k, v, key_mask, scale)
 
 
 def attention_packed(proj: torch.Tensor, key_mask: torch.Tensor | None,
                      num_heads: int, scale: float | None = None) -> torch.Tensor:
-    """Self-attention straight off the fused QKV projection -> [B, T, H]."""
+    """Self-attention straight off the fused QKV projection -> [B, T, H].
+    Differentiable in proj."""
     b, t, th = proj.shape
     h = th // 3
     if scale is None:
         scale = (h // num_heads) ** -0.5
+    if backend.needs_grad(proj):
+        qkv = proj.view(b, t, 3, num_heads, h // num_heads)
+        return _AttentionFn.apply(qkv, key_mask, scale,
+                                  "attention_packed").reshape(b, t, h)
     if not backend.use_kernel(proj):
         return attention_packed_plain(proj, key_mask, num_heads, scale)
-    backend.refuse_grad("attention_packed", proj)
     if not proj.is_contiguous():
         raise ValueError("packed attention kernel takes a contiguous [B,T,3H]")
     q, k, v = _unpack_qkv(proj, num_heads)

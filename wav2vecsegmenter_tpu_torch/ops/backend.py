@@ -12,10 +12,12 @@ and nowhere else, so a run can show that its path really went through the
 kernels (``reset_launch_counts`` / ``launch_counts``).
 
 A kernel writes its output through a raw pointer, so autograd sees no graph
-behind it.  ``layer_norm`` and the attention of ``[B, T, H, D]`` operands
-wrap their kernels in ``torch.autograd.Function``s with backward kernels;
-every other kernel wrapper calls :func:`refuse_grad` before it launches, so
-that a gradient is never cut silently.
+behind it.  Every kernel wrapper therefore goes through a
+``torch.autograd.Function`` where a gradient is needed (``needs_grad``):
+``layer_norm`` and the attentions have backward kernels (K9, K10); the
+FFN, the fused conv layers and the conv epilogue replay a plain
+composition in the input's type under autograd (:func:`replay_vjp`), as
+the JAX package's custom VJPs replay XLA.  No wrapper cuts a gradient.
 """
 
 from __future__ import annotations
@@ -46,14 +48,16 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def refuse_grad(name: str, *tensors) -> None:
-    """Raise where the kernel ``name``, which has no backward yet, would
-    cut a gradient: grad mode on and an input that requires grad."""
-    if needs_grad(*tensors):
-        raise RuntimeError(
-            f"the {name} kernel has no backward yet (its autograd Function "
-            "comes with the LNA fine-tuning slice); run it under "
-            "torch.no_grad() or on tensors that do not require grad")
+def replay_vjp(fn, inputs, needs, g: torch.Tensor) -> tuple:
+    """The gradients of ``fn(*inputs)`` against the output gradient ``g``
+    (cast to the output's type) for the inputs that ``needs`` marks, by
+    autograd through ``fn``, a plain composition; None for the others."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(n) for a, n in zip(inputs, needs)]
+        out = fn(*leaves)
+        grads = iter(torch.autograd.grad(
+            out, [a for a, n in zip(leaves, needs) if n], g.to(out.dtype)))
+    return tuple(next(grads) if n else None for n in needs)
 
 
 def register_kernel(name: str) -> None:

@@ -26,6 +26,13 @@ The products accumulate in float32 and stay float32 through the bias,
 LayerNorm and GELU, rounded once at the end, as ``_kernel_2tap_wide`` does;
 the plain version rounds there too.  (The JAX ``_xla_ref`` rounds the
 product to x's type before the epilogue.)
+
+Where a gradient is needed, ``conv_bias_ln_gelu`` goes through
+``_ConvLnGeluFn``, the counterpart of the JAX custom VJP ``_fused``: its
+forward is the above, its backward replays ``conv_bias_ln_gelu_composed``
+(``_xla_ref``'s dtype-native composition: the stride-folded GEMM of
+:func:`strided_conv1d_as_matmul` rounded to x's type, then
+``bias_layer_norm_gelu_composed``) under autograd.
 """
 
 from __future__ import annotations
@@ -33,9 +40,11 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.nn.functional as F
 
 from . import _build, backend
-from .layernorm import EPS, bias_layer_norm_gelu_plain
+from .layernorm import (EPS, bias_layer_norm_gelu_composed,
+                        bias_layer_norm_gelu_plain)
 
 AUDIO_MAX_K = 16  # widest product (k*C) of conv_audio_ln_gelu
 
@@ -83,16 +92,86 @@ def conv_bias_ln_gelu_plain(x: torch.Tensor, weight: torch.Tensor,
                                       eps).to(x.dtype)
 
 
+def strided_conv1d_as_matmul(x: torch.Tensor, w: torch.Tensor, stride: int,
+                             dt) -> torch.Tensor:
+    """VALID strided conv as one GEMM over a stride-folded view.
+
+    x [B, T, C], w [O, C, k] (torch layout) -> [B, T', O], T' = (T-k)//s + 1.
+    Folding the stride into channels, ``y[b, i, j*C + c] = x[b, i*s + j, c]``,
+    turns tap p into the shifted view ``y[:, p:p+T']``; the taps concatenate
+    into one operand of depth ceil(k/s)*s*C against the weight rows of
+    kernel positions p*s + j (zero rows past k).  One GEMM accumulates every
+    tap in float32 and rounds once, as the JAX version's f32 tap sum does.
+    """
+    b, t, c = x.shape
+    o, _, k = w.shape
+    t_out = (t - k) // stride + 1
+    n_taps = -(-k // stride)
+    t_need = (n_taps + t_out - 1) * stride
+    if t_need > t:
+        x = F.pad(x, (0, 0, 0, t_need - t))
+    elif t_need < t:
+        x = x[:, :t_need]
+    y = x.reshape(b, n_taps + t_out - 1, stride * c).to(dt)
+    z = y if n_taps == 1 else torch.cat(
+        [y[:, p:p + t_out] for p in range(n_taps)], dim=-1)
+    w_full = w.to(dt).permute(2, 1, 0).reshape(k * c, o)
+    if n_taps * stride > k:
+        w_full = F.pad(w_full, (0, 0, 0, (n_taps * stride - k) * c))
+    return z @ w_full
+
+
+def conv_bias_ln_gelu_composed(x: torch.Tensor, weight: torch.Tensor,
+                               conv_bias: torch.Tensor, scale: torch.Tensor,
+                               bias: torch.Tensor, stride: int,
+                               eps: float = EPS) -> torch.Tensor:
+    """``_xla_ref``'s composition in x's type: the product rounded to x's
+    type, then the epilogue of ``bias_layer_norm_gelu_composed``.  The
+    backward of ``_ConvLnGeluFn`` replays it."""
+    return bias_layer_norm_gelu_composed(
+        strided_conv1d_as_matmul(x, weight, stride, x.dtype), conv_bias,
+        scale, bias, eps)
+
+
+def _conv_bias_ln_gelu(x, weight, conv_bias, scale, bias, stride, eps):
+    if not backend.use_kernel(x):
+        return conv_bias_ln_gelu_plain(x, weight, conv_bias, scale, bias,
+                                       stride, eps)
+    return _launch(x, weight, conv_bias, scale, bias, stride, eps)
+
+
+class _ConvLnGeluFn(torch.autograd.Function):
+    """One fused conv layer whose backward replays
+    ``conv_bias_ln_gelu_composed``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, conv_bias, scale, bias, stride, eps):
+        ctx.save_for_backward(x, weight, conv_bias, scale, bias)
+        ctx.stride, ctx.eps = stride, eps
+        return _conv_bias_ln_gelu(x, weight, conv_bias, scale, bias, stride,
+                                  eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return backend.replay_vjp(
+            lambda *a: conv_bias_ln_gelu_composed(*a, ctx.stride, ctx.eps),
+            ctx.saved_tensors, ctx.needs_input_grad[:5], g) + (None, None)
+
+
 def conv_bias_ln_gelu(x: torch.Tensor, weight: torch.Tensor,
                       conv_bias: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor, stride: int,
                       eps: float = EPS) -> torch.Tensor:
-    """One conv layer with its bias -> LayerNorm -> GELU epilogue, fused."""
-    if not backend.use_kernel(x):
-        return conv_bias_ln_gelu_plain(x, weight, conv_bias, scale, bias,
-                                       stride, eps)
-    backend.refuse_grad("conv_bias_ln_gelu", x, weight, conv_bias, scale,
-                        bias)
+    """One conv layer with its bias -> LayerNorm -> GELU epilogue, fused.
+    Differentiable in x and the parameters."""
+    if backend.needs_grad(x, weight, conv_bias, scale, bias):
+        return _ConvLnGeluFn.apply(x, weight, conv_bias, scale, bias, stride,
+                                   eps)
+    return _conv_bias_ln_gelu(x, weight, conv_bias, scale, bias, stride, eps)
+
+
+def _launch(x, weight, conv_bias, scale, bias, stride, eps) -> torch.Tensor:
     b, t, c, o, k, t_out = _geometry(x, weight, stride)
     if not x.is_contiguous():
         raise ValueError("conv kernel takes a contiguous [B, T, C] input")

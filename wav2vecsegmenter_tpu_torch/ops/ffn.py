@@ -16,6 +16,16 @@ TPU kernel's): both products accumulate in float32, bias and exact GELU act
 on the float32 sums, the activation is rounded to x's type before the
 second product, the output once at the end.  (``ffn_xla`` rounds the first
 product before its bias instead.)
+
+Where a gradient is needed, ``ffn`` goes through ``_FFNFn``, the
+counterpart of the JAX custom VJP ``_ffn_fused``: its forward is the above,
+and it saves only its inputs (x and the float32 masters), so the [rows, F]
+activation is not kept for the backward.  The backward replays
+``ffn_composed`` (``ffn_xla``'s dtype-native composition: products in x's
+type with float32 accumulation, rounded where ``ffn_xla`` rounds) by hand,
+computing only the gradients autograd asks for: with frozen weights it
+recomputes the first product and takes dx in two more (three GEMMs), with
+trained weights two more for dw1 and dw2.
 """
 
 from __future__ import annotations
@@ -47,12 +57,23 @@ def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return F.linear(g.float(), w2, b2.float()).to(x.dtype)
 
 
-def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """FFN over the last dim of x [..., H]; leading dims are rows."""
+def ffn_composed(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """``ffn_xla``'s composition in x's type: each product accumulates in
+    float32 and is rounded to x's type before its bias is added; the GELU
+    output is in x's type.  The backward of ``_FFNFn`` replays it."""
+    dt = x.dtype
+    t = x @ w1.to(dt).t() + b1.to(dt)
+    return F.gelu(t) @ w2.to(dt).t() + b2.to(dt)
+
+
+def _ffn(x, w1, b1, w2, b2):
     if not backend.use_kernel(x):
         return ffn_plain(x, w1, b1, w2, b2)
-    backend.refuse_grad("ffn", x, w1, b1, w2, b2)
+    return _launch(x, w1, b1, w2, b2)
+
+
+def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     h = x.shape[-1]
     f = w1.shape[0]
     if w1.shape != (f, h) or w2.shape != (h, f) or b1.shape != (f,) \
@@ -80,3 +101,46 @@ def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _build.check(status, "ffn")
     backend.count_launch("ffn")
     return out
+
+
+class _FFNFn(torch.autograd.Function):
+    """The FFN whose backward replays ``ffn_composed`` from the saved
+    inputs (the ``_ffn_fused`` residual contract)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _ffn(x, w1, b1, w2, b2)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w1, b1, w2, b2 = ctx.saved_tensors
+        need_x, need_w1, need_b1, need_w2, need_b2 = ctx.needs_input_grad
+        dt, h = x.dtype, x.shape[-1]
+        x2, g2 = x.reshape(-1, h), g.to(dt).reshape(-1, h)
+        w1c, w2c = w1.to(dt), w2.to(dt)
+        t = x2 @ w1c.t() + b1.to(dt)
+        dx = dw1 = db1 = dw2 = db2 = None
+        if need_w2:
+            dw2 = (g2.t() @ F.gelu(t)).to(w2.dtype)
+        if need_b2:
+            db2 = g2.sum(0).to(b2.dtype)
+        if need_x or need_w1 or need_b1:
+            dt_ = torch.ops.aten.gelu_backward(g2 @ w2c, t)
+            if need_x:
+                dx = (dt_ @ w1c).view(x.shape)
+            if need_w1:
+                dw1 = (dt_.t() @ x2).to(w1.dtype)
+            if need_b1:
+                db1 = dt_.sum(0).to(b1.dtype)
+        return dx, dw1, db1, dw2, db2
+
+
+def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """FFN over the last dim of x [..., H]; leading dims are rows.
+    Differentiable in x and the parameters."""
+    if backend.needs_grad(x, w1, b1, w2, b2):
+        return _FFNFn.apply(x, w1, b1, w2, b2)
+    return _ffn(x, w1, b1, w2, b2)

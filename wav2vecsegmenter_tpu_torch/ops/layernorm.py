@@ -14,8 +14,10 @@ above, its backward ``layer_norm_bwd``, which replaces ``_ln_bwd_kernel``
 (K9, ``csrc/layernorm_bwd.cu``) on CUDA tensors and runs
 ``layer_norm_bwd_plain`` on CPU tensors; where autograd asks no gradient of
 x (the SFC head's first LayerNorm reads the frozen backbone's output), it
-computes no dx.  ``bias_layer_norm_gelu`` has no backward yet and refuses a
-grad-requiring input on the kernel path.
+computes no dx.  ``bias_layer_norm_gelu`` goes through ``_BiasLnGeluFn``
+(the counterpart of ``_bln_gelu_2d``): its forward is the above, its
+backward replays ``bias_layer_norm_gelu_composed`` (``_bln_gelu_xla``'s
+dtype-native composition) under autograd.
 
 Semantics (torch.nn.LayerNorm's): float32 mean and biased variance, eps
 inside the rsqrt, float32 scale and bias, the result cast back to the input
@@ -56,6 +58,16 @@ def bias_layer_norm_gelu_plain(x: torch.Tensor, conv_bias: torch.Tensor,
                                eps: float = EPS) -> torch.Tensor:
     y = layer_norm_plain(x.float() + conv_bias.float(), scale, bias, eps)
     return torch.nn.functional.gelu(y).to(x.dtype)
+
+
+def bias_layer_norm_gelu_composed(x: torch.Tensor, conv_bias: torch.Tensor,
+                                  scale: torch.Tensor, bias: torch.Tensor,
+                                  eps: float = EPS) -> torch.Tensor:
+    """``_bln_gelu_xla``'s composition in x's type: the conv bias added in
+    x's type, the LayerNorm's float32 statistics rounded to x's type, the
+    GELU in x's type.  The backward of ``_BiasLnGeluFn`` replays it."""
+    y = layer_norm_plain(x + conv_bias.to(x.dtype), scale, bias, eps)
+    return torch.nn.functional.gelu(y)
 
 
 def _launch(x, conv_bias, scale, bias, eps, gelu: bool) -> torch.Tensor:
@@ -211,11 +223,35 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return _layer_norm(x, scale, bias, eps)
 
 
+def _bias_layer_norm_gelu(x, conv_bias, scale, bias, eps):
+    if not backend.use_kernel(x):
+        return bias_layer_norm_gelu_plain(x, conv_bias, scale, bias, eps)
+    return _launch(x, conv_bias, scale, bias, eps, gelu=True)
+
+
+class _BiasLnGeluFn(torch.autograd.Function):
+    """The conv epilogue whose backward replays
+    ``bias_layer_norm_gelu_composed``."""
+
+    @staticmethod
+    def forward(ctx, x, conv_bias, scale, bias, eps):
+        ctx.save_for_backward(x, conv_bias, scale, bias)
+        ctx.eps = eps
+        return _bias_layer_norm_gelu(x, conv_bias, scale, bias, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return backend.replay_vjp(
+            lambda *a: bias_layer_norm_gelu_composed(*a, ctx.eps),
+            ctx.saved_tensors, ctx.needs_input_grad[:4], g) + (None,)
+
+
 def bias_layer_norm_gelu(x: torch.Tensor, conv_bias: torch.Tensor,
                          scale: torch.Tensor, bias: torch.Tensor,
                          eps: float = EPS) -> torch.Tensor:
-    """(x + conv_bias) -> LayerNorm(scale, bias) -> exact GELU, fused."""
-    if not backend.use_kernel(x):
-        return bias_layer_norm_gelu_plain(x, conv_bias, scale, bias, eps)
-    backend.refuse_grad("bias_layer_norm_gelu", x, conv_bias, scale, bias)
-    return _launch(x, conv_bias, scale, bias, eps, gelu=True)
+    """(x + conv_bias) -> LayerNorm(scale, bias) -> exact GELU, fused.
+    Differentiable in x and the parameters."""
+    if backend.needs_grad(x, conv_bias, scale, bias):
+        return _BiasLnGeluFn.apply(x, conv_bias, scale, bias, eps)
+    return _bias_layer_norm_gelu(x, conv_bias, scale, bias, eps)

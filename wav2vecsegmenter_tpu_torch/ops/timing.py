@@ -53,7 +53,6 @@ def device_busy_ms(fn, iters: int) -> float:
     torch.profiler trace of ``iters`` calls after one warm call: where a
     call's kernels overlap (programmatic dependent launch), this, and not
     the sum of their device times, is the call's time on the device."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -62,13 +61,44 @@ def device_busy_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return busy_ms(prof) / iters
+
+
+def _annotation(event) -> bool:
+    """A user annotation (a profiler step, a record_function range), which
+    the trace mirrors onto the device's timeline over its whole span."""
+    return bool(getattr(event, "is_user_annotation", False))
+
+
+def busy_ms(prof) -> float:
+    """Device milliseconds of a finished torch.profiler trace during which
+    at least one device activity (a kernel, a copy) runs: the union of
+    their intervals."""
+    from torch.autograd import DeviceType
+
     busy, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end)
                               for e in prof.events()
-                              if e.device_type == DeviceType.CUDA):
+                              if e.device_type == DeviceType.CUDA
+                              and not _annotation(e)):
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
-    return busy / iters / 1e3
+    return busy / 1e3
+
+
+def top_device_ops(prof, n: int) -> dict:
+    """The ``n`` host-side ops of a finished torch.profiler trace (CPU and
+    CUDA activities) whose own launches took the most device time: {name:
+    device ms}, and the sum over every op under ``"total"`` (each kernel
+    counts once, for the op that launched it)."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and not _annotation(e)]
+    rows.sort(key=lambda r: -r[1])
+    return {**dict(rows[:n]), "total": sum(ms for _, ms in rows)}
 
 
 def host_us(fn, iters: int) -> float:

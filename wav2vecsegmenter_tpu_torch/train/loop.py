@@ -1,17 +1,20 @@
-"""The epoch loop of the frozen-backbone SFC trainer.
+"""The epoch loop of the SHAS trainer.
 
 Counterpart of ``train`` of ``wav2vecsegmenter_tpu/train/loop.py`` for the
-product's default task (``conf/task/shas.yaml``: frozen backbone, trained
-SFC head, bce loss), on one device (reference train.py:215-747):
+bce tasks, on one device (reference train.py:215-747): the product's
+default task (``conf/task/shas.yaml``: frozen backbone, trained SFC head)
+and LNA fine-tuning (``finetune_wav2vec=True``: the model's trainable
+split, ``SHAS.set_requires_grad``):
 
 * per epoch a fresh random segmentation of the corpus, its
   ``pos_class_percentage`` -> the loss's ``pos_weight``;
 * micro-steps with ``update_freq`` accumulation, the epoch-end flush of a
   partial accumulation, running train metrics every ``print_every_steps``;
 * evaluation on the eval split at each epoch's end;
-* at the end, the head saved in the reference's seg-only ``.pt`` layout
-  (``{"state_dict": seg_model.state_dict()}``), which
-  ``checkpoints.convert.load_reference_checkpoint`` reads.
+* at the end, the model saved in the reference's ``.pt`` layout that
+  ``SHAS.save_full_state`` picks: the full state_dict under LNA, the
+  head's alone (``{"state_dict": seg_model.state_dict()}``) otherwise;
+  ``checkpoints.convert.load_reference_checkpoint`` reads both.
 
 The run is on the first CUDA device and raises without one;
 ``runtime.device=cpu`` asks for the CPU (float32).  ``runtime.seed``
@@ -20,8 +23,7 @@ dropout and SpecAugment masks; the backbone then comes from a local HF
 snapshot of the pretrained model where there is one, the head from
 ``finetune_from_model`` where that is set.  Not ported yet: checkpoint
 rotation and best-checkpoint selection, resume, wandb, ``steps_per_call``,
-device meshes and the in-training ST evaluation; fine-tuning the backbone
-(``finetune_wav2vec=True``) raises.
+device meshes and the in-training ST evaluation.
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ from ..constants import WAV2VEC_FRAME_LEN
 from ..data.loader import FixedDataloaderGenerator, RandomDataloaderGenerator
 from ..eval.metrics import evaluate, train_step_metrics
 from ..infer.pipeline import WindowInference
-from ..models.shas import refuse_finetune
 from ..models.wav2vec2 import init_from_numpy
 from ..ops import backend
 from .loss import build_loss
@@ -68,10 +69,10 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     per-micro-step loss, grad_norm, step_seconds (batch fetch to loss) and
     fetch_seconds (its batch's read and collate), "steps_per_epoch",
     "updates": optimizer updates applied, "model": the trained SHAS,
-    "checkpoint": the saved head's path or None}``.  ``on_step``, when given, is called with
-    each micro-step's metrics (``train.step.make_train_step``)."""
+    "checkpoint": the saved checkpoint's path or None}``.  ``on_step``,
+    when given, is called with each micro-step's metrics
+    (``train.step.make_train_step``)."""
     task = config.task
-    refuse_finetune(bool(task.model.get("finetune_wav2vec")))
     if task.get("autoregression"):
         raise NotImplementedError("the autoregressive task is not ported")
     rt = config.get("runtime") or {}
@@ -84,9 +85,7 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
 
     model = build_model(to_plain(task.model), device)
     _init_weights(model, config, seed)
-    for p in model.wav2vec_model.parameters():
-        p.requires_grad_(False)
-    params = model.trainable_parameters()
+    params = model.set_requires_grad()
     logger.info("Model parameters: %.1fM (%.1fM trained)",
                 sum(p.numel() for p in model.parameters()) / 1e6,
                 sum(p.numel() for p in params) / 1e6)
@@ -172,10 +171,12 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     if config.get("save_ckpts", True):
         checkpoint = results_path / "ckpts" / "final.pt"
         checkpoint.parent.mkdir(parents=True, exist_ok=True)
+        saved = model if model.save_full_state else model.seg_model
         torch.save({"state_dict": {k: v.detach().cpu() for k, v in
-                                   model.seg_model.state_dict().items()}},
+                                   saved.state_dict().items()}},
                    str(checkpoint))
-        logger.info("Saved the head to [%s].", checkpoint)
+        logger.info("Saved the %s to [%s].",
+                    "model" if model.save_full_state else "head", checkpoint)
     return {"eval": results, "history": history,
             "steps_per_epoch": steps_per_epoch, "updates": optimizer.updates,
             "model": model, "checkpoint": checkpoint}

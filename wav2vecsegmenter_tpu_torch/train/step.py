@@ -1,12 +1,13 @@
 """The training step: loss, gradients, AdamW with accumulation.
 
-Counterpart of ``wav2vecsegmenter_tpu/train/step.py`` for the
-frozen-backbone task (reference train.py:381-480).  ``AccumulatingAdamW``
+Counterpart of ``wav2vecsegmenter_tpu/train/step.py`` for the bce tasks,
+the frozen backbone and LNA fine-tuning (reference train.py:381-480).  ``AccumulatingAdamW``
 stands for ``make_optimizer``, its ``flush`` method for
 ``make_accum_flush``; ``make_train_step`` keeps its name.  They cover:
 
 * AdamW (b1 0.9, b2 0.999, eps 1e-8, weight decay 0.01) over the trainable
-  parameters only, the learning rate decayed to 0 on a cosine over the
+  parameters only (``model.trainable_parameters()``, the JAX
+  ``trainable_mask``; a frozen parameter gets no gradient at all), the learning rate decayed to 0 on a cosine over the
   optimizer's updates, not its micro-steps (``optax.cosine_decay_schedule``
   evaluated at the count of updates applied before);
 * ``update_freq`` accumulation (``optax.MultiSteps``): every k-th
@@ -18,7 +19,7 @@ stands for ``make_optimizer``, its ``flush`` method for
   count-1 variance over the batch's longest window);
 * the per-epoch ``pos_weight`` operand of the BCE loss;
 * the ``loss`` and ``grad_norm`` metrics, grad_norm the global norm of the
-  micro-step's raw gradients.
+  micro-step's raw gradients of the trainable parameters.
 
 PyTorch runs eagerly, so there is no jit and no donated state: the
 optimizer object carries the moments, the accumulation and the counts.
@@ -111,7 +112,9 @@ def make_train_step(model, loss_fn, ma_window_steps: int,
     ``model.train_forward`` on the device of the optimizer's parameters
     (dropout and SpecAugment drawn from ``generator``, by default a fresh
     one there), the masked BCE loss with ``pos_weight``, the gradients of
-    the optimizer's parameters, and the optimizer's update.  Metrics:
+    the optimizer's parameters, and the optimizer's update.  A parameter
+    the loss does not reach gets a zero gradient, so that AdamW still
+    applies its weight decay, as the JAX optimizer does.  Metrics:
     ``loss``, ``grad_norm`` (0-dim tensors), ``logits`` (detached) and the
     micro-step's raw ``grads``."""
     params = optimizer.params
@@ -127,7 +130,9 @@ def make_train_step(model, loss_fn, ma_window_steps: int,
             loss_fn.with_pos_weight(pos_weight)
         loss = compute_bce_loss(logits, b["target"], b["out_mask"], lf,
                                 ma_window_steps)
-        grads = torch.autograd.grad(loss, params)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in
+                 zip(params, torch.autograd.grad(loss, params,
+                                                 allow_unused=True))]
         grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         optimizer.update(grads)
         return {"loss": loss.detach(), "grad_norm": grad_norm,
