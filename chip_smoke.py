@@ -49,7 +49,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    configurations within BF16_PAIR of their distance to float32, six
    conv_bias_ln_gelu launches (layers 1-6) to each conv_audio_ln_gelu,
    34 layer_norm launches a batch in both configurations and 7
-   bias_layer_norm_gelu launches a batch in the unfused one;
+   bias_layer_norm_gelu launches a batch in the unfused one; the line
+   carries each batch's read + collate ms in the reader;
 5. batch: one full batch of 14 x 20 s windows timed in both configurations
    with the kernels, and eager, in turns (``--profile`` adds torch.profiler
    tables of one batch in each configuration on standard error);
@@ -66,10 +67,27 @@ Phases, each printed on its own line; any failure exits non-zero:
    finite losses, the backbone bitwise unchanged, the head moved, the
    kernels' bf16 first-micro-step head gradients as close to the float32
    ones as the eager bf16 gradients (within KERNEL_SLACK), and the
-   float32 kernels and eager gradients within F32_GRAD (``--profile``
-   adds a fifth run, bf16 with the kernels, and a torch.profiler table of
-   its second micro-step on standard error);
-7. lna: LNA fine-tuning (``finetune_wav2vec=True``) through the port's loop:
+   float32 kernels and eager gradients within F32_GRAD.  The bf16 kernels
+   run keeps checkpoints as a run does (an eval and a checkpoint every
+   three micro-steps and at each epoch's end, keep_last_ckpts=1, the best
+   by eval_f1): the files on disk, the run state's bookkeeping and the
+   newest checkpoint loaded through load_reference_checkpoint are checked.
+   The line gives the micro-step's wall, its fetch (the wait on the
+   background reader) and its read (the reader's own read + collate);
+   ``steady_state`` the same over a 40-talk epoch of 18 micro-steps,
+   while the reader works and after it is done, and with the serial
+   builder in its place, each run's device busy ms and idle share over
+   four profiled micro-steps in mid-epoch;
+   a fifth run, bf16 with the kernels, profiles one micro-step for the
+   device's busy time (``--profile``: its torch.profiler table on
+   standard error);
+7. resume: the train phase's bf16 kernels run twice uninterrupted (their
+   losses' and grad_norms' relative spread is the bf16 path's run-to-run
+   spread), then stopped in its second epoch's first micro-step and
+   resumed from its run state (``resume=true``): the resumed epoch's
+   losses and grad_norms within that spread of the uninterrupted run's,
+   every train kernel launched in the resumed run;
+8. lna: LNA fine-tuning (``finetune_wav2vec=True``) through the port's loop:
    (d) first, the autograd Functions whose backward replays a composition
    (K5, K6 at conv layer 1, K7 at layer 0, K2 at layer 0's output; a
    14 x 20 s batch's shapes): forward under grad through the kernel, then
@@ -88,15 +106,20 @@ Phases, each printed on its own line; any failure exits non-zero:
    kernels micro-step's launches equal to ``lna_launches``, the
    first-micro-step gradients as in the train phase; (e) the bf16 kernels
    run's final checkpoint (full layout) loaded back strictly and
-   segmenting one talk; (b) the same at the reference batch 14 on the
-   train phase's corpus; (a) and (b) report the wall and fetch ms of a
-   micro-step, the fetch's share, peak memory, and one micro-step's
+   segmenting one talk; (f) the reader's cost at batch 4: the bf16
+   kernels run of (a) for one epoch over the train phase's corpus (nine
+   micro-steps), with the reader, the serial builder twice and the reader
+   again, launches checked, the median wall of a micro-step and
+   of the last two (the reader done) and the read ms of each arm; (b) the
+   same as (a) at the reference batch 14 on the
+   train phase's corpus; (a) and (b) report the wall, fetch and read ms of
+   a micro-step, the fetch's share, peak memory, and one micro-step's
    device time and top ops from torch.profiler; (c) conf/task/shas.yaml's
    adapters with the top 8 of 15 layers, their FFNs and the feature
    encoder fine-tuned: one epoch of two micro-steps, layers 0-6 bitwise
    unchanged, adapters in layers 7-14 only and moved, the conv stack
    moved, each micro-step's launches checked;
-8. a JSON line of every kernel (launches on the LNA recipe's run, or for K2
+9. a JSON line of every kernel (launches on the LNA recipe's run, or for K2
    the unfused slice's, error, times, bound; K5/K6/K7/K2 add their
    Function row), the nvidia-smi line, and the last line:
    {"ok": true, "device": {...}}.
@@ -771,6 +794,8 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
             write_talk(w, secs[w.name], seed)
         audio_secs = sum(secs.values())
 
+        reads: list = []  # read + collate ms a batch, in the reader
+
         def run(mode: str, dtype=torch.bfloat16, flags: dict | None = None):
             backend.set_kernels(mode)
             before = backend.launch_counts()
@@ -779,7 +804,7 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 rows = segment_wavs(model, wavs, PTHR, B, 20.0, 1, dev, dtype,
-                                    talk_probs=probs)
+                                    talk_probs=probs, read_seconds=reads)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             backend.set_kernels("auto")
@@ -793,8 +818,10 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
         run("auto", flags=UNFUSED)
         run("eager")
         backend.reset_launch_counts()
+        reads.clear()
         rows_k, probs_k, wall = run("auto")
         counts = backend.launch_counts()
+        read_ms = [t * 1e3 for t in reads]
         walls = {"auto": [wall], "eager": [], "unfused": []}
         rows_e, probs_e, wall = run("eager")
         walls["eager"].append(wall)
@@ -863,6 +890,7 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
           audio_per_wall_kernels=audio_secs / med["auto"],
           audio_per_wall_eager=audio_secs / med["eager"],
           audio_per_wall_unfused=audio_secs / med["unfused"],
+          read_ms_per_batch=read_ms,
           launches=counts, launches_unfused=counts_unfused)
     for q in ("mean", "p99"):
         check(k_vs_f[q] <= KERNEL_SLACK * e_vs_f[q],
@@ -939,13 +967,13 @@ SHAS_TASK = {
               "finetune_w2v_ffn": False, "ffn_adapter": True,
               "n_transformer_enc_layers": 1, "n_transformer_enc_heads": 8,
               "init_dropout": 0.1},
-    "train_generator": {},
+    "train_generator": {"_target_": "lib.dataset.RandomDataloaderGenerator"},
     "eval_generator": {"inference_times": 1},
     "loss": {"_target_": "torch.nn.BCEWithLogitsLoss", "tag": "bce",
              "pos_weight": None, "ma_window": None, "reduction": "none"},
 }
 # six 100 s talks: 36 random 20 s windows an epoch, three micro-steps of 14
-TRAIN_TALKS, TRAIN_SECS, TRAIN_WINDOW = 6, 100.0, 20
+TRAIN_TALKS, TRAIN_SECS, TRAIN_WINDOW, TRAIN_STEPS = 6, 100.0, 20, 3
 
 
 def write_corpus(root: Path, n_talks: int = TRAIN_TALKS) -> tuple[str, str]:
@@ -973,13 +1001,179 @@ def grad_dist(a, b) -> float:
     return float(torch.sqrt(num / den))
 
 
+def check_checkpoints(work: Path, out: dict, model) -> dict:
+    """The kernels' train run's files (keep_last_ckpts=1, an eval and a
+    checkpoint every TRAIN_STEPS micro-steps and at each epoch's end): on
+    disk exactly the newest checkpoint, the best one (if any eval scored
+    above 0), final.pt, and the run state, whose bookkeeping matches the
+    loop's; the newest checkpoint loads through load_reference_checkpoint
+    into the trained head.  Returns the bookkeeping."""
+    from wav2vecsegmenter_tpu_torch.checkpoints.convert import (
+        load_reference_checkpoint)
+    from wav2vecsegmenter_tpu_torch.checkpoints.io import load_run_state
+    from wav2vecsegmenter_tpu_torch.cli.common import build_model
+
+    names = [name for name, _ in out["evals"]]
+    want = [f"epoch-{e}{s}" for e in range(2)
+            for s in (f"_step-{TRAIN_STEPS * (e + 1)}", "")]
+    check(names == want, f"train: evals {names}, not {want}")
+    scores = [r["eval_f1"] for _, r in out["evals"]]
+    book = out["checkpoints"]
+    best = (f"{names[scores.index(max(scores))]}_best_eval_f1.pt"
+            if max(scores) > 0 else None)
+    check(book["ckpt_list"] == ["epoch-1.pt"] and book["best_checkpoint"]
+          == best and book["best_score"] == max(max(scores), 0.0),
+          f"train: bookkeeping {book}, evals {scores}")
+    ckpts = work / "ckpts"
+    on_disk = sorted(p.name for p in ckpts.iterdir())
+    check(on_disk == sorted({"epoch-1.pt", "final.pt", best} - {None}),
+          f"train: checkpoint files {on_disk}")
+    state = load_run_state(work / "last_state")
+    check(state is not None and state["epoch"] == 2
+          and state["global_step"] == 2 * TRAIN_STEPS
+          and {k: state[k] for k in book} == book,
+          "train: the run state's bookkeeping")
+    # the head's shapes need the backbone's width only: one layer of it
+    back = build_model({**SHAS_TASK["model"], "wav2vec_keep_layers": 1},
+                       torch.device("cpu"))
+    load_reference_checkpoint(ckpts / "epoch-1.pt", back,
+                              allow_random_wav2vec=True)
+    for key, value in model.seg_model.state_dict().items():
+        check(torch.equal(back.seg_model.state_dict()[key], value.cpu()),
+              f"train: epoch-1.pt's {key} is not the trained head's")
+    return book
+
+
+# the reader's steady state: one epoch of 18 micro-steps at batch 14, of
+# which micro-steps [8, 12) are profiled for the device's busy time
+STEADY_TALKS = 40
+STEADY_PROFILED = (8, 12)
+
+
+def _serial_iter(self):
+    """``BatchIterator.__iter__`` without the reader: the batches read in
+    the consumer's thread, as before the reader, timed as the reader times
+    them."""
+    self.read_seconds = reads = []
+    t = time.perf_counter()
+    for batch in self._serial_batches():
+        reads.append(time.perf_counter() - t)
+        yield batch
+        t = time.perf_counter()
+
+
+@contextlib.contextmanager
+def serial_builder():
+    """The loaders read serially (``_serial_iter``) inside the block."""
+    from wav2vecsegmenter_tpu_torch.data.windows import BatchIterator
+
+    threaded = BatchIterator.__iter__
+    BatchIterator.__iter__ = _serial_iter
+    try:
+        yield
+    finally:
+        BatchIterator.__iter__ = threaded
+
+
+def reader_steady_state(dev, root: Path) -> dict:
+    """One epoch of the train phase's bf16 kernels run over STEADY_TALKS
+    talks, with the background reader and then with the serial builder:
+    median ms a micro-step while the reader works (the warm-up, the
+    epoch's first, the last three micro-steps and those the profiler
+    touches excluded) and after it has read the epoch's last batch (the
+    last three), fetch and read ms; the serial run's micro-step (from the
+    request for its batch) and read ms, over the same micro-steps.  In
+    both runs the profiler (device activity only) traces micro-steps
+    STEADY_PROFILED: the device's busy ms a micro-step there, the host's
+    wall of the same span and the device's idle share of it."""
+    from torch.profiler import ProfilerActivity, schedule
+    from torch.profiler import profile as prof_
+
+    from wav2vecsegmenter_tpu_torch.ops.timing import busy_ms
+    from wav2vecsegmenter_tpu_torch.train.loop import train
+
+    root.mkdir()
+    talks, segments = write_corpus(root, STEADY_TALKS)
+    split = {"talk_list": talks, "segments_list": segments,
+             "segment_length": TRAIN_WINDOW}
+    first, end = STEADY_PROFILED
+
+    def run(exp: str) -> dict:
+        marks, busy = [], []
+
+        def on_step(metrics):
+            marks.append(time.perf_counter())
+            p.step()
+
+        # profiler step k spans micro-step k: from the k-th on_step to the
+        # next; the warm-up step before the trace and the step after it,
+        # which takes the trace's processing, are left out of the medians
+        with prof_(activities=[ProfilerActivity.CUDA],
+                   schedule=schedule(wait=first - 1, warmup=1,
+                                     active=end - first, repeat=1),
+                   on_trace_ready=lambda tr: busy.append(busy_ms(tr))) as p:
+            out = train(train_config(dev, split, exp, "auto", "bfloat16",
+                                     max_epochs=1), work_dir=root,
+                        on_step=on_step)
+        out.pop("model")
+        torch.cuda.empty_cache()
+        hist = {k: [t * 1e3 for t in v] for k, v in out["history"].items()
+                if k.endswith("_seconds")}
+        wall = (marks[end - 1] - marks[first - 1]) * 1e3
+        hist["profiled"] = {"device_busy_ms": busy[0] / (end - first),
+                            "wall_ms": wall / (end - first),
+                            "idle_share": 1 - busy[0] / wall}
+        return hist
+
+    reader = run("steady_reader")
+    with serial_builder():
+        plain = run("steady_serial")
+    n = len(reader["step_seconds"])
+    keep = [i for i in range(2, n - 3) if not first - 1 <= i <= end]
+
+    def med(xs, idx=keep):
+        return float(np.median([xs[i] for i in idx]))
+
+    return {"micro_steps": n, "profiled_micro_steps": [first, end],
+            "ms_per_micro_step": med(reader["step_seconds"]),
+            "fetch_ms": med(reader["fetch_seconds"]),
+            "read_ms": med(reader["read_seconds"]),
+            "ms_per_micro_step_reader_done": med(reader["step_seconds"],
+                                                 range(n - 3, n)),
+            "ms_per_micro_step_serial": med(plain["step_seconds"]),
+            "read_ms_serial": med(plain["read_seconds"]),
+            "profiled": reader["profiled"],
+            "profiled_serial": plain["profiled"],
+            "step_ms": reader["step_seconds"],
+            "step_ms_serial": plain["step_seconds"]}
+
+
+def train_config(dev, split: dict, exp: str, mode: str, dtype: str,
+                 **extra):
+    """The train phase's run of conf/task/shas.yaml on ``split``: batch 14,
+    two epochs, update_freq 2, seed 0, no checkpoints unless ``extra``
+    asks."""
+    from wav2vecsegmenter_tpu_torch.config import Config, merge
+
+    return merge(Config(), {
+        "exp_name": exp, "batch_size": B, "learning_rate": 2.5e-4,
+        "max_epochs": 2, "update_freq": 2, "segment_length": TRAIN_WINDOW,
+        "print_every_steps": 100, "save_ckpts": False, "task": SHAS_TASK,
+        "data": {"train": split, "eval": split},
+        "runtime": {"device": dev.type, "compute_dtype": dtype,
+                    "kernels": mode, "seed": 0}, **extra})
+
+
 def run_train(dev, profile: bool) -> dict:
     """The train phase; returns the launch counts of the kernels' bf16
-    run.  With ``profile``, one more bf16 run with the kernels prints a
-    torch.profiler table of its second micro-step (steady state, with an
-    optimizer update) on standard error."""
+    run.  A fifth run, bf16 with the kernels, is profiled over micro-step
+    PROFILED + 1 for the device's busy time (with ``profile``, its
+    torch.profiler table goes to standard error)."""
+    from torch.profiler import ProfilerActivity, schedule
+    from torch.profiler import profile as prof_
+
     from wav2vecsegmenter_tpu_torch.cli.common import build_model
-    from wav2vecsegmenter_tpu_torch.config import Config, merge
+    from wav2vecsegmenter_tpu_torch.ops.timing import busy_ms
     from wav2vecsegmenter_tpu_torch.train.loop import train
 
     t0 = time.perf_counter()
@@ -988,15 +1182,9 @@ def run_train(dev, profile: bool) -> dict:
         split = {"talk_list": talks, "segments_list": segments,
                  "segment_length": TRAIN_WINDOW}
 
-        def run(mode: str, dtype: str, on_step_extra=None):
-            config = merge(Config(), {
-                "exp_name": f"{mode}_{dtype}", "batch_size": B,
-                "learning_rate": 2.5e-4, "max_epochs": 2, "update_freq": 2,
-                "segment_length": TRAIN_WINDOW, "print_every_steps": 100,
-                "save_ckpts": False, "task": SHAS_TASK,
-                "data": {"train": split, "eval": split},
-                "runtime": {"device": dev.type, "compute_dtype": dtype,
-                            "kernels": mode, "seed": 0}})
+        def run(mode: str, dtype: str, on_step_extra=None, **extra):
+            config = train_config(dev, split, f"{mode}_{dtype}", mode, dtype,
+                                  **extra)
             first: list = []
 
             def on_step(metrics):
@@ -1014,17 +1202,22 @@ def run_train(dev, profile: bool) -> dict:
                       "the eager train run launched kernels")
             check(bool(np.isfinite(out["history"]["loss"]).all()),
                   f"non-finite train loss ({mode}, {dtype})")
-            check(out["steps_per_epoch"] == [3, 3] and out["updates"] == 4,
+            check(out["steps_per_epoch"] == [TRAIN_STEPS] * 2
+                  and out["updates"] == 4,
                   f"not two epochs of a full accumulation and a flush: "
                   f"{out['steps_per_epoch']}, {out['updates']} updates")
             return out, first
 
         backend.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        out_k, grads_k = run("auto", "bfloat16")
+        # checkpoints as a run keeps them: an eval and a checkpoint each
+        # epoch's steps and at its end, the newest one kept, and the best
+        out_k, grads_k = run("auto", "bfloat16", save_ckpts=True,
+                             keep_last_ckpts=1, save_every_steps=TRAIN_STEPS)
         counts = backend.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         model = out_k.pop("model")
+        book = check_checkpoints(Path(tmp) / "auto_bfloat16", out_k, model)
         fresh = build_model(SHAS_TASK["model"], dev)
         init_from_numpy(fresh, seed=0)
         for key, value in fresh.wav2vec_model.state_dict().items():
@@ -1042,24 +1235,23 @@ def run_train(dev, profile: bool) -> dict:
         out_fe, grads_fe = run("eager", "float32")
         out_fe.pop("model")
         torch.cuda.empty_cache()
-        if profile:
-            from torch.profiler import ProfilerActivity, schedule
-            from torch.profiler import profile as prof
+        profiled: dict = {}
 
-            def table(p):  # deep enough to list K9's two kernels
+        def ready(p):
+            profiled["busy_ms"] = busy_ms(p)
+            if profile:  # deep enough to list K9's two kernels
                 print(p.key_averages().table(sort_by="cuda_time_total",
                                              row_limit=60),
                       file=sys.stderr, flush=True)
 
-            # steps end at on_step: the first micro-step warms up, the
-            # second is recorded
-            with prof(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA],
-                      schedule=schedule(wait=0, warmup=1, active=1,
-                                        repeat=1),
-                      on_trace_ready=table) as p:
-                run("auto", "bfloat16", on_step_extra=p.step)[0].pop("model")
-            torch.cuda.empty_cache()
+        with prof_(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=PROFILED - 1, warmup=1, active=1,
+                                     repeat=1),
+                   on_trace_ready=ready) as p:
+            out_p = run("auto", "bfloat16", on_step_extra=p.step)[0]
+        out_p.pop("model")
+        torch.cuda.empty_cache()
+        steady = reader_steady_state(dev, Path(tmp) / "steady")
 
     for name in TRAIN_PATH:
         check(counts.get(name, 0) > 0,
@@ -1086,6 +1278,9 @@ def run_train(dev, profile: bool) -> dict:
         # median over the micro-steps after the first (the warm-up)
         return float(np.median(out["history"][key][1:]) * 1e3)
 
+    def per_step(out, key):
+        return [t * 1e3 for t in out["history"][key]]
+
     phase("train", seconds=time.perf_counter() - t0,
           micro_steps=len(out_k["history"]["loss"]),
           updates=out_k["updates"], loss_kernels=out_k["history"]["loss"],
@@ -1096,10 +1291,16 @@ def run_train(dev, profile: bool) -> dict:
           ms_per_micro_step_eager=ms(out_e),
           ms_per_micro_step_f32=ms(out_f),
           ms_per_micro_step_f32_eager=ms(out_fe),
-          fetch_ms_per_micro_step_kernels=ms(out_k, "fetch_seconds"),
-          step_ms_kernels=[t * 1e3 for t in out_k["history"]["step_seconds"]],
+          fetch_ms=ms(out_k, "fetch_seconds"),
+          read_ms=ms(out_k, "read_seconds"),
+          device_busy_ms=profiled["busy_ms"],
+          ms_profiled_micro_step=per_step(out_p, "step_seconds")[PROFILED],
+          step_ms_kernels=per_step(out_k, "step_seconds"),
+          fetch_ms_kernels=per_step(out_k, "fetch_seconds"),
+          read_ms_kernels=per_step(out_k, "read_seconds"),
+          steady_state=steady,
           eval_kernels=out_k["eval"], eval_eager=out_e["eval"],
-          eval_f32=out_f["eval"], peak_mem_gb=peak_gb,
+          eval_f32=out_f["eval"], checkpoints=book, peak_mem_gb=peak_gb,
           grad_dist_kernels_vs_f32=k_vs_f, grad_dist_eager_vs_f32=e_vs_f,
           grad_dist_f32_kernels_vs_eager=f32_k_vs_e, head_moved=moved,
           layer_norm_bwd_launches=counts["layer_norm_bwd"],
@@ -1111,6 +1312,80 @@ def run_train(dev, profile: bool) -> dict:
     check(f32_k_vs_e <= F32_GRAD,
           f"float32 kernels vs eager head gradients {f32_k_vs_e} > {F32_GRAD}")
     return counts
+
+
+class _Stop(Exception):
+    """Ends a train run at a chosen micro-step, as a crash would."""
+
+
+def max_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def run_resume(dev) -> None:
+    """The resume phase: the train phase's bf16 kernels run, twice
+    uninterrupted (their spread is the bf16 path's run-to-run spread), then
+    once stopped in its second epoch's first micro-step and resumed from
+    its run state (``resume=true``): the resumed epoch's losses and
+    grad_norms must lie within that spread of the uninterrupted run's."""
+    from wav2vecsegmenter_tpu_torch.train.loop import train
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        talks, segments = write_corpus(Path(tmp))
+        split = {"talk_list": talks, "segments_list": segments,
+                 "segment_length": TRAIN_WINDOW}
+        runs = []
+        for i in range(2):
+            out = train(train_config(dev, split, f"whole{i}", "auto",
+                                     "bfloat16"), work_dir=tmp)
+            out.pop("model")
+            runs.append(out["history"])
+        seen = []
+
+        def stop(metrics):
+            seen.append(1)
+            if len(seen) == TRAIN_STEPS + 1:
+                raise _Stop
+
+        config = train_config(dev, split, "cut", "auto", "bfloat16",
+                              save_ckpts=True, keep_last_ckpts=1)
+        try:
+            train(config, work_dir=tmp, on_step=stop)
+            check(False, "resume: the first run was not stopped")
+        except _Stop:
+            pass
+        backend.reset_launch_counts()
+        out = train(train_config(dev, split, "cut", "auto", "bfloat16",
+                                 save_ckpts=True, keep_last_ckpts=1,
+                                 resume=True), work_dir=tmp)
+        counts = backend.launch_counts()
+        out.pop("model")
+        torch.cuda.empty_cache()
+    spread = {k: max_rel(runs[1][k], runs[0][k])
+              for k in ("loss", "grad_norm")}
+    got = {k: max_rel(out["history"][k], runs[0][k][TRAIN_STEPS:])
+           for k in ("loss", "grad_norm")}
+    phase("resume", seconds=time.perf_counter() - t0,
+          start_epoch=out["start_epoch"], updates=out["updates"],
+          loss_whole=runs[0]["loss"], loss_whole_again=runs[1]["loss"],
+          loss_resumed=out["history"]["loss"],
+          grad_norm_resumed=out["history"]["grad_norm"],
+          run_to_run_spread=spread, resumed_vs_whole=got,
+          checkpoints=out["checkpoints"], launches=counts)
+    check(out["start_epoch"] == 1 and out["steps_per_epoch"] == [TRAIN_STEPS]
+          and out["updates"] == 4,
+          f"resume: started at epoch {out['start_epoch']}, "
+          f"{out['steps_per_epoch']} micro-steps, {out['updates']} updates")
+    for name in TRAIN_PATH:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never launched in the resumed run")
+    for k in got:
+        check(got[k] <= spread[k],
+              f"resume: {k} {got[k]} from the uninterrupted run, beyond the "
+              f"run-to-run spread {spread[k]}")
+
 
 # The README's LNA recipe (finetune_wav2vec=True): xls-r-300m at 24 layers,
 # every layer fine-tuned, no adapters, the FFNs and the feature encoder
@@ -1150,9 +1425,11 @@ def lna_launches(layers: int, feat_enc: bool) -> dict:
 
 def lna_run(dev, tmp: str, split: dict, model_conf: dict, batch: int,
             epochs: int, mode: str, dtype: str, profile: bool = False,
-            save: bool = False) -> dict:
+            save: bool = False, serial: bool = False, tag: str = "") -> dict:
     """One run of the port's loop (``train.loop.train``) on the task
-    ``model_conf``, the launch counters reset just before.  Returns the
+    ``model_conf``, the launch counters reset just before; with ``serial``
+    the loaders read serially (``serial_builder``); ``tag`` tells the
+    run's directory from another run's of the same arm.  Returns the
     loop's output and: ``grads``, the first micro-step's gradients of every
     trainable parameter (float32 copies); ``steps``, each micro-step's
     launches (not the first of a later epoch, which follows an eval);
@@ -1168,10 +1445,11 @@ def lna_run(dev, tmp: str, split: dict, model_conf: dict, batch: int,
     from wav2vecsegmenter_tpu_torch.train.loop import train
 
     config = merge(Config(), {
-        "exp_name": f"lna_{mode}_{dtype}_{batch}", "batch_size": batch,
+        "exp_name": f"lna_{mode}_{dtype}_{batch}{tag}", "batch_size": batch,
         "learning_rate": 2.5e-4, "max_epochs": epochs, "update_freq": 2,
         "segment_length": TRAIN_WINDOW, "print_every_steps": 100,
-        "save_ckpts": save, "task": {**SHAS_TASK, "model": model_conf},
+        "save_ckpts": save, "keep_last_ckpts": 1, "keep_best_ckpt": False,
+        "task": {**SHAS_TASK, "model": model_conf},
         "data": {"train": split, "eval": split},
         "runtime": {"device": dev.type, "compute_dtype": dtype,
                     "kernels": mode, "seed": 0}})
@@ -1195,7 +1473,8 @@ def lna_run(dev, tmp: str, split: dict, model_conf: dict, batch: int,
     backend.reset_launch_counts()
     zero = backend.launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    with prof if prof is not None else contextlib.nullcontext():
+    with prof if prof is not None else contextlib.nullcontext(), \
+            serial_builder() if serial else contextlib.nullcontext():
         out = train(config, work_dir=tmp, on_step=on_step)
     backend.set_kernels("auto")
     launches = backend.launch_counts()
@@ -1216,13 +1495,15 @@ def lna_run(dev, tmp: str, split: dict, model_conf: dict, batch: int,
 
 
 def step_times(out, skip: tuple = (0, 1)) -> dict:
-    """Median wall and fetch ms a micro-step and the fetch's share, over
-    the micro-steps not in ``skip`` (the warm-up, a profiled one)."""
+    """Median wall, fetch (the wait for the batch) and read (its read +
+    collate in the reader) ms a micro-step and the fetch's share, over the
+    micro-steps not in ``skip`` (the warm-up, a profiled one)."""
     hist = out["history"]
     keep = [i for i in range(len(hist["loss"])) if i not in skip]
     wall = float(np.median([hist["step_seconds"][i] for i in keep]) * 1e3)
     fetch = float(np.median([hist["fetch_seconds"][i] for i in keep]) * 1e3)
-    return {"ms_per_micro_step": wall, "fetch_ms": fetch,
+    read = float(np.median([hist["read_seconds"][i] for i in keep]) * 1e3)
+    return {"ms_per_micro_step": wall, "fetch_ms": fetch, "read_ms": read,
             "fetch_share": fetch / wall, "micro_steps_timed": len(keep)}
 
 
@@ -1472,6 +1753,39 @@ def run_lna(dev) -> dict:
         del back
         torch.cuda.empty_cache()
 
+        # (f) the reader's cost at the recipe's batch: one epoch over the
+        # train phase's corpus, the reader, the serial builder twice, the
+        # reader (walls drift from run to run within a call; this order
+        # cancels a steady drift)
+        arms: dict = {"reader": [], "serial": []}
+        for i, arm in enumerate(("reader", "serial", "serial", "reader")):
+            r = lna_run(dev, tmp, split14, LNA_TASK, LNA_B, 1, "auto",
+                        "bfloat16", serial=arm == "serial", tag=f"_{arm}{i}")
+            r.pop("model")
+            for j, got in enumerate(r["steps"]):
+                check({n: got[n] for n in want} == want,
+                      f"LNA {arm} micro-step {j} launches {got}")
+            arms[arm].append({k: [t * 1e3 for t in r["history"][k]]
+                              for k in ("step_seconds", "read_seconds")})
+            del r
+            torch.cuda.empty_cache()
+
+        def arm_line(runs):
+            # medians over both runs' micro-steps after the first two, and
+            # over the last two (the reader has read the epoch by then)
+            steps = [x for r in runs for x in r["step_seconds"][2:]]
+            done = [x for r in runs for x in r["step_seconds"][-2:]]
+            reads = [x for r in runs for x in r["read_seconds"][2:]]
+            return {"ms_per_micro_step": float(np.median(steps)),
+                    "ms_per_micro_step_last_two": float(np.median(done)),
+                    "read_ms": float(np.median(reads)),
+                    "ms_per_micro_step_runs": [
+                        float(np.median(r["step_seconds"][2:]))
+                        for r in runs],
+                    "step_ms": [r["step_seconds"] for r in runs]}
+
+        reader_cost = {arm: arm_line(runs) for arm, runs in arms.items()}
+
         # (b) the reference batch: 14 x 20 s windows, bf16 kernels
         k14 = lna_run(dev, tmp, split14, LNA_TASK, B, 2, "auto", "bfloat16",
                       profile=True)
@@ -1529,7 +1843,10 @@ def run_lna(dev) -> dict:
                   "ms_per_micro_step_f32": step_times(
                       runs["auto", "float32"])["ms_per_micro_step"],
                   "step_ms": [t * 1e3 for t in k["history"]["step_seconds"]],
+                  "read_ms_steps": [t * 1e3 for t in
+                                    k["history"]["read_seconds"]],
                   "top_ops": k["profiled"]["top_ops"]},
+          batch4_reader_cost=reader_cost,
           batch14={**step_times(k14, TIMED_SKIP),
                    "peak_mem_gb": k14["peak_gb"],
                    "device_busy_ms": k14["profiled"]["busy_ms"],
@@ -1585,6 +1902,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     counts_train = run_train(dev, profile="--profile" in sys.argv)
+    torch.cuda.empty_cache()
+    run_resume(dev)
     torch.cuda.empty_cache()
     lna = run_lna(dev)
 

@@ -1,14 +1,17 @@
-"""The port's segment and train CLIs refuse the options of the JAX CLIs
-that they do not carry out yet (``cli.common.UNPORTED``): each one set away
-from its default in ``conf/segment.yaml`` / ``conf/train.yaml`` raises
-NotImplementedError naming the key, before any model is built, and the
-defaults pass.  (The default runs end to end in tests/test_torch_segment.py
-and tests/test_torch_train.py.)
+"""The port's segment, inference and train CLIs refuse the options of the
+JAX CLIs that they do not carry out yet (``cli.common.UNPORTED``): each one
+set away from its default in ``conf/segment.yaml`` / ``conf/inference.yaml``
+/ ``conf/train.yaml`` raises NotImplementedError naming the key, before any
+model is built, and the defaults pass.  Keys that the JAX CLIs read but no
+conf file sets are refused too (``runtime.profile_dir``; ``runtime.mesh``'s
+subkeys).  (The default runs end to end in tests/test_torch_segment.py,
+tests/test_torch_inference_cli.py and tests/test_torch_train.py.)
 """
 
 import pytest
 
 from wav2vecsegmenter_tpu_torch.cli import common
+from wav2vecsegmenter_tpu_torch.cli import inference as inference_cli
 from wav2vecsegmenter_tpu_torch.cli import segment as segment_cli
 from wav2vecsegmenter_tpu_torch.cli import train as train_cli
 from wav2vecsegmenter_tpu_torch.config import compose
@@ -18,13 +21,11 @@ SEGMENT = {
     "runtime.quantize": "runtime.quantize=int8",
     "runtime.pack_across_talks": "runtime.pack_across_talks=true",
     "runtime.profile_steps": "runtime.profile_steps=3",
+    "runtime.profile_dir": "+runtime.profile_dir=prof",
     "runtime.mesh": "runtime.mesh.data=8",
 }
+INFERENCE = {**SEGMENT, "log_wandb": "log_wandb=true"}
 TRAIN = {
-    "keep_last_ckpts": "keep_last_ckpts=2",
-    "keep_best_ckpt": "keep_best_ckpt=false",
-    "best_ckpt_metric": "best_ckpt_metric=eval_loss",
-    "save_every_steps": "save_every_steps=100",
     "perform_st_evaluation": "perform_st_evaluation=true",
     "log_wandb": "log_wandb=true",
     "runtime.profile_steps": "runtime.profile_steps=2",
@@ -39,6 +40,12 @@ def _segment_args(tmp_path) -> list[str]:
             "runtime.compute_dtype=float32", "+runtime.device=cpu"]
 
 
+def _inference_args(tmp_path) -> list[str]:
+    return [f"outputs={tmp_path}/run", "ckpt=epoch-0_best_eval_f1",
+            f"+results_path={tmp_path}/out", "runtime.compute_dtype=float32",
+            "+runtime.device=cpu"]
+
+
 def _train_args() -> list[str]:
     return ["exp_name=run", "batch_size=2", "max_epochs=1",
             "+runtime.device=cpu", "runtime.kernels=eager"]
@@ -46,6 +53,7 @@ def _train_args() -> list[str]:
 
 def test_every_refused_option_is_tested():
     assert set(common.UNPORTED["segment"]) == set(SEGMENT)
+    assert set(common.UNPORTED["inference"]) == set(INFERENCE)
     assert set(common.UNPORTED["train"]) == set(TRAIN)
 
 
@@ -57,6 +65,36 @@ def test_segment_cli_refuses_unported_option(tmp_path, monkeypatch, key):
     assert not (tmp_path / "out").exists()  # raised before any work
 
 
+@pytest.mark.parametrize("key", sorted(INFERENCE))
+def test_inference_cli_refuses_unported_option(tmp_path, monkeypatch, key):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+        inference_cli.main(_inference_args(tmp_path) + [INFERENCE[key]])
+    assert not (tmp_path / "out").exists()  # raised before any work
+
+
+# subkeys of a refused node that no conf file sets (the JAX loop reads
+# runtime.mesh.fsdp): refused under the node's key
+@pytest.mark.parametrize("app", ["segment", "inference", "train"])
+def test_cli_refuses_mesh_subkey(tmp_path, monkeypatch, app):
+    monkeypatch.chdir(tmp_path)
+    main, args = {"segment": (segment_cli.main, _segment_args(tmp_path)),
+                  "inference": (inference_cli.main,
+                                _inference_args(tmp_path)),
+                  "train": (train_cli.main, _train_args())}[app]
+    with pytest.raises(NotImplementedError, match=r"runtime\.mesh"):
+        main(args + ["+runtime.mesh.fsdp=true"])
+
+
+def test_sweep_is_refused_before_its_first_job(tmp_path, monkeypatch):
+    """A sweep whose second job sets a refused option runs no job."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="runtime.quantize"):
+        segment_cli.main(["-m"] + _segment_args(tmp_path)
+                         + ["runtime.quantize=null,int8"])
+    assert not (tmp_path / "out").exists()
+
+
 @pytest.mark.parametrize("key", sorted(TRAIN))
 def test_train_cli_refuses_unported_option(tmp_path, monkeypatch, key):
     monkeypatch.chdir(tmp_path)
@@ -65,9 +103,11 @@ def test_train_cli_refuses_unported_option(tmp_path, monkeypatch, key):
     assert not (tmp_path / "run").exists()  # raised before any work
 
 
-@pytest.mark.parametrize("app", ["segment", "train"])
+@pytest.mark.parametrize("app", ["segment", "inference", "train"])
 def test_defaults_are_not_refused(tmp_path, app):
-    args = _segment_args(tmp_path) if app == "segment" else _train_args()
+    args = {"segment": _segment_args(tmp_path),
+            "inference": _inference_args(tmp_path),
+            "train": _train_args()}[app]
     config = compose(segment_cli.CONF_DIR, app, args,
                      resolve_interp=app == "train")
     common.refuse_unported(config, app, segment_cli.CONF_DIR)

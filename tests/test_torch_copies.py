@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 import wav2vecsegmenter_tpu.algorithms as jalgo
+import wav2vecsegmenter_tpu.cli.common as jcommon
 import wav2vecsegmenter_tpu.config as jconfig
 import wav2vecsegmenter_tpu.constants as jconst
 from wav2vecsegmenter_tpu.core import frames as jframes
@@ -18,6 +19,7 @@ from wav2vecsegmenter_tpu.core import windows as jwindows
 from wav2vecsegmenter_tpu.data import audio as jaudio
 from wav2vecsegmenter_tpu.data import collate as jcollate
 import wav2vecsegmenter_tpu_torch.algorithms as talgo
+import wav2vecsegmenter_tpu_torch.cli.common as tcommon
 import wav2vecsegmenter_tpu_torch.config as tconfig
 import wav2vecsegmenter_tpu_torch.constants as tconst
 from wav2vecsegmenter_tpu_torch.core import frames as tframes
@@ -155,3 +157,37 @@ def test_config_compose_equal(tmp_path):
         jconfig.merge(jconfig.load_config(tmp_path / "c.yaml"), want))
     assert tconfig.to_plain(tconfig.resolve(loaded)) == jconfig.to_plain(
         jconfig.resolve(jconfig.load_config(tmp_path / "c.yaml")))
+
+
+SWEEP_ARGVS = [
+    ["-m", "outputs=/o", "algorithm=dac", "algorithm.max_segment_length=10,12",
+     "algorithm.threshold=0.2,0.5,0.8", "+runtime.device=cpu"],
+    ["--multirun", "st_metrics=[bleu,bertscore]", "a={x: 1, y: 2},b",
+     "~c=1", "+d.e=3,4"],
+    ["outputs=/o", "ckpt=epoch-15_best_eval_f1", "st_metrics=[bleu,b]",
+     "--flag", "x"],
+    ["-m"],
+]
+
+
+@pytest.mark.parametrize("argv", SWEEP_ARGVS)
+def test_sweep_parsing_equal(argv):
+    """parse_cli, _split_sweep, expand_sweeps and hydra_override_dirname
+    (with the conf files' exclude lists) against the JAX CLI's."""
+    got, want = tcommon.parse_cli(argv), jcommon.parse_cli(argv)
+    assert got == want
+    jobs = tcommon.expand_sweeps(got[1])
+    assert jobs == jcommon.expand_sweeps(want[1])
+    for ov in got[1]:
+        value = ov.partition("=")[2]
+        assert tcommon._split_sweep(value) == jcommon._split_sweep(value)
+    for app in ("segment", "inference"):
+        exclude = jconfig.compose(CONF, app, [], resolve_interp=False).select(
+            "hydra.job.config.override_dirname.exclude_keys")
+        for job in jobs:
+            assert (tcommon.hydra_override_dirname(job, exclude)
+                    == jcommon.hydra_override_dirname(job, exclude))
+    with pytest.raises(ValueError, match="multirun"):
+        tcommon.parse_cli(["algorithm.threshold=0.2,0.8"])
+    with pytest.raises(ValueError, match="multirun"):
+        jcommon.parse_cli(["algorithm.threshold=0.2,0.8"])

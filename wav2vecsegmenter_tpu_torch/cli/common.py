@@ -1,13 +1,19 @@
-"""The product loop and its plumbing: runtime, model building, algorithms.
+"""The product loop and its plumbing: the override surface (sweeps and
+run directories), runtime, model building, algorithms.
 
-Counterpart of ``wav2vecsegmenter_tpu/cli/common.py``.  ``segment_wavs``
-takes plain arguments (no config object), so it runs without pyyaml; the
-config-driven CLI lives in ``cli/segment.py``.
+Counterpart of ``wav2vecsegmenter_tpu/cli/common.py``; ``parse_cli``,
+``_split_sweep``, ``expand_sweeps`` and ``hydra_override_dirname`` are the
+port's copies of its own (tests/test_torch_copies.py holds them equal).
+``segment_wavs`` takes plain arguments (no config object), so it runs
+without pyyaml; the config-driven CLIs live in ``cli/segment.py`` and
+``cli/inference.py``.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
+import sys
 import time
 from collections import deque
 from pathlib import Path
@@ -32,19 +38,125 @@ UNPORTED = {
         "runtime.quantize": "A9 (int8)",
         "runtime.pack_across_talks": "A9 (packing)",
         "runtime.profile_steps": "A11 (profiler traces)",
+        "runtime.profile_dir": "A11 (profiler traces)",
         "runtime.mesh": "A9 (parallel)",
     },
     "train": {
-        "keep_last_ckpts": "A3 (checkpoints and resume)",
-        "keep_best_ckpt": "A3 (checkpoints and resume)",
-        "best_ckpt_metric": "A3 (checkpoints and resume)",
-        "save_every_steps": "A3 (checkpoints and resume)",
         "perform_st_evaluation": "A8 (the ST-eval harness)",
         "log_wandb": "A9 (wandb)",
         "runtime.profile_steps": "A11 (profiler traces)",
         "runtime.mesh": "A9 (parallel)",
     },
 }
+UNPORTED["inference"] = {**UNPORTED["segment"], "log_wandb": "A9 (wandb)"}
+
+
+def parse_overrides(argv: list[str] | None = None) -> list[str]:
+    argv = sys.argv[1:] if argv is None else argv
+    return [a for a in argv if "=" in a and not a.startswith("--")]
+
+
+def parse_cli(argv: list[str] | None = None) -> tuple[bool, list[str]]:
+    """(multirun, overrides): hydra CLI surface — ``-m``/``--multirun``
+    turns comma-separated override values into a sweep (reference README
+    "Parameter search", inference_st_pipe.py with Hydra's basic sweeper)."""
+    argv = sys.argv[1:] if argv is None else argv
+    multirun = any(a in ("-m", "--multirun") for a in argv)
+    overrides = parse_overrides(argv)
+    if not multirun:
+        # hydra parity: a choice sweep ('a=1,2') in single-run mode is an
+        # up-front error, not a literal string that crashes deep in the run
+        for ov in overrides:
+            key, _, raw = ov.partition("=")
+            if len(_split_sweep(raw)) > 1:
+                raise ValueError(
+                    f"Ambiguous value for argument '{ov}': comma-separated "
+                    "choice sweeps need -m / --multirun")
+    return multirun, overrides
+
+
+def _split_sweep(value: str) -> list[str]:
+    """Split a CLI override value on top-level commas (commas inside
+    [...]/{...} belong to yaml lists, not sweeps)."""
+    parts, depth, cur = [], 0, []
+    for ch in value:
+        if ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        if ch == "," and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    parts.append("".join(cur))
+    return parts
+
+
+def expand_sweeps(overrides: list[str]) -> list[list[str]]:
+    """Hydra basic-sweeper semantics: every override with top-level commas
+    is a choice dimension; jobs are the cartesian product (last dimension
+    varies fastest, like hydra's job numbering)."""
+    dims = []
+    for ov in overrides:
+        key, _, raw = ov.partition("=")
+        dims.append([f"{key}={v}" for v in _split_sweep(raw)])
+    return [list(combo) for combo in itertools.product(*dims)]
+
+
+def hydra_override_dirname(overrides: list[str],
+                           exclude_keys=()) -> str:
+    """Hydra's ``${hydra.job.override_dirname}``: the CLI overrides as
+    ``key=value`` sorted by key and joined with ','.  ``exclude_keys``
+    entries drop both the exact key and (extension for this framework's
+    ``runtime`` block) any dotted subkey of an excluded prefix."""
+    exclude = set(exclude_keys or ())
+    items = []
+    for ov in overrides:
+        key, _, val = ov.partition("=")
+        k = key.lstrip("+~")
+        if k in exclude or any(k.startswith(e + ".") for e in exclude):
+            continue
+        items.append((k, f"{k}={val}"))
+    return ",".join(s for _, s in sorted(items))
+
+
+def compose_app(conf_dir, app: str, overrides: list[str],
+                multirun: bool = False):
+    """``conf_dir/<app>.yaml`` composed with ``overrides`` and checked by
+    :func:`refuse_unported`, and the job's hydra-style run directory: the
+    conf's ``hydra.run.dir`` for a single run, ``hydra.sweep.dir`` /
+    ``subdir`` for a sweep job, both named by the job's
+    ``${hydra.job.override_dirname}``.  Returns (config, run_dir or None),
+    as the JAX package's ``compose_app``."""
+    from ..config import compose, resolve
+
+    cfg = compose(conf_dir, app, overrides, resolve_interp=False)
+    refuse_unported(cfg, app, conf_dir)
+    exclude = cfg.select(
+        "hydra.job.config.override_dirname.exclude_keys") or []
+    dirname = hydra_override_dirname(overrides, exclude)
+    if cfg.get("hydra"):
+        cfg.update_path("hydra.job.override_dirname", dirname)
+    cfg = resolve(cfg)
+    h = cfg.get("hydra") or {}
+    node = h.get("sweep" if multirun else "run") or {}
+    if node.get("dir") is None:
+        return cfg, None
+    run_dir = Path(str(node["dir"]))
+    if multirun:
+        run_dir = run_dir / str(node.get("subdir", dirname))
+    return cfg, run_dir
+
+
+def cli_jobs(conf_dir, app: str, argv: list[str] | None):
+    """(multirun, jobs) of a CLI call, each job (config, run_dir): one, or
+    with ``-m`` one per point of the sweep; every job's options are checked
+    before the first one runs."""
+    multirun, overrides = parse_cli(argv)
+    jobs = expand_sweeps(overrides) if multirun else [overrides]
+    return multirun, [compose_app(conf_dir, app, job, multirun)
+                      for job in jobs]
 
 
 def refuse_unported(config, app: str, conf_dir) -> None:
@@ -99,14 +211,18 @@ def run_algorithm(tag: str, algo_conf: dict, probs: np.ndarray):
 def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
                  segment_length: float, inference_times: int, device,
                  compute_dtype, remainder_ladder: bool = True,
-                 talk_probs: dict | None = None) -> list[dict]:
+                 talk_probs: dict | None = None,
+                 read_seconds: list | None = None) -> list[dict]:
     """The product loop: per wav, multi-pass sliding-window inference,
     probability averaging, the segmentation algorithm, yaml rows.
 
     ``algorithm`` is an algorithm config dict with its ``tag``.  One talk is
     dispatched ahead of the one being drained, so the device keeps working
-    while the host stitches and segments.  ``talk_probs``, when given,
-    receives each talk's averaged frame probabilities by wav name.
+    while the host stitches and segments; each pass's windows are read
+    ahead on threads (``data.windows.BatchIterator``), into pinned memory
+    on a CUDA device.  ``talk_probs``, when given, receives each talk's
+    averaged frame probabilities by wav name, and ``read_seconds`` each
+    batch's read + collate time in the reader.
     """
     algorithm = dict(algorithm)
     tag = algorithm.pop("tag")
@@ -119,8 +235,11 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
         for it in range(inference_times):
             dataset.fixed_length_segmentation(it)
             batches = BatchIterator(dataset, batch_size, float(segment_length),
-                                    remainder_ladder=remainder_ladder)
+                                    remainder_ladder=remainder_ladder,
+                                    pin_memory=engine.device.type == "cuda")
             passes.append(dispatch_talk(engine, batches))
+            if read_seconds is not None:
+                read_seconds.extend(batches.read_seconds)
         return {"wav": wav_path, "dataset": dataset, "passes": passes,
                 "t0": time.perf_counter()}
 

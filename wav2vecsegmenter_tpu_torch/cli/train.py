@@ -7,14 +7,17 @@ overrides):
 
     python -m wav2vecsegmenter_tpu_torch.cli.train exp_name=myrun \\
         batch_size=14 task=shas data=mustc_ende [key=value ...]
+    python -m wav2vecsegmenter_tpu_torch.cli.train exp_name=myrun ... \\
+        +resume=true    # continue from myrun/last_state
 
 The run is on the first CUDA device and raises without one;
 ``+runtime.device=cpu`` asks for the CPU.  The composed config goes to
 ``<exp_name>/.hydra/config.yaml`` (the file the segment CLI's
-``config_path`` reads), the run's artifacts under ``<exp_name>/``
+``config_path`` and the inference CLI's ``base_cfg`` read), the run's
+checkpoints, its run state and its final model under ``<exp_name>/``
 (``train.loop``).  The options of the JAX CLI that the port does not
-carry out yet (checkpoint rotation, ST evaluation, wandb, profiling,
-meshes: ``common.UNPORTED``) raise when set away from their defaults.
+carry out yet (ST evaluation, wandb, profiling, meshes:
+``common.UNPORTED``) raise when set away from their defaults.
 pyyaml is imported inside :func:`main` only.
 """
 

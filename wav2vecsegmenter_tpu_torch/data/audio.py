@@ -60,7 +60,8 @@ class WaveformCache:
 
     The fixed-grid inference dataset reads the SAME wav once per window and
     once per pass; access is talk-sequential, so a small LRU turns all but
-    the first read into memory slices.
+    the first read into memory slices.  A miss decodes under the lock, so
+    that reader threads which miss the same talk together decode it once.
     """
 
     def __init__(self, capacity: int = 2):
@@ -75,8 +76,7 @@ class WaveformCache:
             if key in self._data:
                 self._data.move_to_end(key)
                 return self._data[key]
-        data = read_wav_window(key, 0, None)
-        with self._lock:
+            data = read_wav_window(key, 0, None)
             self._data[key] = data
             self._data.move_to_end(key)
             while len(self._data) > self._cap:

@@ -2,9 +2,10 @@
 
 Counterpart of the generators of ``wav2vecsegmenter_tpu/data/loader.py``
 (reference lib/dataset.py:671-813), over the port's datasets
-(``data.datasets``) and its ``BatchIterator`` (``data.windows``).  Batches
-carry raw int16 audio for normalization on the device, and the windows'
-targets.
+(``data.datasets``) and its ``BatchIterator`` (``data.windows``), which
+reads ahead on a thread pool and, with ``pin_memory``, leaves each
+batch's audio in pinned host memory.  Batches carry raw int16 audio for
+normalization on the device, and the windows' targets.
 """
 
 from __future__ import annotations
@@ -21,11 +22,13 @@ class RandomDataloaderGenerator:
     window grid and the shuffle."""
 
     def __init__(self, talk_list, segments_list, segment_length, batch_size,
-                 seed: int | None = None) -> None:
+                 seed: int | None = None,
+                 pin_memory: bool = False) -> None:
         self.talk_list = talk_list
         self.segments_list = segments_list
         self.segment_length = segment_length
         self.batch_size = batch_size
+        self.pin_memory = pin_memory
         self._rng = np.random.RandomState(seed)
         self.dataset: RandomSegmentationDataset | None = None
 
@@ -40,18 +43,22 @@ class RandomDataloaderGenerator:
             self.talk_list, self.segments_list, self.segment_length, seed)
         return BatchIterator(self.dataset, self.batch_size,
                              float(self.segment_length),
-                             remainder_ladder=False, shuffle=True, seed=seed)
+                             remainder_ladder=False, shuffle=True, seed=seed,
+                             pin_memory=self.pin_memory)
 
 
 class FixedDataloaderGenerator:
-    """Fixed-grid evaluation loaders (reference lib/dataset.py:737-813)."""
+    """Fixed-grid loaders (reference lib/dataset.py:737-813): evaluation,
+    and the training loader of ``task=shas_fix``."""
 
     def __init__(self, talk_list, segments_list, segment_length, batch_size,
                  inference_times: int = 1,
-                 remainder_ladder: bool = False) -> None:
+                 remainder_ladder: bool = False,
+                 pin_memory: bool = False) -> None:
         self.batch_size = batch_size
         self.segment_length = segment_length
         self.remainder_ladder = remainder_ladder
+        self.pin_memory = pin_memory
         self.dataset = FixedSegmentationDataset(
             talk_list, segments_list, segment_length, inference_times)
 
@@ -63,7 +70,8 @@ class FixedDataloaderGenerator:
             self.dataset.generate_fixed_segments(talk_id, iteration)
         return BatchIterator(self.dataset, self.batch_size,
                              float(self.segment_length),
-                             remainder_ladder=self.remainder_ladder)
+                             remainder_ladder=self.remainder_ladder,
+                             pin_memory=self.pin_memory)
 
     def get_talk_ids(self) -> list:
         return self.dataset.corpus.talk_ids()

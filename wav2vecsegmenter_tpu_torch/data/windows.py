@@ -3,21 +3,37 @@
 Mirrors ``FixedSegmentationDatasetNoTarget`` (wav2vecsegmenter_tpu/data/
 datasets.py) and ``BatchIterator``'s audio buckets, remainder ladder and
 seeded shuffle (wav2vecsegmenter_tpu/data/loader.py), which import pandas;
-this module needs numpy only.  The window grid, wav decoding and collation
+this module needs none.  The window grid, wav decoding and collation
 are the port's own copies (``core.windows``, ``data.audio``,
-``data.collate``).  Batches are collated in the consumer's thread, in
-window order or in the seeded shuffled order; the examples' targets, where
-a dataset has them, go into the batch.
+``data.collate``).  Batches come in window order or in the seeded shuffled
+order; the examples' targets, where a dataset has them, go into the batch.
+
+The batches are read and collated ahead of the consumer, as the JAX
+loader reads them: a producer thread maps ``dataset.__getitem__`` over each
+batch's indices on a pool of ``READER_THREADS`` threads and hands the
+collated batches over a queue of ``READER_PREFETCH``.  With ``pin_memory`` (a CUDA consumer) each batch's audio
+lies in pinned host memory, so that its upload can be asynchronous; the
+reader thread itself creates no CUDA tensor and launches nothing.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+import torch
 
 from ..core.frames import inframes_to_outframes, secs_to_inframes
 from ..core.windows import fixed_window_grid
 from .audio import WaveformCache, assert_sample_rate
 from .collate import collate, out_len_for
+
+# the JAX loader's defaults: reader threads, and batches read ahead
+READER_THREADS = 4
+READER_PREFETCH = 2
 
 
 class FixedSegmentationDatasetNoTarget:
@@ -62,17 +78,22 @@ def audio_bucket_lengths(segment_length_secs: float) -> tuple[int, int]:
 
 class BatchIterator:
     """Static-shape, device-normalized batches of a dataset, in order or,
-    with ``shuffle``, in the order of ``RandomState(seed).shuffle``."""
+    with ``shuffle``, in the order of ``RandomState(seed).shuffle``, read
+    ``prefetch`` batches ahead on ``num_threads`` threads.  ``read_seconds``
+    holds each batch's read + collate time in the reader, in batch order,
+    for the current iteration."""
 
     def __init__(self, dataset, batch_size: int, segment_length_secs: float,
                  remainder_ladder: bool = True, shuffle: bool = False,
-                 seed: int | None = None) -> None:
+                 seed: int | None = None, pin_memory: bool = False) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.std_len, self.tail_len = audio_bucket_lengths(segment_length_secs)
         self.remainder_ladder = remainder_ladder
         self.shuffle = shuffle
         self.seed = seed
+        self.pin_memory = pin_memory
+        self.read_seconds: list[float] = []
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
@@ -87,14 +108,72 @@ class BatchIterator:
             slots *= 2
         return min(slots, self.batch_size)
 
-    def __iter__(self):
-        n = len(self.dataset)
-        order = np.arange(n)
+    def _index_batches(self) -> list[np.ndarray]:
+        order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed).shuffle(order)
-        for i in range(0, n, self.batch_size):
-            examples = [self.dataset[j] for j in order[i:i + self.batch_size]]
-            longest = max(len(ex[0]) for ex in examples)
-            audio_len = self.std_len if longest <= self.std_len else self.tail_len
-            yield collate(examples, self._slots_for(len(examples)), audio_len,
-                          out_len_for(audio_len), device_normalize=True)
+        return [order[i:i + self.batch_size]
+                for i in range(0, len(order), self.batch_size)]
+
+    def _collate(self, examples):
+        longest = max(len(ex[0]) for ex in examples)
+        audio_len = self.std_len if longest <= self.std_len else self.tail_len
+        batch = collate(examples, self._slots_for(len(examples)), audio_len,
+                        out_len_for(audio_len), device_normalize=True)
+        if self.pin_memory:  # the numpy view keeps the pinned tensor alive
+            batch.audio = torch.from_numpy(batch.audio).pin_memory().numpy()
+        return batch
+
+    def _serial_batches(self):
+        """The same batches, read and collated in the caller's thread."""
+        for idx in self._index_batches():
+            yield self._collate([self.dataset[j] for j in idx])
+
+    def __iter__(self):
+        idx_batches = self._index_batches()
+        self.read_seconds = read_seconds = []
+        q: queue.Queue = queue.Queue(maxsize=READER_PREFETCH)
+        stop = threading.Event()
+
+        def put_or_stop(item) -> bool:
+            """``q.put`` that gives up once the consumer has abandoned the
+            iteration, instead of blocking the producer on a full queue."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                with ThreadPoolExecutor(
+                        READER_THREADS,
+                        thread_name_prefix="batch-reader") as pool:
+                    for idx in idx_batches:
+                        if stop.is_set():
+                            return
+                        t0 = time.perf_counter()
+                        batch = self._collate(
+                            list(pool.map(self.dataset.__getitem__, idx)))
+                        read_seconds.append(time.perf_counter() - t0)
+                        if not put_or_stop(batch):
+                            return
+            except BaseException as e:  # re-raised in the consumer
+                put_or_stop(e)
+                return
+            put_or_stop(None)
+
+        threading.Thread(target=produce, name="batch-producer",
+                         daemon=True).start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()

@@ -38,6 +38,18 @@ def normalize_int16(audio: torch.Tensor, norm_length: int,
     return torch.where(included[:, None], xn, 0.0)
 
 
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A batch field on ``device``, copied without blocking the host.  The
+    reader's pinned audio goes up from the pinned tensor under its numpy
+    view, so that the pinned-memory cache holds the block until the copy
+    is done."""
+    base = a.base if isinstance(a, np.ndarray) else None
+    if not (isinstance(base, torch.Tensor) and tuple(base.shape) == a.shape
+            and base.data_ptr() == a.ctypes.data):
+        base = torch.from_numpy(np.asarray(a))
+    return base.to(device, non_blocking=True)
+
+
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     if not t.is_cuda:
         return t
@@ -93,8 +105,7 @@ class WindowInference:
     @torch.inference_mode()
     def run_batch(self, batch: Batch) -> ProbsHandle:
         def up(a):
-            return torch.from_numpy(np.asarray(a)).to(self.device,
-                                                      non_blocking=True)
+            return upload(a, self.device)
 
         out_mask = up(batch.out_mask)
         audio = normalize_int16(up(batch.audio), batch.norm_length,

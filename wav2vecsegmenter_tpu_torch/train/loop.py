@@ -6,24 +6,38 @@ default task (``conf/task/shas.yaml``: frozen backbone, trained SFC head)
 and LNA fine-tuning (``finetune_wav2vec=True``: the model's trainable
 split, ``SHAS.set_requires_grad``):
 
-* per epoch a fresh random segmentation of the corpus, its
-  ``pos_class_percentage`` -> the loss's ``pos_weight``;
+* the training loader from ``task.train_generator`` (merged with
+  ``data.train``): per epoch a fresh random segmentation of the corpus
+  (``RandomDataloaderGenerator``), or the fixed grid of every talk
+  (``FixedDataloaderGenerator``, ``task=shas_fix``); its
+  ``pos_class_percentage`` -> the loss's ``pos_weight``; the batches are
+  read ahead on threads (``data.windows.BatchIterator``);
 * micro-steps with ``update_freq`` accumulation, the epoch-end flush of a
   partial accumulation, running train metrics every ``print_every_steps``;
-* evaluation on the eval split at each epoch's end;
-* at the end, the model saved in the reference's ``.pt`` layout that
-  ``SHAS.save_full_state`` picks: the full state_dict under LNA, the
-  head's alone (``{"state_dict": seg_model.state_dict()}``) otherwise;
-  ``checkpoints.convert.load_reference_checkpoint`` reads both.
+* evaluation on the eval split at each epoch's end, and every
+  ``save_every_steps`` micro-steps;
+* after each evaluation a model checkpoint, ``ckpts/epoch-{n}.pt`` or
+  ``ckpts/epoch-{n}_step-{s}.pt``, in the reference's ``.pt`` layout that
+  ``SHAS.save_full_state`` picks (the full state_dict under LNA, the head's
+  alone otherwise; ``checkpoints.convert.load_reference_checkpoint`` reads
+  both); the last ``keep_last_ckpts`` are kept, and under
+  ``keep_best_ckpt`` the best by ``best_ckpt_metric`` as
+  ``ckpts/{name}_best_{metric}.pt``, which rotation never removes;
+* after each epoch the run state, ``last_state/state.pt``
+  (``checkpoints.io``), from which ``resume=true`` continues the run: the
+  trained parameters, the optimizer's moments, counts and accumulation,
+  the dropout generator, the epoch-seed stream and the checkpoint
+  bookkeeping;
+* at the end, the model saved as ``ckpts/final.pt`` in the same layout.
 
 The run is on the first CUDA device and raises without one;
 ``runtime.device=cpu`` asks for the CPU (float32).  ``runtime.seed``
-seeds the model's numpy weights, the per-epoch window grids and the
-dropout and SpecAugment masks; the backbone then comes from a local HF
-snapshot of the pretrained model where there is one, the head from
-``finetune_from_model`` where that is set.  Not ported yet: checkpoint
-rotation and best-checkpoint selection, resume, wandb, ``steps_per_call``,
-device meshes and the in-training ST evaluation.
+seeds the model's numpy weights, the per-epoch window grids (unless
+``task.train_generator.seed`` is set) and the dropout and SpecAugment
+masks; the backbone then comes from a local HF snapshot of the pretrained
+model where there is one, the head from ``finetune_from_model`` where that
+is set.  Not ported yet: wandb, ``steps_per_call``, device meshes and the
+in-training ST evaluation.
 """
 
 from __future__ import annotations
@@ -39,6 +53,11 @@ from ..checkpoints.convert import (
     load_pretrained_backbone,
     load_reference_checkpoint,
 )
+from ..checkpoints.io import (
+    load_run_state,
+    save_model_checkpoint,
+    save_run_state,
+)
 from ..cli.common import build_model, runtime_device_dtype
 from ..config import to_plain
 from ..constants import WAV2VEC_FRAME_LEN
@@ -52,6 +71,12 @@ from .step import AccumulatingAdamW, make_train_step
 
 logger = logging.getLogger("wav2vecsegmenter_tpu_torch")
 
+# the reference's generator targets (conf/task/*.yaml) -> the port's
+GENERATORS = {
+    "lib.dataset.RandomDataloaderGenerator": RandomDataloaderGenerator,
+    "lib.dataset.FixedDataloaderGenerator": FixedDataloaderGenerator,
+}
+
 
 def _init_weights(model, config, seed: int) -> None:
     init_from_numpy(model, seed)
@@ -64,13 +89,94 @@ def _init_weights(model, config, seed: int) -> None:
             allow_random_wav2vec=bool(config.get("allow_random_wav2vec")))
 
 
+def train_generator(config, batch_size: int, seed: int,
+                    pin_memory: bool = False):
+    """The training loader generator: ``task.train_generator`` merged with
+    ``data.train`` and ``batch_size`` added, as the
+    JAX loop instantiates it.  An unset seed of the random generator
+    becomes ``seed`` (the JAX single-process loop leaves it unseeded; a
+    resumed run needs a seeded stream).  Any other target raises."""
+    conf = {**to_plain(config.task.get("train_generator") or {}),
+            **to_plain(config.data.train)}
+    target = conf.pop("_target_", None)
+    if target not in GENERATORS:
+        raise NotImplementedError(
+            f"task.train_generator._target_={target} is not ported (only "
+            f"{', '.join(GENERATORS)})")
+    if GENERATORS[target] is RandomDataloaderGenerator \
+            and conf.get("seed") is None:
+        conf["seed"] = seed
+    conf["batch_size"] = batch_size
+    return GENERATORS[target](**conf, pin_memory=pin_memory)
+
+
+def _generate(gen):
+    """The next epoch's loader: a fixed generator's grid of every talk, or
+    a random generator's next segmentation."""
+    return gen.generate("", 0) if hasattr(gen, "get_talk_ids") \
+        else gen.generate()
+
+
+class Checkpoints:
+    """The checkpoint files and their bookkeeping (the JAX loop's
+    ``save_ckpt``): the last ``keep_last_ckpts`` model checkpoints and,
+    apart from them, the best by ``best_ckpt_metric``, replaced only by a
+    better score.  Names are file names in ``directory``."""
+
+    def __init__(self, directory: Path, config) -> None:
+        self.directory = directory
+        self.enabled = bool(config.get("save_ckpts", True))
+        self.keep_last = int(config.get("keep_last_ckpts", 8))
+        self.keep_best = bool(config.get("keep_best_ckpt", True))
+        self.metric = config.get("best_ckpt_metric", "eval_f1")
+        self.ckpt_list: list[str] = []
+        self.best_score = 0.0
+        self.best_checkpoint: str | None = None
+
+    def save(self, name: str, model, results: dict | None) -> None:
+        if not self.enabled:
+            return
+        path = save_model_checkpoint(self.directory / f"{name}.pt", model)
+        self.ckpt_list.append(path.name)
+        if len(self.ckpt_list) > self.keep_last:
+            (self.directory / self.ckpt_list.pop(0)).unlink(missing_ok=True)
+        if self.keep_best and results:
+            score = results.get(self.metric, 0.0)
+            if score > self.best_score:
+                if self.best_checkpoint is not None:
+                    (self.directory / self.best_checkpoint).unlink(
+                        missing_ok=True)
+                self.best_checkpoint = f"{name}_best_{self.metric}.pt"
+                self.best_score = float(score)
+                save_model_checkpoint(self.directory / self.best_checkpoint,
+                                      model)
+
+    def state(self) -> dict:
+        return {"ckpt_list": list(self.ckpt_list),
+                "best_score": self.best_score,
+                "best_checkpoint": self.best_checkpoint}
+
+    def restore(self, state: dict) -> None:
+        """The bookkeeping of a resumed run, less the files that are gone."""
+        self.ckpt_list = [n for n in state["ckpt_list"]
+                          if (self.directory / n).exists()]
+        self.best_score = float(state["best_score"])
+        best = state["best_checkpoint"]
+        self.best_checkpoint = best if best and (
+            self.directory / best).exists() else None
+
+
 def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     """Run training.  Returns ``{"eval": last eval metrics, "history":
-    per-micro-step loss, grad_norm, step_seconds (batch fetch to loss) and
-    fetch_seconds (its batch's read and collate), "steps_per_epoch",
-    "updates": optimizer updates applied, "model": the trained SHAS,
-    "checkpoint": the saved checkpoint's path or None}``.  ``on_step``,
-    when given, is called with each micro-step's metrics
+    per-micro-step loss, grad_norm, step_seconds (from the request for the
+    batch to its loss), fetch_seconds (the wait for the batch) and
+    read_seconds (its read and collate in the reader), "steps_per_epoch",
+    "updates": optimizer updates applied, "total_steps": the schedule's
+    length, "start_epoch": 0, or the epoch a resumed run started at,
+    "evals": (checkpoint name, eval metrics) of each evaluation, "model":
+    the trained SHAS, "checkpoint": the final checkpoint's path or None,
+    "checkpoints": the rotation's bookkeeping}``.  ``on_step``, when given,
+    is called with each micro-step's metrics
     (``train.step.make_train_step``)."""
     task = config.task
     if task.get("autoregression"):
@@ -81,7 +187,9 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
                                          rt.get("compute_dtype", "bfloat16"))
     seed = int(rt.get("seed", 0))
     results_path = Path(work_dir or ".") / config.exp_name
-    results_path.mkdir(parents=True, exist_ok=True)
+    checkpoints_path = results_path / "ckpts"
+    checkpoints_path.mkdir(parents=True, exist_ok=True)
+    resume_dir = results_path / "last_state"
 
     model = build_model(to_plain(task.model), device)
     _init_weights(model, config, seed)
@@ -91,38 +199,81 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
                 sum(p.numel() for p in params) / 1e6)
 
     batch_size = int(config.batch_size)
-    train_gen = RandomDataloaderGenerator(
-        config.data.train.talk_list, config.data.train.segments_list,
-        config.data.train.segment_length, batch_size, seed=seed)
+    pin = device.type == "cuda"
+    train_gen = train_generator(config, batch_size, seed, pin)
     eg = task.get("eval_generator") or {}
     eval_gen = FixedDataloaderGenerator(
         config.data.eval.talk_list, config.data.eval.segments_list,
         config.data.eval.segment_length, batch_size,
         inference_times=int(eg.get("inference_times", 1)),
-        remainder_ladder=bool(rt.get("infer_remainder_ladder", False)))
+        remainder_ladder=bool(rt.get("infer_remainder_ladder", False)),
+        pin_memory=pin)
 
     # the first epoch's loader sizes the schedule (reference train.py:321-332)
-    train_loader = train_gen.generate()
+    train_loader = _generate(train_gen)
+    first_epoch_steps = len(train_loader)
     update_freq = int(config.update_freq)
     max_epochs = int(config.max_epochs)
-    total_steps = int(max_epochs * len(train_loader) / update_freq * 1.01)
+    total_steps = int(max_epochs * first_epoch_steps / update_freq * 1.01)
     optimizer = AccumulatingAdamW(params, float(config.learning_rate),
                                   total_steps, update_freq)
     generator = torch.Generator(device=device).manual_seed(seed)
     engine = WindowInference(model, device, dtype)
+    ckpts = Checkpoints(checkpoints_path, config)
+
+    start_epoch = global_step = 0
+    state = load_run_state(resume_dir) if config.get("resume") else None
+    if state is not None:
+        if state["first_epoch_steps"] != first_epoch_steps:
+            raise RuntimeError(
+                f"cannot resume from {resume_dir}: its first epoch had "
+                f"{state['first_epoch_steps']} micro-steps, this run's has "
+                f"{first_epoch_steps} (another corpus, batch size or seed)")
+        trained = {n: p for n, p in model.named_parameters()
+                   if p.requires_grad}
+        if set(state["params"]) != set(trained):
+            raise RuntimeError(f"cannot resume from {resume_dir}: another "
+                               f"set of trained parameters")
+        with torch.no_grad():
+            for name, value in state["params"].items():
+                trained[name].copy_(value)
+        optimizer.load_state_dict(state["optimizer"])
+        generator.set_state(state["generator"])
+        ckpts.restore(state)
+        start_epoch = int(state["epoch"])
+        global_step = int(state["global_step"])
+        if start_epoch > 0 and hasattr(train_gen, "skip_epoch_seeds"):
+            # the first generate() drew epoch 0's seed: epoch start_epoch
+            # draws the seed an uninterrupted run would
+            train_gen.skip_epoch_seeds(start_epoch - 1)
+        logger.info("Resumed from %s at epoch %d (global_step=%d, %d "
+                    "rotating checkpoints, best %s=%.4f)", resume_dir,
+                    start_epoch, global_step, len(ckpts.ckpt_list),
+                    ckpts.metric, ckpts.best_score)
 
     history: dict = {"loss": [], "grad_norm": [], "step_seconds": [],
-                     "fetch_seconds": []}
+                     "fetch_seconds": [], "read_seconds": []}
     steps_per_epoch = []
+    evals: list = []
     results: dict = {}
     print_every = int(config.get("print_every_steps", 100))
-    for epoch in range(max_epochs):
+    save_every = int(config.get("save_every_steps", 0) or 0)
+
+    def evaluate_and_save(name: str) -> dict:
+        out = evaluate(eval_gen, engine)
+        logger.info("eval @ %s: %s", name, out)
+        evals.append((name, out))
+        ckpts.save(name, model, out)
+        return out
+
+    for epoch in range(start_epoch, max_epochs):
         logger.info("Starting epoch %d ...", epoch)
         if epoch:
-            train_loader = train_gen.generate()
-        pos_pct = train_gen.dataset.pos_class_percentage
+            train_loader = _generate(train_gen)
+        pos_pct = getattr(train_gen.dataset, "pos_class_percentage", None)
         loss_fn, _, ma_window = build_loss(to_plain(task.loss), pos_pct)
-        logger.info("pos_class_percentage = %s", pos_pct)
+        if pos_pct is not None:
+            logger.info("pos_class_percentage = %s", pos_pct)
         ma_steps = int(ma_window / (WAV2VEC_FRAME_LEN / 1000)) \
             if ma_window else 0
         pos_weight = loss_fn.pos_weight
@@ -134,15 +285,17 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
         steps_per_epoch.append(steps_in_epoch)
         losses, preds, targets = [], [], []
         t_epoch = t0 = time.perf_counter()
-        # a micro-step's span runs from the request for its batch (the
-        # windows' reads and the collate) to its loss on the host; the
-        # optimizer's update, when one falls due, is inside it
+        # a micro-step's span runs from the request for its batch (the wait
+        # on the reader) to its loss on the host; the optimizer's update,
+        # when one falls due, is inside it
         for n, batch in enumerate(train_loader, start=1):
             t_batch = time.perf_counter()
+            global_step += 1
             metrics = step(batch, pos_weight)
             loss = float(metrics["loss"])  # waits for the device
             history["step_seconds"].append(time.perf_counter() - t0)
             history["fetch_seconds"].append(t_batch - t0)
+            history["read_seconds"].append(train_loader.read_seconds[n - 1])
             history["loss"].append(loss)
             history["grad_norm"].append(float(metrics["grad_norm"]))
             if on_step is not None:
@@ -162,21 +315,30 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
                     sm["recall"], history["grad_norm"][-1],
                     n / (time.perf_counter() - t_epoch))
                 losses, preds, targets = [], [], []
+            if save_every and global_step % save_every == 0:
+                results = evaluate_and_save(
+                    f"epoch-{epoch}_step-{global_step}")
             t0 = time.perf_counter()
         optimizer.flush()  # the reference steps at the epoch's end
-        results = evaluate(eval_gen, engine)
-        logger.info("eval @ epoch %d: %s", epoch, results)
+        results = evaluate_and_save(f"epoch-{epoch}")
+        if ckpts.enabled:
+            save_run_state(resume_dir, {
+                "params": {n: p.detach().cpu()
+                           for n, p in model.named_parameters()
+                           if p.requires_grad},
+                "optimizer": optimizer.state_dict(),
+                "generator": generator.get_state(),
+                "epoch": epoch + 1, "global_step": global_step,
+                "first_epoch_steps": first_epoch_steps, **ckpts.state()})
 
     checkpoint = None
-    if config.get("save_ckpts", True):
-        checkpoint = results_path / "ckpts" / "final.pt"
-        checkpoint.parent.mkdir(parents=True, exist_ok=True)
-        saved = model if model.save_full_state else model.seg_model
-        torch.save({"state_dict": {k: v.detach().cpu() for k, v in
-                                   saved.state_dict().items()}},
-                   str(checkpoint))
+    if ckpts.enabled:
+        checkpoint = save_model_checkpoint(checkpoints_path / "final.pt",
+                                           model)
         logger.info("Saved the %s to [%s].",
                     "model" if model.save_full_state else "head", checkpoint)
     return {"eval": results, "history": history,
             "steps_per_epoch": steps_per_epoch, "updates": optimizer.updates,
-            "model": model, "checkpoint": checkpoint}
+            "total_steps": total_steps, "start_epoch": start_epoch,
+            "evals": evals, "model": model, "checkpoint": checkpoint,
+            "checkpoints": ckpts.state()}

@@ -22,18 +22,18 @@ stands for ``make_optimizer``, its ``flush`` method for
   micro-step's raw gradients of the trainable parameters.
 
 PyTorch runs eagerly, so there is no jit and no donated state: the
-optimizer object carries the moments, the accumulation and the counts.
+optimizer object carries the moments, the accumulation and the counts,
+and its ``state_dict`` all of them, for a resumed run.
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ..data.collate import Batch
-from ..infer.pipeline import normalize_int16
+from ..infer.pipeline import normalize_int16, upload
 from .loss import compute_bce_loss
 
 
@@ -53,6 +53,23 @@ class AccumulatingAdamW:
         self.updates = 0     # optimizer updates applied (the schedule's count)
         self.mini_step = 0   # micro-steps accumulated since the last update
         self._acc = [torch.zeros_like(p) for p in self.params]
+
+    def state_dict(self) -> dict:
+        """The AdamW moments and step counts, the accumulation buffers and
+        the counts: what a resumed run needs to continue exactly."""
+        return {"adamw": self.adamw.state_dict(), "updates": self.updates,
+                "mini_step": self.mini_step,
+                "acc": [a.detach().clone() for a in self._acc]}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.updates = int(state["updates"])
+        self.mini_step = int(state["mini_step"])
+        if len(state["acc"]) != len(self._acc):
+            raise ValueError(f"{len(state['acc'])} accumulation buffers for "
+                             f"{len(self._acc)} parameters")
+        for acc, saved in zip(self._acc, state["acc"]):
+            acc.copy_(saved)
 
     def learning_rate(self) -> float:
         """The cosine schedule at the current update count."""
@@ -93,7 +110,7 @@ class AccumulatingAdamW:
 def batch_to_device(batch: Batch, device) -> dict:
     """The batch's tensors on ``device``, its audio normalised there."""
     def up(a):
-        return torch.from_numpy(np.asarray(a)).to(device, non_blocking=True)
+        return upload(a, device)
 
     return {
         "audio": normalize_int16(up(batch.audio), batch.norm_length,
