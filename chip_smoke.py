@@ -34,7 +34,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    (K9: h = 1024 and, last, A4's 512, the masked-tail width and the
    variant without dx) runs twice, bitwise, is timed three times against
    its library call, in turns, and adds the profiler's device time of each
-   of its kernels and of the library call;
+   of its kernels and of the library call; last, K1 and K3-K7 in bf16 at
+   the online path's shapes: one window, a slot of eight, and one window
+   holding 0.5 s of audio (a stream's final flush: padding zero, the
+   attention's keys all masked but 24);
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
@@ -54,7 +57,28 @@ Phases, each printed on its own line; any failure exits non-zero:
 5. batch: one full batch of 14 x 20 s windows timed in both configurations
    with the kernels, and eager, in turns (``--profile`` adds torch.profiler
    tables of one batch in each configuration on standard error);
-6. train: the same full-width SHAS trains its SFC head on a frozen backbone
+6. precision: the same batch through each arm of the precision ladder
+   (``runtime.precision`` bf16, f32head, f32res, f32last4, f32) with the
+   kernels, against the eager float32 path: mean, p99 and max |dprob|, the
+   batch's wall and device busy ms, its launches (every arm launches what
+   the default path does); the f32 arm within F32_ATOL of the eager float32
+   path (mean and p99), f32res's mean |dprob| below bf16's;
+7. online: online serving in bf16 with the kernels (launch counters reset
+   just before, read just after; K1, K3-K7 must launch): the first calls at
+   slots of 1, 2, 4 and 8 windows; one 60 s stream at batch 1 (pTHR,
+   tumbling and with a 2 s hop): each window's wall, device ms a window
+   (profiled run), audio-s per wall-s; eight concurrent 60 s streams
+   through MultiStreamSegmenter (max_batch 8, 0.5 s chunks): audio-s per
+   wall-s, batch sizes, device busy ms and idle share of a profiled run;
+   batch invariance: every window batched in 8 slots against the same
+   window alone (max |dprob|, bitwise-equal rows), the boundaries the
+   multiplexed streams commit against each stream alone, and each op of
+   the path on 8 windows against the first alone; a SegmentationServer on
+   a localhost port (pSTRM) with eight client threads, each connection's
+   segments against its stream alone at batch 1 (as many boundaries apart
+   as two for each frame within the invariance figure of the threshold),
+   then a connection still streaming at shutdown drained to its end line;
+8. train: the same full-width SHAS trains its SFC head on a frozen backbone
    through the port's loop (``train.loop.train``) on a synthetic corpus
    written to a temporary directory, batch 14, 20 s windows,
    update_freq=2, two epochs of three micro-steps (a full accumulation and
@@ -81,13 +105,13 @@ Phases, each printed on its own line; any failure exits non-zero:
    a fifth run, bf16 with the kernels, profiles one micro-step for the
    device's busy time (``--profile``: its torch.profiler table on
    standard error);
-7. resume: the train phase's bf16 kernels run twice uninterrupted (their
+9. resume: the train phase's bf16 kernels run twice uninterrupted (their
    losses' and grad_norms' relative spread is the bf16 path's run-to-run
    spread), then stopped in its second epoch's first micro-step and
    resumed from its run state (``resume=true``): the resumed epoch's
    losses and grad_norms within that spread of the uninterrupted run's,
    every train kernel launched in the resumed run;
-8. lna: LNA fine-tuning (``finetune_wav2vec=True``) through the port's loop:
+10. lna: LNA fine-tuning (``finetune_wav2vec=True``) through the port's loop:
    (d) first, the autograd Functions whose backward replays a composition
    (K5, K6 at conv layer 1, K7 at layer 0, K2 at layer 0's output; a
    14 x 20 s batch's shapes): forward under grad through the kernel, then
@@ -119,9 +143,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    encoder fine-tuned: one epoch of two micro-steps, layers 0-6 bitwise
    unchanged, adapters in layers 7-14 only and moved, the conv stack
    moved, each micro-step's launches checked;
-9. a JSON line of every kernel (launches on the LNA recipe's run, or for K2
-   the unfused slice's, error, times, bound; K5/K6/K7/K2 add their
-   Function row), the nvidia-smi line, and the last line:
+11. the script's seconds; a JSON line of every kernel (launches on the
+   LNA recipe's run, or for K2 the unfused slice's, and on the online
+   phase; error, times, bound, and the float32 route's row; K5/K6/K7/K2
+   add their Function row), the nvidia-smi line, and the last line:
    {"ok": true, "device": {...}}.
 
 The kernel phase runs each backward kernel twice on the same inputs: the
@@ -293,12 +318,21 @@ def env(values: dict):
                 os.environ[k] = v
 
 
-def ragged_mask(t: int, g: torch.Generator, dev) -> torch.Tensor:
-    """[B, t] key mask: one row at t, one at about t/2, one at 1 frame, the
+def ragged_mask(t: int, g: torch.Generator, dev, b: int = B) -> torch.Tensor:
+    """[b, t] key mask: one row at t, one at about t/2, one at 1 frame, the
     rest random."""
-    lengths = torch.randint(1, t + 1, (B,), generator=g)
-    lengths[:3] = torch.tensor([t, t // 2, 1])
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    fixed = torch.tensor([t, t // 2, 1])[:b]
+    lengths[:len(fixed)] = fixed
     return (torch.arange(t)[None, :] < lengths[:, None]).to(dev)
+
+
+def window_mask(b: int, t: int, valid: int | None, g, dev) -> torch.Tensor:
+    """The key mask of a case: ragged rows, or every row ``valid`` frames
+    long."""
+    if valid is None:
+        return ragged_mask(t, g, dev, b)
+    return (torch.arange(t) < valid).expand(b, t).contiguous().to(dev)
 
 
 def bound(nbytes: float, *ops: tuple[str, float]) -> tuple[float, str]:
@@ -370,8 +404,10 @@ def check_kernels(dev) -> dict:
     def tc(dtype):  # the product's rate: tensor cores in bf16
         return "bf16_tc" if dtype == torch.bfloat16 else "f32"
 
-    def ln_case(h, rows, gelu, dtype):
+    def ln_case(h, rows, gelu, dtype, valid=None):
         x = randn(rows, h, std=2.0, mean=0.5, dtype=dtype)
+        if valid is not None:  # zero rows past a short window's audio
+            x[valid:] = 0
         scale, bias = randn(h, std=0.1, mean=1.0), randn(h, std=0.1)
         moved = nbytes(x, x, scale, bias)
         # every LayerNorm row twice (bitwise), three timings (the median on
@@ -431,30 +467,32 @@ def check_kernels(dev) -> dict:
         # the batch-padding row 3 (every key masked) must average its
         # in-range values with equal weights: its error against that mean
         want = v[3].float().mean(0)
-        return lambda out: float((out.view(B, -1, heads, d)[3].float()
-                                  - want).abs().max())
+        return lambda out: float((out.view(v.shape[0], -1, heads, d)[3]
+                                  .float() - want).abs().max())
 
-    def packed_case(t, dtype):
-        proj = randn(B, t, 3 * 1024, dtype=dtype)
-        mask = ragged_mask(t, g, dev)
-        mask[3] = False  # a batch-padding row: every key masked
+    def packed_case(t, dtype, b=B, valid=None):
+        proj = randn(b, t, 3 * 1024, dtype=dtype)
+        mask = window_mask(b, t, valid, g, dev)
+        if b > 3:
+            mask[3] = False  # a batch-padding row: every key masked
         q, k, v = attn._unpack_qkv(proj, 16)
         return dict(fn=lambda: attn.attention_packed(proj, mask, 16),
                     plain=lambda: attn.attention_packed_plain(
                         proj, mask, 16, 64 ** -0.5),
-                    uniform=uniform_row(v, 16, 64),
+                    uniform=uniform_row(v, 16, 64) if b > 3 else None,
                     bound=attn_bound(q, mask, 16, 64, dtype),
                     library=sdpa(q, k, v, mask))
 
-    def bthd_case(t, dtype):
-        qkv = randn(B, t, 3, 8, 128, dtype=dtype)  # the SFC's view layout
+    def bthd_case(t, dtype, b=B, valid=None):
+        qkv = randn(b, t, 3, 8, 128, dtype=dtype)  # the SFC's view layout
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        mask = ragged_mask(t, g, dev)
-        mask[3] = False
+        mask = window_mask(b, t, valid, g, dev)
+        if b > 3:
+            mask[3] = False
         return dict(fn=lambda: attn.attention_bthd(q, k, v, mask),
                     plain=lambda: attn.attention_bthd_plain(
                         q, k, v, mask, 128 ** -0.5),
-                    uniform=uniform_row(v, 8, 128),
+                    uniform=uniform_row(v, 8, 128) if b > 3 else None,
                     bound=attn_bound(q, mask, 8, 128, dtype),
                     library=sdpa(q, k, v, mask))
 
@@ -564,8 +602,10 @@ def check_kernels(dev) -> dict:
                      "attn_bwd_dkdv_tc_kernel"))})
         return case
 
-    def ffn_case(t, dtype, windows=B):
+    def ffn_case(t, dtype, windows=B, valid=None):
         x = randn(windows, t, 1024, dtype=dtype)
+        if valid is not None:
+            x[:, valid:] = 0
         w1, b1 = randn(4096, 1024, std=0.03), randn(4096, std=0.1)
         w2, b2 = randn(1024, 4096, std=0.015), randn(1024, std=0.1)
         rows = windows * t
@@ -589,13 +629,15 @@ def check_kernels(dev) -> dict:
                                        lambda: tffn.ffn(*args), 10,
                                        ("ffn_wg_kernel", "ffn_gemm_kernel"))})
 
-    def conv_case(t, c, k, s, dtype):
-        x = randn(B, t, c, dtype=dtype)
+    def conv_case(t, c, k, s, dtype, b=B, valid=None):
+        x = randn(b, t, c, dtype=dtype)
+        if valid is not None:
+            x[:, valid:] = 0
         w = randn(512, c, k, std=(c * k) ** -0.5)
         cb, scale, bias = (randn(512, std=0.3), randn(512, std=0.1, mean=1.0),
                            randn(512, std=0.1))
         args = (x, w, cb, scale, bias, s)
-        rows = B * ((t - k) // s + 1)
+        rows = b * ((t - k) // s + 1)
         moved = nbytes(x) + rows * 512 * x.element_size() \
             + w.numel() * x.element_size() + nbytes(cb, scale, bias)
         product = 2 * rows * k * c * 512
@@ -687,7 +729,34 @@ def check_kernels(dev) -> dict:
                           dtype, lambda h=h, d=dtype, n=need_dx: ln_bwd_case(
                               h, B * T, d, n)))
 
+    # the online path's shapes (MultiStreamSegmenter's slots of 1 and 8
+    # windows, and one window holding 0.5 s of audio, a stream's final
+    # flush, its padding zero): K1, K3-K7 in bf16, after every earlier row
+    # for the same reason
+    bf16 = torch.bfloat16
+    for b, secs in ((1, None), (8, None), (1, 0.5)):
+        tag = f" B={b}" + ("" if secs is None else f" {secs}s valid")
+        frames = None if secs is None else int(secs * 49.95)
+        samples = None if secs is None else int(secs * 16000)
+        conv0 = None if secs is None else (samples - 10) // 5 + 1
+        cases += [
+            ("layer_norm", f"[{b}*{T},1024]{tag}", bf16,
+             lambda b=b, v=frames: ln_case(1024, b * T, False, bf16, v)),
+            ("attention_packed", f"[{b},{T},3072]x16{tag}", bf16,
+             lambda b=b, v=frames: packed_case(T, bf16, b, v)),
+            ("attention_bthd", f"[{b},{T},8,128]{tag}", bf16,
+             lambda b=b, v=frames: bthd_case(T, bf16, b, v)),
+            ("ffn", f"[{b},{T},1024]x4096{tag}", bf16,
+             lambda b=b, v=frames: ffn_case(T, bf16, b, v)),
+            ("conv_bias_ln_gelu", f"[{b},63999,512] k=3 s=2{tag}", bf16,
+             lambda b=b, v=conv0: conv_case(63999, 512, 3, 2, bf16, b, v)),
+            ("conv_audio_ln_gelu", f"[{b},{L_AUDIO}] k=10 s=5{tag}", bf16,
+             lambda b=b, v=samples: conv_case(L_AUDIO, 1, 10, 5, bf16, b,
+                                              v)),
+        ]
+
     results: dict = {}
+    results_f32: dict = {}
     for name, label, dtype, make in cases:
         case = make()
         got, ref = as_tuple(case["fn"]()), as_tuple(case["plain"]())
@@ -752,23 +821,33 @@ def check_kernels(dev) -> dict:
               f"{name} {label} {dname}: two runs differ")
         del case
         torch.cuda.empty_cache()
-        # the record keeps the main path's dtype (bf16) at its first shape
-        if dtype == torch.bfloat16 and name not in results:
-            results[name] = {"max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms,
-                             "bound_by": bound_by, "library_ms": library_ms}
+        # the record keeps the main path's dtype (bf16) at its first shape,
+        # and the float32 route's row at that shape (the precision ladder's
+        # f32 arms)
+        record = results if dtype == torch.bfloat16 else results_f32
+        if name not in record:
+            record[name] = {"max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": library_ms}
+    for name, row in results_f32.items():
+        results[name]["f32"] = row
     return results
 
 
-def write_talk(path: Path, secs: float, seed: int) -> None:
+def talk_pcm(secs: float, seed: int) -> np.ndarray:
     """Speech-like audio: amplitude-modulated noise with a pause every 3.5 s
-    and slowly varying loudness, 16 kHz 16-bit mono."""
+    and slowly varying loudness, 16 kHz 16-bit mono samples."""
     rng = np.random.RandomState(seed)
     n = int(secs * 16000)
     t = np.arange(n) / 16000
     x = rng.randn(n) * 0.1 * ((t % 3.5) < 3.0)
     x *= 0.6 + 0.4 * np.sin(2 * np.pi * t / 7.3 + seed)
-    pcm = np.clip(x * 32768.0, -32768, 32767).astype("<i2")
+    return np.clip(x * 32768.0, -32768, 32767).astype("<i2")
+
+
+def write_talk(path: Path, secs: float, seed: int) -> None:
+    """``talk_pcm``'s audio as a wav file."""
+    pcm = talk_pcm(secs, seed)
     with wave.open(str(path), "wb") as f:
         f.setnchannels(1)
         f.setsampwidth(2)
@@ -906,19 +985,26 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
     return counts, counts_unfused, model
 
 
-def time_batch(dev, model, profile: bool) -> None:
-    """One full batch (14 windows of 20 s) through the engine: the default
-    configuration with the kernels, the unfused one with the kernels, and
-    eager, in turns; with ``profile``, a torch.profiler table of one batch
-    in each configuration goes to standard error."""
+def full_batch():
+    """One full batch of 14 windows of 20 s, as the segment path reads it."""
     from wav2vecsegmenter_tpu_torch.data.windows import BatchIterator
-    from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
 
     rng = np.random.RandomState(2)
     env_ = (np.arange(L_AUDIO) / 16000 % 3.5) < 3.0
     examples = [((rng.randn(L_AUDIO) * 0.1 * env_).astype(np.float32), None,
                  0, 999) for _ in range(B)]
     batch, = BatchIterator(examples, B, 20.0)  # a list serves as dataset
+    return batch
+
+
+def time_batch(dev, model, profile: bool) -> None:
+    """One full batch (14 windows of 20 s) through the engine: the default
+    configuration with the kernels, the unfused one with the kernels, and
+    eager, in turns; with ``profile``, a torch.profiler table of one batch
+    in each configuration goes to standard error."""
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
+
+    batch = full_batch()
     engine = WindowInference(model, dev, torch.bfloat16)
 
     def once(arm):
@@ -956,6 +1042,480 @@ def time_batch(dev, model, profile: bool) -> None:
             print(p.key_averages().table(sort_by="cuda_time_total",
                                          row_limit=40),
                   file=sys.stderr, flush=True)
+
+
+def batch_launches(model) -> dict:
+    """The kernel launches of one batch in the default configuration: a
+    LayerNorm for the feature projection, two a layer of the encoder and
+    of the head and the head's last; attention and the FFN once an encoder
+    layer; the head's attention once a head layer; conv layers 1-6 and
+    layer 0."""
+    layers = model.w2v_cfg.num_layers
+    head = len(model.seg_model.transformer.layers)
+    return {"layer_norm": 1 + 2 * layers + 2 * head + 1,
+            "attention_packed": layers, "attention_bthd": head,
+            "ffn": layers, "conv_bias_ln_gelu": 6, "conv_audio_ln_gelu": 1}
+
+
+def dprob_stats(d: np.ndarray) -> dict:
+    return {"mean": float(d.mean()), "p99": float(np.percentile(d, 99)),
+            "max": float(d.max()), "frames": int(d.size)}
+
+
+def run_precision(dev, model) -> dict:
+    """The precision ladder (``runtime.precision``) on one full batch of 14
+    x 20 s with the kernels, each arm against the eager float32 path (the
+    oracle): |dprob| over the valid frames, the batch's wall ms (five
+    runs) and device busy ms (three, profiled), and its launches."""
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import (PRECISION_ARMS,
+                                                           WindowInference)
+
+    batch = full_batch()
+    backend.set_kernels("eager")
+    oracle = WindowInference(model, dev, torch.float32).run_batch(
+        batch).numpy()
+    backend.set_kernels("auto")
+    want = batch_launches(model)
+    arms = {}
+    for arm in PRECISION_ARMS:
+        engine = WindowInference(model, dev, torch.bfloat16, arm)
+
+        def run():
+            return engine.run_batch(batch).numpy()
+
+        run()  # warm-up
+        backend.reset_launch_counts()
+        probs = run()
+        launches = {k: v for k, v in backend.launch_counts().items() if v}
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        arms[arm] = {
+            "dprob_vs_f32_eager": dprob_stats(
+                np.abs(probs - oracle)[batch.out_mask]),
+            "batch_ms": walls, "batch_ms_median": float(np.median(walls)),
+            "device_busy_ms": device_busy_ms(run, 3), "launches": launches}
+    phase("precision", windows=B, oracle="eager float32", arms=arms)
+    for arm, row in arms.items():
+        check(row["launches"] == want,
+              f"precision {arm}: launches {row['launches']}, not {want}")
+    f32 = arms["f32"]["dprob_vs_f32_eager"]
+    for q in ("mean", "p99"):
+        check(f32[q] <= F32_ATOL,
+              f"precision f32: {q} dprob {f32[q]} from the eager float32 "
+              f"path beyond {F32_ATOL}")
+    res, low = (arms[a]["dprob_vs_f32_eager"]["mean"]
+                for a in ("f32res", "bf16"))
+    check(res < low, f"precision: f32res mean dprob {res} not below bf16's "
+                     f"{low}")
+    return arms
+
+
+# online serving: streams of 10 min fed in 0.5 s chunks, 20 s windows (the
+# segment path's), eight streams at once through MultiStreamSegmenter's
+# slots of up to eight windows: 30 batches of 8
+ONLINE_SECS, ONLINE_STREAMS, ONLINE_CHUNK = 600.0, 8, 8000
+ONLINE_W = 320000  # samples of a window
+# conf/algorithm/strm.yaml: the server check's algorithm, whose decisions
+# are each frame's probability against the threshold
+STRM = {"algorithm": "strm", "max_segment_length": 18,
+        "min_segment_length": 0.2, "min_pause_length": 0.2, "threshold": 0.5}
+PTHR_ONLINE = {"algorithm": "pthr",
+               **{k: v for k, v in PTHR.items() if k != "tag"}}
+
+
+class TimedEngine:
+    """An engine that records each batch's slots and its wall ms from
+    dispatch to the host's read of its probabilities."""
+
+    def __init__(self, engine):
+        self.engine, self.calls = engine, []
+
+    def run_batch(self, batch):
+        return _TimedHandle(self, len(batch.included), time.perf_counter(),
+                            self.engine.run_batch(batch))
+
+
+class _TimedHandle:
+    def __init__(self, timed, slots, t0, handle):
+        self.timed, self.slots, self.t0, self.handle = timed, slots, t0, handle
+
+    def numpy(self):
+        out = self.handle.numpy()
+        self.timed.calls.append((self.slots,
+                                 (time.perf_counter() - self.t0) * 1e3))
+        return out
+
+
+def stream_once(engine, audio: np.ndarray, **kw):
+    """One stream through an OnlineSegmenter in 0.5 s chunks: (segments,
+    wall s)."""
+    from wav2vecsegmenter_tpu_torch.infer.online import OnlineSegmenter
+
+    seg = OnlineSegmenter(engine, segment_length=20.0, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, len(audio), ONLINE_CHUNK):
+        seg.feed(audio[i: i + ONLINE_CHUNK])
+    seg.finish()
+    torch.cuda.synchronize()
+    return ([(s.offset, s.duration) for s in seg.segments],
+            time.perf_counter() - t0)
+
+
+def mux_once(engine, streams: list, **kw):
+    """The streams at once through a MultiStreamSegmenter (max_batch 8),
+    a 0.5 s chunk of each a round: (segments of each, wall s)."""
+    from wav2vecsegmenter_tpu_torch.infer.online import MultiStreamSegmenter
+
+    mux = MultiStreamSegmenter(engine, max_batch=8, segment_length=20.0,
+                               **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, max(len(a) for a in streams), ONLINE_CHUNK):
+        mux.feed({k: a[i: i + ONLINE_CHUNK] for k, a in enumerate(streams)
+                  if i < len(a)})
+    mux.finish_all()
+    torch.cuda.synchronize()
+    return ([[(s.offset, s.duration) for s in mux.segments(k)]
+             for k in range(len(streams))], time.perf_counter() - t0)
+
+
+def profiled(fn):
+    """(fn's result, device busy ms, wall ms) of one call traced for
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wav2vecsegmenter_tpu_torch.ops.timing import busy_ms
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return out, busy_ms(prof), wall
+
+
+def host_profile(fn) -> dict:
+    """One call traced (CPU and CUDA activity): its device busy ms, and the
+    eight host ops of most self time (ms, the calls summed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wav2vecsegmenter_tpu_torch.ops.timing import busy_ms
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    return {"traced_device_busy_ms": busy_ms(prof),
+            "host_top_ms": dict(host[:8]),
+            "host_total_ms": sum(ms for _, ms in host)}
+
+
+def boundary_diff(a: list, b: list) -> int:
+    """Segment boundaries (starts and ends, to 1e-4 s) in one list and not
+    the other."""
+    def marks(segs):
+        return ({round(o, 4) for o, _ in segs}
+                | {round(o + d, 4) for o, d in segs})
+    return len(marks(a) ^ marks(b))
+
+
+# the functions the model's modules call that may make a row's result hang
+# on the batch: the kernels' wrappers, every linear layer (cuBLAS) and the
+# positional conv (cuDNN); what lies between them is element-wise
+INVARIANCE_HOOKS = {
+    "wav2vec2": ("conv_bias_ln_gelu", "layer_norm", "positional_conv",
+                 "attention_packed", "ffn", "_lin"),
+    "sfc": ("layer_norm", "attention_qkv", "_lin")}
+
+
+def invariance_ops(model, batch) -> dict:
+    """Batch invariance op by op, on the model's own forward (bf16, the
+    kernels): one run of the collated batch of eight windows records each
+    hooked call's first tensor input and its output; then each window runs
+    alone with every hooked call's output replaced by its row of the
+    batched output, so that each call sees what it saw batched.  For each
+    op (a linear layer by its module's name, layer indices folded): the
+    max |difference| of its output over its calls and the eight windows,
+    and of its input, which only the unhooked code before it can make (the
+    QKV and the head's in-projection, plain matmuls); 0 where bitwise."""
+    import re
+
+    from wav2vecsegmenter_tpu_torch.models import sfc
+    from wav2vecsegmenter_tpu_torch.models import wav2vec2 as w2v
+
+    mods = {"wav2vec2": w2v, "sfc": sfc}
+    names = {id(m): re.sub(r"\.\d+\.", ".*.", n)
+             for n, m in model.named_modules()}
+    calls, ops, state = [], {}, {"window": None, "i": 0}
+
+    def hook(fname, fn):
+        def hooked(*args, **kw):
+            x = next(a for a in args if isinstance(a, torch.Tensor))
+            op = (f"_lin {names[id(args[0])]}" if fname == "_lin"
+                  else fname)
+            out = fn(*args, **kw)
+            k = state["window"]
+            if k is None:
+                calls.append((op, x, out))
+                return out
+            want_op, bx, bout = calls[state["i"]]
+            state["i"] += 1
+            check(op == want_op, f"invariance: call {op}, batched {want_op}")
+            row = ops.setdefault(op, {"calls": 0, "input": 0.0,
+                                      "output": 0.0})
+            row["calls"] += k == 0
+            for key, got, ref in (("input", x, bx), ("output", out, bout)):
+                row[key] = max(row[key], (got[0].float() - ref[k].float())
+                               .abs().max().item())
+            return bout[k:k + 1]
+        return hooked
+
+    saved = [(mods[m], f, getattr(mods[m], f))
+             for m, fs in INVARIANCE_HOOKS.items() for f in fs]
+    for mod, f, fn in saved:
+        setattr(mod, f, hook(f, fn))
+    try:
+        with torch.inference_mode():
+            dev = next(model.parameters()).device
+            a, n, m = (torch.from_numpy(x).to(dev) for x in (
+                batch.audio, batch.in_lengths, batch.out_mask))
+            model(a, n, m, torch.bfloat16)
+            for k in range(len(a)):
+                state.update(window=k, i=0)
+                model(a[k:k + 1], n[k:k + 1], m[k:k + 1], torch.bfloat16)
+                check(state["i"] == len(calls),
+                      f"invariance: window {k} made {state['i']} calls, "
+                      f"batched {len(calls)}")
+    finally:
+        for mod, f, fn in saved:
+            setattr(mod, f, fn)
+    return {"ops": ops,
+            "outputs_differ": [op for op, r in ops.items() if r["output"]],
+            "inputs_differ": [op for op, r in ops.items() if r["input"]]}
+
+
+def spread(xs: list) -> dict:
+    return {"n": len(xs), "median": float(np.median(xs)),
+            "min": float(min(xs)), "max": float(max(xs))}
+
+
+def run_online(dev, model) -> dict:
+    """Online serving on the card (bf16, the kernels): first calls per slot
+    size; batch invariance; then, launches counted from here on, one
+    stream at batch 1, tumbling and with a 2 s hop; eight concurrent
+    streams through MultiStreamSegmenter, three times; a
+    SegmentationServer with eight clients and a drain.  Returns the
+    launches of those serving runs alone."""
+    from wav2vecsegmenter_tpu_torch.core.frames import inframes_to_outframes
+    from wav2vecsegmenter_tpu_torch.data.collate import collate, out_len_for
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
+
+    engine = WindowInference(model, dev, torch.bfloat16)
+    pcm = [talk_pcm(ONLINE_SECS, 20 + k) for k in range(ONLINE_STREAMS)]
+    audio = [p.astype(np.float32) / 32768.0 for p in pcm]
+    out_len = out_len_for(ONLINE_W)
+    span = int(inframes_to_outframes(ONLINE_W))  # 999 frames a window
+    n_windows = len(audio[0]) // ONLINE_W
+
+    def windows(k):
+        return [(audio[k][j * ONLINE_W:(j + 1) * ONLINE_W], None, 0, span)
+                for j in range(n_windows)]
+
+    # (1) the first call at each slot size, then two more, then one traced:
+    # its device busy ms and the host ops of most self time
+    first = {}
+    for slots in (1, 2, 4, 8):
+        batch = collate([windows(k)[0] for k in range(slots)], slots,
+                        ONLINE_W, out_len)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.run_batch(batch).numpy()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        first[slots] = {"first_ms": ms[0], "then_ms": ms[1:],
+                        **host_profile(lambda: engine.run_batch(
+                            batch).numpy())}
+
+    # (2) batch invariance: every window batched in 8 slots, as the
+    # multiplexer runs them, and alone; then op by op on the first 8
+    dmax, equal_by_slot, alone_probs = 0.0, [0] * 8, [[] for _ in audio]
+    for j in range(n_windows):
+        rows = [windows(k)[j] for k in range(ONLINE_STREAMS)]
+        batch8 = collate(rows, 8, ONLINE_W, out_len)
+        batched = engine.run_batch(batch8).numpy()
+        for k, row in enumerate(rows):
+            alone = engine.run_batch(collate([row], 1, ONLINE_W,
+                                             out_len)).numpy()[0]
+            alone_probs[k].append(alone[:span])
+            d = np.abs(batched[k, :span] - alone[:span])
+            dmax = max(dmax, float(d.max()))
+            equal_by_slot[k] += int(not d.any())
+        if j == 0:
+            by_op = invariance_ops(model, batch8)
+    alone_probs = [np.concatenate(p) for p in alone_probs]
+
+    # the serving runs, and only they, count launches
+    backend.reset_launch_counts()
+    # (3) one stream at batch 1
+    timed = TimedEngine(engine)
+    single = {}
+    for mode, kw in (("tumbling", {}), ("hop_2s", {"hop_secs": 2.0})):
+        timed.calls.clear()
+        segs, wall = stream_once(timed, audio[0], **PTHR_ONLINE, **kw)
+        win_ms = [ms for _, ms in timed.calls]
+        _, busy, pwall = profiled(
+            lambda: stream_once(engine, audio[0], **PTHR_ONLINE, **kw))
+        single[mode] = {
+            "windows": len(win_ms), "window_wall_ms": spread(win_ms),
+            "device_ms_per_window": busy / len(win_ms),
+            "audio_per_wall": ONLINE_SECS / wall, "segments": len(segs),
+            "profiled_wall_ms": pwall, "idle_share": 1 - busy / pwall}
+
+    # (4) eight concurrent streams, three times, then once traced
+    total_secs = ONLINE_SECS * ONLINE_STREAMS
+    walls = []
+    for _ in range(3):
+        timed.calls.clear()
+        segs_mux, wall = mux_once(timed, audio, **PTHR_ONLINE)
+        walls.append(wall)
+    slots = sorted({s for s, _ in timed.calls})
+    _, busy, pwall = profiled(lambda: mux_once(engine, audio, **PTHR_ONLINE))
+    multi = {"streams": ONLINE_STREAMS, "audio_secs": total_secs,
+             "wall_s": walls,
+             "audio_per_wall": spread([total_secs / w for w in walls]),
+             "batches": {s: sum(1 for t, _ in timed.calls if t == s)
+                         for s in slots},
+             "batch_wall_ms": spread([ms for _, ms in timed.calls]),
+             "device_busy_ms": busy, "profiled_wall_ms": pwall,
+             "idle_share": 1 - busy / pwall,
+             "segments": [len(s) for s in segs_mux]}
+    solo = [stream_once(engine, a, **PTHR_ONLINE)[0] for a in audio]
+    invariance = {
+        "rows": n_windows * ONLINE_STREAMS,
+        "rows_bitwise_equal_by_slot": equal_by_slot,
+        "max_abs_dprob": dmax,
+        "boundaries_differing": [boundary_diff(a, b)
+                                 for a, b in zip(segs_mux, solo)],
+        "by_op": by_op}
+
+    # (5) the daemon: eight clients, then a drain
+    server = serve_check(engine, pcm, audio, alone_probs, dmax)
+    launches = backend.launch_counts()
+    phase("online", chunk_secs=ONLINE_CHUNK / 16000, stream_secs=ONLINE_SECS,
+          first_call=first, single=single, multi=multi,
+          invariance=invariance, server=server,
+          cudnn_benchmark=torch.backends.cudnn.benchmark, launches=launches)
+    for name in DEFAULT_PATH:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} never launched on the online path")
+    return launches
+
+
+def serve_check(engine, pcm: list, audio: list, probs: list,
+                dmax: float) -> dict:
+    """A SegmentationServer on a localhost port (STRM) with one client
+    thread a stream: every connection's segments against its stream run
+    alone at batch 1, as many boundaries apart as two for each frame whose
+    batch-1 probability lies within the batch-invariance figure ``dmax``
+    of the threshold (none where the rows were bitwise equal); then a
+    connection still streaming when the server shuts down gets its tail
+    segments and its end line."""
+    import socket
+    import threading
+
+    from wav2vecsegmenter_tpu_torch.infer.server import (
+        SegmentationServer, segment_stream_client)
+
+    near = [int((np.abs(p - STRM["threshold"]) <= dmax).sum()) if dmax
+            else 0 for p in probs]
+    truth = [stream_once(engine, a, **STRM)[0] for a in audio]
+    srv = SegmentationServer(engine, port=0, max_batch=8, segment_length=20.0,
+                             **STRM)
+    errors: list = []
+
+    def serve():
+        try:
+            srv.serve_forever(poll_s=0.005)
+        except Exception as e:  # this phase fails on it below
+            errors.append(e)
+
+    loop = threading.Thread(target=serve, daemon=True)
+    loop.start()
+    lines: dict = {}
+
+    def client(k):
+        lines[k] = segment_stream_client(srv.address, pcm[k].tobytes(),
+                                         name=f"c{k}",
+                                         chunk_bytes=2 * ONLINE_CHUNK)
+
+    clients = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(len(pcm))]
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(not errors, f"server: {errors}")
+    check(not any(c.is_alive() for c in clients), "server: a client hung")
+    differing = []
+    for k in range(len(pcm)):
+        end = lines[k][-1]
+        check(end["type"] == "end" and end["name"] == f"c{k}"
+              and abs(end["audio_secs"] - ONLINE_SECS) < 1e-3,
+              f"server: connection {k} ended {end}")
+        got = [(ln["offset"], ln["duration"]) for ln in lines[k]
+               if ln["type"] == "segment"]
+        differing.append(boundary_diff(got, truth[k]))
+        check(differing[-1] <= 2 * near[k],
+              f"server: connection {k} {differing[-1]} boundaries from its "
+              f"stream alone, {near[k]} frames near the threshold")
+
+    # a connection still streaming (no FIN) when the server shuts down
+    live = pcm[0][: int(30.5 * 16000)]
+    want = stream_once(engine, live.astype(np.float32) / 32768.0, **STRM)[0]
+    before = srv.total_samples
+    sock = socket.create_connection(tuple(srv.address))
+    sock.sendall(b'{"name": "live"}\n' + live.tobytes())
+    deadline = time.monotonic() + 60
+    while srv.total_samples < before + len(live):
+        check(time.monotonic() < deadline, "server: the live stream stalled")
+        time.sleep(0.01)
+    srv.shutdown()
+    loop.join(timeout=60)
+    check(not loop.is_alive() and not errors, f"server: no drain {errors}")
+    buf = b""
+    while True:
+        data = sock.recv(1 << 16)
+        if not data:
+            break
+        buf += data
+    sock.close()
+    drained = [json.loads(ln) for ln in buf.splitlines() if ln.strip()]
+    got = [(ln["offset"], ln["duration"]) for ln in drained
+           if ln["type"] == "segment"]
+    check(drained[-1]["type"] == "end"
+          and abs(drained[-1]["audio_secs"] - 30.5) < 1e-3,
+          f"server: the drain ended {drained[-1]}")
+    check(boundary_diff(got, want) <= 2 * near[0],
+          "server: the drained stream's segments differ from its own run")
+    return {"connections": len(pcm), "wall_s": wall,
+            "audio_per_wall": ONLINE_SECS * len(pcm) / wall,
+            "segments": [sum(ln["type"] == "segment" for ln in lines[k])
+                         for k in range(len(pcm))],
+            "boundaries_differing": differing, "near_threshold_frames": near,
+            "drained_segments": len(got),
+            "drained_boundaries_differing": boundary_diff(got, want)}
 
 
 # conf/task/shas.yaml: the frozen-backbone task the trainer runs
@@ -1881,7 +2441,7 @@ def main() -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     _build.library()
     ptxas = ptxas_report(_build.build_log)
     phase("build", seconds=time.perf_counter() - t0,
@@ -1899,6 +2459,8 @@ def main() -> int:
               f"{name}: {found or 'not in the ptxas report'}")
     counts, counts_unfused, model = run_slice(dev)
     time_batch(dev, model, profile="--profile" in sys.argv)
+    run_precision(dev, model)
+    counts_online = run_online(dev, model)
     del model
     torch.cuda.empty_cache()
     counts_train = run_train(dev, profile="--profile" in sys.argv)
@@ -1914,11 +2476,13 @@ def main() -> int:
             return "lna", lna["launches"][name]
         return "slice_unfused", counts_unfused[name]
 
+    phase("total", seconds=time.perf_counter() - start)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches(name)[1], "launches_path": launches(name)[0],
          "launches_slice": counts.get(name, 0),
-         "launches_train": counts_train.get(name, 0), **kernels[name],
+         "launches_train": counts_train.get(name, 0),
+         "launches_online": counts_online.get(name, 0), **kernels[name],
          **({"function": lna["functions"][name]}
             if name in lna["functions"] else {})}
         for name, (src, rep) in SOURCES.items()]}))

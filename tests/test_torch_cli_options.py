@@ -1,7 +1,7 @@
-"""The port's segment, inference and train CLIs refuse the options of the
-JAX CLIs that they do not carry out yet (``cli.common.UNPORTED``): each one
-set away from its default in ``conf/segment.yaml`` / ``conf/inference.yaml``
-/ ``conf/train.yaml`` raises NotImplementedError naming the key, before any
+"""The port's segment, inference, train, online and serve CLIs refuse the
+options of the JAX CLIs that they do not carry out yet
+(``cli.common.UNPORTED``): each one set away from its default in
+``conf/<app>.yaml`` raises NotImplementedError naming the key, before any
 model is built, and the defaults pass.  Keys that the JAX CLIs read but no
 conf file sets are refused too (``runtime.profile_dir``; ``runtime.mesh``'s
 subkeys).  (The default runs end to end in tests/test_torch_segment.py,
@@ -12,12 +12,13 @@ import pytest
 
 from wav2vecsegmenter_tpu_torch.cli import common
 from wav2vecsegmenter_tpu_torch.cli import inference as inference_cli
+from wav2vecsegmenter_tpu_torch.cli import online as online_cli
 from wav2vecsegmenter_tpu_torch.cli import segment as segment_cli
+from wav2vecsegmenter_tpu_torch.cli import serve as serve_cli
 from wav2vecsegmenter_tpu_torch.cli import train as train_cli
 from wav2vecsegmenter_tpu_torch.config import compose
 
 SEGMENT = {
-    "runtime.precision": "runtime.precision=f32",
     "runtime.quantize": "runtime.quantize=int8",
     "runtime.pack_across_talks": "runtime.pack_across_talks=true",
     "runtime.profile_steps": "runtime.profile_steps=3",
@@ -31,6 +32,11 @@ TRAIN = {
     "runtime.profile_steps": "runtime.profile_steps=2",
     "runtime.mesh": "runtime.mesh.model=2",
 }
+ONLINE = {
+    "runtime.quantize": "runtime.quantize=int8",
+    "runtime.profile_steps": "runtime.profile_steps=3",
+}
+SERVE = dict(ONLINE)
 
 
 def _segment_args(tmp_path) -> list[str]:
@@ -46,6 +52,19 @@ def _inference_args(tmp_path) -> list[str]:
             "+runtime.device=cpu"]
 
 
+def _online_args(tmp_path) -> list[str]:
+    return [f"ckpt_path={tmp_path}/ckpt.pt",
+            f"config_path={tmp_path}/config.yaml",
+            f"output_dir={tmp_path}/out", f"+results_path={tmp_path}/out",
+            "runtime.compute_dtype=float32", "+runtime.device=cpu"]
+
+
+def _serve_args(tmp_path) -> list[str]:
+    return [f"ckpt_path={tmp_path}/ckpt.pt",
+            f"config_path={tmp_path}/config.yaml",
+            "runtime.compute_dtype=float32", "+runtime.device=cpu"]
+
+
 def _train_args() -> list[str]:
     return ["exp_name=run", "batch_size=2", "max_epochs=1",
             "+runtime.device=cpu", "runtime.kernels=eager"]
@@ -55,6 +74,8 @@ def test_every_refused_option_is_tested():
     assert set(common.UNPORTED["segment"]) == set(SEGMENT)
     assert set(common.UNPORTED["inference"]) == set(INFERENCE)
     assert set(common.UNPORTED["train"]) == set(TRAIN)
+    assert set(common.UNPORTED["online"]) == set(ONLINE)
+    assert set(common.UNPORTED["serve"]) == set(SERVE)
 
 
 @pytest.mark.parametrize("key", sorted(SEGMENT))
@@ -71,6 +92,21 @@ def test_inference_cli_refuses_unported_option(tmp_path, monkeypatch, key):
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         inference_cli.main(_inference_args(tmp_path) + [INFERENCE[key]])
     assert not (tmp_path / "out").exists()  # raised before any work
+
+
+@pytest.mark.parametrize("key", sorted(ONLINE))
+def test_online_cli_refuses_unported_option(tmp_path, monkeypatch, key):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+        online_cli.main(_online_args(tmp_path) + [ONLINE[key]])
+    assert not (tmp_path / "out").exists()  # raised before any work
+
+
+@pytest.mark.parametrize("key", sorted(SERVE))
+def test_serve_cli_refuses_unported_option(tmp_path, monkeypatch, key):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+        serve_cli.main(_serve_args(tmp_path) + [SERVE[key]])
 
 
 # subkeys of a refused node that no conf file sets (the JAX loop reads
@@ -103,11 +139,13 @@ def test_train_cli_refuses_unported_option(tmp_path, monkeypatch, key):
     assert not (tmp_path / "run").exists()  # raised before any work
 
 
-@pytest.mark.parametrize("app", ["segment", "inference", "train"])
+@pytest.mark.parametrize("app", ["segment", "inference", "train", "online",
+                                 "serve"])
 def test_defaults_are_not_refused(tmp_path, app):
     args = {"segment": _segment_args(tmp_path),
             "inference": _inference_args(tmp_path),
-            "train": _train_args()}[app]
+            "train": _train_args(), "online": _online_args(tmp_path),
+            "serve": _serve_args(tmp_path)}[app]
     config = compose(segment_cli.CONF_DIR, app, args,
                      resolve_interp=app == "train")
     common.refuse_unported(config, app, segment_cli.CONF_DIR)

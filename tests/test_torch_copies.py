@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's jax-free helpers, held equal to
 the originals: constants, frame conversions, window grids, wav reads,
-collation, the segmentation algorithms and the config composer.  Equality
-is exact: the same arrays, the same segment lists, the same configs.
+collation, the segmentation algorithms, the config composer and the CLIs'
+override helpers (sweeps, run directories, the online hop mode's knobs).
+Equality is exact: the same arrays, the same segment lists, the same
+configs.
 """
 
 import dataclasses
@@ -181,7 +183,7 @@ def test_sweep_parsing_equal(argv):
     for ov in got[1]:
         value = ov.partition("=")[2]
         assert tcommon._split_sweep(value) == jcommon._split_sweep(value)
-    for app in ("segment", "inference"):
+    for app in ("segment", "inference", "online"):
         exclude = jconfig.compose(CONF, app, [], resolve_interp=False).select(
             "hydra.job.config.override_dirname.exclude_keys")
         for job in jobs:
@@ -191,3 +193,15 @@ def test_sweep_parsing_equal(argv):
         tcommon.parse_cli(["algorithm.threshold=0.2,0.8"])
     with pytest.raises(ValueError, match="multirun"):
         jcommon.parse_cli(["algorithm.threshold=0.2,0.8"])
+
+
+@pytest.mark.parametrize("overrides", [
+    [], ["+hop_secs=2"], ["+hop_secs=2", "+lookahead_secs=0.5"],
+    ["+lookahead_secs=1"]])
+def test_hop_conf_equal(overrides):
+    """The online hop mode's kwargs from conf/online.yaml and overrides."""
+    got = tcommon.hop_conf(tconfig.compose(CONF, "online", overrides,
+                                           resolve_interp=False))
+    want = jcommon.hop_conf(jconfig.compose(CONF, "online", overrides,
+                                            resolve_interp=False))
+    assert got == want

@@ -57,6 +57,10 @@ def test_chip_smoke_path_imports_no_jax_pandas_yaml(target):
                "wav2vecsegmenter_tpu_torch.cli.inference, "
                "wav2vecsegmenter_tpu_torch.checkpoints.io, "
                "wav2vecsegmenter_tpu_torch.infer.pipeline, "
+               "wav2vecsegmenter_tpu_torch.infer.online, "
+               "wav2vecsegmenter_tpu_torch.infer.server, "
+               "wav2vecsegmenter_tpu_torch.cli.online, "
+               "wav2vecsegmenter_tpu_torch.cli.serve, "
                "wav2vecsegmenter_tpu_torch.models.shas, "
                "wav2vecsegmenter_tpu_torch.data.windows, "
                "wav2vecsegmenter_tpu_torch.ops.layernorm, "

@@ -8,7 +8,6 @@ XLA path.  Also the path from the port's trainer: train, then segment from
 its checkpoint.
 """
 
-import dataclasses
 from pathlib import Path
 
 import jax
@@ -18,10 +17,9 @@ import yaml
 
 from wav2vecsegmenter_tpu.checkpoints.torch_export import export_torch_checkpoint
 from wav2vecsegmenter_tpu_torch.cli import common as tcommon
-from wav2vecsegmenter_tpu_torch.models.shas import SHAS
-from wav2vecsegmenter_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 
-from .helpers import TINY_W2V, make_speechlike_wav, tiny_shas
+from .helpers import make_speechlike_wav, tiny_shas
+from .torch_tiny import port_tiny
 
 TALKS = ("talk1.wav", "talk2.wav")
 CKPT = "epoch-0_best_eval_f1"
@@ -56,12 +54,6 @@ def workspace(tmp_path_factory):
     return ws
 
 
-def _port_tiny() -> SHAS:
-    return SHAS(wav2vec_keep_layers=2, n_transformer_enc_layers=1,
-                n_transformer_enc_heads=4, init_dropout=0.0,
-                w2v_cfg=Wav2Vec2Config(**dataclasses.asdict(TINY_W2V)))
-
-
 @pytest.fixture
 def tiny_builders(monkeypatch):
     """Both CLIs build the tiny architecture from the task config."""
@@ -74,7 +66,7 @@ def tiny_builders(monkeypatch):
     monkeypatch.setattr(helpers, "_tiny_builder",
                         lambda **kwargs: tiny_shas(), raising=False)
     monkeypatch.setattr(tcommon, "build_model",
-                        lambda conf, device=None: _port_tiny().to(device))
+                        lambda conf, device=None: port_tiny().to(device))
 
 
 def _args(ws, side, *extra) -> list[str]:

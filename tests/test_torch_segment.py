@@ -27,18 +27,12 @@ from wav2vecsegmenter_tpu_torch.data.windows import (
     BatchIterator, FixedSegmentationDatasetNoTarget)
 from wav2vecsegmenter_tpu_torch.infer import pipeline as tpipe
 from wav2vecsegmenter_tpu_torch.models.shas import SHAS
-from wav2vecsegmenter_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 
-from .helpers import TINY_W2V, make_speechlike_wav, tiny_shas
+from .helpers import make_speechlike_wav, tiny_shas
+from .torch_tiny import port_tiny
 
 PROBS_ATOL = 1e-5  # float32 engines, different summation orders
 TALKS = ("talk1.wav", "talk2.wav")
-
-
-def _port_tiny() -> SHAS:
-    return SHAS(wav2vec_keep_layers=2, n_transformer_enc_layers=1,
-                n_transformer_enc_heads=4, init_dropout=0.0,
-                w2v_cfg=Wav2Vec2Config(**dataclasses.asdict(TINY_W2V)))
 
 
 @pytest.fixture(scope="module")
@@ -63,7 +57,7 @@ def workspace(tmp_path_factory):
 
 
 def _port_model(ws) -> SHAS:
-    model = _port_tiny()
+    model = port_tiny()
     load_reference_checkpoint(ws / "ckpt.pt", model)
     return model.eval()
 
@@ -130,7 +124,7 @@ def tiny_builders(monkeypatch):
     monkeypatch.setattr(helpers, "_tiny_builder",
                         lambda **kwargs: tiny_shas(), raising=False)
     monkeypatch.setattr(tcommon, "build_model",
-                        lambda conf, device=None: _port_tiny().to(device))
+                        lambda conf, device=None: port_tiny().to(device))
 
 
 @pytest.mark.parametrize("algo", [["algorithm=pthr"],

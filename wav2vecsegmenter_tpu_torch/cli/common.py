@@ -5,8 +5,10 @@ Counterpart of ``wav2vecsegmenter_tpu/cli/common.py``; ``parse_cli``,
 ``_split_sweep``, ``expand_sweeps`` and ``hydra_override_dirname`` are the
 port's copies of its own (tests/test_torch_copies.py holds them equal).
 ``segment_wavs`` takes plain arguments (no config object), so it runs
-without pyyaml; the config-driven CLIs live in ``cli/segment.py`` and
-``cli/inference.py``.
+without pyyaml; the config-driven CLIs live in ``cli/segment.py``,
+``cli/inference.py``, ``cli/online.py``, ``cli/serve.py`` and
+``cli/train.py``, and share :func:`load_model`, :func:`hop_conf` and
+:func:`wavs_from_yaml`.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ logger = logging.getLogger("wav2vecsegmenter_tpu_torch")
 # them set away from its default in conf/<app>.yaml.
 UNPORTED = {
     "segment": {
-        "runtime.precision": "A6 (the precision ladder)",
         "runtime.quantize": "A9 (int8)",
         "runtime.pack_across_talks": "A9 (packing)",
         "runtime.profile_steps": "A11 (profiler traces)",
@@ -49,6 +50,11 @@ UNPORTED = {
     },
 }
 UNPORTED["inference"] = {**UNPORTED["segment"], "log_wandb": "A9 (wandb)"}
+UNPORTED["online"] = {
+    "runtime.quantize": "A9 (int8)",
+    "runtime.profile_steps": "A11 (profiler traces)",
+}
+UNPORTED["serve"] = dict(UNPORTED["online"])
 
 
 def parse_overrides(argv: list[str] | None = None) -> list[str]:
@@ -175,6 +181,12 @@ def refuse_unported(config, app: str, conf_dir) -> None:
                 f"runs); ROADMAP {item} ports it")
 
 
+def init_logging() -> None:
+    """INFO lines with their level and time on standard error."""
+    logging.basicConfig(level=logging.INFO,
+                        format="[%(levelname)s %(asctime)s] %(message)s")
+
+
 def runtime_device_dtype(device: str = "cuda",
                          compute_dtype: str = "bfloat16"):
     """(device, compute dtype) as the caller asks: ``cuda`` (the default)
@@ -183,8 +195,8 @@ def runtime_device_dtype(device: str = "cuda",
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device found; to run on the CPU, ask for it "
-            "(segment CLI: +runtime.device=cpu)")
+            "no CUDA device found; to run on the CPU, ask for it with the "
+            "option +runtime.device=cpu")
     if device.type == "cpu" or compute_dtype != "bfloat16":
         return device, torch.float32
     return device, torch.bfloat16
@@ -194,6 +206,48 @@ def build_model(model_conf: dict, device=None) -> SHAS:
     """SHAS from a task config's ``model`` node (``_target_`` dropped)."""
     kwargs = {k: v for k, v in dict(model_conf).items() if k != "_target_"}
     return SHAS(**kwargs, device=device)
+
+
+def load_model(config, ckpt_path):
+    """The task's model with the checkpoint at ``ckpt_path`` loaded, in eval
+    mode on the runtime's device, after the runtime's kernel mode is set:
+    (model, device, compute dtype)."""
+    from ..checkpoints.convert import load_reference_checkpoint
+    from ..config import to_plain
+    from ..ops.backend import set_kernels
+
+    rt = config.get("runtime") or {}
+    set_kernels(rt.get("kernels", "auto"))
+    device, dtype = runtime_device_dtype(
+        rt.get("device", "cuda"), rt.get("compute_dtype", "bfloat16"))
+    model = build_model(to_plain(config.task.model), device)
+    load_reference_checkpoint(
+        ckpt_path, model,
+        allow_random_wav2vec=bool(config.get("allow_random_wav2vec", False)))
+    return model.eval(), device, dtype
+
+
+def hop_conf(config) -> dict:
+    """The online hop mode's kwargs (``hop_secs``, ``lookahead_secs``) for
+    ``infer.online``'s segmenters, from the config; a copy of the JAX
+    ``cli.common.hop_conf``."""
+    out = {}
+    if config.get("hop_secs") is not None:
+        out["hop_secs"] = float(config["hop_secs"])
+        if config.get("lookahead_secs") is not None:
+            out["lookahead_secs"] = float(config["lookahead_secs"])
+    return out
+
+
+def wavs_from_yaml(config) -> list[Path]:
+    """The talks of the original segmentation yaml, in order."""
+    import yaml
+
+    wav_dir = Path(config.infer_data.wav_dir)
+    with open(config.infer_data.orig_seg_yaml) as f:
+        seg_yaml = yaml.safe_load(f)
+    return [wav_dir / wav
+            for wav, _ in itertools.groupby(seg_yaml, key=lambda x: x["wav"])]
 
 
 def run_algorithm(tag: str, algo_conf: dict, probs: np.ndarray):
@@ -212,7 +266,8 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
                  segment_length: float, inference_times: int, device,
                  compute_dtype, remainder_ladder: bool = True,
                  talk_probs: dict | None = None,
-                 read_seconds: list | None = None) -> list[dict]:
+                 read_seconds: list | None = None,
+                 precision: str | None = None) -> list[dict]:
     """The product loop: per wav, multi-pass sliding-window inference,
     probability averaging, the segmentation algorithm, yaml rows.
 
@@ -222,11 +277,12 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
     ahead on threads (``data.windows.BatchIterator``), into pinned memory
     on a CUDA device.  ``talk_probs``, when given, receives each talk's
     averaged frame probabilities by wav name, and ``read_seconds`` each
-    batch's read + collate time in the reader.
+    batch's read + collate time in the reader.  ``precision`` is an arm of
+    the precision ladder (``infer.pipeline.resolve_precision``).
     """
     algorithm = dict(algorithm)
     tag = algorithm.pop("tag")
-    engine = WindowInference(model, device, compute_dtype)
+    engine = WindowInference(model, device, compute_dtype, precision)
 
     def dispatch_one(wav_path):
         dataset = FixedSegmentationDatasetNoTarget(

@@ -12,7 +12,9 @@ overrides, the training run's config merged underneath):
 The checkpoint is a reference ``.pt`` (either layout).  The run is on the
 first CUDA device and raises without one; ``+runtime.device=cpu`` asks for
 the CPU.  ``runtime.kernels`` is ``auto`` (hand kernels on CUDA) or
-``eager``; ``runtime.compute_dtype`` applies on CUDA, the CPU runs float32.
+``eager``; ``runtime.compute_dtype`` applies on CUDA, the CPU runs float32;
+``runtime.precision`` picks an arm of the precision ladder (``bf16``,
+``f32head``, ``f32res``, ``f32last<k>``, ``f32``).
 A sweep (``-m``) runs one job per combination of the comma-separated
 values, each in ``output_dir/<override_dirname>``.  The runtime options of
 the JAX CLI that the port does not carry out (``common.UNPORTED``) raise
@@ -22,25 +24,11 @@ imported inside :func:`main` only.
 
 from __future__ import annotations
 
-import logging
 from pathlib import Path
 
 from . import common
 
 CONF_DIR = Path(__file__).resolve().parents[2] / "conf"
-
-
-def _wavs_from_yaml(config) -> list[Path]:
-    """The talks of the original segmentation yaml, in order."""
-    import itertools
-
-    import yaml
-
-    wav_dir = Path(config.infer_data.wav_dir)
-    with open(config.infer_data.orig_seg_yaml) as f:
-        seg_yaml = yaml.safe_load(f)
-    return [wav_dir / wav
-            for wav, _ in itertools.groupby(seg_yaml, key=lambda x: x["wav"])]
 
 
 def segment_to_yaml(config, ckpt_path, wav_paths: list[Path],
@@ -50,28 +38,19 @@ def segment_to_yaml(config, ckpt_path, wav_paths: list[Path],
     with ``cli/inference.py``."""
     import yaml
 
-    from ..checkpoints.convert import load_reference_checkpoint
     from ..config import to_plain
-    from ..ops.backend import set_kernels
 
     output_dir.mkdir(parents=True, exist_ok=True)
-    logging.basicConfig(level=logging.INFO,
-                        format="[%(levelname)s %(asctime)s] %(message)s")
+    common.init_logging()
     rt = config.get("runtime") or {}
-    set_kernels(rt.get("kernels", "auto"))
-    device, dtype = common.runtime_device_dtype(
-        rt.get("device", "cuda"), rt.get("compute_dtype", "bfloat16"))
-    model = common.build_model(to_plain(config.task.model), device)
-    load_reference_checkpoint(
-        ckpt_path, model,
-        allow_random_wav2vec=bool(config.get("allow_random_wav2vec", False)))
-    model.eval()
+    model, device, dtype = common.load_model(config, ckpt_path)
 
     yaml_content = common.segment_wavs(
         model, wav_paths, to_plain(config.algorithm),
         int(config.batch_size), float(config.inference_segment_length),
         int(config.inference_times), device, dtype,
-        remainder_ladder=bool(rt.get("infer_remainder_ladder", True)))
+        remainder_ladder=bool(rt.get("infer_remainder_ladder", True)),
+        precision=rt.get("precision"))
 
     common.logger.info("Number of segments: %d", len(yaml_content))
     out = output_dir / config.cust_seg_yaml
@@ -94,7 +73,8 @@ def main(argv: list[str] | None = None):
         output_dir = Path(config.get("results_path") or run_dir
                           or config.output_dir)
         outputs.append(segment_to_yaml(config, config.ckpt_path,
-                                       _wavs_from_yaml(config), output_dir))
+                                       common.wavs_from_yaml(config),
+                                       output_dir))
     return outputs if multirun else outputs[0]
 
 

@@ -1,12 +1,14 @@
 """Batched sliding-window inference: wav windows -> stitched talk probs.
 
 Counterpart of ``wav2vecsegmenter_tpu/infer/pipeline.py`` for the bce
-(sigmoid) head.  A batch uploads its raw int16 samples, is normalized on the
-device (reference lib/datautils.py:120-125: mean and ddof=1 std over the
-batch's longest window, rows with zero std and excluded rows zeroed), runs
-the model, and downloads only the [B, T] probabilities: a ``non_blocking``
-copy into pinned host memory followed by a CUDA event, so the host goes on
-dispatching while the copy is in flight.
+(sigmoid) head.  An offline batch uploads its raw int16 samples, is
+normalized on the device (reference lib/datautils.py:120-125: mean and
+ddof=1 std over the batch's longest window, rows with zero std and
+excluded rows zeroed), runs the model, and downloads only the [B, T]
+probabilities: a ``non_blocking`` copy into pinned host memory followed by
+a CUDA event, so the host goes on dispatching while the copy is in flight.
+An online batch (``infer.online``) arrives normalized on the host by
+``collate`` and uploads as float32.
 
 With a ``loss_fn`` (the trainer's evaluation), a batch that carries
 targets also computes its masked loss on the device (``batch_loss``), and
@@ -15,6 +17,9 @@ the handle downloads it beside the probabilities.
 The stitch helpers (``stitch_row``, ``nan_fill``) mirror the JAX module's
 for probabilities and targets (the logits of the ``dac_logits`` head are
 not ported).  Their semantics replicate reference lib/evaluate.py:9-127.
+
+``runtime.precision`` (``resolve_precision``) picks an arm of the JAX
+package's precision ladder, between the bf16 path and float32.
 """
 
 from __future__ import annotations
@@ -23,6 +28,36 @@ import numpy as np
 import torch
 
 from ..data.collate import Batch
+
+# runtime.precision: CUMULATIVE arms between bf16 and float32, trading
+# throughput for near-threshold probability fidelity (the JAX package's
+# ladder, wav2vecsegmenter_tpu/infer/pipeline.py):
+#   bf16      everything in the compute dtype (the default)
+#   f32head   + the SFC head in float32
+#   f32res    + the encoder's residual stream and LayerNorms in float32
+#   f32lastK  + the last K encoder layers entirely in float32 (f32last4)
+#   f32       everything in float32 (the oracle)
+PRECISION_ARMS = ("bf16", "f32head", "f32res", "f32last4", "f32")
+
+
+def resolve_precision(precision: str | None, compute_dtype):
+    """(compute dtype, model kwargs) for a runtime.precision value."""
+    if not precision or precision == "bf16":
+        return compute_dtype, {}
+    if precision == "f32":
+        return torch.float32, {}
+    kwargs: dict = {"head_dtype": torch.float32}
+    if precision == "f32head":
+        return compute_dtype, kwargs
+    kwargs["residual_dtype"] = torch.float32
+    if precision == "f32res":
+        return compute_dtype, kwargs
+    if precision.startswith("f32last"):
+        kwargs["f32_last_k"] = int(precision[len("f32last"):])
+        return compute_dtype, kwargs
+    raise ValueError(
+        f"unknown runtime.precision '{precision}' "
+        f"(expected one of {PRECISION_ARMS}, f32last<k> for any k)")
 
 
 def normalize_int16(audio: torch.Tensor, norm_length: int,
@@ -94,12 +129,15 @@ def batch_loss(loss_fn, logits: torch.Tensor, target: torch.Tensor,
 
 
 class WindowInference:
-    """Runs window batches through a SHAS model on one device."""
+    """Runs window batches through a SHAS model on one device, at the
+    arm of the precision ladder that ``precision`` names."""
 
-    def __init__(self, model, device, compute_dtype=torch.float32):
+    def __init__(self, model, device, compute_dtype=torch.float32,
+                 precision: str | None = None):
         self.model = model
         self.device = torch.device(device)
-        self.compute_dtype = compute_dtype
+        self.compute_dtype, self.precision_kwargs = resolve_precision(
+            precision, compute_dtype)
         self.loss_fn = None  # the trainer sets its epoch's loss for eval
 
     @torch.inference_mode()
@@ -108,10 +146,12 @@ class WindowInference:
             return upload(a, self.device)
 
         out_mask = up(batch.out_mask)
-        audio = normalize_int16(up(batch.audio), batch.norm_length,
-                                up(batch.included))
+        audio = up(batch.audio)
+        if batch.device_normalize:  # else collate normalized on the host
+            audio = normalize_int16(audio, batch.norm_length,
+                                    up(batch.included))
         logits = self.model(audio, up(batch.in_lengths), out_mask,
-                            self.compute_dtype)
+                            self.compute_dtype, **self.precision_kwargs)
         probs = torch.where(out_mask, torch.sigmoid(logits.float()), 0.0)
         loss = None
         if self.loss_fn is not None and batch.target is not None:

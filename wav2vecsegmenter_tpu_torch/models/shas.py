@@ -84,15 +84,29 @@ class SHAS(nn.Module):
 
     def forward(self, audio: torch.Tensor, in_lengths: torch.Tensor,
                 out_mask: torch.Tensor, compute_dtype=torch.float32,
-                head_dtype=None) -> torch.Tensor:
+                head_dtype=None, residual_dtype=None,
+                f32_last_k: int = 0) -> torch.Tensor:
         """audio [B, L] normalized, in_lengths [B], out_mask [B, T_out] ->
         frame logits [B, T_out] float32.
 
         The conv stack's true frame count can differ by one from the
         49.95 Hz estimate behind out_mask (reference lib/models.py:222-232):
         the hidden states are cut or zero-padded to T_out.
+
+        ``head_dtype`` / ``residual_dtype`` / ``f32_last_k`` are the
+        precision ladder's knobs (``infer.pipeline.resolve_precision``): the
+        SFC head's dtype, the encoder's residual-stream and LayerNorm
+        dtype, and the number of final encoder layers run in float32.  As
+        in the JAX package, ``f32_last_k`` raises on a model whose LNA
+        split freezes layers or FFNs.
         """
-        h, _ = self.wav2vec_model.model(audio, in_lengths, compute_dtype)
+        if f32_last_k and self.finetune_wav2vec and (
+                self.first_ft_layer or not self.finetune_w2v_ffn):
+            raise ValueError("f32_last_k is an inference-precision knob; it "
+                             "does not compose with LNA freeze splits")
+        h, _ = self.wav2vec_model.model(audio, in_lengths, compute_dtype,
+                                        residual_dtype=residual_dtype,
+                                        f32_last_k=f32_last_k)
         return self.seg_model(_fit(h, out_mask.shape[1]), out_mask,
                               head_dtype or compute_dtype)
 

@@ -274,9 +274,11 @@ class Wav2Vec2Model(nn.Module):
             torch.zeros(cfg.hidden_size, device=device))
 
     def forward(self, audio, in_lengths, compute_dtype=torch.float32,
-                generator=None, freeze_feature_encoder: bool = False):
+                generator=None, freeze_feature_encoder: bool = False,
+                residual_dtype=None, f32_last_k: int = 0):
         return wav2vec2_forward(self, audio, in_lengths, compute_dtype,
-                                generator, freeze_feature_encoder)
+                                generator, freeze_feature_encoder,
+                                residual_dtype, f32_last_k)
 
 
 # --------------------------------------------------------------------------
@@ -402,28 +404,48 @@ def _ffn(ff: FeedForward, x: torch.Tensor, cfg: Wav2Vec2Config, dt,
 
 
 def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
-            cfg: Wav2Vec2Config, dt, generator=None) -> torch.Tensor:
+            cfg: Wav2Vec2Config, dt, generator=None, residual_dtype=None,
+            f32_last_k: int = 0) -> torch.Tensor:
     """Pre-LN transformer over [B, T, H]; padded frames are zeroed once,
     before the positional conv, and carry finite values after that.  With
     a generator, hidden dropout after the positional conv and after each
-    sub-block; an FFN adapter's output joins the FFN's after its dropout."""
+    sub-block; an FFN adapter's output joins the FFN's after its dropout.
+
+    The precision ladder's knobs (``runtime.precision``), as the JAX
+    ``encoder``'s: ``residual_dtype`` carries the residual stream, and so
+    each LayerNorm (K1 at that dtype), at a wider dtype than ``dt``; each
+    LayerNorm's output is cast to its sub-block's dtype, and the attention
+    and FFN outputs to the residual dtype before the adds.
+    ``f32_last_k`` runs the last k layers in float32: there K1, K3 and K5
+    take their float32 routes (the JAX K5 is bf16-only, so the JAX
+    package runs ``ffn_xla`` in those layers).  It is an inference knob:
+    with a generator it raises.  Every cast is the identity where the
+    dtypes agree, so the default path launches what it did without them.
+    """
     eps = cfg.layer_norm_eps
+    res_dt = residual_dtype or dt
+    first_f32 = len(enc.layers) - max(0, min(f32_last_k, len(enc.layers)))
+    if first_f32 < len(enc.layers) and generator is not None:
+        raise ValueError("f32_last_k is an inference-precision knob; it "
+                         "does not run in train mode")
     x = torch.where(frame_mask[:, :, None], x, 0)
-    h = (x + positional_conv(enc.pos_conv_embed, x, cfg, dt)).to(dt)
+    h = (x + positional_conv(enc.pos_conv_embed, x, cfg, dt)).to(res_dt)
     h = dropout(h, cfg.hidden_dropout, generator)
-    for layer in enc.layers:
-        hn = layer_norm(h, layer.layer_norm.weight, layer.layer_norm.bias, eps)
-        a = _mha(layer.attention, hn, frame_mask, cfg.num_heads, dt)
-        h = h + dropout(a, cfg.hidden_dropout, generator)
+    for i, layer in enumerate(enc.layers):
+        ldt = torch.float32 if i >= first_f32 else dt
+        hn = layer_norm(h, layer.layer_norm.weight, layer.layer_norm.bias,
+                        eps).to(ldt)
+        a = _mha(layer.attention, hn, frame_mask, cfg.num_heads, ldt)
+        h = h + dropout(a, cfg.hidden_dropout, generator).to(res_dt)
         hn = layer_norm(h, layer.final_layer_norm.weight,
-                        layer.final_layer_norm.bias, eps)
-        f = dropout(_ffn(layer.feed_forward, hn, cfg, dt, generator),
+                        layer.final_layer_norm.bias, eps).to(ldt)
+        f = dropout(_ffn(layer.feed_forward, hn, cfg, ldt, generator),
                     cfg.hidden_dropout, generator)
         if layer.ffn_adapter is not None:
             ad = layer.ffn_adapter
-            a = _lin(ad.up_proj, F.relu(_lin(ad.down_proj, hn, dt)), dt)
+            a = _lin(ad.up_proj, F.relu(_lin(ad.down_proj, hn, ldt)), ldt)
             f = f + a * cfg.adapter_scale
-        h = h + f
+        h = h + f.to(res_dt)
     return h
 
 
@@ -440,12 +462,14 @@ def wav2vec2_forward(model: Wav2Vec2Model, audio: torch.Tensor,
                      in_lengths: torch.Tensor,
                      compute_dtype=torch.float32,
                      generator: torch.Generator | None = None,
-                     freeze_feature_encoder: bool = False):
+                     freeze_feature_encoder: bool = False,
+                     residual_dtype=None, f32_last_k: int = 0):
     """audio [B, L] normalized, in_lengths [B] valid samples ->
     (hidden [B, T, H] float32, frame_mask [B, T] bool).  A ``generator``
     selects train mode (dropout and SpecAugment, drawn from it);
     ``freeze_feature_encoder`` runs the conv stack and the feature
-    projection without a graph."""
+    projection without a graph; ``residual_dtype`` and ``f32_last_k`` are
+    the precision ladder's (:func:`encoder`)."""
     cfg = model.cfg
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and not freeze_feature_encoder):
@@ -466,7 +490,8 @@ def wav2vec2_forward(model: Wav2Vec2Model, audio: torch.Tensor,
                                  cfg.mask_time_min_masks) & frame_mask
         x = torch.where(tmask[:, :, None],
                         model.masked_spec_embed.to(x.dtype), x)
-    h = encoder(model.encoder, x, frame_mask, cfg, compute_dtype, generator)
+    h = encoder(model.encoder, x, frame_mask, cfg, compute_dtype, generator,
+                residual_dtype, f32_last_k)
     return h.float(), frame_mask
 
 
