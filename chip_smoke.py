@@ -63,7 +63,28 @@ Phases, each printed on its own line; any failure exits non-zero:
    batch's wall and device busy ms, its launches (every arm launches what
    the default path does); the f32 arm within F32_ATOL of the eager float32
    path (mean and p99), f32res's mean |dprob| below bf16's;
-7. online: online serving in bf16 with the kernels (launch counters reset
+7. int8: ``runtime.quantize=int8`` on the same batch, at the bf16 and
+   f32res arms, with the kernels: mean, p99 and max |dprob| against the
+   eager float32 path, the bf16 path and the int8 eager path (the
+   kernels' distance to float32 within KERNEL_SLACK of the int8 eager
+   path's), its launches (the default path's less the fused FFN, which
+   int8 weights bypass), the int8 and bf16 batches' wall ms in turns and
+   device busy ms, a profiled int8 batch's device time split into
+   ``_int_mm``, quantization, dequantization and the rest, the four
+   products alone at the batch's shapes (``_int_mm`` against the bf16
+   matmul, the int8 layer against the bf16 ``F.linear``, each beside its
+   bound at the int8 and bf16 peaks; the int32 sums held exact), and one
+   2 min stream at batch 1, int8 and bf16 (it must commit);
+8. packing: ``runtime.pack_across_talks`` through cli.common.segment_wavs
+   at batch 14 on five talks, packed and per talk in turns: batches
+   (fewer packed) and wall; against the batch-size deviation class (the
+   per-talk sweep at batches 1 and 3, and at 14 without the remainder
+   ladder, against 14), each talk's max |dprob| within 1.5 times that
+   envelope (tests/test_packing.py's bound) and the yaml rows no further
+   from the per-talk sweep's than those sweeps' rows (rows beyond
+   tests/test_packing.py's offset and duration bounds, a talk's row
+   count); every window scattered back (asserted inside the packer);
+9. online: online serving in bf16 with the kernels (launch counters reset
    just before, read just after; K1, K3-K7 must launch): the first calls at
    slots of 1, 2, 4 and 8 windows; one 60 s stream at batch 1 (pTHR,
    tumbling and with a 2 s hop): each window's wall, device ms a window
@@ -78,7 +99,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    segments against its stream alone at batch 1 (as many boundaries apart
    as two for each frame within the invariance figure of the threshold),
    then a connection still streaming at shutdown drained to its end line;
-8. train: the same full-width SHAS trains its SFC head on a frozen backbone
+10. train: the same full-width SHAS trains its SFC head on a frozen backbone
    through the port's loop (``train.loop.train``) on a synthetic corpus
    written to a temporary directory, batch 14, 20 s windows,
    update_freq=2, two epochs of three micro-steps (a full accumulation and
@@ -105,13 +126,13 @@ Phases, each printed on its own line; any failure exits non-zero:
    a fifth run, bf16 with the kernels, profiles one micro-step for the
    device's busy time (``--profile``: its torch.profiler table on
    standard error);
-9. resume: the train phase's bf16 kernels run twice uninterrupted (their
+11. resume: the train phase's bf16 kernels run twice uninterrupted (their
    losses' and grad_norms' relative spread is the bf16 path's run-to-run
    spread), then stopped in its second epoch's first micro-step and
    resumed from its run state (``resume=true``): the resumed epoch's
    losses and grad_norms within that spread of the uninterrupted run's,
    every train kernel launched in the resumed run;
-10. lna: LNA fine-tuning (``finetune_wav2vec=True``) through the port's loop:
+12. lna: LNA fine-tuning (``finetune_wav2vec=True``) through the port's loop:
    (d) first, the autograd Functions whose backward replays a composition
    (K5, K6 at conv layer 1, K7 at layer 0, K2 at layer 0's output; a
    14 x 20 s batch's shapes): forward under grad through the kernel, then
@@ -143,7 +164,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    encoder fine-tuned: one epoch of two micro-steps, layers 0-6 bitwise
    unchanged, adapters in layers 7-14 only and moved, the conv stack
    moved, each micro-step's launches checked;
-11. the script's seconds; a JSON line of every kernel (launches on the
+13. the script's seconds; a JSON line of every kernel (launches on the
    LNA recipe's run, or for K2 the unfused slice's, and on the online
    phase; error, times, bound, and the float32 route's row; K5/K6/K7/K2
    add their Function row), the nvidia-smi line, and the last line:
@@ -194,7 +215,7 @@ BF16_ATOL = 2 ** -5  # one bf16 step at |y| in [4, 8): independent roundings
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): memory, bf16 tensor
 # cores, float32 outside the tensor cores (the scalar kernels' arithmetic)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16_tc": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16_tc": 989e12, "int8_tc": 1979e12, "f32": 67e12}
 # scalar operations an element of a LayerNorm (mean, variance, normalise,
 # scale, bias), of its backward (the statistics again, x-hat, g*scale, the
 # two row means, dx, the two column sums) and of a GELU (erf counted as
@@ -1112,6 +1133,286 @@ def run_precision(dev, model) -> dict:
     check(res < low, f"precision: f32res mean dprob {res} not below bf16's "
                      f"{low}")
     return arms
+
+
+# the four int8 products of an encoder layer on a batch of 14 x 20 s
+# windows, (rows, in, out): QKV, the attention output, FFN w1 and w2
+INT8_PRODUCTS = {"qkv": (B * T, 1024, 3072), "o": (B * T, 1024, 1024),
+                 "w1": (B * T, 1024, 4096), "w2": (B * T, 4096, 1024)}
+INT8_STREAM_SECS = 120.0
+
+
+def int8_split(engine, batch) -> dict:
+    """One int8 batch traced: its device busy ms, split into ``_int_mm``,
+    the activations' quantization (``ops.quant.quantize_rows``), the rest
+    of the int8 layers (dequantization: the int32 cast, the two scales,
+    the cast to the compute dtype and the bias) and everything else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from wav2vecsegmenter_tpu_torch.models import wav2vec2 as w2v
+    from wav2vecsegmenter_tpu_torch.ops import quant
+    from wav2vecsegmenter_tpu_torch.ops.timing import busy_ms
+
+    def annotated(name, fn):
+        def run(*args):
+            with record_function(name):
+                return fn(*args)
+        return run
+
+    real = quant.quantize_rows, w2v.int8_linear
+    quant.quantize_rows = annotated("int8_quantize", real[0])
+    w2v.int8_linear = annotated("int8_linear", real[1])
+    try:
+        engine.run_batch(batch).numpy()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.run_batch(batch).numpy()
+            torch.cuda.synchronize()
+    finally:
+        quant.quantize_rows, w2v.int8_linear = real
+    ms = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            ms[e.key] = getattr(e, "device_time_total",
+                                getattr(e, "cuda_time_total", 0.0)) / 1e3
+    busy = busy_ms(prof)
+    mm, qz, lin = (ms.get(k, 0.0) for k in ("aten::_int_mm", "int8_quantize",
+                                            "int8_linear"))
+    return {"device_busy_ms": busy, "int_mm_ms": mm, "quantize_ms": qz,
+            "dequantize_ms": lin - qz - mm, "rest_ms": busy - lin}
+
+
+def int8_products(dev) -> dict:
+    """Each int8 product of an encoder layer alone at the full batch's
+    shapes (bf16 activations, seeded): ``_int_mm`` against the bf16
+    ``torch.matmul`` of the same operands, and the whole int8 layer
+    (quantize, product, dequantize, bias) against the bf16 ``F.linear``,
+    each beside its bound at the int8 and the bf16 peak.  The int32 sums
+    must equal a float64 product of the int8 operands."""
+    from wav2vecsegmenter_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+    for name, (m, k, n) in INT8_PRODUCTS.items():
+        x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+        w = torch.randn(n, k, device=dev, generator=g) * k ** -0.5
+        b = torch.randn(n, device=dev, generator=g) * 0.1
+        q = quant.quantize_linear(w, b)
+        xq, _ = quant.quantize_rows(x)
+        sums = quant.int8_mm(xq, q.qw)
+        check(torch.equal(sums.double(), xq.double() @ q.qw.double().t()),
+              f"int8 {name}: _int_mm sums differ from the exact product")
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        ops = 2.0 * m * k * n
+        int8_bound = bound(m * k + n * k + 4 * m * n, ("int8_tc", ops))
+        bf16_bound = bound(2 * (m * k + n * k + m * n), ("bf16_tc", ops))
+        rows[name] = {
+            "shape": [m, k, n],
+            "int_mm_ms": cuda_ms(lambda: quant.int8_mm(xq, q.qw), 20),
+            "bf16_matmul_ms": cuda_ms(lambda: torch.matmul(x, wb.t()), 20),
+            "int8_layer_ms": cuda_ms(
+                lambda: quant.int8_linear(x, q, torch.bfloat16), 20),
+            "bf16_linear_ms": cuda_ms(lambda: F.linear(x, wb, bb), 20),
+            "int8_bound_ms": int8_bound[0], "int8_bound_by": int8_bound[1],
+            "bf16_bound_ms": bf16_bound[0], "bf16_bound_by": bf16_bound[1]}
+    return rows
+
+
+def run_int8(dev, model) -> dict:
+    """``runtime.quantize=int8`` on the card: the precision phase's batch
+    in bf16 with the kernels, at the default arm and at f32res, against
+    the eager float32 path, the bf16 path and the int8 eager path, with
+    its launches (no fused FFN: K5 must not launch; the rest as on the
+    default path); the int8 and bf16 batches' wall and device ms in
+    turns; the int8 batch's device split; the four products alone; one
+    online stream at batch 1."""
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
+
+    t0 = time.perf_counter()
+    batch = full_batch()
+    mask = batch.out_mask
+    backend.set_kernels("eager")
+    oracle = WindowInference(model, dev, torch.float32).run_batch(
+        batch).numpy()
+    backend.set_kernels("auto")
+    bf16 = WindowInference(model, dev, torch.bfloat16)
+    probs_bf16 = bf16.run_batch(batch).numpy()
+    want = {k: v for k, v in batch_launches(model).items() if k != "ffn"}
+
+    def dprob(a, b):
+        return dprob_stats(np.abs(a - b)[mask])
+
+    arms, engines = {}, {}
+    for arm in ("bf16", "f32res"):
+        engines[arm] = engine = WindowInference(model, dev, torch.bfloat16,
+                                                arm, "int8")
+        engine.run_batch(batch).numpy()  # warm-up
+        backend.reset_launch_counts()
+        probs = engine.run_batch(batch).numpy()
+        launches = {k: v for k, v in backend.launch_counts().items() if v}
+        backend.set_kernels("eager")
+        probs_eager = engine.run_batch(batch).numpy()
+        backend.set_kernels("auto")
+        arms[arm] = {"dprob_vs_f32_eager": dprob(probs, oracle),
+                     "dprob_eager_vs_f32_eager": dprob(probs_eager, oracle),
+                     "dprob_vs_bf16": dprob(probs, probs_bf16),
+                     "dprob_vs_int8_eager": dprob(probs, probs_eager),
+                     "launches": launches}
+
+    walls = {"bf16": [], "int8": []}
+    runs = {"bf16": bf16, "int8": engines["bf16"]}
+    for name in ("bf16", "int8", "int8", "bf16", "bf16", "int8"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs[name].run_batch(batch).numpy()
+        walls[name].append((time.perf_counter() - t1) * 1e3)
+    busy = {name: device_busy_ms(lambda: e.run_batch(batch).numpy(), 3)
+            for name, e in runs.items()}
+    split = int8_split(engines["bf16"], batch)
+    products = int8_products(dev)
+
+    # one online stream at batch 1, int8 and bf16
+    audio = talk_pcm(INT8_STREAM_SECS, 20).astype(np.float32) / 32768.0
+    stream = {}
+    for name, engine in runs.items():
+        timed = TimedEngine(engine)
+        segs, wall = stream_once(timed, audio, **PTHR_ONLINE)
+        stream[name] = {"windows": len(timed.calls),
+                        "window_wall_ms": spread([ms for _, ms in
+                                                  timed.calls]),
+                        "audio_per_wall": INT8_STREAM_SECS / wall,
+                        "segments": len(segs)}
+    phase("int8", windows=B, oracle="eager float32", arms=arms,
+          batch_ms=walls,
+          batch_ms_median={k: float(np.median(v)) for k, v in walls.items()},
+          device_busy_ms=busy, int8_device_split=split, products=products,
+          online_stream_secs=INT8_STREAM_SECS, online=stream,
+          seconds=time.perf_counter() - t0)
+    for arm, row in arms.items():
+        check(row["launches"] == want,
+              f"int8 {arm}: launches {row['launches']}, not {want} "
+              f"(no ffn)")
+        for q in ("mean", "p99"):
+            got = row["dprob_vs_f32_eager"][q]
+            ref = row["dprob_eager_vs_f32_eager"][q]
+            check(got <= KERNEL_SLACK * ref,
+                  f"int8 {arm}: the kernels add error: {q} dprob to "
+                  f"float32 {got} vs {ref} on the int8 eager path")
+    check(stream["int8"]["segments"] > 0, "int8 online stream committed "
+                                          "nothing")
+    return arms
+
+
+# cross-talk packing: the slice's two talks and three more whose 20 s grids
+# end in partial batches
+PACK_TALKS = {"talk1.wav": 65.0, "talk2.wav": 41.0, "talk3.wav": 33.0,
+              "talk4.wav": 87.5, "talk5.wav": 52.3}
+# tests/test_packing.py's bounds, from the JAX package on the CPU at
+# float32: a packed sweep's probabilities within 1.5 times the batch-size
+# envelope of the per-talk sweep's, its yaml rows one row more or fewer
+# and, in order, offsets one 0.06 s trim step apart, durations two
+PACK_ENV_SLACK, PACK_OFFSET_S, PACK_DURATION_S = 1.5, 0.06, 0.12
+
+
+def row_gap(rows_a: list, rows_b: list) -> dict:
+    """Two sweeps' yaml rows talk by talk: rows that differ, rows whose
+    pair in order lies beyond tests/test_packing.py's offset and duration
+    bounds, and the largest difference in a talk's row count."""
+    gap = {"differing": 0, "beyond_bounds": 0, "count_gap": 0}
+    for name in PACK_TALKS:
+        a, b = ([r for r in rows if r["wav"] == name]
+                for rows in (rows_a, rows_b))
+        gap["count_gap"] = max(gap["count_gap"], abs(len(a) - len(b)))
+        gap["differing"] += sum(x != y for x, y in zip(a, b)) + abs(
+            len(a) - len(b))
+        gap["beyond_bounds"] += sum(
+            abs(x["offset"] - y["offset"]) > PACK_OFFSET_S + 1e-9
+            or abs(x["duration"] - y["duration"]) > PACK_DURATION_S + 1e-9
+            for x, y in zip(a, b))
+    return gap
+
+
+def run_packing(dev, model) -> dict:
+    """``runtime.pack_across_talks`` through ``segment_wavs`` at batch 14
+    in bf16 with the kernels: five talks packed and per talk, in turns
+    (batches and wall), against the batch-size deviation class, the
+    per-talk sweep at batches 1 and 3, and at 14 without the remainder
+    ladder (every batch 14 rows, as packed), against batch 14: each talk's
+    max |dprob| packed within PACK_ENV_SLACK of that envelope's, and the
+    yaml rows packed no further from the per-talk sweep's (rows beyond
+    tests/test_packing.py's bounds, a talk's row count) than those
+    sweeps' rows are."""
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
+
+    t0 = time.perf_counter()
+    counted = [0]
+    real = WindowInference.run_batch
+
+    def run_batch(self, batch):
+        counted[0] += 1
+        return real(self, batch)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = [Path(tmp) / name for name in PACK_TALKS]
+        for seed, w in enumerate(wavs):
+            write_talk(w, PACK_TALKS[w.name], seed)
+
+        def sweep(pack: bool, batch_size: int = B, ladder: bool = True):
+            probs: dict = {}
+            counted[0] = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rows = segment_wavs(model, wavs, PTHR, batch_size, 20.0, 1, dev,
+                                torch.bfloat16, remainder_ladder=ladder,
+                                talk_probs=probs, pack_across_talks=pack)
+            torch.cuda.synchronize()
+            return rows, probs, time.perf_counter() - t1, counted[0]
+
+        WindowInference.run_batch = run_batch
+        try:
+            out = {True: sweep(True), False: sweep(False)}  # warm-up
+            walls = {True: [], False: []}
+            for pack in (True, False, False, True, True, False):
+                out[pack] = sweep(pack)
+                walls[pack].append(out[pack][2])
+            other = {str(bs): sweep(False, bs) for bs in (1, 3)}
+            other[f"{B}_no_ladder"] = sweep(False, B, ladder=False)
+        finally:
+            WindowInference.run_batch = real
+    rows_p, probs_p, _, n_p = out[True]
+    rows_u, probs_u, _, n_u = out[False]
+    talks = {}
+    for name in PACK_TALKS:
+        check(bool(np.isfinite(probs_p[name]).all()), "non-finite probs")
+        talks[name] = {
+            "max_abs_dprob": float(np.abs(probs_p[name] - probs_u[name])
+                                   .max()),
+            "envelope": max(float(np.abs(probs_u[name] - o[1][name]).max())
+                            for o in other.values())}
+    gap = row_gap(rows_p, rows_u)
+    env_gap = {bs: row_gap(o[0], rows_u) for bs, o in other.items()}
+    phase("packing", talks=len(PACK_TALKS), audio_secs=sum(
+        PACK_TALKS.values()), batch_size=B, batches_packed=n_p,
+        batches_per_talk=n_u, wall_s_packed=walls[True],
+        wall_s_per_talk=walls[False], dprob_by_talk=talks,
+        rows_packed=len(rows_p), rows_per_talk=len(rows_u),
+        rows_vs_per_talk=gap, rows_batch_size_vs_14=env_gap,
+        seconds=time.perf_counter() - t0)
+    check(n_p < n_u, f"packing ran {n_p} batches, per talk {n_u}")
+    check({r["wav"] for r in rows_p} == set(PACK_TALKS),
+          "packing: a talk got no segments")
+    for name, t in talks.items():
+        check(t["max_abs_dprob"] <= PACK_ENV_SLACK * t["envelope"],
+              f"packing: {name} max |dprob| {t['max_abs_dprob']} beyond "
+              f"{PACK_ENV_SLACK} x the batch-size envelope {t['envelope']}")
+    for key in ("beyond_bounds", "count_gap"):
+        worst = max(g[key] for g in env_gap.values())
+        check(gap[key] <= worst,
+              f"packing: rows {key} {gap[key]}, beyond the batch-size "
+              f"class's {worst}")
+    return talks
 
 
 # online serving: streams of 10 min fed in 0.5 s chunks, 20 s windows (the
@@ -2460,6 +2761,8 @@ def main() -> int:
     counts, counts_unfused, model = run_slice(dev)
     time_batch(dev, model, profile="--profile" in sys.argv)
     run_precision(dev, model)
+    run_int8(dev, model)
+    run_packing(dev, model)
     counts_online = run_online(dev, model)
     del model
     torch.cuda.empty_cache()

@@ -19,8 +19,6 @@ from wav2vecsegmenter_tpu_torch.cli import train as train_cli
 from wav2vecsegmenter_tpu_torch.config import compose
 
 SEGMENT = {
-    "runtime.quantize": "runtime.quantize=int8",
-    "runtime.pack_across_talks": "runtime.pack_across_talks=true",
     "runtime.profile_steps": "runtime.profile_steps=3",
     "runtime.profile_dir": "+runtime.profile_dir=prof",
     "runtime.mesh": "runtime.mesh.data=8",
@@ -32,10 +30,7 @@ TRAIN = {
     "runtime.profile_steps": "runtime.profile_steps=2",
     "runtime.mesh": "runtime.mesh.model=2",
 }
-ONLINE = {
-    "runtime.quantize": "runtime.quantize=int8",
-    "runtime.profile_steps": "runtime.profile_steps=3",
-}
+ONLINE = {"runtime.profile_steps": "runtime.profile_steps=3"}
 SERVE = dict(ONLINE)
 
 
@@ -125,9 +120,9 @@ def test_cli_refuses_mesh_subkey(tmp_path, monkeypatch, app):
 def test_sweep_is_refused_before_its_first_job(tmp_path, monkeypatch):
     """A sweep whose second job sets a refused option runs no job."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="runtime.quantize"):
+    with pytest.raises(NotImplementedError, match="runtime.profile_steps"):
         segment_cli.main(["-m"] + _segment_args(tmp_path)
-                         + ["runtime.quantize=null,int8"])
+                         + ["runtime.profile_steps=0,3"])
     assert not (tmp_path / "out").exists()
 
 

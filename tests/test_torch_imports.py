@@ -57,6 +57,7 @@ def test_chip_smoke_path_imports_no_jax_pandas_yaml(target):
                "wav2vecsegmenter_tpu_torch.cli.inference, "
                "wav2vecsegmenter_tpu_torch.checkpoints.io, "
                "wav2vecsegmenter_tpu_torch.infer.pipeline, "
+               "wav2vecsegmenter_tpu_torch.infer.packing, "
                "wav2vecsegmenter_tpu_torch.infer.online, "
                "wav2vecsegmenter_tpu_torch.infer.server, "
                "wav2vecsegmenter_tpu_torch.cli.online, "
@@ -67,6 +68,7 @@ def test_chip_smoke_path_imports_no_jax_pandas_yaml(target):
                "wav2vecsegmenter_tpu_torch.ops.attention, "
                "wav2vecsegmenter_tpu_torch.ops.ffn, "
                "wav2vecsegmenter_tpu_torch.ops.convfuse, "
+               "wav2vecsegmenter_tpu_torch.ops.quant, "
                "wav2vecsegmenter_tpu_torch.cli.train, "
                "wav2vecsegmenter_tpu_torch.train.loop, "
                "wav2vecsegmenter_tpu_torch.train.step, "

@@ -16,10 +16,9 @@ import torch
 import yaml
 
 from wav2vecsegmenter_tpu.checkpoints.torch_export import export_torch_checkpoint
-from wav2vecsegmenter_tpu_torch.cli import common as tcommon
 
 from .helpers import make_speechlike_wav, tiny_shas
-from .torch_tiny import port_tiny
+from .torch_tiny import tiny_builders  # noqa: F401
 
 TALKS = ("talk1.wav", "talk2.wav")
 CKPT = "epoch-0_best_eval_f1"
@@ -52,21 +51,6 @@ def workspace(tmp_path_factory):
                                 / f"{CKPT}.pt")
         save_config(train_cfg, out / ".hydra" / "config.yaml")
     return ws
-
-
-@pytest.fixture
-def tiny_builders(monkeypatch):
-    """Both CLIs build the tiny architecture from the task config."""
-    from wav2vecsegmenter_tpu.config import registry
-
-    import tests.helpers as helpers
-
-    monkeypatch.setitem(registry._ALIASES, "lib.models.SHAS",
-                        "tests.helpers:_tiny_builder")
-    monkeypatch.setattr(helpers, "_tiny_builder",
-                        lambda **kwargs: tiny_shas(), raising=False)
-    monkeypatch.setattr(tcommon, "build_model",
-                        lambda conf, device=None: port_tiny().to(device))
 
 
 def _args(ws, side, *extra) -> list[str]:

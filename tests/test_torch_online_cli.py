@@ -16,10 +16,9 @@ import pytest
 import torch
 import yaml
 
-from wav2vecsegmenter_tpu_torch.cli import common as tcommon
-
-from .helpers import make_speechlike_wav, tiny_shas
-from .torch_tiny import one_torch_thread, port_tiny, tiny_pair  # noqa: F401
+from .helpers import make_speechlike_wav
+from .torch_tiny import (one_torch_thread, tiny_builders,  # noqa: F401
+                         tiny_pair)
 
 TALKS = {"talkA.wav": 21.7, "talkB.wav": 13.4}
 STRM = ["algorithm=strm", "algorithm.max_segment_length=3"]
@@ -42,21 +41,6 @@ def workspace(tmp_path_factory):
     save_config(compose(Path(__file__).parents[1] / "conf", "train"),
                 ws / "train_config.yaml")
     return ws
-
-
-@pytest.fixture
-def tiny_builders(monkeypatch):
-    """Both CLIs build the tiny architecture from the task config."""
-    from wav2vecsegmenter_tpu.config import registry
-
-    import tests.helpers as helpers
-
-    monkeypatch.setitem(registry._ALIASES, "lib.models.SHAS",
-                        "tests.helpers:_tiny_builder")
-    monkeypatch.setattr(helpers, "_tiny_builder",
-                        lambda **kwargs: tiny_shas(), raising=False)
-    monkeypatch.setattr(tcommon, "build_model",
-                        lambda conf, device=None: port_tiny().to(device))
 
 
 def _args(ws, out: Path, extra: list) -> list:

@@ -29,7 +29,7 @@ from wav2vecsegmenter_tpu_torch.infer import pipeline as tpipe
 from wav2vecsegmenter_tpu_torch.models.shas import SHAS
 
 from .helpers import make_speechlike_wav, tiny_shas
-from .torch_tiny import port_tiny
+from .torch_tiny import port_tiny, tiny_builders  # noqa: F401
 
 PROBS_ATOL = 1e-5  # float32 engines, different summation orders
 TALKS = ("talk1.wav", "talk2.wav")
@@ -110,21 +110,6 @@ def test_stitched_probs_match_jax_engine(workspace):
             np.testing.assert_allclose(got, want, atol=PROBS_ATOL, rtol=0)
     finally:
         set_backend("auto")
-
-
-@pytest.fixture
-def tiny_builders(monkeypatch):
-    """Both CLIs build the tiny architecture from the task config."""
-    from wav2vecsegmenter_tpu.config import registry
-
-    import tests.helpers as helpers
-
-    monkeypatch.setitem(registry._ALIASES, "lib.models.SHAS",
-                        "tests.helpers:_tiny_builder")
-    monkeypatch.setattr(helpers, "_tiny_builder",
-                        lambda **kwargs: tiny_shas(), raising=False)
-    monkeypatch.setattr(tcommon, "build_model",
-                        lambda conf, device=None: port_tiny().to(device))
 
 
 @pytest.mark.parametrize("algo", [["algorithm=pthr"],

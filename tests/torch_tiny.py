@@ -1,8 +1,11 @@
 """The tiny SHAS of ``tests.helpers.tiny_shas`` in both packages, with one
 set of weights: JAX ``init`` -> ``export_torch_checkpoint`` (the reference's
-full layout) -> the port's ``load_reference_checkpoint``."""
+full layout) -> the port's ``load_reference_checkpoint``; and a workspace
+on which the segment and inference CLIs of both packages run."""
 
 import dataclasses
+import importlib
+from pathlib import Path
 
 import jax
 import pytest
@@ -15,7 +18,7 @@ from wav2vecsegmenter_tpu_torch.checkpoints.convert import (
 from wav2vecsegmenter_tpu_torch.models.shas import SHAS
 from wav2vecsegmenter_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 
-from .helpers import TINY_W2V, tiny_shas
+from .helpers import TINY_W2V, make_speechlike_wav, tiny_shas
 
 
 def port_tiny(**kwargs) -> SHAS:
@@ -45,3 +48,76 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def cli_workspace(ws: Path, talks: dict, seed: int = 7) -> Path:
+    """``ws`` holding the talks ({name: seconds}) under ``wav/``, their
+    ``orig.yaml``, the tiny model's reference ``ckpt.pt``, a training
+    config (``train_config.yaml``) and a training run's layout for the
+    inference CLI (``run/.hydra/config.yaml``, ``run/e2e/ckpts/final.pt``)."""
+    import yaml
+
+    from wav2vecsegmenter_tpu.config import compose, save_config
+
+    (ws / "wav").mkdir()
+    for i, (name, secs) in enumerate(talks.items()):
+        make_speechlike_wav(ws / "wav" / name, duration_secs=secs,
+                            seed=seed + i)
+    with open(ws / "orig.yaml", "w") as f:
+        yaml.dump([{"duration": secs, "offset": 0.0, "speaker_id": "NA",
+                    "wav": name} for name, secs in talks.items()], f)
+    tiny_pair(ws / "ckpt.pt")
+    train_cfg = compose(Path(__file__).parents[1] / "conf", "train")
+    save_config(train_cfg, ws / "train_config.yaml")
+    train_cfg["exp_name"] = "e2e"
+    (ws / "run" / "e2e" / "ckpts").mkdir(parents=True)
+    (ws / "run" / "e2e" / "ckpts" / "final.pt").write_bytes(
+        (ws / "ckpt.pt").read_bytes())
+    save_config(train_cfg, ws / "run" / ".hydra" / "config.yaml")
+    return ws
+
+
+@pytest.fixture
+def tiny_builders(monkeypatch):
+    """Both packages' CLIs build the tiny architecture from the task
+    config."""
+    from wav2vecsegmenter_tpu.config import registry
+    from wav2vecsegmenter_tpu_torch.cli import common
+
+    import tests.helpers as helpers
+
+    monkeypatch.setitem(registry._ALIASES, "lib.models.SHAS",
+                        "tests.helpers:_tiny_builder")
+    monkeypatch.setattr(helpers, "_tiny_builder",
+                        lambda **kwargs: tiny_shas(), raising=False)
+    monkeypatch.setattr(common, "build_model",
+                        lambda conf, device=None: port_tiny().to(device))
+
+
+# each package's runtime: the JAX engine on its XLA path, the port on the
+# CPU (both float32 with runtime.compute_dtype=float32)
+JAX_SIDE = ["runtime.kernels=xla"]
+PORT_SIDE = ["+runtime.device=cpu"]
+
+
+def offline_both(ws: Path, cli: str, extra: list) -> dict:
+    """{"jax": ..., "port": ...}: (rows, custom_segments.yaml bytes) of the
+    ``segment`` or ``inference`` CLI of each package on a
+    :func:`cli_workspace`, 4 s windows at batch 3, pTHR, float32."""
+    out = {}
+    for side, pkg, own in (("jax", "wav2vecsegmenter_tpu", JAX_SIDE),
+                           ("port", "wav2vecsegmenter_tpu_torch", PORT_SIDE)):
+        main = importlib.import_module(f"{pkg}.cli.{cli}").main
+        d = ws / f"{cli}_{side}_{len(list(ws.glob(f'{cli}_{side}_*')))}"
+        args = {"segment": [f"ckpt_path={ws}/ckpt.pt",
+                            f"config_path={ws}/train_config.yaml",
+                            f"output_dir={d}"],
+                "inference": [f"outputs={ws}/run", "ckpt=final.pt"]}[cli]
+        rows = main([*args, f"+results_path={d}",
+                     f"infer_data.wav_dir={ws}/wav",
+                     f"infer_data.orig_seg_yaml={ws}/orig.yaml",
+                     "inference_segment_length=4", "batch_size=3",
+                     "algorithm=pthr", "runtime.compute_dtype=float32",
+                     *extra, *own])
+        out[side] = (rows, (d / "custom_segments.yaml").read_bytes())
+    return out

@@ -25,6 +25,7 @@ import torch
 
 from ..algorithms import pdac, pthr, strm, update_yaml_content
 from ..data.windows import BatchIterator, FixedSegmentationDatasetNoTarget
+from ..infer.packing import PackedSweep
 from ..infer.pipeline import WindowInference, collect_talk, dispatch_talk
 from ..models.shas import SHAS
 
@@ -36,8 +37,6 @@ logger = logging.getLogger("wav2vecsegmenter_tpu_torch")
 # them set away from its default in conf/<app>.yaml.
 UNPORTED = {
     "segment": {
-        "runtime.quantize": "A9 (int8)",
-        "runtime.pack_across_talks": "A9 (packing)",
         "runtime.profile_steps": "A11 (profiler traces)",
         "runtime.profile_dir": "A11 (profiler traces)",
         "runtime.mesh": "A9 (parallel)",
@@ -50,10 +49,7 @@ UNPORTED = {
     },
 }
 UNPORTED["inference"] = {**UNPORTED["segment"], "log_wandb": "A9 (wandb)"}
-UNPORTED["online"] = {
-    "runtime.quantize": "A9 (int8)",
-    "runtime.profile_steps": "A11 (profiler traces)",
-}
+UNPORTED["online"] = {"runtime.profile_steps": "A11 (profiler traces)"}
 UNPORTED["serve"] = dict(UNPORTED["online"])
 
 
@@ -267,7 +263,8 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
                  compute_dtype, remainder_ladder: bool = True,
                  talk_probs: dict | None = None,
                  read_seconds: list | None = None,
-                 precision: str | None = None) -> list[dict]:
+                 precision: str | None = None, quantize: str | None = None,
+                 pack_across_talks: bool = False) -> list[dict]:
     """The product loop: per wav, multi-pass sliding-window inference,
     probability averaging, the segmentation algorithm, yaml rows.
 
@@ -278,11 +275,21 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
     on a CUDA device.  ``talk_probs``, when given, receives each talk's
     averaged frame probabilities by wav name, and ``read_seconds`` each
     batch's read + collate time in the reader.  ``precision`` is an arm of
-    the precision ladder (``infer.pipeline.resolve_precision``).
+    the precision ladder (``infer.pipeline.resolve_precision``) and
+    ``quantize`` the engine's int8 mode.  ``pack_across_talks`` packs the
+    windows of consecutive talks into full batches
+    (``infer.packing.PackedSweep``) with two talks dispatched ahead: a
+    talk's last batch fills only with the next talk's windows.
     """
     algorithm = dict(algorithm)
     tag = algorithm.pop("tag")
-    engine = WindowInference(model, device, compute_dtype, precision)
+    engine = WindowInference(model, device, compute_dtype, precision,
+                             quantize)
+    packer = None
+    if pack_across_talks:
+        packer = PackedSweep(engine, batch_size, float(segment_length),
+                             pin_memory=engine.device.type == "cuda")
+        logger.info("pack_across_talks enabled")
 
     def dispatch_one(wav_path):
         dataset = FixedSegmentationDatasetNoTarget(
@@ -290,6 +297,9 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
         passes = []
         for it in range(inference_times):
             dataset.fixed_length_segmentation(it)
+            if packer is not None:
+                passes.append(packer.add_dataset_pass(dataset))
+                continue
             batches = BatchIterator(dataset, batch_size, float(segment_length),
                                     remainder_ladder=remainder_ladder,
                                     pin_memory=engine.device.type == "cuda")
@@ -307,7 +317,10 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
         dataset = h["dataset"]
         probs = None
         for pending in h["passes"]:
-            p = collect_talk(pending, dataset.duration_outframes)
+            if packer is not None:
+                p = packer.drain_unit(pending, dataset.duration_outframes)
+            else:
+                p = collect_talk(pending, dataset.duration_outframes)
             probs = p if probs is None else probs + p
         probs /= inference_times
         name = Path(h["wav"]).name
@@ -322,13 +335,20 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
                     name, secs, dt, secs / dt)
 
     t_all = time.perf_counter()
+    lookahead = 2 if packer is not None else 1
     in_flight: deque = deque()
-    for wav_path in wav_paths:
-        in_flight.append(dispatch_one(wav_path))
-        if len(in_flight) > 1:
+    try:
+        for wav_path in wav_paths:
+            in_flight.append(dispatch_one(wav_path))
+            if len(in_flight) > lookahead:
+                drain_one(in_flight.popleft())
+        while in_flight:
             drain_one(in_flight.popleft())
-    while in_flight:
-        drain_one(in_flight.popleft())
+    finally:
+        # a failed drain must not leave the packer's decode threads behind;
+        # each pass's reader has already run to its end in dispatch_talk
+        if packer is not None:
+            packer.close()
     wall = time.perf_counter() - t_all
     if wall > 0 and total_audio_secs:
         logger.info("segmented %.1fs of audio in %.1fs (%.0fx RT overall)",

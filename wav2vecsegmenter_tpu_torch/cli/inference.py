@@ -18,7 +18,9 @@ the CLI's.  The port's train CLI writes that config to
 ``<dir>`` pass ``outputs=<dir> base_cfg=<dir>/<exp_name>/.hydra``.  Each
 job writes to ``results_path``, or to ``outputs/infer_outputs/
 <override_dirname>``.  The run is on the first CUDA device and raises
-without one; ``+runtime.device=cpu`` asks for the CPU.  The options of the
+without one; ``+runtime.device=cpu`` asks for the CPU.
+``runtime.precision``, ``runtime.quantize`` and
+``runtime.pack_across_talks`` act as in the segment CLI.  The options of the
 JAX CLI that the port does not carry out (``common.UNPORTED["inference"]``:
 the segment CLI's and wandb) raise when set away from their defaults,
 before any job runs.  pyyaml is imported inside :func:`main` only.

@@ -21,9 +21,10 @@ replays up to N wavs at once through one
 Only the causal algorithms serve online: ``strm`` and ``pthr`` (+moving
 average); pDAC needs the whole talk.  The run is on the first CUDA device
 and raises without one; ``+runtime.device=cpu`` asks for the CPU.
-``runtime.kernels``, ``runtime.compute_dtype`` and ``runtime.precision``
-act as in the segment CLI; the options of ``common.UNPORTED["online"]``
-raise.  pyyaml is imported inside :func:`main` only.
+``runtime.kernels``, ``runtime.compute_dtype``, ``runtime.precision`` and
+``runtime.quantize`` act as in the segment CLI; the options of
+``common.UNPORTED["online"]`` raise.  pyyaml is imported inside
+:func:`main` only.
 """
 
 from __future__ import annotations
@@ -74,7 +75,8 @@ def build_engine(config) -> tuple[WindowInference, dict]:
             f"'{tag}' — pDAC needs the whole talk; use the offline CLIs")
     model, device, dtype = common.load_model(config, config.ckpt_path)
     rt = config.get("runtime") or {}
-    engine = WindowInference(model, device, dtype, rt.get("precision"))
+    engine = WindowInference(model, device, dtype, rt.get("precision"),
+                             rt.get("quantize"))
     return engine, {"segment_length": float(config.segment_length),
                     "algorithm": tag, **common.hop_conf(config), **algo_conf}
 

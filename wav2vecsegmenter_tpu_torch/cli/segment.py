@@ -14,7 +14,10 @@ first CUDA device and raises without one; ``+runtime.device=cpu`` asks for
 the CPU.  ``runtime.kernels`` is ``auto`` (hand kernels on CUDA) or
 ``eager``; ``runtime.compute_dtype`` applies on CUDA, the CPU runs float32;
 ``runtime.precision`` picks an arm of the precision ladder (``bf16``,
-``f32head``, ``f32res``, ``f32last<k>``, ``f32``).
+``f32head``, ``f32res``, ``f32last<k>``, ``f32``); ``runtime.quantize=int8``
+runs the encoder's products int8 (``ops.quant``);
+``runtime.pack_across_talks=true`` packs consecutive talks' windows into
+full batches (``infer.packing``).
 A sweep (``-m``) runs one job per combination of the comma-separated
 values, each in ``output_dir/<override_dirname>``.  The runtime options of
 the JAX CLI that the port does not carry out (``common.UNPORTED``) raise
@@ -50,7 +53,8 @@ def segment_to_yaml(config, ckpt_path, wav_paths: list[Path],
         int(config.batch_size), float(config.inference_segment_length),
         int(config.inference_times), device, dtype,
         remainder_ladder=bool(rt.get("infer_remainder_ladder", True)),
-        precision=rt.get("precision"))
+        precision=rt.get("precision"), quantize=rt.get("quantize"),
+        pack_across_talks=bool(rt.get("pack_across_talks", False)))
 
     common.logger.info("Number of segments: %d", len(yaml_content))
     out = output_dir / config.cust_seg_yaml

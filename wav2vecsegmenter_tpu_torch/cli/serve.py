@@ -8,7 +8,8 @@ underneath).  Listens on TCP (``host``/``port``) or a unix socket
 wire protocol is in its docstring):
 
     python -m wav2vecsegmenter_tpu_torch.cli.serve ckpt_path=... \\
-        config_path=... algorithm=pthr port=7957 [runtime.precision=f32res]
+        config_path=... algorithm=pthr port=7957 [runtime.precision=f32res] \\
+        [runtime.quantize=int8]
 
 The bound address prints as one JSON line, ``{"type": "listening",
 "address": ...}``; SIGTERM or SIGINT drains every active stream before the

@@ -19,7 +19,9 @@ for probabilities and targets (the logits of the ``dac_logits`` head are
 not ported).  Their semantics replicate reference lib/evaluate.py:9-127.
 
 ``runtime.precision`` (``resolve_precision``) picks an arm of the JAX
-package's precision ladder, between the bf16 path and float32.
+package's precision ladder, between the bf16 path and float32;
+``runtime.quantize=int8`` quantizes the encoder's products into the engine
+(``ops.quant``), leaving the model's module as it was.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from ..data.collate import Batch
+from ..ops.quant import quantize_layers
 
 # runtime.precision: CUMULATIVE arms between bf16 and float32, trading
 # throughput for near-threshold probability fidelity (the JAX package's
@@ -130,14 +133,26 @@ def batch_loss(loss_fn, logits: torch.Tensor, target: torch.Tensor,
 
 class WindowInference:
     """Runs window batches through a SHAS model on one device, at the
-    arm of the precision ladder that ``precision`` names."""
+    arm of the precision ladder that ``precision`` names; ``quantize="int8"``
+    runs the encoder's products int8 (the weights quantized once, here)."""
 
     def __init__(self, model, device, compute_dtype=torch.float32,
-                 precision: str | None = None):
+                 precision: str | None = None, quantize: str | None = None):
         self.model = model
         self.device = torch.device(device)
-        self.compute_dtype, self.precision_kwargs = resolve_precision(
+        # the model's keyword arguments: the precision arm's, and the int8
+        # layers under quantize
+        self.compute_dtype, self.forward_kwargs = resolve_precision(
             precision, compute_dtype)
+        self.quantized = None
+        if quantize:
+            if quantize != "int8":
+                raise ValueError(f"unknown quantize mode '{quantize}' "
+                                 "(supported: int8)")
+            self.quantized = quantize_layers(
+                model.wav2vec_model.model.encoder)
+            self.forward_kwargs = {**self.forward_kwargs,
+                                   "quantized": self.quantized}
         self.loss_fn = None  # the trainer sets its epoch's loss for eval
 
     @torch.inference_mode()
@@ -151,7 +166,7 @@ class WindowInference:
             audio = normalize_int16(audio, batch.norm_length,
                                     up(batch.included))
         logits = self.model(audio, up(batch.in_lengths), out_mask,
-                            self.compute_dtype, **self.precision_kwargs)
+                            self.compute_dtype, **self.forward_kwargs)
         probs = torch.where(out_mask, torch.sigmoid(logits.float()), 0.0)
         loss = None
         if self.loss_fn is not None and batch.target is not None:

@@ -85,7 +85,8 @@ class SHAS(nn.Module):
     def forward(self, audio: torch.Tensor, in_lengths: torch.Tensor,
                 out_mask: torch.Tensor, compute_dtype=torch.float32,
                 head_dtype=None, residual_dtype=None,
-                f32_last_k: int = 0) -> torch.Tensor:
+                f32_last_k: int = 0, quantized: list | None = None
+                ) -> torch.Tensor:
         """audio [B, L] normalized, in_lengths [B], out_mask [B, T_out] ->
         frame logits [B, T_out] float32.
 
@@ -98,7 +99,8 @@ class SHAS(nn.Module):
         SFC head's dtype, the encoder's residual-stream and LayerNorm
         dtype, and the number of final encoder layers run in float32.  As
         in the JAX package, ``f32_last_k`` raises on a model whose LNA
-        split freezes layers or FFNs.
+        split freezes layers or FFNs.  ``quantized`` holds the encoder's
+        int8 layers (``runtime.quantize=int8``, ``ops.quant``).
         """
         if f32_last_k and self.finetune_wav2vec and (
                 self.first_ft_layer or not self.finetune_w2v_ffn):
@@ -106,7 +108,8 @@ class SHAS(nn.Module):
                              "does not compose with LNA freeze splits")
         h, _ = self.wav2vec_model.model(audio, in_lengths, compute_dtype,
                                         residual_dtype=residual_dtype,
-                                        f32_last_k=f32_last_k)
+                                        f32_last_k=f32_last_k,
+                                        quantized=quantized)
         return self.seg_model(_fit(h, out_mask.shape[1]), out_mask,
                               head_dtype or compute_dtype)
 

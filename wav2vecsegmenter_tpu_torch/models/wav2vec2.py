@@ -42,6 +42,12 @@ adapter (``ffn_adapter.{down_proj,up_proj}``, the reference's names):
 output before the residual; which layers carry one is structure, not a
 parameter (the JAX ``flag`` leaf).
 
+Under ``runtime.quantize=int8`` the inference engine passes the encoder's
+int8 layers (``ops.quant.quantize_layers``) down as ``quantized``: each
+layer's QKV, attention output and FFN products run int8 x int8, and the
+FFN takes the separate products around the GELU instead of the fused
+kernel, as in the JAX package.
+
 Not ported yet (they raise ``NotImplementedError``): the group-norm conv
 stack of the base models, post-LN encoders.
 """
@@ -60,6 +66,7 @@ from ..ops.convfuse import (conv_bias_ln_gelu, convfuse_enabled,
                             strided_conv1d_as_matmul)
 from ..ops.ffn import ffn, ffnfuse_enabled
 from ..ops.layernorm import bias_layer_norm_gelu, layer_norm
+from ..ops.quant import int8_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,10 +282,10 @@ class Wav2Vec2Model(nn.Module):
 
     def forward(self, audio, in_lengths, compute_dtype=torch.float32,
                 generator=None, freeze_feature_encoder: bool = False,
-                residual_dtype=None, f32_last_k: int = 0):
+                residual_dtype=None, f32_last_k: int = 0, quantized=None):
         return wav2vec2_forward(self, audio, in_lengths, compute_dtype,
                                 generator, freeze_feature_encoder,
-                                residual_dtype, f32_last_k)
+                                residual_dtype, f32_last_k, quantized)
 
 
 # --------------------------------------------------------------------------
@@ -377,24 +384,36 @@ def positional_conv(pe: PositionalConvEmbedding, x: torch.Tensor,
 
 
 def _mha(attn: Attention, x: torch.Tensor, key_mask: torch.Tensor,
-         num_heads: int, dt) -> torch.Tensor:
-    """One fused [H, 3H] QKV GEMM, then attention straight off its output."""
+         num_heads: int, dt, quant: dict | None = None) -> torch.Tensor:
+    """One fused [H, 3H] QKV GEMM, then attention straight off its output;
+    with ``quant`` (the layer's ``ops.quant.quantize_layers`` entry) both
+    products run int8."""
     h = x.shape[-1]
-    w = torch.cat([attn.q_proj.weight, attn.k_proj.weight,
-                   attn.v_proj.weight]).to(dt)
-    bias = torch.cat([attn.q_proj.bias, attn.k_proj.bias,
-                      attn.v_proj.bias]).to(dt)
-    proj = x @ w.t() + bias
+    if quant is not None:
+        proj = int8_linear(x, quant["qkv"], dt)
+    else:
+        w = torch.cat([attn.q_proj.weight, attn.k_proj.weight,
+                       attn.v_proj.weight]).to(dt)
+        bias = torch.cat([attn.q_proj.bias, attn.k_proj.bias,
+                          attn.v_proj.bias]).to(dt)
+        proj = x @ w.t() + bias
     out = attention_packed(proj, key_mask, num_heads,
                            (h // num_heads) ** -0.5)
+    if quant is not None:
+        return int8_linear(out, quant["o"], dt)
     return _lin(attn.out_proj, out, dt)
 
 
 def _ffn(ff: FeedForward, x: torch.Tensor, cfg: Wav2Vec2Config, dt,
-         generator=None) -> torch.Tensor:
+         generator=None, quant: dict | None = None) -> torch.Tensor:
     """The fused ``ops.ffn`` or, under ``W2VSEG_FFNFUSE=0`` or in train
     mode with activation dropout, w1 -> exact GELU (rounded to dt, as
-    ``ffn_xla``) -> dropout -> w2."""
+    ``ffn_xla``) -> dropout -> w2.  With ``quant`` the two products run
+    int8 around the GELU, and the fused kernel does not run (the JAX
+    ``_ffn_block``'s gate)."""
+    if quant is not None:
+        return int8_linear(F.gelu(int8_linear(x, quant["w1"], dt)),
+                           quant["w2"], dt)
     w1, w2 = ff.intermediate_dense, ff.output_dense
     act_drop = cfg.activation_dropout if generator is not None else 0.0
     if ffnfuse_enabled() and act_drop == 0.0:
@@ -405,7 +424,8 @@ def _ffn(ff: FeedForward, x: torch.Tensor, cfg: Wav2Vec2Config, dt,
 
 def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
             cfg: Wav2Vec2Config, dt, generator=None, residual_dtype=None,
-            f32_last_k: int = 0) -> torch.Tensor:
+            f32_last_k: int = 0, quantized: list | None = None
+            ) -> torch.Tensor:
     """Pre-LN transformer over [B, T, H]; padded frames are zeroed once,
     before the positional conv, and carry finite values after that.  With
     a generator, hidden dropout after the positional conv and after each
@@ -421,6 +441,10 @@ def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
     package runs ``ffn_xla`` in those layers).  It is an inference knob:
     with a generator it raises.  Every cast is the identity where the
     dtypes agree, so the default path launches what it did without them.
+
+    ``quantized`` (``runtime.quantize=int8``: ``ops.quant.quantize_layers``
+    of this encoder) runs each layer's four products int8; in the last k
+    layers of ``f32_last_k`` their outputs stay float32.  Inference only.
     """
     eps = cfg.layer_norm_eps
     res_dt = residual_dtype or dt
@@ -428,6 +452,9 @@ def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
     if first_f32 < len(enc.layers) and generator is not None:
         raise ValueError("f32_last_k is an inference-precision knob; it "
                          "does not run in train mode")
+    if quantized is not None and generator is not None:
+        raise ValueError("int8 quantization is an inference mode; it does "
+                         "not run in train mode")
     x = torch.where(frame_mask[:, :, None], x, 0)
     h = (x + positional_conv(enc.pos_conv_embed, x, cfg, dt)).to(res_dt)
     h = dropout(h, cfg.hidden_dropout, generator)
@@ -435,11 +462,12 @@ def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
         ldt = torch.float32 if i >= first_f32 else dt
         hn = layer_norm(h, layer.layer_norm.weight, layer.layer_norm.bias,
                         eps).to(ldt)
-        a = _mha(layer.attention, hn, frame_mask, cfg.num_heads, ldt)
+        quant = None if quantized is None else quantized[i]
+        a = _mha(layer.attention, hn, frame_mask, cfg.num_heads, ldt, quant)
         h = h + dropout(a, cfg.hidden_dropout, generator).to(res_dt)
         hn = layer_norm(h, layer.final_layer_norm.weight,
                         layer.final_layer_norm.bias, eps).to(ldt)
-        f = dropout(_ffn(layer.feed_forward, hn, cfg, ldt, generator),
+        f = dropout(_ffn(layer.feed_forward, hn, cfg, ldt, generator, quant),
                     cfg.hidden_dropout, generator)
         if layer.ffn_adapter is not None:
             ad = layer.ffn_adapter
@@ -463,13 +491,15 @@ def wav2vec2_forward(model: Wav2Vec2Model, audio: torch.Tensor,
                      compute_dtype=torch.float32,
                      generator: torch.Generator | None = None,
                      freeze_feature_encoder: bool = False,
-                     residual_dtype=None, f32_last_k: int = 0):
+                     residual_dtype=None, f32_last_k: int = 0,
+                     quantized: list | None = None):
     """audio [B, L] normalized, in_lengths [B] valid samples ->
     (hidden [B, T, H] float32, frame_mask [B, T] bool).  A ``generator``
     selects train mode (dropout and SpecAugment, drawn from it);
     ``freeze_feature_encoder`` runs the conv stack and the feature
     projection without a graph; ``residual_dtype`` and ``f32_last_k`` are
-    the precision ladder's (:func:`encoder`)."""
+    the precision ladder's, ``quantized`` the int8 layers
+    (:func:`encoder`)."""
     cfg = model.cfg
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and not freeze_feature_encoder):
@@ -491,7 +521,7 @@ def wav2vec2_forward(model: Wav2Vec2Model, audio: torch.Tensor,
         x = torch.where(tmask[:, :, None],
                         model.masked_spec_embed.to(x.dtype), x)
     h = encoder(model.encoder, x, frame_mask, cfg, compute_dtype, generator,
-                residual_dtype, f32_last_k)
+                residual_dtype, f32_last_k, quantized)
     return h.float(), frame_mask
 
 
