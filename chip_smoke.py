@@ -164,11 +164,35 @@ Phases, each printed on its own line; any failure exits non-zero:
    encoder fine-tuned: one epoch of two micro-steps, layers 0-6 bitwise
    unchanged, adapters in layers 7-14 only and moved, the conv stack
    moved, each micro-step's launches checked;
-13. the script's seconds; a JSON line of every kernel (launches on the
+13. ssl: the multi-class heads. SHASWithSSL at the lv60-self width (24
+   layers, its final encoder LayerNorm on K1, a CTC lm_head of 32, a
+   36-way SFC head; seeded random weights, the output layer x4 and <B>'s
+   bias raised by its median gap to the other logits' maximum on the full
+   batch) saved in the reference's SSL full layout and loaded through
+   the inference CLIs' loader (cli.common.load_model, task=shas_ssl);
+   the slice's two talks through cli.common.segment_wavs at batch 14 with
+   algorithm=dac_logits and dac, kernels (launch counters reset just
+   before the dac_logits run; each kernel's launches a batch checked) and
+   eager (counters must not move): segment counts, the boundaries that
+   differ, the walls of dac_logits and dac in turns; one full batch in
+   bf16 with the kernels and eager against the float32 plain path: mean,
+   p99 and max |dprob| of p(<B>), the CTC logits' deviation (the kernels'
+   within KERNEL_SLACK of the plain path's for both), the share of frames
+   whose 36-way and CTC argmax agree; the batch's wall ms (kernels and
+   eager in turns), device busy ms, the top device ops of one profiled
+   batch, launches and peak memory; then three
+   micro-steps of task=shas_ssl (frozen backbone, batch 14, pseudo-labels
+   from the CTC head) and three of task=shas_ctc (xls-r-300m at 15
+   layers fine-tuned on a corpus whose segments.tsv carries tgt_text,
+   batch 4) through the port's loop, each in three arms (bf16 kernels,
+   bf16 eager, float32 eager): finite losses, the path's kernels launched
+   (K9/K10 among them), the first micro-step's gradients as in the train
+   phase, ms a micro-step and peak memory;
+14. the script's seconds; a JSON line of every kernel (launches on the
    LNA recipe's run, or for K2 the unfused slice's, and on the online
-   phase; error, times, bound, and the float32 route's row; K5/K6/K7/K2
-   add their Function row), the nvidia-smi line, and the last line:
-   {"ok": true, "device": {...}}.
+   and ssl phases; error, times, bound, and the float32 route's row;
+   K5/K6/K7/K2 add their Function row), the nvidia-smi line, and the last
+   line: {"ok": true, "device": {...}}.
 
 The kernel phase runs each backward kernel twice on the same inputs: the
 outputs must be bitwise equal (no atomics).  The attention rows (bf16 on
@@ -1350,9 +1374,9 @@ def run_packing(dev, model) -> dict:
     counted = [0]
     real = WindowInference.run_batch
 
-    def run_batch(self, batch):
+    def run_batch(self, batch, need_logits=False):
         counted[0] += 1
-        return real(self, batch)
+        return real(self, batch, need_logits)
 
     with tempfile.TemporaryDirectory() as tmp:
         wavs = [Path(tmp) / name for name in PACK_TALKS]
@@ -1837,19 +1861,27 @@ SHAS_TASK = {
 TRAIN_TALKS, TRAIN_SECS, TRAIN_WINDOW, TRAIN_STEPS = 6, 100.0, 20, 3
 
 
-def write_corpus(root: Path, n_talks: int = TRAIN_TALKS) -> tuple[str, str]:
+def write_corpus(root: Path, n_talks: int = TRAIN_TALKS,
+                 texts: bool = False) -> tuple[str, str]:
     """Synthetic talks and their true segments (the speech bursts of
-    write_talk), as the data prep writes the TSVs (an index column)."""
+    write_talk), as the data prep writes the TSVs (an index column); with
+    ``texts``, a ``tgt_text`` column of made-up transcripts (the CTC
+    task's)."""
     talks = ["\tid\tpath\ttotal_frames"]
-    segments = ["\ttalk_id\tstart\tend"]
+    segments = ["\ttalk_id\tstart\tend" + ("\ttgt_text" if texts else "")]
+    words = "so we looked at the data and it was quite clear".split()
     for i in range(n_talks):
         path = root / f"talk{i}.wav"
         write_talk(path, TRAIN_SECS, seed=10 + i)
         talks.append(f"{i}\ttalk{i}\t{path}\t{int(TRAIN_SECS * 16000)}")
         for s0 in np.arange(0.0, TRAIN_SECS, 3.5):
             end = min(s0 + 3.0, TRAIN_SECS)
+            text = ""
+            if texts:
+                k = len(segments) % len(words)
+                text = "\t" + " ".join((words + words)[k:k + 5])
             segments.append(f"{len(segments) - 1}\ttalk{i}\t"
-                            f"{int(s0 * 16000)}\t{int(end * 16000)}")
+                            f"{int(s0 * 16000)}\t{int(end * 16000)}{text}")
     (root / "talks.tsv").write_text("\n".join(talks) + "\n")
     (root / "segments.tsv").write_text("\n".join(segments) + "\n")
     return str(root / "talks.tsv"), str(root / "segments.tsv")
@@ -1895,8 +1927,8 @@ def check_checkpoints(work: Path, out: dict, model) -> dict:
           and {k: state[k] for k in book} == book,
           "train: the run state's bookkeeping")
     # the head's shapes need the backbone's width only: one layer of it
-    back = build_model({**SHAS_TASK["model"], "wav2vec_keep_layers": 1},
-                       torch.device("cpu"))
+    back, _ = build_model({**SHAS_TASK["model"], "wav2vec_keep_layers": 1},
+                          torch.device("cpu"))
     load_reference_checkpoint(ckpts / "epoch-1.pt", back,
                               allow_random_wav2vec=True)
     for key, value in model.seg_model.state_dict().items():
@@ -2079,7 +2111,7 @@ def run_train(dev, profile: bool) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         model = out_k.pop("model")
         book = check_checkpoints(Path(tmp) / "auto_bfloat16", out_k, model)
-        fresh = build_model(SHAS_TASK["model"], dev)
+        fresh, _ = build_model(SHAS_TASK["model"], dev)
         init_from_numpy(fresh, seed=0)
         for key, value in fresh.wav2vec_model.state_dict().items():
             check(torch.equal(value, model.wav2vec_model.state_dict()[key]),
@@ -2559,7 +2591,7 @@ def run_lna(dev) -> dict:
             check({n: got[n] for n in want} == want,
                   f"LNA micro-step {i} launches {got}, not {want}")
         model = k.pop("model")
-        fresh = build_model(LNA_TASK, dev)
+        fresh, _ = build_model(LNA_TASK, dev)
         init_from_numpy(fresh, seed=0)
         trained = {n for n, p in model.named_parameters() if p.requires_grad}
         frozen_n = moved_n = 0
@@ -2594,7 +2626,7 @@ def run_lna(dev) -> dict:
         check(set(saved["state_dict"]) == set(model.state_dict()),
               "LNA checkpoint: not the full state_dict")
         del saved
-        back = build_model(LNA_TASK, dev)
+        back, _ = build_model(LNA_TASK, dev)
         load_reference_checkpoint(path, back)
         for (name, p), (_, q) in zip(model.state_dict().items(),
                                      back.state_dict().items()):
@@ -2666,7 +2698,7 @@ def run_lna(dev) -> dict:
                   f"LNA default task micro-step {i} launches {got}, not "
                   f"{want_c}")
         model = c.pop("model")
-        fresh = build_model(LNA_DEFAULT_TASK, dev)
+        fresh, _ = build_model(LNA_DEFAULT_TASK, dev)
         init_from_numpy(fresh, seed=0)
         adapters = set()
         for (name, p), (_, p0) in zip(model.named_parameters(),
@@ -2727,6 +2759,331 @@ def run_lna(dev) -> dict:
 
 
 
+# conf/task/shas_ssl.yaml: the untruncated lv60-self CTC model (24 layers
+# and its final encoder LayerNorm, lm_head 1024 -> 32) and a 36-way SFC head
+# on the char vocabulary, the backbone frozen, pseudo-labels from the CTC
+# head; conf/task/shas_ctc.yaml: xls-r-300m cut to 15 layers, fine-tuned on
+# transcripts with the CTC loss
+SSL_TASK = {
+    "autoregression": False,
+    "model": {"_target_": "lib.models.SHASWithSSL",
+              "wav2vec_model_name": "facebook/wav2vec2-large-960h-lv60-self",
+              "finetune_wav2vec": False, "n_transformer_enc_layers": 1,
+              "n_transformer_enc_heads": 8, "init_dropout": 0.1},
+    "train_generator": {"_target_": "lib.dataset.RandomDataloaderGenerator"},
+    "eval_generator": {"inference_times": 1},
+    "vocab": {"_target_": "lib.datautils.UppercasedCharVocabulary"},
+    "loss": {"_target_": "torch.nn.CrossEntropyLoss", "tag": "ssl",
+             "reduction": "none"},
+}
+CTC_TASK = {
+    **SSL_TASK,
+    "model": {"_target_": "lib.models.SHASWithCTC",
+              "wav2vec_model_name": "facebook/wav2vec2-xls-r-300m",
+              "wav2vec_keep_layers": 15, "finetune_wav2vec": True,
+              "n_transformer_enc_layers": 1, "n_transformer_enc_heads": 8,
+              "init_dropout": 0.1},
+    "loss": {"_target_": "torch.nn.CTCLoss", "tag": "ctc",
+             "reduction": "mean"},
+}
+DAC_LOGITS = {"tag": "dac_logits", "max_segment_length": 18,
+              "min_segment_length": 0.2}
+DAC = {"tag": "dac", "max_segment_length": 16, "min_segment_length": 0.2,
+       "threshold": 0.5}
+# the random 36-way head's output layer: weights x4 (logits of std ~2.3);
+# then <B>'s bias is raised by the median gap to the other 35 logits'
+# maximum on the full batch (float32), so that p(<B>) is about a half on
+# the median frame and the argmax is <B> on about half the frames (the
+# random backbone's frames lie close together, so a fixed bias misses),
+# as the slice's x40 spreads its sigmoid
+SSL_OUT_SCALE = 4.0
+# ssl: batch 14 on the train phase's six 100 s talks (three micro-steps);
+# ctc: batch 4 on two of them with transcripts (three micro-steps)
+CTC_B, CTC_TALKS = 4, 2
+
+
+def ssl_outputs(model, batch, dev, dtype, mode: str):
+    """One batch through SHASWithSSL as the engine uploads and normalizes
+    it: p(<B>) on out_mask, the CTC logits and the frame logits (float32),
+    as numpy."""
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import (normalize_int16,
+                                                           upload)
+
+    backend.set_kernels(mode)
+    with torch.inference_mode():
+        out_mask = upload(batch.out_mask, dev)
+        audio = normalize_int16(upload(batch.audio, dev), batch.norm_length,
+                                upload(batch.included, dev))
+        ctc, frame = model(audio, upload(batch.in_lengths, dev), out_mask,
+                           dtype)
+        probs = torch.where(out_mask, torch.softmax(frame.float(), -1)[..., 0],
+                            0.0)
+        out = (probs.cpu().numpy(), ctc.float().cpu().numpy(),
+               frame.float().cpu().numpy())
+    backend.set_kernels("auto")
+    return out
+
+
+def ssl_train_run(dev, tmp: str, split: dict, task: dict, batch: int,
+                  mode: str, dtype: str) -> dict:
+    """One epoch of the port's loop on ``task`` (update_freq 1, seed 0, no
+    checkpoints), the launch counters reset just before: the loop's output
+    with ``grads`` (the first micro-step's, float32 copies), ``launches``
+    and ``peak_gb``."""
+    from wav2vecsegmenter_tpu_torch.config import Config, merge
+    from wav2vecsegmenter_tpu_torch.train.loop import train
+
+    config = merge(Config(), {
+        "exp_name": f"{task['loss']['tag']}_{mode}_{dtype}",
+        "batch_size": batch, "learning_rate": 2.5e-4, "max_epochs": 1,
+        "update_freq": 1, "segment_length": TRAIN_WINDOW,
+        "print_every_steps": 100, "save_ckpts": False, "task": task,
+        "data": {"train": split, "eval": split},
+        "runtime": {"device": dev.type, "compute_dtype": dtype,
+                    "kernels": mode, "seed": 0}})
+    grads = []
+
+    def on_step(metrics):
+        if not grads:
+            grads.extend(g.detach().float().clone() for g in metrics["grads"])
+
+    backend.reset_launch_counts()
+    zero = backend.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = train(config, work_dir=tmp, on_step=on_step)
+    backend.set_kernels("auto")
+    launches = backend.launch_counts()
+    if mode == "eager":
+        check(launches == zero, f"the eager {config.exp_name} run launched "
+                                f"kernels")
+    check(bool(np.isfinite(out["history"]["loss"]).all()),
+          f"non-finite loss in {config.exp_name}")
+    out.pop("model")
+    return {**out, "grads": grads, "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def run_ssl(dev) -> dict:
+    """The ssl phase: SHASWithSSL at the lv60-self width (24 layers) loaded
+    from a full-layout checkpoint of seeded random weights through the
+    inference CLIs' loader (``cli.common.load_model``); the segment path
+    with dac_logits and dac, kernels and eager; one full batch's fidelity
+    against the float32 plain path and its times; then three micro-steps
+    of task=shas_ssl (frozen backbone, batch 14) and of task=shas_ctc
+    (fine-tuned, batch 4) in three arms each.  Returns the launch counts
+    of the dac_logits segment run with the kernels."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as prof_
+
+    from wav2vecsegmenter_tpu_torch.cli.common import build_model, load_model
+    from wav2vecsegmenter_tpu_torch.config import Config
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
+    from wav2vecsegmenter_tpu_torch.models.shas import SHASWithSSL
+    from wav2vecsegmenter_tpu_torch.models.wav2vec2 import frame_lengths
+    from wav2vecsegmenter_tpu_torch.ops.timing import top_device_ops
+
+    t_phase = time.perf_counter()
+    batch = full_batch()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the checkpoint: seeded numpy weights in the reference's SSL full
+        # layout (wav2vec_model.model.wav2vec2.*, .lm_head.*, seg_model.*)
+        made, _ = build_model(SSL_TASK, dev)
+        init_from_numpy(made, seed=0)
+        out = made.seg_model.output_layer
+        with torch.no_grad():
+            out.weight.mul_(SSL_OUT_SCALE)
+            frame = ssl_outputs(made.eval(), batch, dev, torch.float32,
+                                "eager")[2][batch.out_mask]
+            b_bias = float(np.median(frame[:, 1:].max(-1) - frame[:, 0]))
+            out.bias[0] += b_bias
+        ckpt = Path(tmp) / "ssl.pt"
+        torch.save({"state_dict": made.state_dict()}, ckpt)
+        del made
+        model, vocab, _, _ = load_model(Config({
+            "task": SSL_TASK, "runtime": {"device": dev.type,
+                                          "kernels": "auto"}}), ckpt)
+    cfg = model.w2v_cfg
+    check(isinstance(model, SHASWithSSL) and cfg.num_layers == 24
+          and cfg.hidden_size == 1024 and cfg.num_heads == 16
+          and cfg.ffn_dim == 4096 and vocab.vocab_size == 36
+          and model.seg_model.output_layer.out_features == 36
+          and model.wav2vec_model.model.lm_head.out_features == 32,
+          "ssl: not SHASWithSSL at the lv60-self width")
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # the segment path: dac_logits and dac, kernels and eager
+    expected = batch_launches(model)
+    expected["layer_norm"] += 1  # the final encoder LayerNorm
+    with tempfile.TemporaryDirectory() as tmp:
+        secs = {"talk1.wav": 65.0, "talk2.wav": 41.0}
+        wavs = [Path(tmp) / name for name in secs]
+        for seed, w in enumerate(wavs):
+            write_talk(w, secs[w.name], seed)
+
+        def run(algo: dict, mode: str):
+            backend.set_kernels(mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = segment_wavs(model, wavs, algo, B, 20.0, 1, dev,
+                                torch.bfloat16, loss_tag="ssl", vocab=vocab)
+            torch.cuda.synchronize()
+            backend.set_kernels("auto")
+            return rows, (time.perf_counter() - t0) * 1e3
+
+        run(DAC_LOGITS, "auto")  # warm-up
+        run(DAC_LOGITS, "eager")
+        backend.reset_launch_counts()
+        rows = {("dac_logits", "auto"): run(DAC_LOGITS, "auto")}
+        counts = backend.launch_counts()
+        before = backend.launch_counts()
+        for algo in (DAC_LOGITS, DAC):
+            rows[algo["tag"], "eager"] = run(algo, "eager")
+        check(backend.launch_counts() == before,
+              "the eager ssl runs launched kernels")
+        rows["dac", "auto"] = run(DAC, "auto")
+        walls = {"dac_logits": [rows["dac_logits", "auto"][1]],
+                 "dac": [rows["dac", "auto"][1]]}
+        for tag in ("dac", "dac_logits", "dac_logits", "dac"):
+            walls[tag].append(run(DAC_LOGITS if tag == "dac_logits"
+                                  else DAC, "auto")[1])
+    for name, n in expected.items():
+        check(counts.get(name, 0) == n * SLICE_BATCHES,
+              f"ssl segment path: {name} launched {counts.get(name, 0)} "
+              f"times, not {n} a batch")
+
+    def marks(rs):
+        return [(r["offset"], r["duration"]) for r in rs]
+
+    segs = {f"{t}_{m}": len(r[0]) for (t, m), r in rows.items()}
+    for (t, m), r in rows.items():
+        check({x["wav"] for x in r[0]} == set(secs), f"ssl {t} {m}: a talk "
+                                                     f"got no segments")
+    diff = {t: boundary_diff(marks(rows[t, "auto"][0]),
+                             marks(rows[t, "eager"][0]))
+            for t in ("dac_logits", "dac")}
+
+    # fidelity: one full batch, bf16 kernels and bf16 plain against the
+    # float32 plain path
+    arms = {"kernels": ssl_outputs(model, batch, dev, torch.bfloat16, "auto"),
+            "eager": ssl_outputs(model, batch, dev, torch.bfloat16, "eager"),
+            "f32": ssl_outputs(model, batch, dev, torch.float32, "eager")}
+    mask = batch.out_mask
+    fl = frame_lengths(torch.from_numpy(batch.in_lengths), cfg).numpy()
+    valid = np.arange(arms["f32"][1].shape[1])[None, :] < fl[:, None]
+    fid = {}
+    fp, fc, ff = arms["f32"]
+    for arm in ("kernels", "eager"):
+        p, c, f = arms[arm]
+        check(bool(np.isfinite(p).all() and np.isfinite(c).all()),
+              f"ssl {arm}: non-finite outputs")
+        fid[arm] = {
+            "dprob": dprob_stats(np.abs(p - fp)[mask]),
+            "dctc": dprob_stats(np.abs(c - fc)[valid]),
+            "frame_argmax_agree": float(
+                (f.argmax(-1) == ff.argmax(-1))[mask].mean()),
+            "ctc_argmax_agree": float(
+                (c.argmax(-1) == fc.argmax(-1))[valid].mean())}
+    for key in ("dprob", "dctc"):
+        for q in ("mean", "p99"):
+            k, e = fid["kernels"][key][q], fid["eager"][key][q]
+            check(k <= KERNEL_SLACK * e, f"ssl kernels add error: {key} {q} "
+                                         f"{k} vs {e} on the plain path")
+    spread = {"b_bias": b_bias,
+              "p_b_f32_percentiles_1_50_99": [
+                  float(x) for x in np.percentile(fp[mask], [1, 50, 99])],
+              "argmax_b_share_f32": float(
+                  (ff.argmax(-1) == vocab.boundary_token_id)[mask].mean())}
+    del arms
+
+    # times: the batch through the engine, kernels and eager in turns
+    engine = WindowInference(model, dev, torch.bfloat16, loss_tag="ssl")
+
+    def once(mode):
+        backend.set_kernels(mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_batch(batch).numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        backend.set_kernels("auto")
+        return ms
+
+    ms = {"auto": [], "eager": []}
+    once("auto")
+    once("eager")
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("auto", "eager", "eager", "auto", "auto", "eager"):
+        ms[mode].append(once(mode))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    busy = device_busy_ms(lambda: engine.run_batch(batch).numpy(), 3)
+    with prof_(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        engine.run_batch(batch).numpy()
+    top_ops = top_device_ops(p, 12)
+    backend.reset_launch_counts()
+    engine.run_batch(batch).numpy()
+    per_batch = backend.launch_counts()
+    check(all(per_batch.get(k, 0) == n for k, n in expected.items()),
+          f"ssl batch launches {per_batch}, not {expected}")
+    phase("ssl", params=n_params, layers=cfg.num_layers,
+          segments=segs, boundaries_kernels_vs_eager=diff,
+          ms_segment_kernels=walls,
+          fidelity=fid, head=spread,
+          batch_ms_kernels=ms["auto"], batch_ms_eager=ms["eager"],
+          batch_device_busy_ms=busy, batch_top_device_ops=top_ops,
+          audio_per_wall_kernels=B * 20.0 / (np.median(ms["auto"]) / 1e3),
+          peak_mem_gb=peak, launches_segment=counts,
+          launches_batch=per_batch)
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # training: task=shas_ssl (frozen backbone) and task=shas_ctc
+    # (fine-tuned on transcripts), bf16 kernels / bf16 eager / float32 eager
+    train_out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ssl_dir, ctc_dir = Path(tmp) / "ssl", Path(tmp) / "ctc"
+        ssl_dir.mkdir()
+        ctc_dir.mkdir()
+        talks, segments = write_corpus(ssl_dir)
+        ssl_split = {"talk_list": talks, "segments_list": segments,
+                     "segment_length": TRAIN_WINDOW}
+        talks, segments = write_corpus(ctc_dir, CTC_TALKS, texts=True)
+        ctc_split = {"talk_list": talks, "segments_list": segments,
+                     "segment_length": TRAIN_WINDOW}
+        for tag, task, split, b in (("ssl", SSL_TASK, ssl_split, B),
+                                    ("ctc", CTC_TASK, ctc_split, CTC_B)):
+            runs = {arm: ssl_train_run(dev, tmp, split, task, b, mode, dt)
+                    for arm, mode, dt in (("kernels", "auto", "bfloat16"),
+                                          ("eager", "eager", "bfloat16"),
+                                          ("f32", "eager", "float32"))}
+            k = runs["kernels"]
+            want = ("layer_norm", "attention_packed", "attention_bthd", "ffn",
+                    "conv_bias_ln_gelu", "conv_audio_ln_gelu",
+                    "attention_bwd")
+            check(all(k["launches"].get(n, 0) > 0 for n in want)
+                  and k["launches"].get("layer_norm_bwd", 0)
+                  + k["launches"].get("layer_norm_bwd_no_dx", 0) > 0,
+                  f"{tag} training: a kernel of the path never launched: "
+                  f"{k['launches']}")
+            k_vs_f = grad_dist(k["grads"], runs["f32"]["grads"])
+            e_vs_f = grad_dist(runs["eager"]["grads"], runs["f32"]["grads"])
+            check(k_vs_f <= KERNEL_SLACK * e_vs_f,
+                  f"{tag} training: kernels' first gradients {k_vs_f} from "
+                  f"float32, the plain path's {e_vs_f}")
+            train_out[tag] = {
+                "batch": b, "micro_steps": k["steps_per_epoch"],
+                "loss": {a: r["history"]["loss"] for a, r in runs.items()},
+                "grad_dist_kernels_vs_f32": k_vs_f,
+                "grad_dist_eager_vs_f32": e_vs_f,
+                "ms_per_micro_step": {
+                    a: float(np.median(r["history"]["step_seconds"][1:]) * 1e3)
+                    for a, r in runs.items()},
+                "peak_gb": {a: r["peak_gb"] for a, r in runs.items()},
+                "eval": k["eval"], "launches": k["launches"]}
+            del runs
+            torch.cuda.empty_cache()
+    phase("ssl_train", **train_out, seconds=time.perf_counter() - t_phase)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2771,6 +3128,8 @@ def main() -> int:
     run_resume(dev)
     torch.cuda.empty_cache()
     lna = run_lna(dev)
+    torch.cuda.empty_cache()
+    counts_ssl = run_ssl(dev)
 
     def launches(name):
         # the LNA recipe's run: every kernel of the trainer's path; K2
@@ -2785,7 +3144,8 @@ def main() -> int:
          "launches": launches(name)[1], "launches_path": launches(name)[0],
          "launches_slice": counts.get(name, 0),
          "launches_train": counts_train.get(name, 0),
-         "launches_online": counts_online.get(name, 0), **kernels[name],
+         "launches_online": counts_online.get(name, 0),
+         "launches_ssl": counts_ssl.get(name, 0), **kernels[name],
          **({"function": lna["functions"][name]}
             if name in lna["functions"] else {})}
         for name, (src, rep) in SOURCES.items()]}))

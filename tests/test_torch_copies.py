@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's jax-free helpers, held equal to
 the originals: constants, frame conversions, window grids, wav reads,
-collation, the segmentation algorithms, the config composer and the CLIs'
-override helpers (sweeps, run directories, the online hop mode's knobs).
+collation (the CTC task's transcript tokens too), the vocabularies, the
+segmentation algorithms (pDAC with logits too), the config composer and the
+CLIs' override helpers (sweeps, run directories, the online hop mode's
+knobs).
 Equality is exact: the same arrays, the same segment lists, the same
 configs.
 """
@@ -20,6 +22,7 @@ from wav2vecsegmenter_tpu.core import frames as jframes
 from wav2vecsegmenter_tpu.core import windows as jwindows
 from wav2vecsegmenter_tpu.data import audio as jaudio
 from wav2vecsegmenter_tpu.data import collate as jcollate
+from wav2vecsegmenter_tpu.data import vocab as jvocab
 import wav2vecsegmenter_tpu_torch.algorithms as talgo
 import wav2vecsegmenter_tpu_torch.cli.common as tcommon
 import wav2vecsegmenter_tpu_torch.config as tconfig
@@ -28,6 +31,7 @@ from wav2vecsegmenter_tpu_torch.core import frames as tframes
 from wav2vecsegmenter_tpu_torch.core import windows as twindows
 from wav2vecsegmenter_tpu_torch.data import audio as taudio
 from wav2vecsegmenter_tpu_torch.data import collate as tcollate
+from wav2vecsegmenter_tpu_torch.data import vocab as tvocab
 
 from .helpers import make_speechlike_wav
 
@@ -108,6 +112,48 @@ def test_collate_equal(device_normalize):
             np.testing.assert_array_equal(a, b, err_msg=field.name)
         else:
             assert a == b, field.name
+
+
+def test_vocabularies_equal(tmp_path):
+    """The four special tokens, the embedded CTC char vocabulary offset by
+    them, a local vocab.json, and transcripts encoded (spaces to '|',
+    unknown characters to <unk>)."""
+    import json
+
+    assert tvocab.WAV2VEC2_CTC_CHAR_VOCAB == jvocab.WAV2VEC2_CTC_CHAR_VOCAB
+    path = tmp_path / "vocab.json"
+    path.write_text(json.dumps({"<pad>": 0, "|": 1, "A": 2, "<unk>": 3}))
+    for make in (lambda m: m.BaseVocabulary(),
+                 lambda m: m.UppercasedCharVocabulary(),
+                 lambda m: m.UppercasedCharVocabulary(str(path))):
+        got, want = make(tvocab), make(jvocab)
+        assert vars(got) == vars(want)
+    got, want = tvocab.UppercasedCharVocabulary(), \
+        jvocab.UppercasedCharVocabulary()
+    for text in ("hello  world", "It's 5 o'clock!", "", "  Zq x  "):
+        assert got.encode_transcript(text) == want.encode_transcript(text)
+
+
+@pytest.mark.parametrize("texts", [
+    ["HELLO WORLD", "", "ABCDEFGHIJKLMNOPQRSTUVWXYZ" * 3],
+    ["a b", "x"]])
+def test_collate_tokens_equal(texts):
+    """Transcript tokens padded with <PAD>, each row cut to its own conv
+    frame count (clamped at 0 for a window shorter than the receptive
+    field), and the targets padded with the vocabulary's <PAD>."""
+    rng = np.random.RandomState(2)
+    lengths = (16000, 300, 6000)[:len(texts)]
+    examples = [(rng.randn(n).astype(np.float32) * 0.1,
+                 np.ones(max(1, n // 320), np.float32), 0, n // 320)
+                for n in lengths]
+    kw = dict(pad_token_id=2, device_normalize=True, transcripts=texts)
+    got = tcollate.collate(examples, 4, 16000, 50, **kw,
+                           ctc_vocab=tvocab.UppercasedCharVocabulary())
+    want = jcollate.collate(examples, 4, 16000, 50, **kw,
+                            ctc_vocab=jvocab.UppercasedCharVocabulary())
+    assert got.tokens is not None and got.tokens.dtype == want.tokens.dtype
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_array_equal(got.target, want.target)
 
 
 def _probs(seed: int, n: int = 6000) -> np.ndarray:
@@ -205,3 +251,32 @@ def test_hop_conf_equal(overrides):
     want = jcommon.hop_conf(jconfig.compose(CONF, "online", overrides,
                                             resolve_interp=False))
     assert got == want
+
+
+@pytest.mark.parametrize("vocab", ["base", "char"])
+def test_pdac_with_logits_equal(vocab):
+    """argtrim, split_and_argtrim and pdac_with_logits over frame logits
+    whose argmax runs through <B> stretches, against the JAX copies."""
+    rows_t, rows_j = [], []
+    make = {"base": "BaseVocabulary", "char": "UppercasedCharVocabulary"}
+    tv = getattr(tvocab, make[vocab])()
+    jv = getattr(jvocab, make[vocab])()
+    for seed in range(3):
+        probs = _probs(seed, 3000)
+        rng = np.random.RandomState(seed)
+        logits = rng.randn(3000, tv.vocab_size)
+        logits[:, 0] += 4 * (probs < 0.3)  # <B> where the probs are low
+        got = talgo.pdac_with_logits(probs.copy(), logits.copy(), tv,
+                                     max_segment_length=8)
+        want = jalgo.pdac_with_logits(probs.copy(), logits.copy(), jv,
+                                      max_segment_length=8)
+        assert _spans(got) == _spans(want) and len(got) > 2
+        sgm = talgo.Segment(0, 3000, probs=probs, logits=logits)
+        jsgm = jalgo.Segment(0, 3000, probs=probs, logits=logits)
+        assert _spans([talgo.argtrim(sgm, tv)]) == _spans(
+            [jalgo.argtrim(jsgm, jv)])
+        assert _spans(talgo.split_and_argtrim(sgm, 1500, tv)) == _spans(
+            jalgo.split_and_argtrim(jsgm, 1500, jv))
+        talgo.update_yaml_content(rows_t, got, f"talk{seed}.wav")
+        jalgo.update_yaml_content(rows_j, want, f"talk{seed}.wav")
+    assert rows_t == rows_j

@@ -75,6 +75,7 @@ def test_chip_smoke_path_imports_no_jax_pandas_yaml(target):
                "wav2vecsegmenter_tpu_torch.train.loss, "
                "wav2vecsegmenter_tpu_torch.data.datasets, "
                "wav2vecsegmenter_tpu_torch.data.loader, "
+               "wav2vecsegmenter_tpu_torch.data.vocab, "
                "wav2vecsegmenter_tpu_torch.eval.metrics")
     out = _run(imports + """
 print(sorted(m for m in sys.modules if m.split(".")[0] in %r))

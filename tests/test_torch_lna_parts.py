@@ -342,7 +342,7 @@ def test_train_cli_lna_writes_a_full_checkpoint_jax_reads(tmp_path, corpus,
     saved = torch.load(out["checkpoint"], weights_only=True)["state_dict"]
     assert set(saved) == set(model.state_dict())
     assert {k.split(".")[4] for k in saved if ".ffn_adapter." in k} == {"1"}
-    fresh = tcommon.build_model(
+    fresh, _ = tcommon.build_model(
         {**yaml.safe_load(open("run/.hydra/config.yaml"))["task"]["model"]})
     init_from_numpy(fresh, seed=0)
     for key, value in fresh.state_dict().items():
@@ -415,7 +415,8 @@ def test_segment_cli_on_an_lna_checkpoint_equals_jax_cli(tmp_path,
     monkeypatch.setattr(helpers, "_tiny_builder", lambda **kwargs: _jax_lna(),
                         raising=False)
     monkeypatch.setattr(tcommon, "build_model",
-                        lambda conf, device=None: _port_lna().to(device))
+                        lambda conf, device=None: (_port_lna().to(device),
+                                                   None))
     common = [f"ckpt_path={tmp_path}/ckpt.pt",
               f"config_path={tmp_path}/train_config.yaml",
               f"infer_data.wav_dir={tmp_path}/wav",

@@ -48,14 +48,14 @@ def engines(workspace):
 
 
 class Counting:
-    """An engine that counts its batches."""
+    """An engine (either package's) that counts its batches."""
 
     def __init__(self, engine):
         self.engine, self.model, self.n_batches = engine, engine.model, 0
 
-    def run_batch(self, batch):
+    def run_batch(self, batch, *need_logits):
         self.n_batches += 1
-        return self.engine.run_batch(batch)
+        return self.engine.run_batch(batch, *need_logits)
 
 
 def _wavs(ws):

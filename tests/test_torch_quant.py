@@ -329,7 +329,8 @@ def test_serve_cli_int8_serves_the_quantized_engine(workspace, monkeypatch):
 
     ws = workspace
     monkeypatch.setattr(tcommon, "build_model",
-                        lambda conf, device=None: port_tiny().to(device))
+                        lambda conf, device=None: (port_tiny().to(device),
+                                                   None))
     _, [(config, _)] = tcommon.cli_jobs(serve.CONF_DIR, "serve", [
         f"ckpt_path={ws}/ckpt.pt", "segment_length=4", "algorithm=strm",
         "algorithm.max_segment_length=3", "+runtime.device=cpu", *INT8])

@@ -181,9 +181,13 @@ def test_losses_match_jax():
          "pos_weight": None, "ma_window": None, "reduction": "none"}, 0.8)
     assert tag == "bce" and ma == 0.0
     assert abs(loss_fn.pos_weight - 0.2) < 1e-12
+    # the multi-class losses build (tests/test_torch_ssl.py holds them);
+    # a target the port does not carry out raises
+    loss_fn, tag, _ = tloss.build_loss(
+        {"_target_": "torch.nn.CrossEntropyLoss", "tag": "ce"})
+    assert tag == "ce" and loss_fn.ignore_index == -100
     with pytest.raises(NotImplementedError):
-        tloss.build_loss({"_target_": "torch.nn.CrossEntropyLoss",
-                          "tag": "ce"})
+        tloss.build_loss({"_target_": "lib.loss.Other", "tag": "bce"})
 
 
 def test_dropout_mask_properties():

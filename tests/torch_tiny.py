@@ -91,7 +91,8 @@ def tiny_builders(monkeypatch):
     monkeypatch.setattr(helpers, "_tiny_builder",
                         lambda **kwargs: tiny_shas(), raising=False)
     monkeypatch.setattr(common, "build_model",
-                        lambda conf, device=None: port_tiny().to(device))
+                        lambda conf, device=None: (port_tiny().to(device),
+                                                   None))
 
 
 # each package's runtime: the JAX engine on its XLA path, the port on the
@@ -100,10 +101,12 @@ JAX_SIDE = ["runtime.kernels=xla"]
 PORT_SIDE = ["+runtime.device=cpu"]
 
 
-def offline_both(ws: Path, cli: str, extra: list) -> dict:
+def offline_both(ws: Path, cli: str, extra: list,
+                 algorithm: str = "pthr") -> dict:
     """{"jax": ..., "port": ...}: (rows, custom_segments.yaml bytes) of the
     ``segment`` or ``inference`` CLI of each package on a
-    :func:`cli_workspace`, 4 s windows at batch 3, pTHR, float32."""
+    :func:`cli_workspace`, 4 s windows at batch 3, ``algorithm`` (pTHR by
+    default), float32."""
     out = {}
     for side, pkg, own in (("jax", "wav2vecsegmenter_tpu", JAX_SIDE),
                            ("port", "wav2vecsegmenter_tpu_torch", PORT_SIDE)):
@@ -117,7 +120,69 @@ def offline_both(ws: Path, cli: str, extra: list) -> dict:
                      f"infer_data.wav_dir={ws}/wav",
                      f"infer_data.orig_seg_yaml={ws}/orig.yaml",
                      "inference_segment_length=4", "batch_size=3",
-                     "algorithm=pthr", "runtime.compute_dtype=float32",
+                     f"algorithm={algorithm}",
+                     "runtime.compute_dtype=float32",
                      *extra, *own])
         out[side] = (rows, (d / "custom_segments.yaml").read_bytes())
     return out
+
+
+# the multi-class SSL model (task=shas_ssl) at the tiny geometry: the JAX
+# spec's and the port's constructor kwargs
+SSL_KW = dict(n_transformer_enc_layers=1, n_transformer_enc_heads=4,
+              init_dropout=0.0)
+
+
+def jax_tiny_ssl(cfg=TINY_W2V, **kwargs):
+    """The JAX ``SHASWithSSL`` at ``cfg`` (its layers cut to
+    ``wav2vec_keep_layers`` where given)."""
+    from wav2vecsegmenter_tpu.models.shas import SHASWithSSL as JaxSSL
+
+    kwargs = {**SSL_KW, **kwargs}
+    model = JaxSSL(**kwargs)
+    keep = kwargs.get("wav2vec_keep_layers")
+    model.w2v_cfg = dataclasses.replace(
+        cfg, num_layers=min(keep or cfg.num_layers, cfg.num_layers))
+    model.d_model = cfg.hidden_size
+    return model
+
+
+def port_tiny_ssl(cfg=TINY_W2V, device=None, **kwargs):
+    """The port's ``SHASWithSSL`` at the geometry of :func:`jax_tiny_ssl`."""
+    from wav2vecsegmenter_tpu_torch.models.shas import SHASWithSSL
+
+    kwargs = {**SSL_KW, **kwargs}
+    keep = kwargs.get("wav2vec_keep_layers")
+    cfg = dataclasses.replace(
+        cfg, num_layers=min(keep or cfg.num_layers, cfg.num_layers))
+    return SHASWithSSL(**kwargs, device=device,
+                       w2v_cfg=Wav2Vec2Config(**dataclasses.asdict(cfg)))
+
+
+def ssl_params(model, seed: int = 0) -> dict:
+    """JAX ``init`` of an SSL spec as numpy, the final LayerNorm's scale and
+    bias drawn away from 1 and 0 so that the parity sees them."""
+    import numpy as np
+
+    params = jax.device_get(model.init(jax.random.PRNGKey(seed)))
+    rng = np.random.RandomState(seed)
+    d = model.d_model
+    params["final_ln"] = {
+        "scale": (1 + 0.2 * rng.randn(d)).astype(np.float32),
+        "bias": (0.1 * rng.randn(d)).astype(np.float32)}
+    return params
+
+
+def tiny_ssl_pair(ckpt_path, seed: int = 0, **kwargs):
+    """(JAX SSL spec, its params, the port's SSL model in eval mode) on the
+    same weights; the full-layout checkpoint is written to ``ckpt_path``."""
+    from wav2vecsegmenter_tpu_torch.checkpoints.convert import (
+        state_dict_from_jax_params)
+
+    jm = jax_tiny_ssl(**kwargs)
+    params = ssl_params(jm, seed)
+    model = port_tiny_ssl(**kwargs)
+    torch.save({"state_dict": state_dict_from_jax_params(params, model)},
+               str(ckpt_path))
+    load_reference_checkpoint(ckpt_path, model)
+    return jm, params, model.eval()

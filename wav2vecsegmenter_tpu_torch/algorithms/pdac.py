@@ -1,21 +1,22 @@
 """Probabilistic divide-and-conquer segmentation (pDAC).
 
-Contract matches reference lib/segment.py:186-235: recursively split a talk
+Contract matches reference lib/segment.py:186-286 (pdac,
+pdac_with_logits): recursively split a talk
 at the lowest-probability frame until every segment is under
 max_segment_length, skipping splits that would create a segment shorter than
 min_segment_length.  The recursion runs on the host with an explicit stack,
 so hour-long talks can't hit Python's recursion limit.
 
-The port's copy of ``pdac`` of ``wav2vecsegmenter_tpu/algorithms/pdac.py``
-(tests/test_torch_copies.py holds the two equal); ``pdac_with_logits``
-comes with the vocab heads.
+The port's copy of ``wav2vecsegmenter_tpu/algorithms/pdac.py``
+(tests/test_torch_copies.py holds the two equal).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .segment import Segment, split_and_trim, trim
+from .segment import (Segment, argtrim, split_and_argtrim, split_and_trim,
+                      trim)
 
 
 def pdac(
@@ -53,6 +54,42 @@ def pdac(
                 and sgm_b.duration > min_segment_length
             ):
                 # push right first so left is processed first (temporal order)
+                stack.append(sgm_b)
+                stack.append(sgm_a)
+                placed = True
+                break
+        if not placed:
+            segments.append(sgm)
+
+    return segments
+
+
+def pdac_with_logits(
+    probs: np.ndarray,
+    logits: np.ndarray,
+    vocab,
+    max_segment_length: float = 18,
+    min_segment_length: float = 0.2,
+) -> list[Segment]:
+    """pDAC using argmax-boundary trimming; split candidates visited in
+    *descending* probability (reference lib/segment.py:238-286)."""
+    segments: list[Segment] = []
+    root = argtrim(Segment(0, len(logits), probs=probs, logits=logits), vocab)
+
+    stack = [root]
+    while stack:
+        sgm = stack.pop()
+        if sgm.duration < max_segment_length:
+            segments.append(sgm)
+            continue
+        sorted_indices = np.argsort(sgm.probs)[::-1]
+        placed = False
+        for split_idx in sorted_indices:
+            sgm_a, sgm_b = split_and_argtrim(sgm, int(split_idx), vocab)
+            if (
+                sgm_a.duration > min_segment_length
+                and sgm_b.duration > min_segment_length
+            ):
                 stack.append(sgm_b)
                 stack.append(sgm_a)
                 placed = True

@@ -1,13 +1,12 @@
 """Segment primitive and trim operations.
 
-Behavioral contract follows reference lib/segment.py:13-134: a Segment
+Behavioral contract follows reference lib/segment.py:13-158: a Segment
 covers [start, end) in output-frame space (49.95 Hz); ``duration``/``offset``
 round to 6 decimals when converting to seconds.
 
-The port's copy of what pTHR, pDAC and pSTRM use of
+The port's copy of what pTHR, pDAC, pSTRM and pDAC-with-logits use of
 ``wav2vecsegmenter_tpu/algorithms/segment.py`` (tests/test_torch_copies.py
-holds the two equal); the argmax and soft trims come with the heads that
-need them.
+holds the two equal); the soft trims come with the synthetic-data tool.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ class Segment:
     start: float
     end: float
     probs: np.ndarray | None = None
+    logits: np.ndarray | None = None
     decimal: int = 6
 
     @property
@@ -49,6 +49,19 @@ def trim(sgm: Segment, threshold: float) -> Segment:
     return Segment(sgm.start + i, sgm.start + j, probs=sgm.probs[i:j])
 
 
+def argtrim(sgm: Segment, vocab) -> Segment:
+    """Shrink to the span between the first/last argmax-non-boundary frames
+    (reference lib/segment.py:56-78)."""
+    preds = np.argmax(sgm.logits, axis=-1)
+    included = np.where(preds != vocab.boundary_token_id)[0]
+    if not len(included):
+        return Segment(sgm.start, sgm.start, probs=np.empty([0]), logits=np.empty([0]))
+    i, j = included[0], included[-1] + 1
+    return Segment(
+        sgm.start + i, sgm.start + j, probs=sgm.probs[i:j], logits=sgm.logits[i:j]
+    )
+
+
 def split_and_trim(sgm: Segment, split_idx: int, threshold: float):
     """Split at split_idx (the split frame itself is dropped) and trim both
     halves (reference lib/segment.py:113-134)."""
@@ -57,3 +70,20 @@ def split_and_trim(sgm: Segment, split_idx: int, threshold: float):
     probs_b = sgm.probs[split_idx + 1 :]
     sgm_b = Segment(sgm_a.end + 1, sgm.end, probs=probs_b)
     return trim(sgm_a, threshold), trim(sgm_b, threshold)
+
+
+def split_and_argtrim(sgm: Segment, split_idx: int, vocab):
+    """As split_and_trim but with argmax trimming (reference lib/segment.py:137-158)."""
+    sgm_a = Segment(
+        sgm.start,
+        sgm.start + split_idx,
+        probs=sgm.probs[:split_idx],
+        logits=sgm.logits[:split_idx],
+    )
+    sgm_b = Segment(
+        sgm_a.end + 1,
+        sgm.end,
+        probs=sgm.probs[split_idx + 1 :],
+        logits=sgm.logits[split_idx + 1 :],
+    )
+    return argtrim(sgm_a, vocab), argtrim(sgm_b, vocab)

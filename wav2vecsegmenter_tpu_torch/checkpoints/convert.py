@@ -3,14 +3,21 @@
 * :func:`state_dict_from_jax_params` turns the JAX package's parameter tree
   (numpy leaves; linear weights [in, out], conv weights [k, in, out],
   layers stacked on a leading axis) into this package's state_dict — how
-  weights carry across for the parity tests.
+  weights carry across for the parity tests; ``SHAS``'s tree
+  ``{wav2vec, seg}`` and ``SHASWithSSL``'s ``{wav2vec, final_ln, lm_head,
+  seg}``.
 * :func:`load_reference_checkpoint` loads a reference ``.pt`` in both
   layouts (reference train.py:596-613): the full model
   (``wav2vec_model.model.*`` + ``seg_model.*``, with the FFN adapters of
   an LNA run's fine-tuned layers) or the SFC head only, whose backbone
   then comes from a local HF snapshot of the pretrained model (which has
-  no adapters: a model with them keeps theirs).  Module names follow those
-  keys, so loading is ``load_state_dict`` as is.
+  no adapters: a model with them keeps theirs).  ``SHASWithSSL``'s full
+  layout nests the backbone as HF ``Wav2Vec2ForCTC`` does
+  (``wav2vec_model.model.wav2vec2.*``, its final encoder LayerNorm, and
+  ``wav2vec_model.model.lm_head.*``); its head-only file takes all three
+  from a local ForCTC snapshot (JAX ``checkpoints/io.py:104-130``).
+  Module names follow those keys, so loading is ``load_state_dict`` as
+  is.
 """
 
 from __future__ import annotations
@@ -111,9 +118,19 @@ def _sfc_sd(p: dict, prefix: str) -> dict:
 
 
 def state_dict_from_jax_params(np_tree: dict, model) -> dict:
-    """JAX SHAS params ({'wav2vec': ..., 'seg': ...}, numpy leaves) -> the
-    state_dict of ``model`` (a port SHAS)."""
-    sd = _wav2vec_sd(np_tree["wav2vec"], "wav2vec_model.model.")
+    """JAX SHAS params ({'wav2vec': ..., 'seg': ...}) or SHASWithSSL params
+    ({'wav2vec', 'final_ln', 'lm_head', 'seg'}), numpy leaves -> the
+    state_dict of ``model`` (the port's counterpart)."""
+    if "lm_head" in np_tree:
+        ctc = "wav2vec_model.model."
+        sd = _wav2vec_sd(np_tree["wav2vec"], f"{ctc}wav2vec2.")
+        ln = np_tree["final_ln"]
+        sd[f"{ctc}wav2vec2.encoder.layer_norm.weight"] = _t(ln["scale"])
+        sd[f"{ctc}wav2vec2.encoder.layer_norm.bias"] = _t(ln["bias"])
+        sd[f"{ctc}lm_head.weight"] = _t(np.asarray(np_tree["lm_head"]["w"]).T)
+        sd[f"{ctc}lm_head.bias"] = _t(np_tree["lm_head"]["b"])
+    else:
+        sd = _wav2vec_sd(np_tree["wav2vec"], "wav2vec_model.model.")
     sd.update(_sfc_sd(np_tree["seg"], "seg_model."))
     for key, value in model.state_dict().items():
         if key.endswith(_OPTIONAL_KEYS):
@@ -164,10 +181,14 @@ def hf_local_snapshot(model_name: str) -> Path | None:
     return None
 
 
-def backbone_state_dict(model_dir: Path, num_layers: int) -> dict:
+def backbone_state_dict(model_dir: Path, num_layers: int,
+                        ctc: bool = False) -> dict:
     """HF Wav2Vec2Model / ForCTC weights -> the backbone's state_dict,
     truncated to ``num_layers`` encoder layers (the final encoder LayerNorm,
-    quantizer and heads are dropped, as the reference truncation does)."""
+    quantizer and heads are dropped, as the reference truncation does).
+    With ``ctc``, a ForCTC snapshot -> the ``_ForCTC`` state_dict of
+    ``SHASWithSSL``: the backbone under ``wav2vec2.`` with its final
+    encoder LayerNorm, and ``lm_head``."""
     if (model_dir / "model.safetensors").exists():
         from safetensors.torch import load_file
 
@@ -178,27 +199,35 @@ def backbone_state_dict(model_dir: Path, num_layers: int) -> dict:
     prefix = "wav2vec2." if any(k.startswith("wav2vec2.") for k in sd) else ""
     keep = re.compile(r"^(feature_extractor\.|feature_projection\."
                       r"|encoder\.pos_conv_embed\.|masked_spec_embed$"
-                      r"|encoder\.layers\.(\d+)\.)")
+                      r"|encoder\.layers\.(\d+)\."
+                      + (r"|encoder\.layer_norm\." if ctc else "") + ")")
+    sd = _rename_weight_norm(sd)
     out = {}
-    for k, v in _rename_weight_norm(sd).items():
+    for k, v in sd.items():
         if not k.startswith(prefix):
             continue
         k = k[len(prefix):]
         m = keep.match(k)
         if m and (m.group(2) is None or int(m.group(2)) < num_layers):
             out[k] = v
+    if not ctc:
+        return out
+    out = {f"wav2vec2.{k}": v for k, v in out.items()}
+    out.update({k: v for k, v in sd.items() if k.startswith("lm_head.")})
     return out
 
 
 def load_pretrained_backbone(model) -> bool:
-    """Load ``model``'s backbone from a local HF snapshot of
+    """Load ``model``'s backbone (``SHASWithSSL``'s: with its final encoder
+    LayerNorm and ``lm_head``) from a local HF snapshot of
     ``model.wav2vec_model_name``; False (nothing loaded) without one."""
     snap = hf_local_snapshot(model.wav2vec_model_name)
     if snap is None:
         return False
     logger.info("Loading wav2vec2 weights from %s", snap)
+    ctc = hasattr(model, "ctc_vocab_size")
     _load_strict(model.wav2vec_model.model,
-                 backbone_state_dict(snap, model.keep_layers),
+                 backbone_state_dict(snap, model.keep_layers, ctc),
                  adapters_optional=True)
     return True
 
@@ -206,7 +235,8 @@ def load_pretrained_backbone(model) -> bool:
 def load_reference_checkpoint(path, model, allow_random_wav2vec: bool = False):
     """Load a reference ``.pt`` (either layout) into ``model`` in place.
 
-    A seg-only file takes the backbone from a local HF snapshot of
+    A seg-only file takes the backbone (for ``SHASWithSSL`` also the final
+    encoder LayerNorm and ``lm_head``) from a local HF snapshot of
     ``model.wav2vec_model_name``; without one it raises unless
     ``allow_random_wav2vec``, which keeps a seeded random backbone."""
     ckpt = torch.load(str(path), map_location="cpu", weights_only=True)

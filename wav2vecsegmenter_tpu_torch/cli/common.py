@@ -23,11 +23,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..algorithms import pdac, pthr, strm, update_yaml_content
+from ..algorithms import (pdac, pdac_with_logits, pthr, strm,
+                          update_yaml_content)
+from ..data.vocab import BaseVocabulary, UppercasedCharVocabulary
 from ..data.windows import BatchIterator, FixedSegmentationDatasetNoTarget
 from ..infer.packing import PackedSweep
-from ..infer.pipeline import WindowInference, collect_talk, dispatch_talk
-from ..models.shas import SHAS
+from ..infer.pipeline import (WindowInference, collect_talk, dispatch_talk,
+                              talk_logits_array)
+from ..models.shas import SHAS, SHASWithSSL
 
 logger = logging.getLogger("wav2vecsegmenter_tpu_torch")
 
@@ -198,16 +201,59 @@ def runtime_device_dtype(device: str = "cuda",
     return device, torch.bfloat16
 
 
-def build_model(model_conf: dict, device=None) -> SHAS:
-    """SHAS from a task config's ``model`` node (``_target_`` dropped)."""
-    kwargs = {k: v for k, v in dict(model_conf).items() if k != "_target_"}
-    return SHAS(**kwargs, device=device)
+# the reference's model targets (conf/task/*.yaml) -> the port's classes, as
+# the JAX package's config/registry aliases them; the reference's shas_ctc
+# task names a class it never defined, which the JAX package maps to the
+# CTC-capable SSL model
+MODELS = {
+    "lib.models.SHAS": SHAS,
+    "lib.models.SHASWithSSL": SHASWithSSL,
+    "lib.models.SHASWithCTC": SHASWithSSL,
+}
+UNPORTED_MODELS = {"lib.models.AutoRegSegmenter": "A9 (autoreg)"}
+VOCABS = {
+    "lib.datautils.BaseVocabulary": BaseVocabulary,
+    "lib.datautils.UppercasedCharVocabulary": UppercasedCharVocabulary,
+}
+
+
+def build_model(task: dict, device=None):
+    """(model, vocab) from a task config node (``model``, and ``vocab`` where
+    the task sets one) or from a bare ``model`` node, as the JAX
+    ``build_model``: the vocabulary is instantiated and its size injected
+    as the model's ``vocab_size``; the model class follows ``_target_``
+    (:data:`MODELS`, ``lib.models.SHAS`` when there is none).  A target
+    the port does not carry out raises ``NotImplementedError`` naming
+    it."""
+    task = dict(task)
+    node = dict(task["model"]) if "model" in task else task
+    vocab = None
+    vocab_conf = task.get("vocab") if "model" in task else None
+    if vocab_conf:
+        vocab_conf = dict(vocab_conf)
+        vtarget = vocab_conf.pop("_target_", None)
+        if vtarget not in VOCABS:
+            raise NotImplementedError(
+                f"task.vocab._target_={vtarget} is not ported (only "
+                f"{', '.join(VOCABS)})")
+        vocab = VOCABS[vtarget](**vocab_conf)
+        node["vocab_size"] = vocab.vocab_size
+    target = node.pop("_target_", "lib.models.SHAS")
+    if target in UNPORTED_MODELS:
+        raise NotImplementedError(
+            f"task.model._target_={target} is not ported; ROADMAP "
+            f"{UNPORTED_MODELS[target]} ports it")
+    if target not in MODELS:
+        raise NotImplementedError(
+            f"task.model._target_={target} is not ported (only "
+            f"{', '.join(MODELS)})")
+    return MODELS[target](**node, device=device), vocab
 
 
 def load_model(config, ckpt_path):
     """The task's model with the checkpoint at ``ckpt_path`` loaded, in eval
     mode on the runtime's device, after the runtime's kernel mode is set:
-    (model, device, compute dtype)."""
+    (model, vocab, device, compute dtype)."""
     from ..checkpoints.convert import load_reference_checkpoint
     from ..config import to_plain
     from ..ops.backend import set_kernels
@@ -216,11 +262,11 @@ def load_model(config, ckpt_path):
     set_kernels(rt.get("kernels", "auto"))
     device, dtype = runtime_device_dtype(
         rt.get("device", "cuda"), rt.get("compute_dtype", "bfloat16"))
-    model = build_model(to_plain(config.task.model), device)
+    model, vocab = build_model(to_plain(config.task), device)
     load_reference_checkpoint(
         ckpt_path, model,
         allow_random_wav2vec=bool(config.get("allow_random_wav2vec", False)))
-    return model.eval(), device, dtype
+    return model.eval(), vocab, device, dtype
 
 
 def hop_conf(config) -> dict:
@@ -246,11 +292,15 @@ def wavs_from_yaml(config) -> list[Path]:
             for wav, _ in itertools.groupby(seg_yaml, key=lambda x: x["wav"])]
 
 
-def run_algorithm(tag: str, algo_conf: dict, probs: np.ndarray):
-    """Algorithm dispatch (reference segment.py:107-119) for the bce head."""
+def run_algorithm(tag: str, algo_conf: dict, probs: np.ndarray,
+                  logits: np.ndarray | None = None, vocab=None):
+    """Algorithm dispatch (reference segment.py:107-119); ``dac_logits``
+    trims on the argmax of the talk's frame logits over ``vocab``."""
     conf = {k: v for k, v in algo_conf.items() if k != "tag"}
     if tag == "dac":
         return pdac(probs, **conf)
+    if tag == "dac_logits":
+        return pdac_with_logits(probs, logits, vocab, **conf)
     if tag == "strm":
         return strm(probs, **conf)
     if tag == "pthr":
@@ -264,7 +314,8 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
                  talk_probs: dict | None = None,
                  read_seconds: list | None = None,
                  precision: str | None = None, quantize: str | None = None,
-                 pack_across_talks: bool = False) -> list[dict]:
+                 pack_across_talks: bool = False, loss_tag: str = "bce",
+                 vocab=None) -> list[dict]:
     """The product loop: per wav, multi-pass sliding-window inference,
     probability averaging, the segmentation algorithm, yaml rows.
 
@@ -280,15 +331,20 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
     windows of consecutive talks into full batches
     (``infer.packing.PackedSweep``) with two talks dispatched ahead: a
     talk's last batch fills only with the next talk's windows.
+    ``loss_tag`` is the task's (the engine's probability) and ``vocab`` its
+    vocabulary; ``dac_logits`` downloads and stitches the frame logits,
+    summed over the passes, and no other algorithm does.
     """
     algorithm = dict(algorithm)
     tag = algorithm.pop("tag")
+    need_logits = tag == "dac_logits"
     engine = WindowInference(model, device, compute_dtype, precision,
-                             quantize)
+                             quantize, loss_tag)
     packer = None
     if pack_across_talks:
         packer = PackedSweep(engine, batch_size, float(segment_length),
-                             pin_memory=engine.device.type == "cuda")
+                             pin_memory=engine.device.type == "cuda",
+                             need_logits=need_logits)
         logger.info("pack_across_talks enabled")
 
     def dispatch_one(wav_path):
@@ -303,7 +359,7 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
             batches = BatchIterator(dataset, batch_size, float(segment_length),
                                     remainder_ladder=remainder_ladder,
                                     pin_memory=engine.device.type == "cuda")
-            passes.append(dispatch_talk(engine, batches))
+            passes.append(dispatch_talk(engine, batches, need_logits))
             if read_seconds is not None:
                 read_seconds.extend(batches.read_seconds)
         return {"wav": wav_path, "dataset": dataset, "passes": passes,
@@ -315,18 +371,26 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
     def drain_one(h):
         nonlocal yaml_content, total_audio_secs
         dataset = h["dataset"]
-        probs = None
+        probs = logits = None
         for pending in h["passes"]:
+            lg = None
+            if need_logits:
+                lg = talk_logits_array(model.vocab_size,
+                                       dataset.duration_outframes)
             if packer is not None:
-                p = packer.drain_unit(pending, dataset.duration_outframes)
+                p = packer.drain_unit(pending, dataset.duration_outframes,
+                                      lg)
             else:
-                p = collect_talk(pending, dataset.duration_outframes)
+                p = collect_talk(pending, dataset.duration_outframes,
+                                 talk_logits=lg)
             probs = p if probs is None else probs + p
+            if need_logits:
+                logits = lg if logits is None else logits + lg
         probs /= inference_times
         name = Path(h["wav"]).name
         if talk_probs is not None:
             talk_probs[name] = probs
-        segments = run_algorithm(tag, algorithm, probs)
+        segments = run_algorithm(tag, algorithm, probs, logits, vocab)
         yaml_content = update_yaml_content(yaml_content, segments, name)
         secs = dataset.duration_inframes / 16000
         total_audio_secs += secs

@@ -73,10 +73,10 @@ def build_engine(config) -> tuple[WindowInference, dict]:
         raise NotImplementedError(
             f"online serving needs a causal algorithm (strm/pthr), got "
             f"'{tag}' — pDAC needs the whole talk; use the offline CLIs")
-    model, device, dtype = common.load_model(config, config.ckpt_path)
+    model, _, device, dtype = common.load_model(config, config.ckpt_path)
     rt = config.get("runtime") or {}
     engine = WindowInference(model, device, dtype, rt.get("precision"),
-                             rt.get("quantize"))
+                             rt.get("quantize"), config.task.loss.tag)
     return engine, {"segment_length": float(config.segment_length),
                     "algorithm": tag, **common.hop_conf(config), **algo_conf}
 

@@ -46,7 +46,7 @@ def segment_to_yaml(config, ckpt_path, wav_paths: list[Path],
     output_dir.mkdir(parents=True, exist_ok=True)
     common.init_logging()
     rt = config.get("runtime") or {}
-    model, device, dtype = common.load_model(config, ckpt_path)
+    model, vocab, device, dtype = common.load_model(config, ckpt_path)
 
     yaml_content = common.segment_wavs(
         model, wav_paths, to_plain(config.algorithm),
@@ -54,7 +54,8 @@ def segment_to_yaml(config, ckpt_path, wav_paths: list[Path],
         int(config.inference_times), device, dtype,
         remainder_ladder=bool(rt.get("infer_remainder_ladder", True)),
         precision=rt.get("precision"), quantize=rt.get("quantize"),
-        pack_across_talks=bool(rt.get("pack_across_talks", False)))
+        pack_across_talks=bool(rt.get("pack_across_talks", False)),
+        loss_tag=config.task.loss.tag, vocab=vocab)
 
     common.logger.info("Number of segments: %d", len(yaml_content))
     out = output_dir / config.cust_seg_yaml

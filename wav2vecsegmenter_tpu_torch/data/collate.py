@@ -15,7 +15,8 @@ Batches shorter than ``batch_size`` are padded with empty rows
 
 The port's copy of ``Batch``, ``collate`` and ``out_len_for`` of
 ``wav2vecsegmenter_tpu/data/collate.py`` (tests/test_torch_copies.py holds
-the two equal); the CTC and autoregressive batches come with their heads.
+the two equal), the CTC task's transcript tokens included; the
+autoregressive batch comes with its head.
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ class Batch:
     device_normalize: bool = False
     # real example rows (the rest are static-shape padding)
     n_real: int = 0
+    # CTC task: encoded window transcripts [B, U_static] (vocab ids, padded
+    # with the vocab pad id) — None for every other task
+    tokens: np.ndarray | None = None
 
 
 def collate(
@@ -51,6 +55,8 @@ def collate(
     out_len: int,
     pad_token_id: float = 0.0,
     device_normalize: bool = False,
+    transcripts: list[str] | None = None,
+    ctc_vocab=None,
 ) -> Batch:
     """examples: list of (waveform, target|None, start, end) numpy tuples.
 
@@ -116,9 +122,30 @@ def collate(
             # shrinking the widest rows' key set in the seg-head attention
             out_mask[:, size2 - 1 :] = False
 
+    # CTC targets: encoded transcripts, statically padded to the bucket's
+    # output-frame count.  Each row truncates to ITS OWN logit length
+    # (conv_output_length of the row's real audio, the same arithmetic the
+    # ctc step uses) — capping at the bucket-wide out_len would let a short
+    # row in a long bucket carry U > T labels, an infeasible CTC sequence
+    # whose ~|log_epsilon| loss poisons the batch mean silently (torch
+    # surfaces inf there).  Over-long transcripts indicate a window far too
+    # short for its text; truncation bounds the damage to that row.
+    tokens = None
+    if transcripts is not None and ctc_vocab is not None:
+        tokens = np.full((batch_size, out_len), ctc_vocab.pad_token_id,
+                         np.int32)
+        for i, text in enumerate(transcripts):
+            # clamp at 0: a window shorter than the conv receptive field
+            # (~400 samples) yields a negative conv_output_length, and a
+            # negative flen would slice labels off the END instead of
+            # truncating to empty — recreating the U > T infeasible row
+            flen = max(0, min(out_len, int(conv_output_length(in_lengths[i]))))
+            ids = ctc_vocab.encode_transcript(text)[:flen]
+            tokens[i, : len(ids)] = ids
+
     return Batch(audio, in_lengths, target, out_mask, included, starts, ends,
                  norm_length=norm_length, device_normalize=device_normalize,
-                 n_real=n)
+                 n_real=n, tokens=tokens)
 
 
 def out_len_for(audio_len: int) -> int:

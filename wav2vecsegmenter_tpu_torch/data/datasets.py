@@ -8,8 +8,10 @@ contracts are the SHAS data prep's (reference lib/dataset.py:36-41):
 ``segments.tsv`` with an index column and (talk_id, start, end) in
 input-space frames.  Target construction replicates lib/dataset.py:68-144
 (per-talk binary frame vector -> per-window (start, end) spans in output
-space, with the overlap bump).  Talk ids are kept as strings.  The CTC
-task's transcript column is not read yet.
+space, with the overlap bump).  Talk ids are kept as strings.  An optional
+``tgt_text`` column of ``segments.tsv`` carries the CTC task's transcripts
+(JAX ``data/datasets.py``: each window's transcript joins the texts of the
+true segments it fully contains).
 """
 
 from __future__ import annotations
@@ -37,9 +39,45 @@ class SegmentationCorpus:
                       for r in _read_tsv(talk_list)]
         self._by_id = {t["id"]: t for t in self.talks}
         self._segments: dict[str, list[tuple[int, int]]] = {}
-        for r in _read_tsv(segments_list):
+        rows = _read_tsv(segments_list)
+        for r in rows:
             self._segments.setdefault(r["talk_id"], []).append(
                 (int(float(r["start"])), int(float(r["end"]))))
+        # transcripts for the CTC task: the reference left them unloaded
+        # (lib/dataset.py:45 "[TODO] load self.tgt_text")
+        self.has_text = bool(rows) and "tgt_text" in rows[0]
+        # talk_id -> start-sorted (starts, ends, texts), one binary search
+        # per window
+        self._text_index: dict = {}
+        if self.has_text:
+            by_talk: dict = {}
+            for r in rows:
+                by_talk.setdefault(r["talk_id"], []).append(
+                    (int(float(r["start"])), int(float(r["end"])),
+                     (r["tgt_text"] or "").strip()))
+            for tid, segs in by_talk.items():
+                segs.sort(key=lambda x: x[0])
+                self._text_index[tid] = (np.array([x[0] for x in segs]),
+                                         np.array([x[1] for x in segs]),
+                                         [x[2] for x in segs])
+
+    def window_transcript(self, talk_id, start: int, end: int) -> str:
+        """Transcript of the window [start, end) in input-space frames: the
+        texts of the true segments fully contained in the window, joined by
+        spaces (a partly overlapping segment's text covers audio outside
+        the window, so it is left out)."""
+        entry = self._text_index.get(talk_id)
+        if entry is None:
+            return ""
+        starts, ends, texts = entry
+        lo = int(np.searchsorted(starts, start, side="left"))
+        out = []
+        for i in range(lo, len(starts)):
+            if starts[i] > end:
+                break
+            if ends[i] <= end and texts[i]:
+                out.append(texts[i])
+        return " ".join(out)
 
     def talk_ids(self) -> list[str]:
         return [t["id"] for t in self.talks]
@@ -95,6 +133,8 @@ class _GridDataset:
         self.corpus = corpus
         # rows: (talk_id, path, start_in, end_in, spans)
         self.rows: list = []
+        # parallel to rows when the corpus carries tgt_text (CTC task)
+        self.transcripts: list[str] = []
         self.n_pos = 0
         self.n_all = 0
         # set by the fixed grid (talk-sequential access); the random
@@ -109,6 +149,14 @@ class _GridDataset:
             self.rows.append((talk_id, path, int(s), int(e), spans))
             self.n_pos += sum(ee - ss for ss, ee in spans)
             self.n_all += int(inframes_to_outframes(e - s))
+            if self.corpus.has_text:
+                self.transcripts.append(
+                    self.corpus.window_transcript(talk_id, int(s), int(e)))
+
+    def transcript(self, idx: int) -> str:
+        """The window's transcript for the CTC task ('' without a
+        tgt_text column)."""
+        return self.transcripts[idx] if self.transcripts else ""
 
     @property
     def pos_class_percentage(self) -> float:
@@ -157,7 +205,7 @@ class FixedSegmentationDataset(_GridDataset):
         self._wav_cache = WaveformCache(2)
 
     def generate_fixed_segments(self, talk_id, iteration: int) -> None:
-        self.rows = []
+        self.rows, self.transcripts = [], []
         total = self.corpus.talk_row(talk_id)["total_frames"]
         self.duration_outframes = int(inframes_to_outframes(total))
         starts, ends = fixed_window_grid(total, self.segment_length,
@@ -165,7 +213,7 @@ class FixedSegmentationDataset(_GridDataset):
         self._add_talk_windows(talk_id, starts, ends)
 
     def generate_fixed_segments_all_talks(self, iteration: int) -> None:
-        self.rows = []
+        self.rows, self.transcripts = [], []
         for talk in self.corpus.talks:
             starts, ends = fixed_window_grid(
                 talk["total_frames"], self.segment_length,

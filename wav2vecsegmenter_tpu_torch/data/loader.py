@@ -5,7 +5,9 @@ Counterpart of the generators of ``wav2vecsegmenter_tpu/data/loader.py``
 (``data.datasets``) and its ``BatchIterator`` (``data.windows``), which
 reads ahead on a thread pool and, with ``pin_memory``, leaves each
 batch's audio in pinned host memory.  Batches carry raw int16 audio for
-normalization on the device, and the windows' targets.
+normalization on the device, and the windows' targets; with a ``vocab``
+(the multi-class tasks) the targets are padded with its ``<PAD>`` id, and
+with ``ctc`` the batches carry the windows' encoded transcripts.
 """
 
 from __future__ import annotations
@@ -16,6 +18,13 @@ from .datasets import FixedSegmentationDataset, RandomSegmentationDataset
 from .windows import BatchIterator
 
 
+def _vocab_kwargs(vocab, ctc: bool) -> dict:
+    """``BatchIterator``'s target pad and transcript vocabulary, as the JAX
+    generators pass them."""
+    return {"pad_token_id": vocab.pad_token_id if vocab else 0.0,
+            "ctc_vocab": vocab if ctc else None}
+
+
 class RandomDataloaderGenerator:
     """Per-epoch random resegmentation (reference lib/dataset.py:671-734):
     each ``generate`` draws the next epoch seed, which seeds both the
@@ -23,7 +32,10 @@ class RandomDataloaderGenerator:
 
     def __init__(self, talk_list, segments_list, segment_length, batch_size,
                  seed: int | None = None,
-                 pin_memory: bool = False) -> None:
+                 pin_memory: bool = False, vocab=None,
+                 ctc: bool = False) -> None:
+        self.vocab = vocab
+        self.ctc = ctc
         self.talk_list = talk_list
         self.segments_list = segments_list
         self.segment_length = segment_length
@@ -44,7 +56,8 @@ class RandomDataloaderGenerator:
         return BatchIterator(self.dataset, self.batch_size,
                              float(self.segment_length),
                              remainder_ladder=False, shuffle=True, seed=seed,
-                             pin_memory=self.pin_memory)
+                             pin_memory=self.pin_memory,
+                             **_vocab_kwargs(self.vocab, self.ctc))
 
 
 class FixedDataloaderGenerator:
@@ -54,7 +67,10 @@ class FixedDataloaderGenerator:
     def __init__(self, talk_list, segments_list, segment_length, batch_size,
                  inference_times: int = 1,
                  remainder_ladder: bool = False,
-                 pin_memory: bool = False) -> None:
+                 pin_memory: bool = False, vocab=None,
+                 ctc: bool = False) -> None:
+        self.vocab = vocab
+        self.ctc = ctc
         self.batch_size = batch_size
         self.segment_length = segment_length
         self.remainder_ladder = remainder_ladder
@@ -71,7 +87,8 @@ class FixedDataloaderGenerator:
         return BatchIterator(self.dataset, self.batch_size,
                              float(self.segment_length),
                              remainder_ladder=self.remainder_ladder,
-                             pin_memory=self.pin_memory)
+                             pin_memory=self.pin_memory,
+                             **_vocab_kwargs(self.vocab, self.ctc))
 
     def get_talk_ids(self) -> list:
         return self.dataset.corpus.talk_ids()

@@ -6,7 +6,9 @@ seeded shuffle (wav2vecsegmenter_tpu/data/loader.py), which import pandas;
 this module needs none.  The window grid, wav decoding and collation
 are the port's own copies (``core.windows``, ``data.audio``,
 ``data.collate``).  Batches come in window order or in the seeded shuffled
-order; the examples' targets, where a dataset has them, go into the batch.
+order; the examples' targets, where a dataset has them, go into the batch,
+padded with ``pad_token_id`` (a vocabulary's ``<PAD>`` for the multi-class
+tasks), and with ``ctc_vocab`` the windows' encoded transcripts.
 
 The batches are read and collated ahead of the consumer, as the JAX
 loader reads them: a producer thread maps ``dataset.__getitem__`` over each
@@ -85,7 +87,8 @@ class BatchIterator:
 
     def __init__(self, dataset, batch_size: int, segment_length_secs: float,
                  remainder_ladder: bool = True, shuffle: bool = False,
-                 seed: int | None = None, pin_memory: bool = False) -> None:
+                 seed: int | None = None, pin_memory: bool = False,
+                 pad_token_id: float = 0.0, ctc_vocab=None) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.std_len, self.tail_len = audio_bucket_lengths(segment_length_secs)
@@ -93,6 +96,10 @@ class BatchIterator:
         self.shuffle = shuffle
         self.seed = seed
         self.pin_memory = pin_memory
+        self.pad_token_id = pad_token_id
+        # CTC task: the windows' transcripts (``dataset.transcript``),
+        # encoded into the batch's tokens
+        self.ctc_vocab = ctc_vocab
         self.read_seconds: list[float] = []
 
     def __len__(self) -> int:
@@ -115,11 +122,16 @@ class BatchIterator:
         return [order[i:i + self.batch_size]
                 for i in range(0, len(order), self.batch_size)]
 
-    def _collate(self, examples):
+    def _collate(self, examples, idx):
         longest = max(len(ex[0]) for ex in examples)
         audio_len = self.std_len if longest <= self.std_len else self.tail_len
+        transcripts = None
+        if self.ctc_vocab is not None:
+            transcripts = [self.dataset.transcript(int(j)) for j in idx]
         batch = collate(examples, self._slots_for(len(examples)), audio_len,
-                        out_len_for(audio_len), device_normalize=True)
+                        out_len_for(audio_len), self.pad_token_id,
+                        device_normalize=True, transcripts=transcripts,
+                        ctc_vocab=self.ctc_vocab)
         if self.pin_memory:  # the numpy view keeps the pinned tensor alive
             batch.audio = torch.from_numpy(batch.audio).pin_memory().numpy()
         return batch
@@ -127,7 +139,7 @@ class BatchIterator:
     def _serial_batches(self):
         """The same batches, read and collated in the caller's thread."""
         for idx in self._index_batches():
-            yield self._collate([self.dataset[j] for j in idx])
+            yield self._collate([self.dataset[j] for j in idx], idx)
 
     def __iter__(self):
         idx_batches = self._index_batches()
@@ -156,7 +168,8 @@ class BatchIterator:
                             return
                         t0 = time.perf_counter()
                         batch = self._collate(
-                            list(pool.map(self.dataset.__getitem__, idx)))
+                            list(pool.map(self.dataset.__getitem__, idx)),
+                            idx)
                         read_seconds.append(time.perf_counter() - t0)
                         if not put_or_stop(batch):
                             return

@@ -8,7 +8,8 @@ buffers shared across talks, one per audio bucket (standard and tail,
 is collated (int16, normalized on the device) and launched whenever a
 buffer fills.  ``drain_unit`` flushes the buffer still holding a unit's
 rows, padded to the batch size, and scatters each row back into its own
-talk (``infer.pipeline.stitch_row``, then ``nan_fill``).
+talk (``infer.pipeline.stitch_row``, then ``nan_fill``); with
+``need_logits`` (``dac_logits``) the frame logits too.
 
 Why it is opt-in: the reference normalizes each window over the batch's
 longest window (lib/datautils.py:120-125), so a window that shares a batch
@@ -52,8 +53,9 @@ class PackedSweep:
     engine) collates each batch's audio into pinned host memory."""
 
     def __init__(self, engine, batch_size: int, segment_length_secs: float,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, need_logits: bool = False):
         self.engine = engine
+        self.need_logits = need_logits
         self.batch_size = batch_size
         self.pin_memory = pin_memory
         self.std_len, self.tail_len = audio_bucket_lengths(segment_length_secs)
@@ -86,14 +88,18 @@ class PackedSweep:
                         out_len_for(audio_len), device_normalize=True)
         if self.pin_memory:  # the numpy view keeps the pinned tensor alive
             batch.audio = torch.from_numpy(batch.audio).pin_memory().numpy()
-        record = {"handle": self.engine.run_batch(batch), "batch": batch,
-                  "units": [u for u, _ in buf], "probs": None}
+        record = {"handle": self.engine.run_batch(batch, self.need_logits),
+                  "batch": batch, "units": [u for u, _ in buf],
+                  "probs": None, "logits": None}
         for u in set(record["units"]):
             u.records.append(record)
 
-    def drain_unit(self, unit: Unit, duration_outframes: int) -> np.ndarray:
+    def drain_unit(self, unit: Unit, duration_outframes: int,
+                   talk_logits: np.ndarray | None = None) -> np.ndarray:
         """Flush any buffer still holding the unit's windows, then stitch
-        its rows into the talk's frame probabilities, gaps filled."""
+        its rows into the talk's frame probabilities, gaps filled; with
+        ``need_logits``, its logits into ``talk_logits``
+        (``pipeline.talk_logits_array``), gaps filled too."""
         for audio_len, buf in list(self._buffers.items()):
             if any(u is unit for u, _ in buf):
                 self._flush(audio_len)
@@ -102,14 +108,19 @@ class PackedSweep:
         for record in unit.records:
             if record["probs"] is None:
                 record["probs"] = record["handle"].numpy()
+                record["logits"] = record["handle"].logits()
             for i, u in enumerate(record["units"]):
                 if u is unit:
                     n_scattered += 1
                     stitch_row(talk_probs, record["batch"], i,
-                               record["probs"], duration_outframes)
+                               record["probs"], duration_outframes,
+                               talk_logits=talk_logits,
+                               logits=record["logits"])
         assert n_scattered == unit.n_windows, (n_scattered, unit.n_windows)
         unit.records = []
         nan_fill(talk_probs, duration_outframes)
+        if talk_logits is not None:
+            nan_fill(talk_logits, duration_outframes)
         return talk_probs
 
     def close(self) -> None:

@@ -1,12 +1,17 @@
 """Batched sliding-window inference: wav windows -> stitched talk probs.
 
-Counterpart of ``wav2vecsegmenter_tpu/infer/pipeline.py`` for the bce
-(sigmoid) head.  An offline batch uploads its raw int16 samples, is
+Counterpart of ``wav2vecsegmenter_tpu/infer/pipeline.py``.  The engine
+knows its task's loss tag: the bce head's probability is the sigmoid of
+its logit; the multi-class heads' (``ce``, ``ssl``, ``ctc``) is the
+softmax's p(``<B>``), token 0; ``SHASWithSSL``'s CTC logits are not
+downloaded.  An offline batch uploads its raw int16 samples, is
 normalized on the device (reference lib/datautils.py:120-125: mean and
 ddof=1 std over the batch's longest window, rows with zero std and
 excluded rows zeroed), runs the model, and downloads only the [B, T]
-probabilities: a ``non_blocking`` copy into pinned host memory followed by
-a CUDA event, so the host goes on dispatching while the copy is in flight.
+probabilities (and, when the caller asks, the [B, T, V] frame logits for
+``dac_logits``): a ``non_blocking`` copy into pinned host memory followed
+by a CUDA event, so the host goes on dispatching while the copy is in
+flight.
 An online batch (``infer.online``) arrives normalized on the host by
 ``collate`` and uploads as float32.
 
@@ -15,13 +20,16 @@ targets also computes its masked loss on the device (``batch_loss``), and
 the handle downloads it beside the probabilities.
 
 The stitch helpers (``stitch_row``, ``nan_fill``) mirror the JAX module's
-for probabilities and targets (the logits of the ``dac_logits`` head are
-not ported).  Their semantics replicate reference lib/evaluate.py:9-127.
+for probabilities, logits and targets.  Their semantics replicate
+reference lib/evaluate.py:9-127, including the NaN fill of a 2-D logits
+row with one scalar mean over its whole [5, V] neighbourhood.
 
 ``runtime.precision`` (``resolve_precision``) picks an arm of the JAX
 package's precision ladder, between the bf16 path and float32;
 ``runtime.quantize=int8`` quantizes the encoder's products into the engine
-(``ops.quant``), leaving the model's module as it was.
+(``ops.quant``), leaving the model's module as it was.  A model without
+the ladder's knobs (``SHASWithSSL``, whose JAX ``apply`` takes none)
+refuses the arms between bf16 and float32.
 """
 
 from __future__ import annotations
@@ -96,12 +104,14 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 
 
 class ProbsHandle:
-    """A batch's probabilities (and its loss, if computed) on their way to
-    the host."""
+    """A batch's probabilities (and its loss and frame logits, if computed)
+    on their way to the host."""
 
-    def __init__(self, probs: torch.Tensor, loss: torch.Tensor | None = None):
+    def __init__(self, probs: torch.Tensor, loss: torch.Tensor | None = None,
+                 logits: torch.Tensor | None = None):
         self._host = _to_host(probs)
         self._loss = None if loss is None else _to_host(loss)
+        self._logits = None if logits is None else _to_host(logits)
         self._event = None
         if probs.is_cuda:
             self._event = torch.cuda.Event()
@@ -111,6 +121,13 @@ class ProbsHandle:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+    def logits(self) -> np.ndarray | None:
+        if self._logits is None:
+            return None
+        if self._event is not None:
+            self._event.synchronize()
+        return self._logits.numpy()
 
     def loss(self) -> float | None:
         if self._loss is None:
@@ -132,31 +149,43 @@ def batch_loss(loss_fn, logits: torch.Tensor, target: torch.Tensor,
 
 
 class WindowInference:
-    """Runs window batches through a SHAS model on one device, at the
-    arm of the precision ladder that ``precision`` names; ``quantize="int8"``
-    runs the encoder's products int8 (the weights quantized once, here)."""
+    """Runs window batches through a SHAS-family model on one device, at
+    the arm of the precision ladder that ``precision`` names;
+    ``quantize="int8"`` runs the encoder's products int8 (the weights
+    quantized once, here).  ``loss_tag`` is the task's: ``bce`` (sigmoid)
+    or a multi-class tag (softmax p(<B>))."""
 
     def __init__(self, model, device, compute_dtype=torch.float32,
-                 precision: str | None = None, quantize: str | None = None):
+                 precision: str | None = None, quantize: str | None = None,
+                 loss_tag: str = "bce"):
         self.model = model
         self.device = torch.device(device)
+        self.loss_tag = loss_tag
         # the model's keyword arguments: the precision arm's, and the int8
         # layers under quantize
         self.compute_dtype, self.forward_kwargs = resolve_precision(
             precision, compute_dtype)
+        if self.forward_kwargs and not getattr(model, "precision_ladder",
+                                               True):
+            raise ValueError(
+                f"runtime.precision={precision} does not run on "
+                f"{type(model).__name__}: its forward takes no precision "
+                "knobs (as the JAX package's apply); use bf16 or f32")
         self.quantized = None
         if quantize:
             if quantize != "int8":
                 raise ValueError(f"unknown quantize mode '{quantize}' "
                                  "(supported: int8)")
-            self.quantized = quantize_layers(
-                model.wav2vec_model.model.encoder)
+            self.quantized = quantize_layers(model.backbone.encoder)
             self.forward_kwargs = {**self.forward_kwargs,
                                    "quantized": self.quantized}
         self.loss_fn = None  # the trainer sets its epoch's loss for eval
 
     @torch.inference_mode()
-    def run_batch(self, batch: Batch) -> ProbsHandle:
+    def run_batch(self, batch: Batch, need_logits: bool = False
+                  ) -> ProbsHandle:
+        """Launch one batch; the handle downloads its probabilities, and its
+        frame logits (zero off ``out_mask``) under ``need_logits``."""
         def up(a):
             return upload(a, self.device)
 
@@ -167,60 +196,93 @@ class WindowInference:
                                     up(batch.included))
         logits = self.model(audio, up(batch.in_lengths), out_mask,
                             self.compute_dtype, **self.forward_kwargs)
-        probs = torch.where(out_mask, torch.sigmoid(logits.float()), 0.0)
+        if isinstance(logits, tuple):  # SHASWithSSL: (ctc, frame)
+            logits = logits[1]
+        if self.loss_tag == "bce":
+            probs = torch.sigmoid(logits.float())
+        else:  # p(<B>), the boundary token 0
+            probs = torch.softmax(logits.float(), dim=-1)[..., 0]
+        probs = torch.where(out_mask, probs, 0.0)
         loss = None
         if self.loss_fn is not None and batch.target is not None:
             loss = batch_loss(self.loss_fn, logits, up(batch.target),
                               out_mask, batch.n_real)
-        return ProbsHandle(probs, loss)
+        logits_out = None
+        if need_logits:
+            mask = out_mask if logits.dim() == 2 else out_mask[..., None]
+            logits_out = torch.where(mask, logits, 0.0)
+        return ProbsHandle(probs, loss, logits_out)
 
 
 def nan_fill(arr: np.ndarray, duration: int) -> None:
     """Fill frames that never got a prediction with the mean of their
-    neighbourhood (reference lib/evaluate.py:118-125); in place."""
-    for j in np.where(np.isnan(arr))[0]:
+    neighbourhood (reference lib/evaluate.py:118-125); in place.  A 2-D
+    logits row gets one scalar: the reference's ``np.nanmean`` has no
+    axis, so it means over the whole [5, V] neighbourhood."""
+    for j in np.where(np.isnan(arr if arr.ndim == 1 else arr[:, 0]))[0]:
         lo, hi = max(0, j - 2), min(duration, j + 3)
         arr[j] = np.nanmean(arr[lo:hi])
 
 
 def stitch_row(talk_probs, batch, i, probs, duration_outframes: int,
-               talk_targets=None) -> None:
-    """Scatter one window row into the talk array (and its targets into
-    ``talk_targets``); an excluded (silent) row writes zero probabilities
-    and no targets.  A talk whose length lands on a .5 output frame puts
-    the last window's end one past the talk array; it is clamped."""
+               talk_targets=None, talk_logits=None, logits=None) -> None:
+    """Scatter one window row into the talk array (its targets into
+    ``talk_targets``, its logits into ``talk_logits``); an excluded
+    (silent) row writes zero probabilities and logits and no targets.  A
+    talk whose length lands on a .5 output frame puts the last window's end
+    one past the talk array; it is clamped."""
     start, end = int(batch.starts[i]), int(batch.ends[i])
     end = min(end, duration_outframes)
     if end <= start:
         return
     if not batch.included[i]:
         talk_probs[start:end] = 0
+        if talk_logits is not None:
+            talk_logits[start:end] = 0
         return
     talk_probs[start:end] = probs[i, :end - start]
+    if talk_logits is not None:
+        talk_logits[start:end] = logits[i, :end - start]
     if talk_targets is not None and batch.target is not None:
         talk_targets[start:end] = batch.target[i, :end - start]
 
 
-def dispatch_talk(engine: WindowInference, batches) -> list:
+def dispatch_talk(engine: WindowInference, batches,
+                  need_logits: bool = False) -> list:
     """Upload and launch every window batch of one talk without waiting;
     returns (handle, batch) pairs for :func:`collect_talk`."""
-    return [(engine.run_batch(batch), batch) for batch in batches]
+    return [(engine.run_batch(batch, need_logits), batch)
+            for batch in batches]
+
+
+def talk_logits_array(vocab_size: int, duration_outframes: int):
+    """A NaN-filled stitch target for one talk's frame logits: [T] for the
+    bce head, [T, V] for a multi-class head."""
+    shape = (duration_outframes,) if vocab_size == 1 else \
+        (duration_outframes, vocab_size)
+    return np.full(shape, np.nan)
 
 
 def collect_talk(pending: list, duration_outframes: int,
                  talk_targets: np.ndarray | None = None,
-                 losses: list | None = None) -> np.ndarray:
+                 losses: list | None = None,
+                 talk_logits: np.ndarray | None = None) -> np.ndarray:
     """Download and stitch the handles of :func:`dispatch_talk` into the
     talk's frame probabilities, gaps filled; the targets go into
-    ``talk_targets`` and the batches' losses onto ``losses``, when given."""
+    ``talk_targets``, the batches' losses onto ``losses`` and their logits
+    (dispatched with ``need_logits``) into ``talk_logits``
+    (:func:`talk_logits_array`, gaps filled too), when given."""
     talk_probs = np.full(duration_outframes, np.nan)
     for handle, batch in pending:
         probs = handle.numpy()
+        logits = None if talk_logits is None else handle.logits()
         loss = handle.loss()
         if losses is not None and loss is not None:
             losses.append(loss)
         for i in range(len(probs)):
             stitch_row(talk_probs, batch, i, probs, duration_outframes,
-                       talk_targets)
+                       talk_targets, talk_logits, logits)
     nan_fill(talk_probs, duration_outframes)
+    if talk_logits is not None:
+        nan_fill(talk_logits, duration_outframes)
     return talk_probs

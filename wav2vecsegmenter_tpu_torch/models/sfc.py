@@ -2,9 +2,11 @@
 
 Counterpart of ``wav2vecsegmenter_tpu/models/sfc.py``: N pre-LN transformer
 layers (torch ``TransformerEncoderLayer`` with norm_first, GELU, 8 heads,
-FFN 2048) -> LayerNorm -> Linear(H -> 1) -> squeeze.  Padding enters as a
-key mask (True = valid frame).  Submodule names follow the reference
-classifier's state_dict keys.  Only the vocab-1 (bce) head is ported.
+FFN 2048) -> LayerNorm -> Linear(H -> V).  The bce head (V = 1) squeezes
+its one class; the multi-class heads (a vocabulary's V, 4 or 36) return
+[B, T, V], as the JAX ``sfc_forward`` does.  Padding enters as a key mask
+(True = valid frame).  Submodule names follow the reference classifier's
+state_dict keys.
 
 The forward is differentiable: its LayerNorms and attention go through the
 autograd Functions of ``ops`` (backward kernels K9 and K10 on CUDA).  With
@@ -57,8 +59,7 @@ class SegmentationFrameClassifier(nn.Module):
                  n_heads: int = 8, ffn_dim: int = 2048, vocab_size: int = 1,
                  device=None):
         super().__init__()
-        if vocab_size != 1:
-            raise NotImplementedError("only the vocab-1 (bce) head is ported")
+        self.vocab_size = vocab_size
         self.n_heads = n_heads
         self.transformer = Transformer(d_model, n_layers, ffn_dim, device)
         self.layer_norm = nn.LayerNorm(d_model, device=device)
@@ -74,8 +75,9 @@ def sfc_forward(head: SegmentationFrameClassifier, x: torch.Tensor,
                 out_mask: torch.Tensor, compute_dtype=torch.float32,
                 dropout_rate: float = 0.0,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-    """x [B, T, H] hidden states, out_mask [B, T] -> logits [B, T] float32.
-    A generator selects train mode: dropout at ``dropout_rate``."""
+    """x [B, T, H] hidden states, out_mask [B, T] -> logits [B, T] float32
+    (V = 1) or [B, T, V] float32.  A generator selects train mode: dropout
+    at ``dropout_rate``."""
     dt = compute_dtype
     h = dropout(x.to(dt), dropout_rate, generator).contiguous()
     for layer in head.transformer.layers:
@@ -93,4 +95,5 @@ def sfc_forward(head: SegmentationFrameClassifier, x: torch.Tensor,
                     generator)
         h = h + dropout(_lin(layer.linear2, f, dt), dropout_rate, generator)
     h = layer_norm(h, head.layer_norm.weight, head.layer_norm.bias, EPS)
-    return _lin(head.output_layer, h, dt).float()[..., 0]
+    logits = _lin(head.output_layer, h, dt).float()
+    return logits[..., 0] if logits.shape[-1] == 1 else logits

@@ -1,6 +1,9 @@
-"""SHAS segmentation model: wav2vec2 backbone + SFC head.
+"""SHAS segmentation models: wav2vec2 backbone + SFC head.
 
-Counterpart of ``wav2vecsegmenter_tpu/models/shas.py``.  The constructor
+Counterpart of ``wav2vecsegmenter_tpu/models/shas.py``: ``SHAS`` (the
+binary head, or a multi-class head over a vocabulary) and ``SHASWithSSL``
+(a CTC backbone and a multi-class head, ``task=shas_ssl`` /
+``task=shas_ctc``).  The constructor
 takes the same kwargs (the reference Hydra surface, ``conf/task/shas.yaml``),
 plus an optional ``w2v_cfg`` that replaces the preset's architecture.
 Submodules are named ``wav2vec_model.model`` and ``seg_model`` after the
@@ -30,20 +33,37 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.layernorm import layer_norm
 from .sfc import SegmentationFrameClassifier
-from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, config_for
+from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, _lin, config_for
 
 
 class _Backbone(nn.Module):
     """Holds the backbone under the reference's ``wav2vec_model.model``."""
 
-    def __init__(self, cfg: Wav2Vec2Config, device=None,
-                 adapter_from: int = 0):
+    def __init__(self, model: nn.Module):
         super().__init__()
-        self.model = Wav2Vec2Model(cfg, device, adapter_from)
+        self.model = model
 
 
-class SHAS(nn.Module):
+class _Trainable(nn.Module):
+    """The trainable split of a model whose ``_trains(name)`` says which
+    parameters the JAX ``trainable_mask`` trains."""
+
+    def trainable_parameters(self) -> list[nn.Parameter]:
+        """The trainable set, in ``named_parameters`` order."""
+        return [p for n, p in self.named_parameters() if self._trains(n)]
+
+    def set_requires_grad(self) -> list[nn.Parameter]:
+        """Freeze every parameter outside the trainable set (requires_grad
+        False, so that it gets no weight-gradient product) and return the
+        trainable set."""
+        for name, p in self.named_parameters():
+            p.requires_grad_(self._trains(name))
+        return self.trainable_parameters()
+
+
+class SHAS(_Trainable):
     """Binary segmentation-frame classifier (reference lib/models.py:172-235)."""
 
     def __init__(
@@ -65,6 +85,7 @@ class SHAS(nn.Module):
     ) -> None:
         super().__init__()
         self.wav2vec_model_name = wav2vec_model_name
+        self.vocab_size = vocab_size
         self.finetune_wav2vec = bool(finetune_wav2vec)
         self.finetune_w2v_feat_enc = bool(finetune_w2v_feat_enc)
         self.finetune_w2v_ffn = bool(finetune_w2v_ffn)
@@ -76,8 +97,8 @@ class SHAS(nn.Module):
         # the first fine-tuned layer; adapters live from it on (reference
         # HFWav2Vec2WithAdapter, lib/models.py:443-461)
         self.first_ft_layer = max(0, self.keep_layers - wav2vec_ft_layers)
-        self.wav2vec_model = _Backbone(self.w2v_cfg, device,
-                                       self.first_ft_layer)
+        self.wav2vec_model = _Backbone(Wav2Vec2Model(
+            self.w2v_cfg, device, self.first_ft_layer))
         self.seg_model = SegmentationFrameClassifier(
             self.w2v_cfg.hidden_size, n_transformer_enc_layers,
             n_transformer_enc_heads, vocab_size=vocab_size, device=device)
@@ -114,6 +135,10 @@ class SHAS(nn.Module):
                               head_dtype or compute_dtype)
 
     @property
+    def backbone(self) -> Wav2Vec2Model:
+        return self.wav2vec_model.model
+
+    @property
     def save_full_state(self) -> bool:
         """A training run saves the full model (else the head alone)."""
         return self.finetune_wav2vec
@@ -138,18 +163,6 @@ class SHAS(nn.Module):
             return False
         return self.finetune_w2v_ffn or not rest.startswith("feed_forward.")
 
-    def trainable_parameters(self) -> list[nn.Parameter]:
-        """The trainable set, in ``named_parameters`` order."""
-        return [p for n, p in self.named_parameters() if self._trains(n)]
-
-    def set_requires_grad(self) -> list[nn.Parameter]:
-        """Freeze every parameter outside the trainable set (requires_grad
-        False, so that it gets no weight-gradient product) and return the
-        trainable set."""
-        for name, p in self.named_parameters():
-            p.requires_grad_(self._trains(name))
-        return self.trainable_parameters()
-
     def train_forward(self, audio: torch.Tensor, in_lengths: torch.Tensor,
                       out_mask: torch.Tensor, generator: torch.Generator,
                       compute_dtype=torch.float32) -> torch.Tensor:
@@ -163,6 +176,127 @@ class SHAS(nn.Module):
                 freeze_feature_encoder=not self.finetune_w2v_feat_enc)
         return self.seg_model(_fit(h, out_mask.shape[1]), out_mask,
                               compute_dtype, self.init_dropout, generator)
+
+
+class _ForCTC(nn.Module):
+    """HF ``Wav2Vec2ForCTC``'s layout: the backbone with its final encoder
+    LayerNorm under ``wav2vec2``, the CTC head ``lm_head``."""
+
+    def __init__(self, cfg: Wav2Vec2Config, ctc_vocab_size: int,
+                 device=None):
+        super().__init__()
+        self.wav2vec2 = Wav2Vec2Model(cfg, device, final_layer_norm=True)
+        self.lm_head = nn.Linear(cfg.hidden_size, ctc_vocab_size,
+                                 device=device)
+
+
+class SHASWithSSL(_Trainable):
+    """CTC backbone + multi-class SFC head (reference lib/models.py:238-276;
+    JAX ``models/shas.py`` ``SHASWithSSL``).
+
+    The backbone is the whole wav2vec2 stack (``wav2vec_keep_layers=None``;
+    24 layers for lv60-self; ``task=shas_ctc`` keeps 15) with its final
+    encoder LayerNorm (K1) and a CTC ``lm_head``; the SFC head reads the
+    post-LayerNorm states fitted to T_out.  The forward returns
+    ``(ctc_logits [B, T_conv, ctc_vocab_size], frame_logits [B, T_out,
+    vocab_size])``, float32.
+
+    The head always trains; the backbone, the final LayerNorm and
+    ``lm_head`` train only under ``finetune_wav2vec`` (then all of them,
+    as the JAX ``trainable_mask``), else the backbone runs without a graph
+    (the JAX ``stop_gradient``).  ``wav2vec_ft_layers`` and
+    ``finetune_w2v_feat_enc`` are accepted for the reference's surface and,
+    as in the JAX package, split nothing.
+
+    The JAX ``SHASWithSSL.apply`` takes no precision-ladder knobs, so
+    ``precision_ladder`` is False: the engine refuses the ladder's middle
+    arms (bf16 and float32 run); int8 (``quantized``) runs.  Module names
+    follow the reference's SSL state_dict (``wav2vec_model.model.wav2vec2.
+    *``, ``wav2vec_model.model.lm_head.*``, ``seg_model.*``).
+    """
+
+    precision_ladder = False
+
+    def __init__(
+        self,
+        wav2vec_model_name: str = "facebook/wav2vec2-large-960h-lv60-self",
+        finetune_wav2vec: bool = False,
+        wav2vec_ft_layers: int | None = None,
+        finetune_w2v_feat_enc: bool = True,
+        n_transformer_enc_layers: int = 1,
+        n_transformer_enc_heads: int = 8,
+        init_dropout: float = 0.1,
+        vocab_size: int = 36,
+        ctc_vocab_size: int = 32,
+        wav2vec_keep_layers: int | None = None,
+        *,
+        w2v_cfg: Wav2Vec2Config | None = None,
+        device=None,
+    ) -> None:
+        super().__init__()
+        self.wav2vec_model_name = wav2vec_model_name
+        self.finetune_wav2vec = bool(finetune_wav2vec)
+        self.init_dropout = init_dropout
+        self.vocab_size = vocab_size
+        self.ctc_vocab_size = ctc_vocab_size
+        self.w2v_cfg = w2v_cfg or config_for(wav2vec_model_name,
+                                             wav2vec_keep_layers)
+        self.keep_layers = self.w2v_cfg.num_layers
+        self.wav2vec_model = _Backbone(_ForCTC(self.w2v_cfg, ctc_vocab_size,
+                                               device))
+        self.seg_model = SegmentationFrameClassifier(
+            self.w2v_cfg.hidden_size, n_transformer_enc_layers,
+            n_transformer_enc_heads, vocab_size=vocab_size, device=device)
+
+    @property
+    def backbone(self) -> Wav2Vec2Model:
+        return self.wav2vec_model.model.wav2vec2
+
+    @property
+    def save_full_state(self) -> bool:
+        return self.finetune_wav2vec
+
+    def forward(self, audio: torch.Tensor, in_lengths: torch.Tensor,
+                out_mask: torch.Tensor, compute_dtype=torch.float32,
+                quantized: list | None = None):
+        """audio [B, L] normalized, in_lengths [B], out_mask [B, T_out] ->
+        (ctc_logits, frame_logits); ``quantized`` holds the encoder's int8
+        layers."""
+        return self._forward(audio, in_lengths, out_mask, compute_dtype,
+                             quantized=quantized)
+
+    def train_forward(self, audio, in_lengths, out_mask,
+                      generator: torch.Generator, compute_dtype=torch.float32):
+        """The training forward: dropout and SpecAugment drawn from
+        ``generator``; the backbone under grad only under
+        ``finetune_wav2vec``."""
+        return self._forward(audio, in_lengths, out_mask, compute_dtype,
+                             generator)
+
+    def _forward(self, audio, in_lengths, out_mask, dt, generator=None,
+                 quantized=None):
+        ctc = self.wav2vec_model.model
+        w2v = ctc.wav2vec2
+        with torch.set_grad_enabled(self.finetune_wav2vec
+                                    and torch.is_grad_enabled()):
+            h, _ = w2v(audio, in_lengths, dt, generator, quantized=quantized)
+        # HF Wav2Vec2ForCTC: the final encoder LayerNorm, then lm_head, on
+        # the float32 hidden states
+        ln = w2v.encoder.layer_norm
+        h = layer_norm(h, ln.weight, ln.bias, self.w2v_cfg.layer_norm_eps)
+        ctc_logits = _lin(ctc.lm_head, h, torch.float32)
+        frame_logits = self.seg_model(
+            _fit(h, out_mask.shape[1]), out_mask, dt, self.init_dropout,
+            generator)
+        return ctc_logits, frame_logits
+
+    def _trains(self, name: str) -> bool:
+        if name.startswith("seg_model."):
+            return True
+        if name.endswith(".masked_spec_embed"):
+            # the JAX tree has the leaf only where SpecAugment is on
+            return self.finetune_wav2vec and self.w2v_cfg.apply_spec_augment
+        return self.finetune_wav2vec
 
 
 def _fit(h: torch.Tensor, t_out: int) -> torch.Tensor:

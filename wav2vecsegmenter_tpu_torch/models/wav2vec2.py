@@ -261,10 +261,12 @@ class Encoder(nn.Module):
 
 class Wav2Vec2Model(nn.Module):
     """The truncated backbone: conv stack, projection, pos conv, layers;
-    with ``cfg.ffn_adapter``, FFN adapters in layers ``adapter_from`` on."""
+    with ``cfg.ffn_adapter``, FFN adapters in layers ``adapter_from`` on;
+    with ``final_layer_norm``, the parameters of the final encoder
+    LayerNorm (``SHASWithSSL`` applies it)."""
 
     def __init__(self, cfg: Wav2Vec2Config, device=None,
-                 adapter_from: int = 0):
+                 adapter_from: int = 0, final_layer_norm: bool = False):
         super().__init__()
         if cfg.feat_extract_norm != "layer" or not cfg.conv_bias:
             raise NotImplementedError(
@@ -275,6 +277,11 @@ class Wav2Vec2Model(nn.Module):
         self.feature_extractor = FeatureExtractor(cfg, device)
         self.feature_projection = FeatureProjection(cfg, device)
         self.encoder = Encoder(cfg, adapter_from, device)
+        if final_layer_norm:
+            # the untruncated model's final encoder LayerNorm (HF
+            # ``encoder.layer_norm``); the forward leaves it to the caller
+            self.encoder.layer_norm = nn.LayerNorm(cfg.hidden_size,
+                                                   device=device)
         # SpecAugment's learned mask vector: a training-only parameter, kept
         # so that reference checkpoints load strictly
         self.masked_spec_embed = nn.Parameter(

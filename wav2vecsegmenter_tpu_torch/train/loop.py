@@ -1,19 +1,24 @@
 """The epoch loop of the SHAS trainer.
 
 Counterpart of ``train`` of ``wav2vecsegmenter_tpu/train/loop.py`` for the
-bce tasks, on one device (reference train.py:215-747): the product's
-default task (``conf/task/shas.yaml``: frozen backbone, trained SFC head)
-and LNA fine-tuning (``finetune_wav2vec=True``: the model's trainable
-split, ``SHAS.set_requires_grad``):
+frame tasks, on one device (reference train.py:215-747): the product's
+default task (``conf/task/shas.yaml``: frozen backbone, trained SFC head),
+LNA fine-tuning (``finetune_wav2vec=True``: the model's trainable split,
+``SHAS.set_requires_grad``) and the multi-class tasks (``task.vocab`` set:
+the ``ce`` tag, and ``SHASWithSSL``'s ``ssl`` and ``ctc`` tags,
+``task=shas_ssl`` / ``task=shas_ctc``; the loaders pad targets with the
+vocabulary's ``<PAD>`` and, for ``ctc``, carry the windows' transcripts):
 
 * the training loader from ``task.train_generator`` (merged with
   ``data.train``): per epoch a fresh random segmentation of the corpus
   (``RandomDataloaderGenerator``), or the fixed grid of every talk
   (``FixedDataloaderGenerator``, ``task=shas_fix``); its
-  ``pos_class_percentage`` -> the loss's ``pos_weight``; the batches are
-  read ahead on threads (``data.windows.BatchIterator``);
+  ``pos_class_percentage`` -> the bce loss's ``pos_weight``; the batches
+  are read ahead on threads (``data.windows.BatchIterator``);
 * micro-steps with ``update_freq`` accumulation, the epoch-end flush of a
-  partial accumulation, running train metrics every ``print_every_steps``;
+  partial accumulation, running train metrics every ``print_every_steps``
+  (for the multi-class tags: argmax != ``<B>`` over the frames whose
+  target is ``<B>`` or ``<NB>``);
 * evaluation on the eval split at each epoch's end, and every
   ``save_every_steps`` micro-steps;
 * after each evaluation a model checkpoint, ``ckpts/epoch-{n}.pt`` or
@@ -36,8 +41,10 @@ seeds the model's numpy weights, the per-epoch window grids (unless
 ``task.train_generator.seed`` is set) and the dropout and SpecAugment
 masks; the backbone then comes from a local HF snapshot of the pretrained
 model where there is one, the head from ``finetune_from_model`` where that
-is set.  Not ported yet: wandb, ``steps_per_call``, device meshes and the
-in-training ST evaluation.
+is set.  The ``ctc`` tag with a frozen backbone raises, as in the JAX
+package (nothing would train).  Not ported yet: wandb, ``steps_per_call``,
+device meshes, the in-training ST evaluation and the autoregressive
+task.
 """
 
 from __future__ import annotations
@@ -90,12 +97,13 @@ def _init_weights(model, config, seed: int) -> None:
 
 
 def train_generator(config, batch_size: int, seed: int,
-                    pin_memory: bool = False):
+                    pin_memory: bool = False, vocab=None, ctc: bool = False):
     """The training loader generator: ``task.train_generator`` merged with
     ``data.train`` and ``batch_size`` added, as the
     JAX loop instantiates it.  An unset seed of the random generator
     becomes ``seed`` (the JAX single-process loop leaves it unseeded; a
-    resumed run needs a seeded stream).  Any other target raises."""
+    resumed run needs a seeded stream); ``vocab`` and ``ctc`` as the JAX
+    loop passes them.  Any other target raises."""
     conf = {**to_plain(config.task.get("train_generator") or {}),
             **to_plain(config.data.train)}
     target = conf.pop("_target_", None)
@@ -107,7 +115,8 @@ def train_generator(config, batch_size: int, seed: int,
             and conf.get("seed") is None:
         conf["seed"] = seed
     conf["batch_size"] = batch_size
-    return GENERATORS[target](**conf, pin_memory=pin_memory)
+    return GENERATORS[target](**conf, pin_memory=pin_memory, vocab=vocab,
+                              ctc=ctc)
 
 
 def _generate(gen):
@@ -191,7 +200,15 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     checkpoints_path.mkdir(parents=True, exist_ok=True)
     resume_dir = results_path / "last_state"
 
-    model = build_model(to_plain(task.model), device)
+    is_ctc = (task.get("loss") or {}).get("tag") == "ctc"
+    if is_ctc and not task.model.get("finetune_wav2vec", False):
+        # the CTC loss depends only on the backbone and lm_head: with a
+        # frozen backbone nothing would train
+        raise ValueError(
+            "CTC task with finetune_wav2vec=false optimizes nothing "
+            "(the loss never touches a trainable parameter); set "
+            "task.model.finetune_wav2vec=true")
+    model, vocab = build_model(to_plain(task), device)
     _init_weights(model, config, seed)
     params = model.set_requires_grad()
     logger.info("Model parameters: %.1fM (%.1fM trained)",
@@ -200,14 +217,14 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
 
     batch_size = int(config.batch_size)
     pin = device.type == "cuda"
-    train_gen = train_generator(config, batch_size, seed, pin)
+    train_gen = train_generator(config, batch_size, seed, pin, vocab, is_ctc)
     eg = task.get("eval_generator") or {}
     eval_gen = FixedDataloaderGenerator(
         config.data.eval.talk_list, config.data.eval.segments_list,
         config.data.eval.segment_length, batch_size,
         inference_times=int(eg.get("inference_times", 1)),
         remainder_ladder=bool(rt.get("infer_remainder_ladder", False)),
-        pin_memory=pin)
+        pin_memory=pin, vocab=vocab, ctc=is_ctc)
 
     # the first epoch's loader sizes the schedule (reference train.py:321-332)
     train_loader = _generate(train_gen)
@@ -218,7 +235,8 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     optimizer = AccumulatingAdamW(params, float(config.learning_rate),
                                   total_steps, update_freq)
     generator = torch.Generator(device=device).manual_seed(seed)
-    engine = WindowInference(model, device, dtype)
+    loss_tag = (task.get("loss") or {}).get("tag", "bce")
+    engine = WindowInference(model, device, dtype, loss_tag=loss_tag)
     ckpts = Checkpoints(checkpoints_path, config)
 
     start_epoch = global_step = 0
@@ -260,7 +278,7 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     save_every = int(config.get("save_every_steps", 0) or 0)
 
     def evaluate_and_save(name: str) -> dict:
-        out = evaluate(eval_gen, engine)
+        out = evaluate(eval_gen, engine, vocab)
         logger.info("eval @ %s: %s", name, out)
         evals.append((name, out))
         ckpts.save(name, model, out)
@@ -271,15 +289,18 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
         if epoch:
             train_loader = _generate(train_gen)
         pos_pct = getattr(train_gen.dataset, "pos_class_percentage", None)
-        loss_fn, _, ma_window = build_loss(to_plain(task.loss), pos_pct)
-        if pos_pct is not None:
-            logger.info("pos_class_percentage = %s", pos_pct)
+        loss_fn, _, ma_window = build_loss(to_plain(task.loss), pos_pct,
+                                           vocab)
         ma_steps = int(ma_window / (WAV2VEC_FRAME_LEN / 1000)) \
             if ma_window else 0
-        pos_weight = loss_fn.pos_weight
-        engine.loss_fn = loss_fn
+        pos_weight = None
+        if loss_tag == "bce":
+            if pos_pct is not None:
+                logger.info("pos_class_percentage = %s", pos_pct)
+            pos_weight = loss_fn.pos_weight
+            engine.loss_fn = loss_fn
         step = make_train_step(model, loss_fn, ma_steps, optimizer, dtype,
-                               generator)
+                               generator, loss_tag, vocab)
 
         steps_in_epoch = len(train_loader)
         steps_per_epoch.append(steps_in_epoch)
@@ -301,11 +322,22 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
             if on_step is not None:
                 on_step(metrics)
             losses.append(loss)
-            lg = metrics["logits"].cpu().numpy()
-            t = min(lg.shape[1], batch.out_mask.shape[1])
-            m = batch.out_mask[:, :t]
-            preds.extend((1 / (1 + np.exp(-lg[:, :t])) >= 0.5)[m].tolist())
-            targets.extend((batch.target[:, :t] >= 0.5)[m].tolist())
+            lg = metrics["logits"].float().cpu().numpy()
+            if loss_tag == "bce":
+                t = min(lg.shape[1], batch.out_mask.shape[1])
+                m = batch.out_mask[:, :t]
+                preds.extend(
+                    (1 / (1 + np.exp(-lg[:, :t])) >= 0.5)[m].tolist())
+                targets.extend((batch.target[:, :t] >= 0.5)[m].tolist())
+            else:
+                # boundary / non-boundary frames (reference
+                # train.py:495-504)
+                tgt = batch.target
+                spe = (tgt == vocab.boundary_token_id) | (
+                    tgt == vocab.nonboundary_token_id)
+                pred = np.argmax(lg, axis=-1) != vocab.boundary_token_id
+                preds.extend(pred[spe].astype(float).tolist())
+                targets.extend(tgt[spe].astype(float).tolist())
             if n % print_every == 0 or n == steps_in_epoch:
                 sm = train_step_metrics(targets, preds, losses)
                 logger.info(

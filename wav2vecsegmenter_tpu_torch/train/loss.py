@@ -1,10 +1,12 @@
-"""Frame losses of the bce task.
+"""Frame and transcript losses.
 
-Counterpart of ``wav2vecsegmenter_tpu/train/loss.py`` for the ``bce`` tag:
-the reference instantiates ``torch.nn.BCEWithLogitsLoss`` or
-``lib.loss.FocalLoss`` from the task config (train.py:352-374); each is a
-callable ``(logits, targets) -> per-point loss`` here.  The ce, ssl and ctc
-tags come with their heads.
+Counterpart of ``wav2vecsegmenter_tpu/train/loss.py``: the reference
+instantiates ``torch.nn.BCEWithLogitsLoss``, ``lib.loss.FocalLoss``,
+``torch.nn.CrossEntropyLoss`` or ``torch.nn.CTCLoss`` from the task config
+(train.py:352-374); each is a callable here.  BCE and focal serve the
+``bce`` tag, cross-entropy the ``ce`` and ``ssl`` tags (its
+``ignore_index`` the vocabulary's ``<PAD>``, as the JAX ``build_loss``
+sets it), CTC the ``ctc`` tag.
 """
 
 from __future__ import annotations
@@ -53,6 +55,60 @@ class FocalLoss:
         return _reduce(alpha * (1 - p_t) ** self.gamma * bce, self.reduction)
 
 
+class CrossEntropyLoss:
+    """torch.nn.CrossEntropyLoss over the last dim of logits [N, V] against
+    integer targets [N]; an ``ignore_index`` target contributes 0."""
+
+    def __init__(self, ignore_index: int = -100, reduction: str = "none",
+                 **_ignored):
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def __call__(self, logits, targets):
+        loss = torch.nn.functional.cross_entropy(
+            logits.float(), targets.long(), ignore_index=self.ignore_index,
+            reduction="none")
+        return _reduce(loss, self.reduction)
+
+
+class CTCLoss:
+    """torch.nn.CTCLoss over logits [B, T, C] (log-softmaxed here) and
+    labels [B, U], with the JAX ``CTCLoss``'s padding interface: per row,
+    ``logit_paddings`` [B, T] and ``label_paddings`` [B, U] (1 = padding).
+    ``reduction='mean'`` divides each row's negative log likelihood by its
+    label count clamped to 1 and means over the rows where
+    ``example_mask`` holds (every row without one).  A masked row runs as
+    an empty transcript over all T frames, so that an unusable row cannot
+    put an infinity into the gradients."""
+
+    def __init__(self, blank: int = 0, reduction: str = "mean", **_ignored):
+        self.blank = blank
+        self.reduction = reduction
+
+    def __call__(self, logits, labels, logit_paddings, label_paddings,
+                 example_mask=None):
+        t = logits.shape[1]
+        in_lengths = (1 - logit_paddings).sum(-1).long()
+        label_lengths = (1 - label_paddings).sum(-1).long()
+        if example_mask is not None:
+            in_lengths = torch.where(example_mask, in_lengths, t)
+            label_lengths = torch.where(example_mask, label_lengths, 0)
+        logp = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)
+        loss = torch.nn.functional.ctc_loss(
+            logp, labels.long(), in_lengths, label_lengths, blank=self.blank,
+            reduction="none")
+        if self.reduction == "mean":
+            loss = loss / label_lengths.clamp_min(1)
+        if example_mask is None:
+            return _reduce(loss, self.reduction)
+        loss = torch.where(example_mask, loss, 0.0)
+        if self.reduction == "mean":
+            return loss.sum() / example_mask.sum().clamp_min(1)
+        if self.reduction == "sum":
+            return loss.sum()
+        return loss
+
+
 def _reduce(loss, reduction: str):
     if reduction == "none":
         return loss
@@ -89,20 +145,27 @@ def compute_bce_loss(logits, target, out_mask, loss_fn,
 
 
 _LOSSES = {"torch.nn.BCEWithLogitsLoss": BCEWithLogitsLoss,
-           "lib.loss.FocalLoss": FocalLoss}
+           "lib.loss.FocalLoss": FocalLoss,
+           "torch.nn.CrossEntropyLoss": CrossEntropyLoss,
+           "torch.nn.CTCLoss": CTCLoss}
 
 
-def build_loss(loss_conf: dict, pos_class_percentage: float | None = None):
+def build_loss(loss_conf: dict, pos_class_percentage: float | None = None,
+               vocab=None):
     """(loss_fn, tag, ma_window) from a task's loss config, with the
     reference's pos_weight auto-derivation (train.py:356-368): an unset
-    pos_weight becomes 1 - the positive-class share."""
+    pos_weight of the bce tag becomes 1 - the positive-class share; the ce
+    and ssl tags ignore the vocabulary's <PAD> target."""
     conf = dict(loss_conf)
     target = conf.pop("_target_", "torch.nn.BCEWithLogitsLoss")
     tag = conf.pop("tag", "bce")
     ma_window = conf.pop("ma_window", None) or 0.0
-    if tag != "bce" or target not in _LOSSES:
+    if target not in _LOSSES or tag not in ("bce", "ce", "ssl", "ctc"):
         raise NotImplementedError(
-            f"loss {target} with tag '{tag}' is not ported (bce tag only)")
-    if conf.get("pos_weight") is None and pos_class_percentage is not None:
-        conf["pos_weight"] = 1.0 - pos_class_percentage
+            f"loss {target} with tag '{tag}' is not ported")
+    if tag == "bce":
+        if conf.get("pos_weight") is None and pos_class_percentage is not None:
+            conf["pos_weight"] = 1.0 - pos_class_percentage
+    elif tag in ("ce", "ssl"):
+        conf["ignore_index"] = vocab.pad_token_id if vocab else -100
     return _LOSSES[target](**conf), tag, float(ma_window)

@@ -1,7 +1,8 @@
 """The training step: loss, gradients, AdamW with accumulation.
 
-Counterpart of ``wav2vecsegmenter_tpu/train/step.py`` for the bce tasks,
-the frozen backbone and LNA fine-tuning (reference train.py:381-480).  ``AccumulatingAdamW``
+Counterpart of ``wav2vecsegmenter_tpu/train/step.py`` for the frame tasks
+(the bce, ce, ssl and ctc tags), the frozen backbone and LNA fine-tuning
+(reference train.py:381-480).  ``AccumulatingAdamW``
 stands for ``make_optimizer``, its ``flush`` method for
 ``make_accum_flush``; ``make_train_step`` keeps its name.  They cover:
 
@@ -18,6 +19,14 @@ stands for ``make_optimizer``, its ``flush`` method for
 * the batch normalised on the device from its raw int16 samples (mean and
   count-1 variance over the batch's longest window);
 * the per-epoch ``pos_weight`` operand of the BCE loss;
+* the multi-class losses of JAX ``train/step.py:204-245``: ``ce``, the
+  cross-entropy of the frame logits against the targets, summed over all
+  B·T frames; ``ssl`` (``SHASWithSSL``), the same with every ``<NB>``
+  target replaced by the CTC head's argmax offset by the vocabulary's
+  special tokens (pseudo-labels); ``ctc``, the CTC loss of the ``lm_head``
+  logits against the batch's transcript tokens (the special-token offset
+  removed, ``<PAD>`` -> 0), over each row's exact conv frame count, meaned
+  over the included rows;
 * the ``loss`` and ``grad_norm`` metrics, grad_norm the global norm of the
   micro-step's raw gradients of the trainable parameters.
 
@@ -34,6 +43,7 @@ import torch
 
 from ..data.collate import Batch
 from ..infer.pipeline import normalize_int16, upload
+from ..models.wav2vec2 import frame_lengths
 from .loss import compute_bce_loss
 
 
@@ -112,28 +122,71 @@ def batch_to_device(batch: Batch, device) -> dict:
     def up(a):
         return upload(a, device)
 
-    return {
+    included = up(batch.included)
+    out = {
         "audio": normalize_int16(up(batch.audio), batch.norm_length,
-                                 up(batch.included)),
+                                 included),
         "in_lengths": up(batch.in_lengths),
         "out_mask": up(batch.out_mask),
         "target": up(batch.target),
+        "included": included,
     }
+    if batch.tokens is not None:
+        out["tokens"] = up(batch.tokens)
+    return out
+
+
+def frame_loss(model, loss_fn, loss_tag: str, vocab, b: dict, logits,
+               pos_weight: float | None = None,
+               ma_window_steps: int = 0):
+    """(loss, frame logits) of one micro-step's forward output ``logits``
+    (``SHASWithSSL``'s: (ctc logits, frame logits)) under ``loss_tag``."""
+    if loss_tag == "bce":
+        lf = loss_fn if pos_weight is None else \
+            loss_fn.with_pos_weight(pos_weight)
+        return compute_bce_loss(logits, b["target"], b["out_mask"], lf,
+                                ma_window_steps), logits
+    if loss_tag == "ce":
+        return loss_fn(logits.reshape(-1, logits.shape[-1]),
+                       b["target"].reshape(-1)).sum(), logits
+    ctc_logits, frame_logits = logits
+    if loss_tag == "ssl":
+        target_ctc = ctc_logits.argmax(-1) + vocab.n_special_tokens
+        target = b["target"].long()
+        target = torch.where(target != vocab.nonboundary_token_id, target,
+                             target_ctc)
+        return loss_fn(frame_logits.reshape(-1, frame_logits.shape[-1]),
+                       target.reshape(-1)).sum(), frame_logits
+    if loss_tag == "ctc":
+        tokens = b["tokens"]
+        pad = tokens == vocab.pad_token_id
+        labels = torch.where(pad, 0, tokens - vocab.n_special_tokens)
+        # each row's true encoder frame count: the exact conv arithmetic,
+        # not the 49.95 Hz estimate behind out_mask
+        flen = frame_lengths(b["in_lengths"], model.w2v_cfg)
+        t_enc = ctc_logits.shape[1]
+        logit_paddings = (torch.arange(t_enc, device=flen.device)[None, :]
+                          >= flen[:, None]).float()
+        return loss_fn(ctc_logits, labels, logit_paddings, pad.float(),
+                       example_mask=b["included"]), frame_logits
+    raise NotImplementedError(f"loss tag '{loss_tag}' is not ported")
 
 
 def make_train_step(model, loss_fn, ma_window_steps: int,
                     optimizer: AccumulatingAdamW,
                     compute_dtype=torch.float32,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    loss_tag: str = "bce", vocab=None):
     """Returns ``step(batch, pos_weight) -> metrics``: one micro-step of
     ``model.train_forward`` on the device of the optimizer's parameters
     (dropout and SpecAugment drawn from ``generator``, by default a fresh
-    one there), the masked BCE loss with ``pos_weight``, the gradients of
+    one there), the loss of ``loss_tag`` (:func:`frame_loss`; the masked
+    BCE loss with ``pos_weight`` for bce), the gradients of
     the optimizer's parameters, and the optimizer's update.  A parameter
     the loss does not reach gets a zero gradient, so that AdamW still
     applies its weight decay, as the JAX optimizer does.  Metrics:
-    ``loss``, ``grad_norm`` (0-dim tensors), ``logits`` (detached) and the
-    micro-step's raw ``grads``."""
+    ``loss``, ``grad_norm`` (0-dim tensors), ``logits`` (the frame logits,
+    detached) and the micro-step's raw ``grads``."""
     params = optimizer.params
     device = params[0].device
     if generator is None:
@@ -141,12 +194,10 @@ def make_train_step(model, loss_fn, ma_window_steps: int,
 
     def step(batch: Batch, pos_weight: float | None = None) -> dict:
         b = batch_to_device(batch, device)
-        logits = model.train_forward(b["audio"], b["in_lengths"],
-                                     b["out_mask"], generator, compute_dtype)
-        lf = loss_fn if pos_weight is None else \
-            loss_fn.with_pos_weight(pos_weight)
-        loss = compute_bce_loss(logits, b["target"], b["out_mask"], lf,
-                                ma_window_steps)
+        out = model.train_forward(b["audio"], b["in_lengths"],
+                                  b["out_mask"], generator, compute_dtype)
+        loss, logits = frame_loss(model, loss_fn, loss_tag, vocab, b, out,
+                                  pos_weight, ma_window_steps)
         grads = [torch.zeros_like(p) if g is None else g for p, g in
                  zip(params, torch.autograd.grad(loss, params,
                                                  allow_unused=True))]
