@@ -37,7 +37,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    of its kernels and of the library call; last, K1 and K3-K7 in bf16 at
    the online path's shapes: one window, a slot of eight, and one window
    holding 0.5 s of audio (a stream's final flush: padding zero, the
-   attention's keys all masked but 24);
+   attention's keys all masked but 24); last, K4 and K10 at the arseg
+   decoder's cross-attention geometry (queries of 1000 and 64 rows over
+   999 keys, 8 heads of 128, both dtypes, ragged keys);
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
@@ -188,11 +190,33 @@ Phases, each printed on its own line; any failure exits non-zero:
    bf16 eager, float32 eager): finite losses, the path's kernels launched
    (K9/K10 among them), the first micro-step's gradients as in the train
    phase, ms a micro-step and peak memory;
-14. the script's seconds; a JSON line of every kernel (launches on the
-   LNA recipe's run, or for K2 the unfused slice's, and on the online
-   and ssl phases; error, times, bound, and the float32 route's row;
-   K5/K6/K7/K2 add their Function row), the nvidia-smi line, and the last
-   line: {"ok": true, "device": {...}}.
+14. arseg: the autoregressive segmenter (task=arseg) at the xls-r-300m
+   width (15 layers, a 1-layer encoder and a 4-layer decoder of 8 heads,
+   FFN 2048, V=4; seeded random weights, the <B>/<NB> rows of the output
+   layer x4 and <NB>'s bias centred on the float32 decode's median gap)
+   saved as the port's full-layout .pt and loaded through
+   cli.common.load_model: the slice's two talks through
+   cli.common.segment_wavs at batch 14 with pTHR (bf16 kernels, the
+   launch counters reset just before; bf16 eager, counters unmoved;
+   float32): segments, |dprob| against float32, walls; one full batch's
+   KV-cached greedy decode: launches a batch checked (K1 34 + 13 a decode
+   step, K3 15, K4 1, K5 15, K6 6, K7 1), walls of the three arms in
+   turns, device busy ms, the encode's ms and a decode step's wall, peak
+   memory, the free-running tokens' agreement with float32, the float32
+   gap's percentiles; the teacher-forced forward fed the float32 decode's
+   tokens (the kernels' bf16 logits as close to float32 as the eager
+   path's, within KERNEL_SLACK; the float32 forward equal to the float32
+   decode); then three micro-steps of train.step.make_train_step (frozen
+   backbone, batch 14) in three arms (bf16 kernels / bf16 eager /
+   float32): finite losses, the backbone bitwise unchanged and the head
+   moved, each kernels micro-step's launches (K4 5, K10 5, K9 16 of
+   which 1 without dx), the first gradients as in the train phase, ms a
+   micro-step, device busy ms, peak memory;
+15. the script's seconds; a JSON line of every kernel (launches on the
+   LNA recipe's run, or for K2 the unfused slice's, and on the online,
+   ssl and arseg phases; error, times, bound, and the float32 route's
+   row; K5/K6/K7/K2 add their Function row), the nvidia-smi line, and the
+   last line: {"ok": true, "device": {...}}.
 
 The kernel phase runs each backward kernel twice on the same inputs: the
 outputs must be bitwise equal (no atomics).  The attention rows (bf16 on
@@ -438,6 +462,46 @@ def as_tuple(out) -> tuple:
     return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
+def attn_bwd_f64(q, k, v, mask, do, scale):
+    """The attention backward in float64 from the same (bf16) inputs: the
+    truth both bf16 routes approximate."""
+    q, k, v, do = (a.double() for a in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.softmax(s + torch.where(mask[:, None, None, :], 0.0,
+                                      attn.NEG_INF).double(), -1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", p, do))
+
+
+def attn_bwd_slack(q, k, v, mask, do, scale) -> tuple:
+    """Per-element room, beyond the bf16 output's atol and rtol, between
+    two bf16 backwards that each round P and dS to bf16 before their
+    products (K10 and attention_bwd_plain): a rounding that lands one bf16
+    step (2^-7 of the value) apart, and dS's own difference, P times the
+    change of delta from the forward output's bf16 rounding (2^-8 of
+    |dO| . |O|, K10 takes delta from the bf16 O), carried through the
+    float32 products: dq = scale |dS'| |K|, dk = scale |dS'|^T |Q|,
+    dv = 2^-7 |P|^T |dO|.  Where a query row has few valid keys, dS is
+    large and dk sums ~1000 such terms, so the room is many bf16 steps of
+    dk; where its keys are many it is a fraction of atol."""
+    qf, kf, vf, dof = (a.float() for a in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.softmax(s + torch.where(mask[:, None, None, :], 0.0,
+                                      attn.NEG_INF), -1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    d_delta = 2 ** -8 * (dof.abs() * o.abs()).sum(-1).transpose(1, 2)
+    ds = (2 ** -7 * (p * (dp - (dp * p).sum(-1, keepdim=True))).abs()
+          + p * d_delta[..., None])
+    del s, dp
+    return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf.abs()),
+            scale * torch.einsum("bhqk,bqhd->bkhd", ds, qf.abs()),
+            2 ** -7 * torch.einsum("bhqk,bqhd->bkhd", p, dof.abs()))
+
+
 def check_kernels(dev) -> dict:
     g = torch.Generator(device="cpu").manual_seed(0)
     gd = torch.Generator(device=dev).manual_seed(0)
@@ -488,13 +552,15 @@ def check_kernels(dev) -> dict:
                         "host_us": host_us(fn, iters),
                         "library_host_us": host_us(library, iters)})
 
-    def pairs(mask):
+    def pairs(mask, tq=None):
         # (query, key) pairs per head that need the products: the valid
         # keys of every query row, and a batch-padding row's in-range keys
-        # (its output averages them: PV, and no QK, is needed there)
-        t = mask.shape[1]
-        valid = float(t * mask.sum().double())
-        return valid, float(t * t * int((~mask.any(1)).sum()))
+        # (its output averages them: PV, and no QK, is needed there); tq
+        # query rows (the keys' count where not given)
+        tk = mask.shape[1]
+        tq = tk if tq is None else tq
+        valid = float(tq * mask.sum().double())
+        return valid, float(tq * tk * int((~mask.any(1)).sum()))
 
     def attn_bound(q, mask, heads, d, dtype):
         # QK and PV (2 * D FLOP a pair each) over the pairs that need them
@@ -539,6 +605,23 @@ def check_kernels(dev) -> dict:
                         q, k, v, mask, 128 ** -0.5),
                     uniform=uniform_row(v, 8, 128) if b > 3 else None,
                     bound=attn_bound(q, mask, 8, 128, dtype),
+                    library=sdpa(q, k, v, mask))
+
+    def cross_case(tq, tk, dtype):
+        # the arseg decoder's cross-attention: queries of the decoder's
+        # T_tgt (or fewer) rows over the packed K/V of the encoder memory
+        q = randn(B, tq, 8, 128, dtype=dtype)
+        kv = randn(B, tk, 2, 8, 128, dtype=dtype)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        mask = ragged_mask(tk, g, dev)
+        mask[3] = False
+        valid, empty = pairs(mask, tq)
+        return dict(fn=lambda: attn.attention_cross(q, kv, mask),
+                    plain=lambda: attn.attention_bthd_plain(
+                        q, k, v, mask, 128 ** -0.5),
+                    uniform=uniform_row(v, 8, 128),
+                    bound=bound(2 * nbytes(q) + nbytes(kv), (
+                        tc(dtype), 8 * 128 * (4 * valid + 2 * empty))),
                     library=sdpa(q, k, v, mask))
 
     def ln_bwd_case(h, rows, dtype, need_dx=True):
@@ -586,17 +669,22 @@ def check_kernels(dev) -> dict:
                         "host_us": host_us(fn, 50),
                         "library_host_us": host_us(library, 50)})
 
-    def attn_bwd_case(t, heads, d, dtype):
-        qkv = randn(B, t, 3, heads, d, dtype=dtype)  # the head's gradient
-        q, k, v = qkv.unbind(2)
-        do = randn(B, t, heads, d, dtype=dtype)
+    def attn_bwd_case(t, heads, d, dtype, tq=None):
+        if tq is None:
+            qkv = randn(B, t, 3, heads, d, dtype=dtype)  # the head's gradient
+            q, k, v = qkv.unbind(2)
+            do = randn(B, t, heads, d, dtype=dtype)
+        else:  # the arseg cross-attention: tq queries, t keys
+            q = randn(B, tq, heads, d, dtype=dtype)
+            k, v = randn(B, t, 2, heads, d, dtype=dtype).unbind(2)
+            do = randn(B, tq, heads, d, dtype=dtype)
         mask = ragged_mask(t, g, dev)
         mask[3] = False  # a batch-padding row: every key masked
         scale = d ** -0.5
         # S = QK^T, dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q over
         # the valid keys of every query row; all but S over the padding
         # row's keys (its P is uniform)
-        valid, empty = pairs(mask)
+        valid, empty = pairs(mask, tq)
         flops = heads * d * (10 * valid + 8 * empty)
         # the SDPA call's backward: forward + backward less the forward
         leaves = [a.transpose(1, 2).detach().requires_grad_()
@@ -612,7 +700,8 @@ def check_kernels(dev) -> dict:
                     # the TPU kernel's function: q, k, v and do in, dq, dk
                     # and dv out (the bf16 kernels' extra reads of the
                     # forward's output and statistics are not counted)
-                    bound=bound(7 * nbytes(q), (tc(dtype), flops)),
+                    bound=bound(3 * nbytes(q) + 4 * nbytes(k),
+                                (tc(dtype), flops)),
                     library=lambda: torch.autograd.grad(lib_fwd(), leaves,
                                                         do_t),
                     library_less=lib_fwd, rtol=BWD_RTOL, twice=True)
@@ -629,12 +718,39 @@ def check_kernels(dev) -> dict:
         want = attn.attention_stats_plain(q, k, mask, scale)
         stats_err = (stats - want).abs()
         check(bool((stats_err <= STATS_ATOL + STATS_RTOL * want.abs()).all()),
-              f"attention statistics [{B},{t},{heads},{d}]: max abs err "
-              f"{stats_err.max().item()}")
+              f"attention statistics [{B},{tq or t}x{t},{heads},{d}]: max "
+              f"abs err {stats_err.max().item()}")
 
+        cross = {}
+        if tq is not None:
+            # the cross rows: the outputs' room of attn_bwd_slack on top of
+            # the self rows' limits (a random key count of a few keys,
+            # which the self rows' draws happened not to give, puts two
+            # bf16 steps of a dk of ~30 between the two routes at either
+            # geometry); reported: the elements beyond the self rows'
+            # limits and each route's distance from the float64 backward
+            case["slack"] = attn_bwd_slack(q, k, v, mask, do, scale)
+
+            def cross_extra(got, ref):
+                cross["slack_max"] = [float(r.max()) for r in case["slack"]]
+                truth = attn_bwd_f64(q, k, v, mask, do, scale)
+                cross["beyond_self_limits"] = [
+                    int(((a.float() - b.float()).abs() > BF16_ATOL
+                         + BWD_RTOL[dtype] * b.float().abs()).sum())
+                    for a, b in zip(got, ref)]
+                for name, out in (("kernel", got), ("plain", ref)):
+                    cross[f"f64_max_err_{name}"] = [
+                        float((a.double() - w).abs().max())
+                        for a, w in zip(out, truth)]
+                    cross[f"f64_mean_err_{name}"] = [
+                        float((a.double() - w).abs().mean())
+                        for a, w in zip(out, truth)]
+
+            case["inspect"] = cross_extra
         case.update(
             fn=lambda: attn.attention_bwd(q, k, v, mask, do, scale, o, stats),
             extra=lambda: {
+                **cross,
                 "stats_max_abs_err": stats_err.max().item(),
                 "fwd_ms": cuda_ms(lambda: attn.attention_bthd(q, k, v, mask,
                                                               scale), 10),
@@ -800,6 +916,18 @@ def check_kernels(dev) -> dict:
                                               v)),
         ]
 
+    # the arseg decoder's cross-attention (tq queries over tk = 999 memory
+    # frames: the decoder's 1000 SEP-led rows, and a short 64-row query
+    # block), K4 and K10 in both dtypes, after every earlier row for the
+    # same reason
+    for dtype in (torch.float32, torch.bfloat16):
+        for tq in (T + 1, 64):
+            cases.append(("attention_bthd", f"[{B},{tq}x{T},8,128] cross",
+                          dtype, lambda tq=tq, d=dtype: cross_case(tq, T, d)))
+            cases.append(("attention_bwd", f"[{B},{tq}x{T},8,128] cross",
+                          dtype, lambda tq=tq, d=dtype: attn_bwd_case(
+                              T, 8, 128, d, tq)))
+
     results: dict = {}
     results_f32: dict = {}
     for name, label, dtype, make in cases:
@@ -811,15 +939,18 @@ def check_kernels(dev) -> dict:
         # and dbias are float32 column sums whatever x's dtype
         tols = {torch.float32: F32_ATOL, torch.bfloat16: BF16_ATOL}
         rtols = case.get("rtol", {})
+        slack = case.get("slack") or (0.0,) * len(got)
         err, ok, limits = 0.0, True, []
-        for a, b in zip(got, ref):
+        for a, b, room in zip(got, ref, slack):
             check(torch.isfinite(a).all().item(), f"{name} {label}: non-finite")
             tol, rtol = tols[a.dtype], rtols.get(a.dtype, 0.0)
             limits.append((tol, rtol))
             diff = (a.float() - b.float()).abs()
-            lim = tol + rtol * b.float().abs()
+            lim = tol + rtol * b.float().abs() + room
             err = max(err, diff.max().item())
             ok = ok and bool((diff <= lim).all())
+        if case.get("inspect") is not None:
+            case["inspect"](got, ref)
         if case.get("uniform") is not None:
             uniform_err = case["uniform"](got[0])
             err = max(err, uniform_err)
@@ -3084,6 +3215,349 @@ def run_ssl(dev) -> dict:
     return counts
 
 
+# conf/task/arseg.yaml: xls-r-300m cut to 15 layers, frozen, a 1-layer
+# encoder and a 4-layer decoder of 8 heads over the 4-token vocabulary
+ARSEG_TASK = {
+    "autoregression": True,
+    "model": {"_target_": "lib.models.AutoRegSegmenter",
+              "wav2vec_model_name": "facebook/wav2vec2-xls-r-300m",
+              "wav2vec_keep_layers": 15, "finetune_wav2vec": False,
+              "n_transformer_enc_layers": 1, "n_transformer_enc_heads": 8,
+              "n_transformer_dec_layers": 4, "n_transformer_dec_heads": 8,
+              "init_dropout": 0.1},
+    "train_generator": {"_target_": "lib.dataset.RandomDataloaderGenerator"},
+    "eval_generator": {"inference_times": 1},
+    "vocab": {"_target_": "lib.datautils.BaseVocabulary"},
+    "loss": {"_target_": "torch.nn.CrossEntropyLoss", "tag": "ce",
+             "reduction": "none"},
+}
+# the random decoder's output layer: the <B> and <NB> rows x4, then <NB>'s
+# bias moved to the midpoint of the two plateaus its float32 decode of the
+# full batch settles on.  The random decoder has no positional signal and
+# feeds its tokens back: a window's gap settles after a few frames on a
+# value set by the token it keeps choosing (the first decode's median
+# gap), and shifting the bias by that median flips the choice and shows
+# the other plateau (the second decode's median); half-way between them
+# each window keeps the token its first frames choose
+ARSEG_OUT_SCALE = 4.0
+# K1 launches a batch: the encode's (the backbone's 31, the encoder
+# layer's 2 and the shared LayerNorm) and 13 a decode step (3 in each of
+# the 4 decoder layers and the shared LayerNorm)
+ARSEG_LN_ENCODE, ARSEG_LN_STEP = 34, 13
+
+
+def arseg_inputs(batch, dev):
+    """The engine's inputs of an offline batch: the audio normalized on the
+    device, the lengths, out_mask."""
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import (normalize_int16,
+                                                           upload)
+
+    return (normalize_int16(upload(batch.audio, dev), batch.norm_length,
+                            upload(batch.included, dev)),
+            upload(batch.in_lengths, dev), upload(batch.out_mask, dev))
+
+
+def arseg_decode(model, batch, dev, dtype, mode: str):
+    """One batch's greedy decode at ``dtype`` under kernel mode ``mode``:
+    (probs, logits, tokens) as numpy, and the wall ms."""
+    backend.set_kernels(mode)
+    audio, lengths, out_mask = arseg_inputs(batch, dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.greedy_decode(audio, lengths, out_mask.shape[1], dtype)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    backend.set_kernels("auto")
+    return tuple(x.float().cpu().numpy() for x in out), ms
+
+
+def arseg_forced(model, batch, dev, dtype, mode: str, tokens: np.ndarray):
+    """The teacher-forced logits at ``dtype`` under ``mode``, fed the SEP-led
+    ``tokens`` (every key valid), as numpy float32."""
+    backend.set_kernels(mode)
+    audio, lengths, _ = arseg_inputs(batch, dev)
+    tok = torch.from_numpy(tokens).long().to(dev)
+    sep = torch.full_like(tok[:, :1], 3)  # <SEP>, the decode's first input
+    target_in = torch.cat([sep, tok[:, :-1]], 1)
+    with torch.inference_mode():
+        logits = model(audio, lengths, target_in,
+                       torch.ones_like(target_in, dtype=torch.bool), dtype)
+    backend.set_kernels("auto")
+    return logits.float().cpu().numpy()
+
+
+def arseg_train(dev, model, sd: dict, batches: list, mode: str,
+                dtype) -> dict:
+    """Three micro-steps of ``train.step.make_train_step`` with
+    ``autoregression`` from the weights ``sd`` (frozen backbone, update
+    each micro-step, dropout from a generator seeded 0), the launch
+    counters reset just before each: losses, the first micro-step's
+    gradients, each micro-step's launches and wall ms, the backbone
+    unchanged and the head moved, peak memory."""
+    from wav2vecsegmenter_tpu_torch.data.vocab import BaseVocabulary
+    from wav2vecsegmenter_tpu_torch.train.loss import build_loss
+    from wav2vecsegmenter_tpu_torch.train.step import (AccumulatingAdamW,
+                                                       make_train_step)
+
+    model.load_state_dict(sd)
+    model.train()
+    params = model.set_requires_grad()
+    vocab = BaseVocabulary()
+    loss_fn, _, _ = build_loss(ARSEG_TASK["loss"], None, vocab)
+    opt = AccumulatingAdamW(params, 2.5e-4, 10, 1)
+    step = make_train_step(model, loss_fn, 0, opt, dtype,
+                           torch.Generator(device=dev).manual_seed(0), "ce",
+                           vocab, autoregression=True)
+    backend.set_kernels(mode)
+    out = {"loss": [], "ms": [], "launches": []}
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        backend.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch)
+        out["loss"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(backend.launch_counts())
+        if "grads" not in out:
+            out["grads"] = [gr.detach().float().clone() for gr in m["grads"]]
+        del m
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _, busy, wall = profiled(lambda: step(batches[0]))
+    out.update(device_busy_ms=busy, profiled_wall_ms=wall)
+    backend.set_kernels("auto")
+    after = model.state_dict()
+    out["backbone_unchanged"] = all(
+        torch.equal(after[k], v) for k, v in sd.items()
+        if not k.startswith("seg_model."))
+    out["head_moved"] = all(not torch.equal(after[k], v)
+                            for k, v in sd.items()
+                            if k.startswith("seg_model."))
+    check(bool(np.isfinite(out["loss"]).all()),
+          f"arseg training {mode} {dtype}: non-finite loss {out['loss']}")
+    return out
+
+
+def run_arseg(dev) -> dict:
+    """The arseg phase: the autoregressive segmenter at the xls-r-300m width
+    (15 layers, a 1-layer encoder and a 4-layer decoder of 8 heads, V=4;
+    seeded random weights, the output layer calibrated) saved as the
+    port's full-layout ``.pt`` and loaded through the inference CLIs'
+    loader (``cli.common.load_model``, task=arseg); the slice's two talks
+    through ``cli.common.segment_wavs`` at batch 14 with pTHR (bf16
+    kernels, the launch counters reset just before; bf16 eager, counters
+    unmoved; float32): segments, token agreement with float32, walls;
+    one full batch's decode in the three arms (launches a batch, wall and
+    device-busy ms, host ms a decode step, peak memory), the teacher-forced
+    forward fed the float32 decode's tokens (the kernels' bf16 logits as
+    close to float32 as the eager path's, within KERNEL_SLACK); then three
+    micro-steps of ``make_train_step`` (frozen backbone, batch 14) in
+    three arms.  Returns the launch counts of the kernels' segment run."""
+    from wav2vecsegmenter_tpu_torch.cli.common import build_model, load_model
+    from wav2vecsegmenter_tpu_torch.config import Config
+    from wav2vecsegmenter_tpu_torch.data.loader import (
+        RandomDataloaderGenerator)
+    from wav2vecsegmenter_tpu_torch.models.autoreg import AutoRegSegmenter
+
+    t_phase = time.perf_counter()
+    batch = full_batch()
+    t_out = batch.out_mask.shape[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        made, _ = build_model(ARSEG_TASK, dev)
+        init_from_numpy(made, seed=0)
+        made.eval()
+        out = made.seg_model.output_layer
+        with torch.no_grad():
+            out.weight[:2].mul_(ARSEG_OUT_SCALE)
+            out.bias[:2].mul_(ARSEG_OUT_SCALE)
+            plateaus = []
+            for half in (1.0, 0.5):
+                (_, logits, _), _ = arseg_decode(made, batch, dev,
+                                                 torch.float32, "eager")
+                gap = (logits[..., 1] - logits[..., 0])[batch.out_mask]
+                plateaus.append(float(np.median(gap)))
+                out.bias[1] -= half * plateaus[-1]
+            nb_shift = plateaus[0] + 0.5 * plateaus[1]
+        ckpt = Path(tmp) / "arseg.pt"
+        torch.save({"state_dict": made.state_dict()}, ckpt)
+        del made
+        model, vocab, _, _ = load_model(Config({
+            "task": ARSEG_TASK, "runtime": {"device": dev.type,
+                                            "kernels": "auto"}}), ckpt)
+    cfg = model.w2v_cfg
+    seg = model.seg_model
+    check(isinstance(model, AutoRegSegmenter) and cfg.num_layers == 15
+          and cfg.hidden_size == 1024 and len(seg.encoder.layers) == 1
+          and len(seg.decoder.layers) == 4 and seg.n_dec_heads == 8
+          and seg.decoder.layers[0].linear1.out_features == 2048
+          and vocab.vocab_size == 4
+          and seg.output_layer.out_features == 4,
+          "arseg: not AutoRegSegmenter at the xls-r-300m width")
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    # the segment path: kernels, eager (counters unmoved), float32
+    with tempfile.TemporaryDirectory() as tmp:
+        secs = {"talk1.wav": 65.0, "talk2.wav": 41.0}
+        wavs = [Path(tmp) / name for name in secs]
+        for seed, w in enumerate(wavs):
+            write_talk(w, secs[w.name], seed)
+
+        def run(mode: str, dtype):
+            backend.set_kernels(mode)
+            probs: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = segment_wavs(model, wavs, PTHR, B, 20.0, 1, dev, dtype,
+                                talk_probs=probs, loss_tag="ce", vocab=vocab)
+            torch.cuda.synchronize()
+            backend.set_kernels("auto")
+            return rows, probs, (time.perf_counter() - t0) * 1e3
+
+        run("auto", torch.bfloat16)  # warm-up
+        backend.reset_launch_counts()
+        runs = {"kernels": run("auto", torch.bfloat16)}
+        counts = backend.launch_counts()
+        runs["eager"] = run("eager", torch.bfloat16)
+        check(backend.launch_counts() == counts,
+              "the eager arseg run launched kernels")
+        runs["f32"] = run("auto", torch.float32)
+    for arm, (rows, _, _) in runs.items():
+        check({r["wav"] for r in rows} == set(secs),
+              f"arseg {arm}: a talk got no segments")
+    segment_out = {
+        arm: {"segments": len(rows), "wall_ms": ms,
+              "dprob_vs_f32": dprob_stats(np.concatenate(
+                  [np.abs(p[w] - runs["f32"][1][w]) for w in secs]))}
+        for arm, (rows, p, ms) in runs.items()}
+
+    # one full batch: launches, walls, device busy, memory, tokens
+    engine_expected = {
+        "layer_norm": ARSEG_LN_ENCODE + ARSEG_LN_STEP * t_out,
+        "attention_packed": cfg.num_layers, "attention_bthd": 1,
+        "ffn": cfg.num_layers, "conv_bias_ln_gelu": 6,
+        "conv_audio_ln_gelu": 1}
+    # the slice's batches: each talk's windows in one batch (the
+    # remainder ladder's 4 rows), at the 20 s or the 22 s bucket
+    check(all(counts.get(k, 0) >= SLICE_BATCHES * n
+              for k, n in engine_expected.items() if k != "layer_norm")
+          and counts.get("layer_norm", 0) >= SLICE_BATCHES * (
+              ARSEG_LN_ENCODE + ARSEG_LN_STEP * t_out),
+          f"arseg segment path launches {counts}")
+    arseg_decode(model, batch, dev, torch.bfloat16, "auto")  # warm-up
+    backend.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (kp, kl, kt), k_ms = arseg_decode(model, batch, dev, torch.bfloat16,
+                                      "auto")
+    per_batch = backend.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(per_batch.get(k, 0) == n for k, n in engine_expected.items()),
+          f"arseg batch launches {per_batch}, not {engine_expected}")
+    (ep, el, et), e_ms = arseg_decode(model, batch, dev, torch.bfloat16,
+                                      "eager")
+    (fp, fl, ft), f_ms = arseg_decode(model, batch, dev, torch.float32,
+                                      "eager")
+    walls = {"kernels": [k_ms], "eager": [e_ms], "f32": [f_ms]}
+    for arm, mode, dt in (("kernels", "auto", torch.bfloat16),
+                          ("eager", "eager", torch.bfloat16),
+                          ("eager", "eager", torch.bfloat16),
+                          ("kernels", "auto", torch.bfloat16)):
+        walls[arm].append(arseg_decode(model, batch, dev, dt, mode)[1])
+    backend.set_kernels("auto")
+    audio, lengths, _ = arseg_inputs(batch, dev)
+    with torch.inference_mode():
+        _, busy, prof_wall = profiled(lambda: model.greedy_decode(
+            audio, lengths, t_out, torch.bfloat16))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model._encode(audio, lengths, torch.bfloat16)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+    mask = batch.out_mask
+    gap_f32 = (fl[..., 1] - fl[..., 0])[mask]
+    tokens = {"kernels_vs_f32": float((kt == ft)[mask].mean()),
+              "eager_vs_f32": float((et == ft)[mask].mean()),
+              "kernels_vs_eager": float((kt == et)[mask].mean()),
+              "nb_share_f32": float((ft == vocab.nonboundary_token_id)[mask]
+                                    .mean())}
+    for arm, x in (("kernels", kp), ("eager", ep), ("f32", fp)):
+        check(bool(np.isfinite(x).all()), f"arseg {arm}: non-finite probs")
+
+    # fidelity on the teacher-forced forward fed the float32 decode's tokens
+    forced = {arm: arseg_forced(model, batch, dev, dt, mode, ft)
+              for arm, mode, dt in (("kernels", "auto", torch.bfloat16),
+                                    ("eager", "eager", torch.bfloat16),
+                                    ("f32", "eager", torch.float32))}
+    fid = {arm: dprob_stats(np.abs(forced[arm] - forced["f32"])[mask])
+           for arm in ("kernels", "eager")}
+    fid["f32_decode_vs_forced"] = dprob_stats(np.abs(forced["f32"] - fl)[mask])
+    for q in ("mean", "p99"):
+        k, e = fid["kernels"][q], fid["eager"][q]
+        check(k <= KERNEL_SLACK * e, f"arseg kernels add error to the "
+                                     f"teacher-forced logits: {q} {k} vs "
+                                     f"{e} on the plain path")
+    check(fid["f32_decode_vs_forced"]["max"] <= 1e-3,
+          f"arseg float32 decode and teacher-forced forward differ: "
+          f"{fid['f32_decode_vs_forced']}")
+    phase("arseg", params=sum(p.numel() for p in model.parameters()),
+          layers=cfg.num_layers, t_out=t_out, nb_bias_shift=nb_shift,
+          calibration_median_gaps=plateaus,
+          gap_f32_percentiles_1_5_25_50_75_95_99=[
+              float(x) for x in np.percentile(gap_f32,
+                                              [1, 5, 25, 50, 75, 95, 99])],
+          segment=segment_out, tokens=tokens, fidelity_forced=fid,
+          batch_ms=walls, batch_device_busy_ms=busy,
+          batch_profiled_wall_ms=prof_wall, encode_ms=encode_ms,
+          decode_step_wall_ms=(float(np.median(walls["kernels"]))
+                               - encode_ms) / t_out,
+          peak_mem_gb=peak, launches_batch=per_batch,
+          launches_segment=counts)
+
+    # training: three micro-steps, bf16 kernels / bf16 eager / float32
+    with tempfile.TemporaryDirectory() as tmp:
+        talks, segments = write_corpus(Path(tmp))
+        gen = RandomDataloaderGenerator(talks, segments, TRAIN_WINDOW, B,
+                                        seed=0, vocab=vocab,
+                                        autoregression=True)
+        batches = list(gen.generate())[:TRAIN_STEPS]
+    runs = {arm: arseg_train(dev, model, sd, batches, mode, dt)
+            for arm, mode, dt in (("kernels", "auto", torch.bfloat16),
+                                  ("eager", "eager", torch.bfloat16),
+                                  ("f32", "eager", torch.float32))}
+    k = runs["kernels"]
+    n_dec = len(seg.decoder.layers)
+    # K4 and K10: the encoder's self-attention and each decoder layer's
+    # cross-attention; K9: the encoder layer's 2, the shared LayerNorm's 2
+    # and 3 a decoder layer, the first (on the frozen backbone's output)
+    # without dx (counted under both names)
+    want = {"attention_bthd": 1 + n_dec, "attention_bwd": 1 + n_dec,
+            "layer_norm_bwd": 3 * n_dec + 4, "layer_norm_bwd_no_dx": 1}
+    for i, launches in enumerate(k["launches"]):
+        check(all(launches.get(n, 0) == c for n, c in want.items()),
+              f"arseg micro-step {i}: launches {launches}, want {want}")
+    for arm, r in runs.items():
+        check(r["backbone_unchanged"] and r["head_moved"],
+              f"arseg training {arm}: the backbone moved or the head did "
+              f"not")
+        if arm != "kernels":
+            check(all(not any(x.values()) for x in r["launches"]),
+                  f"arseg training {arm}: eager launched kernels")
+    k_vs_f = grad_dist(k["grads"], runs["f32"]["grads"])
+    e_vs_f = grad_dist(runs["eager"]["grads"], runs["f32"]["grads"])
+    check(k_vs_f <= KERNEL_SLACK * e_vs_f,
+          f"arseg training: kernels' first gradients {k_vs_f} from float32, "
+          f"the plain path's {e_vs_f}")
+    phase("arseg_train", batch=B, micro_steps=len(batches),
+          loss={a: r["loss"] for a, r in runs.items()},
+          grad_dist_kernels_vs_f32=k_vs_f, grad_dist_eager_vs_f32=e_vs_f,
+          ms_per_micro_step={a: r["ms"] for a, r in runs.items()},
+          device_busy_ms={a: r["device_busy_ms"] for a, r in runs.items()},
+          peak_gb={a: r["peak_gb"] for a, r in runs.items()},
+          launches=k["launches"][0], seconds=time.perf_counter() - t_phase)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3130,6 +3604,8 @@ def main() -> int:
     lna = run_lna(dev)
     torch.cuda.empty_cache()
     counts_ssl = run_ssl(dev)
+    torch.cuda.empty_cache()
+    counts_arseg = run_arseg(dev)
 
     def launches(name):
         # the LNA recipe's run: every kernel of the trainer's path; K2
@@ -3145,7 +3621,8 @@ def main() -> int:
          "launches_slice": counts.get(name, 0),
          "launches_train": counts_train.get(name, 0),
          "launches_online": counts_online.get(name, 0),
-         "launches_ssl": counts_ssl.get(name, 0), **kernels[name],
+         "launches_ssl": counts_ssl.get(name, 0),
+         "launches_arseg": counts_arseg.get(name, 0), **kernels[name],
          **({"function": lna["functions"][name]}
             if name in lna["functions"] else {})}
         for name, (src, rep) in SOURCES.items()]}))

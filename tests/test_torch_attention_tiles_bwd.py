@@ -60,13 +60,16 @@ def emulate_pre_pass(o, do, stats) -> torch.Tensor:
 
 def emulate_bwd(q, k, v, mask, do, scale, o, stats):
     """The pre-pass, attn_bwd_dq_tc_kernel and attn_bwd_dkdv_tc_kernel ->
-    (dq, dk, dv) in q's type."""
+    (dq, dk, dv) in q's type; q and do [B, Tq, H, D], k and v [B, Tk, H,
+    D]."""
     b, t, h, d = q.shape
+    tk = k.shape[1]
     own, bn = bwd_tiles(d)
     c = scale * LOG2E
     rnd = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
     table = emulate_pre_pass(o, do, stats)
-    dq, dk, dv = (torch.empty(b, t, h, d) for _ in range(3))
+    dq = torch.empty(b, t, h, d)
+    dk, dv = torch.empty(b, tk, h, d), torch.empty(b, tk, h, d)
     for bi in range(b):
         valid = mask[bi]
         rw = table[bi].transpose(0, 1)  # [T, H, 3]
@@ -84,7 +87,7 @@ def emulate_bwd(q, k, v, mask, do, scale, o, stats):
         # dk/dv kernel: every CTA of key rows at once, over the query tiles
         kt, vt = stack_tiles(k[bi], own), stack_tiles(v[bi], own)
         kb = torch.stack([bias(valid, k0, own)
-                          for k0 in range(0, t, own)])[:, None, :, None]
+                          for k0 in range(0, tk, own)])[:, None, :, None]
         ka, va = torch.zeros(kt.shape), torch.zeros(vt.shape)
         for i0 in range(0, t, bn):
             qs, dos = rows(q[bi], i0, bn), rows(do[bi], i0, bn)
@@ -95,10 +98,10 @@ def emulate_bwd(q, k, v, mask, do, scale, o, stats):
             ds = p * (vt @ dos.transpose(1, 2) - dl)
             va = va + rnd(p) @ dos
             ka = ka + rnd(ds) @ qs
-        dk[bi] = (ka * scale).transpose(1, 2).reshape(-1, h, d)[:t]
-        dv[bi] = va.transpose(1, 2).reshape(-1, h, d)[:t]
+        dk[bi] = (ka * scale).transpose(1, 2).reshape(-1, h, d)[:tk]
+        dv[bi] = va.transpose(1, 2).reshape(-1, h, d)[:tk]
         if valid.any():  # the skip rule: all-masked own tiles write zeros
-            for k0 in range(0, t, own):
+            for k0 in range(0, tk, own):
                 if not valid[k0:k0 + own].any():
                     dk[bi, k0:k0 + own] = 0.0
                     dv[bi, k0:k0 + own] = 0.0
@@ -173,3 +176,38 @@ def test_skip_rules():
     assert 200 >= own  # the first own tile holds no valid key
     assert (dk[0, :own] == 0).all() and (dv[0, :own] == 0).all()
     assert (dv[3] != 0).any()  # the all-masked row still sends gradient
+
+
+@pytest.mark.parametrize("tq,tk", [(1000, 999), (64, 999), (999, 64)])
+def test_cross_schedule_within_chip_smoke_limits(tq, tk):
+    """The autoregressive decoder's cross-attention (Tq != Tk) through both
+    kernels' schedules at D=128, keys of every count down to a few and
+    none: the forward and its statistics against the plain versions; the
+    backward against attention_bwd_plain within chip_smoke.py's limits of
+    its cross rows (the bf16 atol and rtol plus attn_bwd_slack: on a row of
+    a few keys dk sums ~Tq large terms, and the two routes' bf16 roundings
+    of dS part by more than the self rows' limits)."""
+    import chip_smoke
+
+    rng = np.random.RandomState(tq + tk)
+    lengths = [tk, tk // 2, 2, 0, 3, 5, 1, 17]
+    q, do = (torch.from_numpy(rng.randn(8, tq, 2, 128).astype(np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(8, tk, 2, 128).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    mask = torch.arange(tk)[None, :] < torch.tensor(lengths)[:, None]
+    scale = 128 ** -0.5
+    o, stats = emulate_fwd(q, k, v, mask, scale, with_stats=True)
+    assert_close(o, tattn.attention_bthd_plain(q, k, v, mask, scale),
+                 BF16_ATOL)
+    torch.testing.assert_close(
+        stats, tattn.attention_stats_plain(q, k, mask, scale),
+        rtol=STATS_RTOL, atol=1e-6)
+    got = emulate_bwd(q, k, v, mask, do, scale, o, stats)
+    want = tattn.attention_bwd_plain(q, k, v, mask, do, scale)
+    slack = chip_smoke.attn_bwd_slack(q, k, v, mask, do, scale)
+    for g, w, room in zip(got, want, slack):
+        assert g.shape == w.shape
+        diff = (g.float() - w.float()).abs()
+        assert (diff <= BF16_ATOL + BF16_RTOL * w.float().abs()
+                + room).all(), f"max diff {diff.max().item()}"

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's jax-free helpers, held equal to
 the originals: constants, frame conversions, window grids, wav reads,
-collation (the CTC task's transcript tokens too), the vocabularies, the
+collation (the CTC task's transcript tokens too, and the autoregressive
+task's batch), the vocabularies, the
 segmentation algorithms (pDAC with logits too), the config composer and the
 CLIs' override helpers (sweeps, run directories, the online hop mode's
 knobs).
@@ -112,6 +113,33 @@ def test_collate_equal(device_normalize):
             np.testing.assert_array_equal(a, b, err_msg=field.name)
         else:
             assert a == b, field.name
+
+
+@pytest.mark.parametrize("rows", [2, 3])
+def test_collate_autoreg_equal(rows):
+    """The autoregressive batch: SEP-led in_target and SEP-tailed
+    out_target [B, T+1], tgt_mask [B, T+1], src_mask [B, T], the audio
+    normalized on the host (ddof=1); a silent window and, at 3 rows, an
+    empty padding row."""
+    rng = np.random.RandomState(6)
+    vocab = tvocab.BaseVocabulary()
+    examples = []
+    for n in (32000, 20000):
+        t = int(tcollate.out_len_for(n))
+        target = (rng.rand(t) > 0.5).astype(np.float32)
+        examples.append((rng.randn(n).astype(np.float32) * 0.1, target, 0, t))
+    examples[1] = (np.zeros(20000, np.float32), *examples[1][1:])
+    args = (examples, rows, 32000, tcollate.out_len_for(32000),
+            vocab.pad_token_id, vocab.sep_token_id)
+    got, want = tcollate.collate_autoreg(*args), jcollate.collate_autoreg(*args)
+    assert [f.name for f in dataclasses.fields(got)] == [
+        f.name for f in dataclasses.fields(want)]
+    for field in dataclasses.fields(got):
+        a, b = getattr(got, field.name), getattr(want, field.name)
+        assert a.dtype == b.dtype, field.name
+        np.testing.assert_array_equal(a, b, err_msg=field.name)
+    assert got.in_target.shape == (rows, tcollate.out_len_for(32000) + 1)
+    assert (got.in_target[:2, 0] == vocab.sep_token_id).all()
 
 
 def test_vocabularies_equal(tmp_path):

@@ -63,6 +63,7 @@ def test_chip_smoke_path_imports_no_jax_pandas_yaml(target):
                "wav2vecsegmenter_tpu_torch.cli.online, "
                "wav2vecsegmenter_tpu_torch.cli.serve, "
                "wav2vecsegmenter_tpu_torch.models.shas, "
+               "wav2vecsegmenter_tpu_torch.models.autoreg, "
                "wav2vecsegmenter_tpu_torch.data.windows, "
                "wav2vecsegmenter_tpu_torch.ops.layernorm, "
                "wav2vecsegmenter_tpu_torch.ops.attention, "

@@ -35,6 +35,7 @@ from wav2vecsegmenter_tpu_torch.data import vocab as tvocab
 from wav2vecsegmenter_tpu_torch.data.collate import collate, out_len_for
 from wav2vecsegmenter_tpu_torch.infer import pipeline as tpipe
 from wav2vecsegmenter_tpu_torch.models import wav2vec2 as tw2v
+from wav2vecsegmenter_tpu_torch.models.autoreg import AutoRegSegmenter
 from wav2vecsegmenter_tpu_torch.models.shas import SHAS, SHASWithSSL
 from wav2vecsegmenter_tpu_torch.train import loss as tloss
 from wav2vecsegmenter_tpu_torch.train import step as tstep
@@ -342,6 +343,7 @@ def test_runnable_arms_match_jax_on_ssl(arm, quantize):
     ("shas_ssl", SHASWithSSL, 24, 36),
     ("shas_ctc", SHASWithSSL, 15, 36),
     ("shas_focal", SHAS, 15, 1),
+    ("arseg", AutoRegSegmenter, 15, 4),
 ])
 def test_build_model_follows_target(task, cls, layers, vocab_size):
     """Each task's ``_target_`` builds its class, the vocabulary's size
@@ -357,12 +359,15 @@ def test_build_model_follows_target(task, cls, layers, vocab_size):
         assert vocab.vocab_size == 36 and vocab.pad_token_id == 2
         assert model.wav2vec_model.model.lm_head.out_features == 32
         assert model.backbone.encoder.layer_norm.weight.shape == (1024,)
+    if cls is AutoRegSegmenter:
+        assert vocab.sep_token_id == 3
+        assert len(model.seg_model.encoder.layers) == 1
+        assert len(model.seg_model.decoder.layers) == 4
+        assert model.seg_model.embedding.weight.shape == (4, 1024)
+        assert model.seg_model.decoder.layers[0].linear1.out_features == 2048
 
 
 def test_build_model_refuses_unported_targets():
-    cfg = compose(CONF, "train", ["task=arseg"])
-    with pytest.raises(NotImplementedError, match="A9 \\(autoreg\\)"):
-        tcommon.build_model(to_plain(cfg.task), "meta")
     with pytest.raises(NotImplementedError, match="lib.models.Other"):
         tcommon.build_model({"_target_": "lib.models.Other"}, "meta")
     model, vocab = tcommon.build_model(

@@ -186,3 +186,66 @@ def tiny_ssl_pair(ckpt_path, seed: int = 0, **kwargs):
                str(ckpt_path))
     load_reference_checkpoint(ckpt_path, model)
     return jm, params, model.eval()
+
+
+# the autoregressive segmenter (task=arseg) at the tiny geometry: 2 backbone
+# layers of width 64, a 1-layer encoder and a 2-layer decoder of 4 heads,
+# the 4-token vocabulary, no dropout
+AR_KW = dict(wav2vec_keep_layers=2, n_transformer_enc_layers=1,
+             n_transformer_enc_heads=4, n_transformer_dec_layers=2,
+             n_transformer_dec_heads=4, init_dropout=0.0)
+
+
+def jax_tiny_autoreg(cfg=TINY_W2V, **kwargs):
+    """The JAX ``AutoRegSegmenterImpl`` with the backbone ``cfg``."""
+    from wav2vecsegmenter_tpu.models.autoreg import AutoRegSegmenterImpl
+
+    model = AutoRegSegmenterImpl(**{**AR_KW, **kwargs})
+    model.w2v_cfg = cfg
+    model.d_model = cfg.hidden_size
+    return model
+
+
+def port_tiny_autoreg(cfg=TINY_W2V, device=None, **kwargs):
+    """The port's ``AutoRegSegmenter`` at the geometry of
+    :func:`jax_tiny_autoreg`."""
+    from wav2vecsegmenter_tpu_torch.models.autoreg import AutoRegSegmenter
+
+    return AutoRegSegmenter(**{**AR_KW, **kwargs}, device=device,
+                            w2v_cfg=Wav2Vec2Config(**dataclasses.asdict(cfg)))
+
+
+def autoreg_params(model, seed: int = 0) -> dict:
+    """JAX ``init`` of an autoregressive spec as numpy, every LayerNorm of
+    the head drawn away from scale 1 and bias 0 so that the parity sees
+    which is which."""
+    import numpy as np
+
+    params = jax.device_get(model.init(jax.random.PRNGKey(seed)))
+    rng = np.random.RandomState(seed)
+
+    def jitter(node):
+        if isinstance(node, dict):
+            if set(node) == {"scale", "bias"}:
+                shape = np.shape(node["scale"])
+                return {"scale": (1 + 0.2 * rng.randn(*shape)).astype(
+                            np.float32),
+                        "bias": (0.1 * rng.randn(*shape)).astype(np.float32)}
+            return {k: jitter(v) for k, v in node.items()}
+        return node
+
+    params["seg"] = jitter(params["seg"])
+    return params
+
+
+def autoreg_pair(cfg=TINY_W2V, seed: int = 0, **kwargs):
+    """(JAX spec, its params, the port's model in eval mode) on the same
+    weights."""
+    from wav2vecsegmenter_tpu_torch.checkpoints.convert import (
+        state_dict_from_jax_params)
+
+    jm = jax_tiny_autoreg(cfg, **kwargs)
+    params = autoreg_params(jm, seed)
+    tm = port_tiny_autoreg(cfg, **kwargs)
+    tm.load_state_dict(state_dict_from_jax_params(params, tm), strict=True)
+    return jm, params, tm.eval()

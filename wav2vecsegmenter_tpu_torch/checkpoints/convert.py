@@ -18,6 +18,20 @@
   from a local ForCTC snapshot (JAX ``checkpoints/io.py:104-130``).
   Module names follow those keys, so loading is ``load_state_dict`` as
   is.
+
+The autoregressive segmenter (``models.autoreg.AutoRegSegmenter``) has
+the port's own layout: the backbone under ``wav2vec_model.model.*`` as
+above, the head under ``seg_model.*`` named after torch's
+``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer``
+(``encoder.layers.{i}.{self_attn,linear1,linear2,norm1,norm2}``,
+``decoder.layers.{i}.{self_attn,multihead_attn,linear1,linear2,norm1,
+norm2,norm3}``, attention as ``in_proj_weight`` / ``in_proj_bias`` /
+``out_proj``), then ``embedding``, the shared ``norm`` and
+``output_layer``.  The reference's own wrapper attribute names are not in
+this repository, so a reference arseg ``.pt`` is not read yet; the port's
+files are, in both layouts (the full model under ``finetune_wav2vec``,
+the head alone otherwise, its backbone from a local snapshot or
+``allow_random_wav2vec``).
 """
 
 from __future__ import annotations
@@ -89,38 +103,74 @@ def _wav2vec_sd(p: dict, prefix: str) -> dict:
     return sd
 
 
-def _sfc_sd(p: dict, prefix: str) -> dict:
+def _attn_sd(attn: dict, i: int, base: str) -> dict:
+    """Layer ``i`` of a stacked attention tree (separate q, k, v, o
+    linears) -> torch's packed ``in_proj_*`` and ``out_proj``."""
+    return {
+        f"{base}.in_proj_weight": _t(np.concatenate(
+            [np.asarray(attn[x]["w"])[i].T for x in "qkv"], axis=0)),
+        f"{base}.in_proj_bias": _t(np.concatenate(
+            [np.asarray(attn[x]["b"])[i] for x in "qkv"])),
+        f"{base}.out_proj.weight": _t(np.asarray(attn["o"]["w"])[i].T),
+        f"{base}.out_proj.bias": _t(np.asarray(attn["o"]["b"])[i]),
+    }
+
+
+def _layers_sd(layers: dict | None, base: str, attns: dict,
+               norms: dict) -> dict:
+    """A stacked tree of pre-LN transformer layers -> ``{base}.{i}.*`` with
+    torch's names: ``attns`` and ``norms`` map them to the tree's keys; the
+    FFN is ``linear1`` / ``linear2`` (``w1`` / ``w2``)."""
     sd = {}
-    layers = p.get("layers")
     n = 0 if layers is None else np.asarray(layers["ln1"]["scale"]).shape[0]
     for i in range(n):
-        base = f"{prefix}transformer.layers.{i}"
-        attn = layers["attn"]
-        sd[f"{base}.self_attn.in_proj_weight"] = _t(np.concatenate(
-            [np.asarray(attn[x]["w"])[i].T for x in "qkv"], axis=0))
-        sd[f"{base}.self_attn.in_proj_bias"] = _t(np.concatenate(
-            [np.asarray(attn[x]["b"])[i] for x in "qkv"]))
-        sd[f"{base}.self_attn.out_proj.weight"] = _t(
-            np.asarray(attn["o"]["w"])[i].T)
-        sd[f"{base}.self_attn.out_proj.bias"] = _t(np.asarray(attn["o"]["b"])[i])
-        for name, key in (("norm1", "ln1"), ("norm2", "ln2")):
-            sd[f"{base}.{name}.weight"] = _t(np.asarray(layers[key]["scale"])[i])
-            sd[f"{base}.{name}.bias"] = _t(np.asarray(layers[key]["bias"])[i])
+        for name, key in attns.items():
+            sd.update(_attn_sd(layers[key], i, f"{base}.{i}.{name}"))
+        for name, key in norms.items():
+            sd[f"{base}.{i}.{name}.weight"] = _t(
+                np.asarray(layers[key]["scale"])[i])
+            sd[f"{base}.{i}.{name}.bias"] = _t(
+                np.asarray(layers[key]["bias"])[i])
         for name, key in (("linear1", "w1"), ("linear2", "w2")):
             lin = layers["ffn"][key]
-            sd[f"{base}.{name}.weight"] = _t(np.asarray(lin["w"])[i].T)
-            sd[f"{base}.{name}.bias"] = _t(np.asarray(lin["b"])[i])
-    sd[f"{prefix}layer_norm.weight"] = _t(p["final_ln"]["scale"])
-    sd[f"{prefix}layer_norm.bias"] = _t(p["final_ln"]["bias"])
-    sd[f"{prefix}output_layer.weight"] = _t(np.asarray(p["out"]["w"]).T)
-    sd[f"{prefix}output_layer.bias"] = _t(p["out"]["b"])
+            sd[f"{base}.{i}.{name}.weight"] = _t(np.asarray(lin["w"])[i].T)
+            sd[f"{base}.{i}.{name}.bias"] = _t(np.asarray(lin["b"])[i])
+    return sd
+
+
+def _head_out_sd(ln: dict, out: dict, prefix: str, ln_name: str) -> dict:
+    return {f"{prefix}{ln_name}.weight": _t(ln["scale"]),
+            f"{prefix}{ln_name}.bias": _t(ln["bias"]),
+            f"{prefix}output_layer.weight": _t(np.asarray(out["w"]).T),
+            f"{prefix}output_layer.bias": _t(out["b"])}
+
+
+def _sfc_sd(p: dict, prefix: str) -> dict:
+    sd = _layers_sd(p.get("layers"), f"{prefix}transformer.layers",
+                    {"self_attn": "attn"}, {"norm1": "ln1", "norm2": "ln2"})
+    sd.update(_head_out_sd(p["final_ln"], p["out"], prefix, "layer_norm"))
+    return sd
+
+
+def _autoreg_sd(p: dict, prefix: str) -> dict:
+    """The JAX autoregressive head ``{encoder, decoder (stacked), tok_emb,
+    shared_ln, out}`` -> ``EncoderDecoder``'s state_dict."""
+    sd = _layers_sd(p["encoder"], f"{prefix}encoder.layers",
+                    {"self_attn": "attn"}, {"norm1": "ln1", "norm2": "ln2"})
+    sd.update(_layers_sd(
+        p["decoder"], f"{prefix}decoder.layers",
+        {"self_attn": "self_attn", "multihead_attn": "cross_attn"},
+        {"norm1": "ln1", "norm2": "ln2", "norm3": "ln3"}))
+    sd[f"{prefix}embedding.weight"] = _t(p["tok_emb"])
+    sd.update(_head_out_sd(p["shared_ln"], p["out"], prefix, "norm"))
     return sd
 
 
 def state_dict_from_jax_params(np_tree: dict, model) -> dict:
-    """JAX SHAS params ({'wav2vec': ..., 'seg': ...}) or SHASWithSSL params
-    ({'wav2vec', 'final_ln', 'lm_head', 'seg'}), numpy leaves -> the
-    state_dict of ``model`` (the port's counterpart)."""
+    """JAX SHAS params ({'wav2vec': ..., 'seg': ...}), SHASWithSSL params
+    ({'wav2vec', 'final_ln', 'lm_head', 'seg'}) or autoregressive params
+    ({'wav2vec', 'seg': {'encoder', 'decoder', 'tok_emb', ...}}), numpy
+    leaves -> the state_dict of ``model`` (the port's counterpart)."""
     if "lm_head" in np_tree:
         ctc = "wav2vec_model.model."
         sd = _wav2vec_sd(np_tree["wav2vec"], f"{ctc}wav2vec2.")
@@ -131,7 +181,8 @@ def state_dict_from_jax_params(np_tree: dict, model) -> dict:
         sd[f"{ctc}lm_head.bias"] = _t(np_tree["lm_head"]["b"])
     else:
         sd = _wav2vec_sd(np_tree["wav2vec"], "wav2vec_model.model.")
-    sd.update(_sfc_sd(np_tree["seg"], "seg_model."))
+    head = _autoreg_sd if "tok_emb" in np_tree["seg"] else _sfc_sd
+    sd.update(head(np_tree["seg"], "seg_model."))
     for key, value in model.state_dict().items():
         if key.endswith(_OPTIONAL_KEYS):
             sd.setdefault(key, value.detach().cpu().clone())

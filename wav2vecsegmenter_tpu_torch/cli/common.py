@@ -30,6 +30,7 @@ from ..data.windows import BatchIterator, FixedSegmentationDatasetNoTarget
 from ..infer.packing import PackedSweep
 from ..infer.pipeline import (WindowInference, collect_talk, dispatch_talk,
                               talk_logits_array)
+from ..models.autoreg import AutoRegSegmenter
 from ..models.shas import SHAS, SHASWithSSL
 
 logger = logging.getLogger("wav2vecsegmenter_tpu_torch")
@@ -209,8 +210,8 @@ MODELS = {
     "lib.models.SHAS": SHAS,
     "lib.models.SHASWithSSL": SHASWithSSL,
     "lib.models.SHASWithCTC": SHASWithSSL,
+    "lib.models.AutoRegSegmenter": AutoRegSegmenter,
 }
-UNPORTED_MODELS = {"lib.models.AutoRegSegmenter": "A9 (autoreg)"}
 VOCABS = {
     "lib.datautils.BaseVocabulary": BaseVocabulary,
     "lib.datautils.UppercasedCharVocabulary": UppercasedCharVocabulary,
@@ -222,9 +223,8 @@ def build_model(task: dict, device=None):
     the task sets one) or from a bare ``model`` node, as the JAX
     ``build_model``: the vocabulary is instantiated and its size injected
     as the model's ``vocab_size``; the model class follows ``_target_``
-    (:data:`MODELS`, ``lib.models.SHAS`` when there is none).  A target
-    the port does not carry out raises ``NotImplementedError`` naming
-    it."""
+    (:data:`MODELS`, ``lib.models.SHAS`` when there is none).  Any other
+    target raises ``NotImplementedError`` naming it."""
     task = dict(task)
     node = dict(task["model"]) if "model" in task else task
     vocab = None
@@ -239,10 +239,6 @@ def build_model(task: dict, device=None):
         vocab = VOCABS[vtarget](**vocab_conf)
         node["vocab_size"] = vocab.vocab_size
     target = node.pop("_target_", "lib.models.SHAS")
-    if target in UNPORTED_MODELS:
-        raise NotImplementedError(
-            f"task.model._target_={target} is not ported; ROADMAP "
-            f"{UNPORTED_MODELS[target]} ports it")
     if target not in MODELS:
         raise NotImplementedError(
             f"task.model._target_={target} is not ported (only "

@@ -15,8 +15,9 @@ Batches shorter than ``batch_size`` are padded with empty rows
 
 The port's copy of ``Batch``, ``collate`` and ``out_len_for`` of
 ``wav2vecsegmenter_tpu/data/collate.py`` (tests/test_torch_copies.py holds
-the two equal), the CTC task's transcript tokens included; the
-autoregressive batch comes with its head.
+the two equal), the CTC task's transcript tokens included, and of
+``AutoRegBatch`` / ``collate_autoreg``, the autoregressive task's batch
+(SEP-led decoder input, SEP-tailed target, host-normalized audio).
 """
 
 from __future__ import annotations
@@ -151,3 +152,72 @@ def collate(
 def out_len_for(audio_len: int) -> int:
     """Static output-frame count for a static audio bucket."""
     return int(inframes_to_outframes(audio_len))
+
+
+@dataclass
+class AutoRegBatch:
+    audio: np.ndarray          # [B, L] float32, normalized
+    in_lengths: np.ndarray     # [B]
+    in_target: np.ndarray      # [B, T+1] token ids (SEP-led, no tail)
+    out_target: np.ndarray     # [B, T+1] token ids (no head, SEP-tailed)
+    src_mask: np.ndarray       # [B, T] bool encoder key mask
+    tgt_mask: np.ndarray       # [B, T+1] bool decoder key mask
+    included: np.ndarray
+    starts: np.ndarray
+    ends: np.ndarray
+
+
+def collate_autoreg(
+    examples: list,
+    batch_size: int,
+    audio_len: int,
+    out_len: int,
+    pad_token_id: int,
+    sep_token_id: int,
+) -> AutoRegBatch:
+    """Autoregressive batch (reference AutoRegCollateFn,
+    lib/datautils.py:145-248): targets wrapped in SEP tokens, shifted into
+    teacher-forcing in/out pairs; masks mirror the -1-for-SEP semantics."""
+    n = len(examples)
+    t_tgt = out_len + 2  # SEP + frames + SEP
+    audio = np.zeros((batch_size, audio_len), np.float32)
+    in_lengths = np.zeros(batch_size, np.int32)
+    included = np.zeros(batch_size, bool)
+    starts = np.zeros(batch_size, np.int32)
+    ends = np.zeros(batch_size, np.int32)
+    target = np.full((batch_size, t_tgt), pad_token_id, np.float32)
+    tgt_pad_mask = np.zeros((batch_size, t_tgt - 1), bool)
+
+    norm_length = max((len(ex[0]) for ex in examples), default=0)
+    for i, (wav, tgt, s, e) in enumerate(examples):
+        L = len(wav)
+        audio[i, :L] = wav
+        in_lengths[i] = L
+        included[i] = bool(wav.sum())
+        starts[i] = s
+        ends[i] = e
+        row = np.concatenate([[sep_token_id], tgt, [sep_token_id]])
+        row = row[:t_tgt]
+        target[i, : len(row)] = row
+        tgt_pad_mask[i, : len(row) - 1] = True  # -1 for tail SEP
+
+    for i in range(n):
+        if not included[i]:
+            continue
+        row = audio[i, :norm_length]
+        mean = row.mean(dtype=np.float64)
+        std = row.std(ddof=1, dtype=np.float64)
+        audio[i, :norm_length] = ((row - mean) / std).astype(np.float32)
+
+    src_mask = tgt_pad_mask[:, 1:]  # -1 for head SEP
+    return AutoRegBatch(
+        audio=audio,
+        in_lengths=in_lengths,
+        in_target=target[:, :-1].astype(np.int32),
+        out_target=target[:, 1:].astype(np.int32),
+        src_mask=src_mask,
+        tgt_mask=tgt_pad_mask,
+        included=included,
+        starts=starts,
+        ends=ends,
+    )

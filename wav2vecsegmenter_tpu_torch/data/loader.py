@@ -7,7 +7,9 @@ reads ahead on a thread pool and, with ``pin_memory``, leaves each
 batch's audio in pinned host memory.  Batches carry raw int16 audio for
 normalization on the device, and the windows' targets; with a ``vocab``
 (the multi-class tasks) the targets are padded with its ``<PAD>`` id, and
-with ``ctc`` the batches carry the windows' encoded transcripts.
+with ``ctc`` the batches carry the windows' encoded transcripts; with
+``autoregression`` (``task=arseg``) they are ``AutoRegBatch``es, SEP-wrapped
+with the vocabulary's ``<SEP>`` and normalized on the host.
 """
 
 from __future__ import annotations
@@ -18,11 +20,13 @@ from .datasets import FixedSegmentationDataset, RandomSegmentationDataset
 from .windows import BatchIterator
 
 
-def _vocab_kwargs(vocab, ctc: bool) -> dict:
-    """``BatchIterator``'s target pad and transcript vocabulary, as the JAX
-    generators pass them."""
+def _vocab_kwargs(vocab, ctc: bool, autoregression: bool) -> dict:
+    """``BatchIterator``'s target pad, transcript vocabulary and
+    autoregressive collation, as the JAX generators pass them."""
     return {"pad_token_id": vocab.pad_token_id if vocab else 0.0,
-            "ctc_vocab": vocab if ctc else None}
+            "ctc_vocab": vocab if ctc else None,
+            "autoregression": autoregression,
+            "sep_token_id": vocab.sep_token_id if vocab else 3}
 
 
 class RandomDataloaderGenerator:
@@ -33,9 +37,10 @@ class RandomDataloaderGenerator:
     def __init__(self, talk_list, segments_list, segment_length, batch_size,
                  seed: int | None = None,
                  pin_memory: bool = False, vocab=None,
-                 ctc: bool = False) -> None:
+                 ctc: bool = False, autoregression: bool = False) -> None:
         self.vocab = vocab
         self.ctc = ctc
+        self.autoregression = autoregression
         self.talk_list = talk_list
         self.segments_list = segments_list
         self.segment_length = segment_length
@@ -57,7 +62,8 @@ class RandomDataloaderGenerator:
                              float(self.segment_length),
                              remainder_ladder=False, shuffle=True, seed=seed,
                              pin_memory=self.pin_memory,
-                             **_vocab_kwargs(self.vocab, self.ctc))
+                             **_vocab_kwargs(self.vocab, self.ctc,
+                                             self.autoregression))
 
 
 class FixedDataloaderGenerator:
@@ -68,9 +74,10 @@ class FixedDataloaderGenerator:
                  inference_times: int = 1,
                  remainder_ladder: bool = False,
                  pin_memory: bool = False, vocab=None,
-                 ctc: bool = False) -> None:
+                 ctc: bool = False, autoregression: bool = False) -> None:
         self.vocab = vocab
         self.ctc = ctc
+        self.autoregression = autoregression
         self.batch_size = batch_size
         self.segment_length = segment_length
         self.remainder_ladder = remainder_ladder
@@ -88,7 +95,8 @@ class FixedDataloaderGenerator:
                              float(self.segment_length),
                              remainder_ladder=self.remainder_ladder,
                              pin_memory=self.pin_memory,
-                             **_vocab_kwargs(self.vocab, self.ctc))
+                             **_vocab_kwargs(self.vocab, self.ctc,
+                                             self.autoregression))
 
     def get_talk_ids(self) -> list:
         return self.dataset.corpus.talk_ids()

@@ -8,7 +8,11 @@ are the port's own copies (``core.windows``, ``data.audio``,
 ``data.collate``).  Batches come in window order or in the seeded shuffled
 order; the examples' targets, where a dataset has them, go into the batch,
 padded with ``pad_token_id`` (a vocabulary's ``<PAD>`` for the multi-class
-tasks), and with ``ctc_vocab`` the windows' encoded transcripts.
+tasks), and with ``ctc_vocab`` the windows' encoded transcripts.  With
+``autoregression`` (``task=arseg``) the batches are ``AutoRegBatch``es
+(``collate_autoreg``: the targets as SEP-led decoder input and SEP-tailed
+output, ``sep_token_id`` from the vocabulary), normalized on the host, as
+the JAX loader turns device normalization off for them.
 
 The batches are read and collated ahead of the consumer, as the JAX
 loader reads them: a producer thread maps ``dataset.__getitem__`` over each
@@ -31,7 +35,7 @@ import torch
 from ..core.frames import inframes_to_outframes, secs_to_inframes
 from ..core.windows import fixed_window_grid
 from .audio import WaveformCache, assert_sample_rate
-from .collate import collate, out_len_for
+from .collate import collate, collate_autoreg, out_len_for
 
 # the JAX loader's defaults: reader threads, and batches read ahead
 READER_THREADS = 4
@@ -88,7 +92,9 @@ class BatchIterator:
     def __init__(self, dataset, batch_size: int, segment_length_secs: float,
                  remainder_ladder: bool = True, shuffle: bool = False,
                  seed: int | None = None, pin_memory: bool = False,
-                 pad_token_id: float = 0.0, ctc_vocab=None) -> None:
+                 pad_token_id: float = 0.0, ctc_vocab=None,
+                 autoregression: bool = False,
+                 sep_token_id: int = 3) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.std_len, self.tail_len = audio_bucket_lengths(segment_length_secs)
@@ -100,6 +106,8 @@ class BatchIterator:
         # CTC task: the windows' transcripts (``dataset.transcript``),
         # encoded into the batch's tokens
         self.ctc_vocab = ctc_vocab
+        self.autoregression = autoregression
+        self.sep_token_id = sep_token_id
         self.read_seconds: list[float] = []
 
     def __len__(self) -> int:
@@ -125,13 +133,20 @@ class BatchIterator:
     def _collate(self, examples, idx):
         longest = max(len(ex[0]) for ex in examples)
         audio_len = self.std_len if longest <= self.std_len else self.tail_len
+        slots, out_len = self._slots_for(len(examples)), out_len_for(audio_len)
+        if self.autoregression:
+            batch = collate_autoreg(examples, slots, audio_len, out_len,
+                                    int(self.pad_token_id), self.sep_token_id)
+            return self._pinned(batch)
         transcripts = None
         if self.ctc_vocab is not None:
             transcripts = [self.dataset.transcript(int(j)) for j in idx]
-        batch = collate(examples, self._slots_for(len(examples)), audio_len,
-                        out_len_for(audio_len), self.pad_token_id,
-                        device_normalize=True, transcripts=transcripts,
-                        ctc_vocab=self.ctc_vocab)
+        batch = collate(examples, slots, audio_len, out_len,
+                        self.pad_token_id, device_normalize=True,
+                        transcripts=transcripts, ctc_vocab=self.ctc_vocab)
+        return self._pinned(batch)
+
+    def _pinned(self, batch):
         if self.pin_memory:  # the numpy view keeps the pinned tensor alive
             batch.audio = torch.from_numpy(batch.audio).pin_memory().numpy()
         return batch

@@ -43,7 +43,13 @@ def evaluate(dataloader_generator, engine: WindowInference,
     the mean over (talk, pass) of each one's mean batch loss, as the JAX
     package takes it, so a talk with more batches weighs no more.  A
     multi-class engine (``engine.loss_tag`` not bce) needs the task's
-    ``vocab``."""
+    ``vocab``.  An autoregressive generator raises ``NotImplementedError``
+    (ROADMAP C15)."""
+    if getattr(dataloader_generator, "autoregression", False):
+        raise NotImplementedError(
+            "evaluation of the autoregressive task is not carried out: its "
+            "batches (AutoRegBatch) carry no out_mask, on which the JAX "
+            "trainer's evaluation fails (ROADMAP C15)")
     multiclass = engine.loss_tag != "bce"
     all_preds, all_targets, all_losses = [], [], []
     dataset = dataloader_generator.dataset

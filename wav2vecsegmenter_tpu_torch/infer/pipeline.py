@@ -28,8 +28,14 @@ row with one scalar mean over its whole [5, V] neighbourhood.
 package's precision ladder, between the bf16 path and float32;
 ``runtime.quantize=int8`` quantizes the encoder's products into the engine
 (``ops.quant``), leaving the model's module as it was.  A model without
-the ladder's knobs (``SHASWithSSL``, whose JAX ``apply`` takes none)
+the ladder's knobs (``SHASWithSSL``, whose JAX ``apply`` takes none, and
+``AutoRegSegmenter``, whose JAX decode ignores them: ROADMAP C17)
 refuses the arms between bf16 and float32.
+
+A model with a ``greedy_decode`` (the autoregressive segmenter,
+``task=arseg``) decodes each batch one token a frame instead: its
+probabilities are p(in-segment) = softmax([l_B, l_NB])[1], and its
+[B, T, 4] frame logits are the decode's (JAX ``infer/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -194,6 +200,15 @@ class WindowInference:
         if batch.device_normalize:  # else collate normalized on the host
             audio = normalize_int16(audio, batch.norm_length,
                                     up(batch.included))
+        if hasattr(self.model, "greedy_decode"):
+            probs, logits, _ = self.model.greedy_decode(
+                audio, up(batch.in_lengths), out_mask.shape[1],
+                self.compute_dtype, **self.forward_kwargs)
+            logits_out = None
+            if need_logits:
+                logits_out = torch.where(out_mask[..., None], logits, 0.0)
+            return ProbsHandle(torch.where(out_mask, probs, 0.0), None,
+                               logits_out)
         logits = self.model(audio, up(batch.in_lengths), out_mask,
                             self.compute_dtype, **self.forward_kwargs)
         if isinstance(logits, tuple):  # SHASWithSSL: (ctc, frame)

@@ -81,19 +81,29 @@ def sfc_forward(head: SegmentationFrameClassifier, x: torch.Tensor,
     dt = compute_dtype
     h = dropout(x.to(dt), dropout_rate, generator).contiguous()
     for layer in head.transformer.layers:
-        hn = layer_norm(h, layer.norm1.weight, layer.norm1.bias, EPS)
-        b, t, d_model = hn.shape
-        dh = d_model // head.n_heads
-        sa = layer.self_attn
-        qkv = (hn @ sa.in_proj_weight.to(dt).t() + sa.in_proj_bias.to(dt))
-        a = attention_qkv(qkv.view(b, t, 3, head.n_heads, dh), out_mask,
-                          dh ** -0.5)
-        a = _lin(sa.out_proj, a.reshape(b, t, d_model), dt)
-        h = h + dropout(a, dropout_rate, generator)
-        hn = layer_norm(h, layer.norm2.weight, layer.norm2.bias, EPS)
-        f = dropout(F.gelu(_lin(layer.linear1, hn, dt)), dropout_rate,
-                    generator)
-        h = h + dropout(_lin(layer.linear2, f, dt), dropout_rate, generator)
+        h = encoder_layer(layer, h, out_mask, head.n_heads, dt, dropout_rate,
+                          generator)
     h = layer_norm(h, head.layer_norm.weight, head.layer_norm.bias, EPS)
     logits = _lin(head.output_layer, h, dt).float()
     return logits[..., 0] if logits.shape[-1] == 1 else logits
+
+
+def encoder_layer(layer: SFCLayer, h: torch.Tensor, key_mask: torch.Tensor,
+                  n_heads: int, dt, dropout_rate: float = 0.0,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """One pre-LN layer over h [B, T, H] in ``dt``: LayerNorm (K1) -> QKV
+    GEMM -> attention keyed by ``key_mask`` (K4) -> output projection ->
+    dropout -> residual; LayerNorm -> linear1 -> exact GELU -> dropout ->
+    linear2 -> dropout -> residual (the dropouts at ``dropout_rate``, drawn
+    from ``generator``; none without one)."""
+    hn = layer_norm(h, layer.norm1.weight, layer.norm1.bias, EPS)
+    b, t, d_model = hn.shape
+    dh = d_model // n_heads
+    sa = layer.self_attn
+    qkv = (hn @ sa.in_proj_weight.to(dt).t() + sa.in_proj_bias.to(dt))
+    a = attention_qkv(qkv.view(b, t, 3, n_heads, dh), key_mask, dh ** -0.5)
+    a = _lin(sa.out_proj, a.reshape(b, t, d_model), dt)
+    h = h + dropout(a, dropout_rate, generator)
+    hn = layer_norm(h, layer.norm2.weight, layer.norm2.bias, EPS)
+    f = dropout(F.gelu(_lin(layer.linear1, hn, dt)), dropout_rate, generator)
+    return h + dropout(_lin(layer.linear2, f, dt), dropout_rate, generator)

@@ -6,7 +6,9 @@ Counterpart of ``wav2vecsegmenter_tpu/ops/attention.py``:
   the Pallas ``_attn_fwd_packed_kernel`` (the encoder's attention, straight
   off the fused QKV projection);
 * ``attention_bthd(q, k, v [B,T,H,D], key_mask, scale)`` replaces
-  ``_attn_fwd_kernel`` (the SFC head's attention).
+  ``_attn_fwd_kernel`` (the SFC head's attention, and the autoregressive
+  segmenter's encoder and cross-attention, whose queries and keys differ
+  in length).
 
 Both launch the strided CUDA kernels of ``csrc/attention.cu`` on CUDA
 tensors, reading the operands where they lie (no head transposes), and run
@@ -16,7 +18,7 @@ whole 16-byte units), float32 on scalar FMAs.  The source file says what
 bounds the kernels on the H100 and how their designs answer that.
 
 Where a gradient is needed, ``attention_qkv`` (the QKV projection viewed
-[B, T, 3, H, D]) and ``attention_bthd`` go through ``_AttentionFn``, the
+[B, T, 3, H, D]) goes through ``_AttentionFn``, the
 counterpart of the JAX custom VJP ``_fused_attention``: its forward is the
 kernel above, its backward ``attention_bwd``, which replaces
 ``_attn_bwd_kernel`` (K10, ``csrc/attention_bwd.cu``: ``wgmma`` tensor
@@ -30,9 +32,13 @@ packed projection, so K10 writes dq, dk and dv straight into one
 and the encoder through ``attention_packed``, whose grad branch takes the
 same Function on its projection viewed [B, T, 3, H, D] (its gradient is
 then the packed [B, T, 3H] one as it lies; the launch keeps the counter
-``attention_packed``); ``attention_bthd``'s grad branch stacks q, k and v
-into one copy first and exists to keep the JAX function's differentiable
-signature (its tests use it).
+``attention_packed``).  Cross-attention (queries of another length than
+the keys: the autoregressive decoder's queries over the encoder memory)
+goes through ``attention_cross(q [B, Tq, H, D], kv [B, Tk, 2, H, D])``,
+whose grad branch is ``_CrossAttentionFn``: the same forward and backward
+kernels, K10 writing dq and a packed dkv.  ``attention_bthd``'s grad
+branch stacks k and v into one copy for it and exists to keep the JAX
+function's differentiable signature at every shape (its tests use it).
 
 Key padding: ``key_mask`` [B, T] bool, True = valid.  A padded key scores
 ``NEG_INF`` = -1e30 (not -inf), so a row whose keys are all masked gets a
@@ -321,6 +327,46 @@ class _AttentionFn(torch.autograd.Function):
         return dqkv, None, None, None
 
 
+class _CrossAttentionFn(torch.autograd.Function):
+    """Attention of q [B, Tq, H, D] over the packed K/V projection kv
+    [B, Tk, 2, H, D] (k, v on dim 2), Tq and Tk free; the backward is
+    ``attention_bwd`` writing dq and one packed dkv.  The forward's output
+    and, from the bf16 kernel, its [B, H, Tq, 2] statistics are saved for
+    the backward."""
+
+    @staticmethod
+    def forward(ctx, q, kv, key_mask, scale, name):
+        out, stats = _attention_bthd(q, *kv.unbind(2), key_mask, scale,
+                                     with_stats=True, name=name)
+        ctx.save_for_backward(q, kv, key_mask, out, stats)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, kv, key_mask, out, stats = ctx.saved_tensors
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        dkv = torch.empty(kv.shape, dtype=kv.dtype, device=kv.device)
+        attention_bwd(q, *kv.unbind(2), key_mask, do, ctx.scale, out, stats,
+                      out=(dq, *dkv.unbind(2)))
+        return dq, dkv, None, None, None
+
+
+def attention_cross(q: torch.Tensor, kv: torch.Tensor,
+                    key_mask: torch.Tensor | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention of q [B, Tq, H, D] over keys and values packed as kv
+    [B, Tk, 2, H, D] (the memory's K/V projection viewed so), key_mask
+    [B, Tk] -> [B, Tq, H, D].  Differentiable in q and kv."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if backend.needs_grad(q, kv):
+        return _CrossAttentionFn.apply(q, kv, key_mask, scale,
+                                       "attention_bthd")
+    return _attention_bthd(q, *kv.unbind(2), key_mask, scale)
+
+
 def attention_qkv(qkv: torch.Tensor, key_mask: torch.Tensor | None = None,
                   scale: float | None = None) -> torch.Tensor:
     """Self-attention on the QKV projection viewed [B, T, 3, H, D] (q, k, v
@@ -335,14 +381,16 @@ def attention_qkv(qkv: torch.Tensor, key_mask: torch.Tensor | None = None,
 def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    key_mask: torch.Tensor | None = None,
                    scale: float | None = None) -> torch.Tensor:
-    """Self-attention on [B, T, H, D] operands (views allowed) -> [B, T, H, D].
-    Differentiable in q, k and v (through one stacked copy; the QKV
-    projection goes through :func:`attention_qkv` without it)."""
+    """Attention of q [B, Tq, H, D] over k, v [B, Tk, H, D] (views
+    allowed) -> [B, Tq, H, D].  Differentiable in q, k and v at every Tq
+    and Tk, through :func:`attention_cross` on one stacked copy of k and v
+    (the QKV projection goes through :func:`attention_qkv`, and a packed
+    K/V through :func:`attention_cross`, without a copy)."""
+    if backend.needs_grad(q, k, v):
+        return attention_cross(q, torch.stack((k, v), dim=2), key_mask,
+                               scale)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if backend.needs_grad(q, k, v):
-        return _AttentionFn.apply(torch.stack((q, k, v), dim=2), key_mask,
-                                  scale, "attention_bthd")
     return _attention_bthd(q, k, v, key_mask, scale)
 
 

@@ -7,7 +7,10 @@ LNA fine-tuning (``finetune_wav2vec=True``: the model's trainable split,
 ``SHAS.set_requires_grad``) and the multi-class tasks (``task.vocab`` set:
 the ``ce`` tag, and ``SHASWithSSL``'s ``ssl`` and ``ctc`` tags,
 ``task=shas_ssl`` / ``task=shas_ctc``; the loaders pad targets with the
-vocabulary's ``<PAD>`` and, for ``ctc``, carry the windows' transcripts):
+vocabulary's ``<PAD>`` and, for ``ctc``, carry the windows' transcripts)
+and the autoregressive task (``task=arseg``: ``AutoRegSegmenter``, its
+batches ``AutoRegBatch``es, the decoder's cross-entropy summed over every
+position):
 
 * the training loader from ``task.train_generator`` (merged with
   ``data.train``): per epoch a fresh random segmentation of the corpus
@@ -18,9 +21,10 @@ vocabulary's ``<PAD>`` and, for ``ctc``, carry the windows' transcripts):
 * micro-steps with ``update_freq`` accumulation, the epoch-end flush of a
   partial accumulation, running train metrics every ``print_every_steps``
   (for the multi-class tags: argmax != ``<B>`` over the frames whose
-  target is ``<B>`` or ``<NB>``);
+  target, ``out_target`` for arseg, is ``<B>`` or ``<NB>``);
 * evaluation on the eval split at each epoch's end, and every
-  ``save_every_steps`` micro-steps;
+  ``save_every_steps`` micro-steps (on ``task=arseg`` the first raises
+  ``NotImplementedError``, where the JAX trainer fails: ROADMAP C15);
 * after each evaluation a model checkpoint, ``ckpts/epoch-{n}.pt`` or
   ``ckpts/epoch-{n}_step-{s}.pt``, in the reference's ``.pt`` layout that
   ``SHAS.save_full_state`` picks (the full state_dict under LNA, the head's
@@ -43,8 +47,7 @@ masks; the backbone then comes from a local HF snapshot of the pretrained
 model where there is one, the head from ``finetune_from_model`` where that
 is set.  The ``ctc`` tag with a frozen backbone raises, as in the JAX
 package (nothing would train).  Not ported yet: wandb, ``steps_per_call``,
-device meshes, the in-training ST evaluation and the autoregressive
-task.
+device meshes and the in-training ST evaluation.
 """
 
 from __future__ import annotations
@@ -97,13 +100,15 @@ def _init_weights(model, config, seed: int) -> None:
 
 
 def train_generator(config, batch_size: int, seed: int,
-                    pin_memory: bool = False, vocab=None, ctc: bool = False):
+                    pin_memory: bool = False, vocab=None, ctc: bool = False,
+                    autoregression: bool = False):
     """The training loader generator: ``task.train_generator`` merged with
     ``data.train`` and ``batch_size`` added, as the
     JAX loop instantiates it.  An unset seed of the random generator
     becomes ``seed`` (the JAX single-process loop leaves it unseeded; a
-    resumed run needs a seeded stream); ``vocab`` and ``ctc`` as the JAX
-    loop passes them.  Any other target raises."""
+    resumed run needs a seeded stream); ``vocab``, ``ctc`` and
+    ``autoregression`` as the JAX loop passes them.  Any other target
+    raises."""
     conf = {**to_plain(config.task.get("train_generator") or {}),
             **to_plain(config.data.train)}
     target = conf.pop("_target_", None)
@@ -116,7 +121,7 @@ def train_generator(config, batch_size: int, seed: int,
         conf["seed"] = seed
     conf["batch_size"] = batch_size
     return GENERATORS[target](**conf, pin_memory=pin_memory, vocab=vocab,
-                              ctc=ctc)
+                              ctc=ctc, autoregression=autoregression)
 
 
 def _generate(gen):
@@ -188,8 +193,7 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     is called with each micro-step's metrics
     (``train.step.make_train_step``)."""
     task = config.task
-    if task.get("autoregression"):
-        raise NotImplementedError("the autoregressive task is not ported")
+    autoregression = bool(task.get("autoregression"))
     rt = config.get("runtime") or {}
     backend.set_kernels(rt.get("kernels", "auto"))
     device, dtype = runtime_device_dtype(rt.get("device", "cuda"),
@@ -217,14 +221,16 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
 
     batch_size = int(config.batch_size)
     pin = device.type == "cuda"
-    train_gen = train_generator(config, batch_size, seed, pin, vocab, is_ctc)
+    train_gen = train_generator(config, batch_size, seed, pin, vocab, is_ctc,
+                                autoregression)
     eg = task.get("eval_generator") or {}
     eval_gen = FixedDataloaderGenerator(
         config.data.eval.talk_list, config.data.eval.segments_list,
         config.data.eval.segment_length, batch_size,
         inference_times=int(eg.get("inference_times", 1)),
         remainder_ladder=bool(rt.get("infer_remainder_ladder", False)),
-        pin_memory=pin, vocab=vocab, ctc=is_ctc)
+        pin_memory=pin, vocab=vocab, ctc=is_ctc,
+        autoregression=autoregression)
 
     # the first epoch's loader sizes the schedule (reference train.py:321-332)
     train_loader = _generate(train_gen)
@@ -300,7 +306,7 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
             pos_weight = loss_fn.pos_weight
             engine.loss_fn = loss_fn
         step = make_train_step(model, loss_fn, ma_steps, optimizer, dtype,
-                               generator, loss_tag, vocab)
+                               generator, loss_tag, vocab, autoregression)
 
         steps_in_epoch = len(train_loader)
         steps_per_epoch.append(steps_in_epoch)
@@ -332,7 +338,7 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
             else:
                 # boundary / non-boundary frames (reference
                 # train.py:495-504)
-                tgt = batch.target
+                tgt = batch.out_target if autoregression else batch.target
                 spe = (tgt == vocab.boundary_token_id) | (
                     tgt == vocab.nonboundary_token_id)
                 pred = np.argmax(lg, axis=-1) != vocab.boundary_token_id

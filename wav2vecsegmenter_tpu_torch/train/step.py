@@ -27,6 +27,12 @@ stands for ``make_optimizer``, its ``flush`` method for
   logits against the batch's transcript tokens (the special-token offset
   removed, ``<PAD>`` -> 0), over each row's exact conv frame count, meaned
   over the included rows;
+* the autoregressive task (``task=arseg``, JAX ``train/step.py:184-195``):
+  the teacher-forced decoder fed the batch's SEP-led ``in_target`` under
+  its ``tgt_mask``, the cross-entropy of its logits against
+  ``out_target`` (``<PAD>`` ignored) summed over every position of the
+  batch (reference train.py:455-459); the batch comes normalized from the
+  host (``AutoRegBatch``);
 * the ``loss`` and ``grad_norm`` metrics, grad_norm the global norm of the
   micro-step's raw gradients of the trainable parameters.
 
@@ -41,7 +47,7 @@ import math
 
 import torch
 
-from ..data.collate import Batch
+from ..data.collate import AutoRegBatch, Batch
 from ..infer.pipeline import normalize_int16, upload
 from ..models.wav2vec2 import frame_lengths
 from .loss import compute_bce_loss
@@ -136,6 +142,14 @@ def batch_to_device(batch: Batch, device) -> dict:
     return out
 
 
+def autoreg_batch_to_device(batch: AutoRegBatch, device) -> dict:
+    """The autoregressive batch's tensors on ``device`` (its audio
+    normalized by the host)."""
+    return {name: upload(getattr(batch, name), device)
+            for name in ("audio", "in_lengths", "in_target", "out_target",
+                         "tgt_mask")}
+
+
 def frame_loss(model, loss_fn, loss_tag: str, vocab, b: dict, logits,
                pos_weight: float | None = None,
                ma_window_steps: int = 0):
@@ -176,12 +190,14 @@ def make_train_step(model, loss_fn, ma_window_steps: int,
                     optimizer: AccumulatingAdamW,
                     compute_dtype=torch.float32,
                     generator: torch.Generator | None = None,
-                    loss_tag: str = "bce", vocab=None):
+                    loss_tag: str = "bce", vocab=None,
+                    autoregression: bool = False):
     """Returns ``step(batch, pos_weight) -> metrics``: one micro-step of
     ``model.train_forward`` on the device of the optimizer's parameters
     (dropout and SpecAugment drawn from ``generator``, by default a fresh
     one there), the loss of ``loss_tag`` (:func:`frame_loss`; the masked
-    BCE loss with ``pos_weight`` for bce), the gradients of
+    BCE loss with ``pos_weight`` for bce; with ``autoregression`` the
+    decoder's cross-entropy summed over every position), the gradients of
     the optimizer's parameters, and the optimizer's update.  A parameter
     the loss does not reach gets a zero gradient, so that AdamW still
     applies its weight decay, as the JAX optimizer does.  Metrics:
@@ -192,12 +208,21 @@ def make_train_step(model, loss_fn, ma_window_steps: int,
     if generator is None:
         generator = torch.Generator(device=device)
 
-    def step(batch: Batch, pos_weight: float | None = None) -> dict:
-        b = batch_to_device(batch, device)
-        out = model.train_forward(b["audio"], b["in_lengths"],
-                                  b["out_mask"], generator, compute_dtype)
-        loss, logits = frame_loss(model, loss_fn, loss_tag, vocab, b, out,
-                                  pos_weight, ma_window_steps)
+    def step(batch: Batch | AutoRegBatch,
+             pos_weight: float | None = None) -> dict:
+        if autoregression:
+            b = autoreg_batch_to_device(batch, device)
+            logits = model.train_forward(b["audio"], b["in_lengths"],
+                                         b["in_target"], b["tgt_mask"],
+                                         generator, compute_dtype)
+            loss = loss_fn(logits.reshape(-1, logits.shape[-1]),
+                           b["out_target"].reshape(-1)).sum()
+        else:
+            b = batch_to_device(batch, device)
+            out = model.train_forward(b["audio"], b["in_lengths"],
+                                      b["out_mask"], generator, compute_dtype)
+            loss, logits = frame_loss(model, loss_fn, loss_tag, vocab, b,
+                                      out, pos_weight, ma_window_steps)
         grads = [torch.zeros_like(p) if g is None else g for p, g in
                  zip(params, torch.autograd.grad(loss, params,
                                                  allow_unused=True))]
