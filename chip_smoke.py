@@ -39,7 +39,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    holding 0.5 s of audio (a stream's final flush: padding zero, the
    attention's keys all masked but 24); last, K4 and K10 at the arseg
    decoder's cross-attention geometry (queries of 1000 and 64 rows over
-   999 keys, 8 heads of 128, both dtypes, ragged keys);
+   999 keys, 8 heads of 128, both dtypes, ragged keys); last, the bce
+   head's output layer (C18: the row-local kernel of ops/csrc/rowdot.cu
+   at 14 x 999 rows of 1024, both dtypes, beside cuBLAS's F.linear; in
+   bf16 bitwise the kernel order's plain rendering, ``row_dot_ordered``,
+   and in both a window's rows alone bitwise as in the batch);
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
@@ -64,7 +68,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    kernels, against the eager float32 path: mean, p99 and max |dprob|, the
    batch's wall and device busy ms, its launches (every arm launches what
    the default path does); the f32 arm within F32_ATOL of the eager float32
-   path (mean and p99), f32res's mean |dprob| below bf16's;
+   path (mean and p99), f32res's mean |dprob| below bf16's; and C3's
+   trace: for the bf16 kernels and bf16 eager paths, the relative L2
+   error from float32 of the hidden state after the feature projection,
+   after each encoder layer and of the head's logits;
 7. int8: ``runtime.quantize=int8`` on the same batch, at the bf16 and
    f32res arms, with the kernels: mean, p99 and max |dprob| against the
    eager float32 path, the bf16 path and the int8 eager path (the
@@ -101,6 +108,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    segments against its stream alone at batch 1 (as many boundaries apart
    as two for each frame within the invariance figure of the threshold),
    then a connection still streaming at shutdown drained to its end line;
+   asserted (C18): the output layer's rows alone bitwise as batched, every
+   window's probabilities batched bitwise as alone, and the multiplexed
+   streams' commits equal to each stream's alone;
 10. train: the same full-width SHAS trains its SFC head on a frozen backbone
    through the port's loop (``train.loop.train``) on a synthetic corpus
    written to a temporary directory, batch 14, 20 s windows,
@@ -212,8 +222,21 @@ Phases, each printed on its own line; any failure exits non-zero:
    moved, each kernels micro-step's launches (K4 5, K10 5, K9 16 of
    which 1 without dx), the first gradients as in the train phase, ms a
    micro-step, device busy ms, peak memory;
-15. the script's seconds; a JSON line of every kernel (launches on the
-   LNA recipe's run, or for K2 the unfused slice's, and on the online,
+15. st (after the online phase and the train phase): (a) the
+   synthetic-data tool's stage 1 device part (cli.prepare_synthetic_data.
+   tree_rows) on the slice's two talks at batch 14, inference_times 1
+   and 2, bf16 with the kernels, bf16 eager and float32: the slice
+   phase's rules on the averaged probabilities, every talk's tree, the
+   rows and tree lengths, walls, audio-s per wall-s and launches; (b) the
+   in-training ST evaluation's device part (train.loop.st_eval_segments)
+   with the train phase's live model at batch 1 for pDAC and pTHR: the
+   model back in train mode, the trainer's generator unmoved, the rows
+   equal to segment_wavs's on the trainer's final.pt loaded fresh, the
+   wall.  The host part (eval_st, mWER, sacreBLEU, pyyaml) is not run on
+   the card: tier-1 holds it;
+16. the script's seconds; a JSON line of every kernel (launches on the
+   LNA recipe's run, or for K2 the unfused slice's, for the output layer's
+   kernel the slice's, and on the online,
    ssl and arseg phases; error, times, bound, and the float32 route's
    row; K5/K6/K7/K2 add their Function row), the nvidia-smi line, and the
    last line: {"ok": true, "device": {...}}.
@@ -251,6 +274,7 @@ from wav2vecsegmenter_tpu_torch.ops import attention as attn
 from wav2vecsegmenter_tpu_torch.ops import convfuse as conv
 from wav2vecsegmenter_tpu_torch.ops import ffn as tffn
 from wav2vecsegmenter_tpu_torch.ops import layernorm as ln
+from wav2vecsegmenter_tpu_torch.ops import rowdot
 from wav2vecsegmenter_tpu_torch.ops.timing import (cuda_ms, device_ms,
                                                     device_busy_ms, host_us)
 
@@ -326,6 +350,10 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces)
                        "wav2vecsegmenter_tpu/ops/layernorm.py:42"),
     "attention_bwd": (CSRC + "attention_bwd.cu",
                       "wav2vecsegmenter_tpu/ops/attention.py:111"),
+    # no TPU kernel: the JAX head's output layer is an XLA dot; the kernel
+    # repairs ROADMAP C18 (a window's logit hung on its batch)
+    "row_dot": (CSRC + "rowdot.cu",
+                "wav2vecsegmenter_tpu/models/sfc.py:133 (an XLA dot; C18)"),
 }
 # kernels of the default configuration's path; bias_layer_norm_gelu runs on
 # the A/B arm's
@@ -336,6 +364,9 @@ UNFUSED_PATH = ("layer_norm", "attention_packed", "attention_bthd",
 # the trainer's path: the default configuration's forward kernels and the
 # head's backward kernels
 TRAIN_PATH = DEFAULT_PATH + ("layer_norm_bwd", "attention_bwd")
+# the inference paths of the bce head also run its output layer through
+# the row-local kernel (C18); under grad it stays a matmul
+INFER_PATH = DEFAULT_PATH + ("row_dot",)
 # conv layers 2-5 of a 14 x 20 s batch (t_in, k, s); layers 1 and 6 have
 # rows of their own, as has the raw-audio layer 0
 CONV_MIDDLE = ((31999, 3, 2), (15999, 3, 2), (7999, 3, 2), (3999, 2, 2))
@@ -623,6 +654,33 @@ def check_kernels(dev) -> dict:
                     bound=bound(2 * nbytes(q) + nbytes(kv), (
                         tc(dtype), 8 * 128 * (4 * valid + 2 * empty))),
                     library=sdpa(q, k, v, mask))
+
+    def row_dot_case(rows, dtype):
+        # the bce head's output layer: the final LayerNorm's output (about
+        # unit variance) against the output column of 1024
+        x = randn(rows, 1024, dtype=dtype)
+        w = randn(1024, std=1024 ** -0.5, dtype=dtype)
+        b = randn(1, std=0.1, dtype=dtype)
+        lib_w = w[None, :]
+
+        def inspect(got, ref):
+            # C18: the kernel's order bitwise in bf16 (a bf16 product is
+            # exact in float32), and a window's rows alone as in the batch
+            out = got[0]
+            if dtype == torch.bfloat16:
+                check(torch.equal(out, rowdot.row_dot_ordered(x, w, b)),
+                      "row_dot: not the kernel order's result")
+            for k in (0, rows // T - 1):
+                alone = rowdot.row_dot(x[k * T:(k + 1) * T].clone(), w, b)
+                check(torch.equal(alone, out[k * T:(k + 1) * T]),
+                      f"row_dot: window {k} alone differs from the batch")
+
+        return dict(fn=lambda: rowdot.row_dot(x, w, b),
+                    plain=lambda: rowdot.row_dot_plain(x, w, b),
+                    inspect=inspect, twice=True,
+                    bound=bound(nbytes(x, w, b) + rows * x.element_size(),
+                                ("f32", 2 * rows * 1024)),
+                    library=lambda: F.linear(x, lib_w, b))
 
     def ln_bwd_case(h, rows, dtype, need_dx=True):
         x = randn(rows, h, std=2.0, mean=0.5, dtype=dtype)
@@ -928,6 +986,12 @@ def check_kernels(dev) -> dict:
                           dtype, lambda tq=tq, d=dtype: attn_bwd_case(
                               T, 8, 128, d, tq)))
 
+    # the bce head's output layer (C18) at the main path's rows, last, for
+    # the same reason
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(("row_dot", f"[{B}*{T},1024]x1", dtype,
+                      lambda d=dtype: row_dot_case(B * T, d)))
+
     results: dict = {}
     results_f32: dict = {}
     for name, label, dtype, make in cases:
@@ -1090,7 +1154,7 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
                 else run(mode)[2])
         _, probs_f32, _ = run("auto", torch.float32)  # the float32 oracle
 
-    for name in DEFAULT_PATH:
+    for name in INFER_PATH:
         check(counts.get(name, 0) > 0,
               f"kernel {name} never launched on the default path")
     # six conv layers on conv_bias_ln_gelu for each raw-audio layer 0
@@ -1100,6 +1164,10 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
     for name in UNFUSED_PATH:
         check(counts_unfused.get(name, 0) > 0,
               f"kernel {name} never launched on the unfused path")
+    check(counts["row_dot"] == SLICE_BATCHES
+          and counts_unfused["row_dot"] == SLICE_BATCHES,
+          f"row_dot launches {counts['row_dot']} / "
+          f"{counts_unfused['row_dot']}, not one a batch")
     check(counts["layer_norm"] == LN_PER_BATCH * SLICE_BATCHES
           and counts_unfused["layer_norm"] == LN_PER_BATCH * SLICE_BATCHES,
           f"layer_norm launches {counts['layer_norm']} / "
@@ -1161,15 +1229,21 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
     return counts, counts_unfused, model
 
 
+def full_batch_examples() -> list:
+    """The 14 windows of 20 s of the full batch, as (audio, target, start,
+    end) examples."""
+    rng = np.random.RandomState(2)
+    env_ = (np.arange(L_AUDIO) / 16000 % 3.5) < 3.0
+    return [((rng.randn(L_AUDIO) * 0.1 * env_).astype(np.float32), None,
+             0, 999) for _ in range(B)]
+
+
 def full_batch():
     """One full batch of 14 windows of 20 s, as the segment path reads it."""
     from wav2vecsegmenter_tpu_torch.data.windows import BatchIterator
 
-    rng = np.random.RandomState(2)
-    env_ = (np.arange(L_AUDIO) / 16000 % 3.5) < 3.0
-    examples = [((rng.randn(L_AUDIO) * 0.1 * env_).astype(np.float32), None,
-                 0, 999) for _ in range(B)]
-    batch, = BatchIterator(examples, B, 20.0)  # a list serves as dataset
+    # a list serves as the dataset
+    batch, = BatchIterator(full_batch_examples(), B, 20.0)
     return batch
 
 
@@ -1225,17 +1299,86 @@ def batch_launches(model) -> dict:
     LayerNorm for the feature projection, two a layer of the encoder and
     of the head and the head's last; attention and the FFN once an encoder
     layer; the head's attention once a head layer; conv layers 1-6 and
-    layer 0."""
+    layer 0; the bce head's output layer (the row-local kernel; a head of
+    V > 1 stays a matmul)."""
     layers = model.w2v_cfg.num_layers
     head = len(model.seg_model.transformer.layers)
     return {"layer_norm": 1 + 2 * layers + 2 * head + 1,
             "attention_packed": layers, "attention_bthd": head,
-            "ffn": layers, "conv_bias_ln_gelu": 6, "conv_audio_ln_gelu": 1}
+            "ffn": layers, "conv_bias_ln_gelu": 6, "conv_audio_ln_gelu": 1,
+            "row_dot": int(model.seg_model.vocab_size == 1)}
 
 
 def dprob_stats(d: np.ndarray) -> dict:
     return {"mean": float(d.mean()), "p99": float(np.percentile(d, 99)),
             "max": float(d.max()), "frames": int(d.size)}
+
+
+def layer_trace(model, dev) -> dict:
+    """C3's trace: one full batch (host-normalized) through the model's
+    forward in bf16 with the kernels and eager, and eager in float32; for
+    each bf16 arm the relative L2 error from float32 of the hidden state
+    after the feature projection, after each encoder layer (the input of
+    the next layer's first LayerNorm; the last layer's the encoder's
+    output) and of the head's logits.  No rounding point changes: the
+    model's own functions are wrapped to read their values."""
+    from wav2vecsegmenter_tpu_torch.data.collate import collate, out_len_for
+    from wav2vecsegmenter_tpu_torch.models import wav2vec2 as w2v
+
+    batch = collate(full_batch_examples(), B, L_AUDIO, out_len_for(L_AUDIO))
+    a, n, m = (torch.from_numpy(x).to(dev) for x in (
+        batch.audio, batch.in_lengths, batch.out_mask))
+    layers = model.backbone.encoder.layers
+    proj = model.backbone.feature_projection.projection
+    first_ln = {id(layer.layer_norm.weight): i
+                for i, layer in enumerate(layers)}
+    real = {f: getattr(w2v, f) for f in ("_lin", "layer_norm", "encoder")}
+    states: list = []
+
+    def lin(lin_, x, dt):
+        out = real["_lin"](lin_, x, dt)
+        if lin_ is proj:
+            states.append(("projection", out))
+        return out
+
+    def layer_norm_(x, weight, *args, **kw):
+        i = first_ln.get(id(weight))
+        if i:  # the input of layer i: layer i - 1's output
+            states.append((f"layer{i - 1}", x))
+        return real["layer_norm"](x, weight, *args, **kw)
+
+    def encoder_(*args, **kw):
+        out = real["encoder"](*args, **kw)
+        states.append((f"layer{len(layers) - 1}", out))
+        return out
+
+    def run(mode, dtype):
+        states.clear()
+        backend.set_kernels(mode)
+        with torch.inference_mode():
+            logits = model(a, n, m, dtype)
+        backend.set_kernels("auto")
+        return [(k, v.float()) for k, v in states] + [("head", logits)]
+
+    for f, fn in (("_lin", lin), ("layer_norm", layer_norm_),
+                  ("encoder", encoder_)):
+        setattr(w2v, f, fn)
+    try:
+        ref = run("eager", torch.float32)
+        out = {}
+        for arm, mode in (("kernels", "auto"), ("eager", "eager")):
+            got = run(mode, torch.bfloat16)
+            check([k for k, _ in got] == [k for k, _ in ref],
+                  f"layer trace: {[k for k, _ in got]}")
+            out[arm] = {k: float((x - r).norm() / r.norm())
+                        for (k, x), (_, r) in zip(got, ref)}
+            del got
+    finally:
+        for f, fn in real.items():
+            setattr(w2v, f, fn)
+    del ref
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_precision(dev, model) -> dict:
@@ -1274,7 +1417,8 @@ def run_precision(dev, model) -> dict:
                 np.abs(probs - oracle)[batch.out_mask]),
             "batch_ms": walls, "batch_ms_median": float(np.median(walls)),
             "device_busy_ms": device_busy_ms(run, 3), "launches": launches}
-    phase("precision", windows=B, oracle="eager float32", arms=arms)
+    phase("precision", windows=B, oracle="eager float32", arms=arms,
+          layer_rel_err=layer_trace(model, dev))
     for arm, row in arms.items():
         check(row["launches"] == want,
               f"precision {arm}: launches {row['launches']}, not {want}")
@@ -1690,7 +1834,7 @@ def boundary_diff(a: list, b: list) -> int:
 INVARIANCE_HOOKS = {
     "wav2vec2": ("conv_bias_ln_gelu", "layer_norm", "positional_conv",
                  "attention_packed", "ffn", "_lin"),
-    "sfc": ("layer_norm", "attention_qkv", "_lin")}
+    "sfc": ("layer_norm", "attention_qkv", "_lin", "output_layer")}
 
 
 def invariance_ops(model, batch) -> dict:
@@ -1716,8 +1860,8 @@ def invariance_ops(model, batch) -> dict:
     def hook(fname, fn):
         def hooked(*args, **kw):
             x = next(a for a in args if isinstance(a, torch.Tensor))
-            op = (f"_lin {names[id(args[0])]}" if fname == "_lin"
-                  else fname)
+            op = (f"{fname} {names[id(args[0])]}"
+                  if fname in ("_lin", "output_layer") else fname)
             out = fn(*args, **kw)
             k = state["window"]
             if k is None:
@@ -1757,6 +1901,159 @@ def invariance_ops(model, batch) -> dict:
     return {"ops": ops,
             "outputs_differ": [op for op, r in ops.items() if r["output"]],
             "inputs_differ": [op for op, r in ops.items() if r["input"]]}
+
+
+# the synthetic-data tool's stage 1: its pDAC tree's settings, the CLI's
+# defaults but the depth.  The tree keeps its binary-heap layout, so every
+# level doubles its nodes: at the default depth of 20 a talk's tree holds
+# 2^21 - 1 nodes and takes about a minute of host time; at 8, 511.
+TREE = {"max_segment_length": 18, "min_segment_length": 0.2,
+        "boundary_threshold": 0.5, "trim_threshold": 0.0, "tree_depth": 8}
+
+
+def run_stage1(dev, model) -> dict:
+    """The st phase's (a): the synthetic-data tool's stage 1 device part
+    (``cli.prepare_synthetic_data.tree_rows``: WindowInference over whole
+    talks at batch 14, one talk dispatched ahead, the passes averaged,
+    then the pDAC tree) on the slice's two talks, at inference_times 1 and
+    2: bf16 with the kernels (launch counters reset just before the first),
+    bf16 eager (counters unmoved) and float32 with the kernels.  The slice
+    phase's rules: the kernels' probabilities as close to float32 as the
+    eager path's (within KERNEL_SLACK) and no further from eager than bf16
+    is from float32; every talk in the tree rows and in tree.length."""
+    from wav2vecsegmenter_tpu_torch.cli.prepare_synthetic_data import (
+        tree_rows)
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        secs = {"talk1.wav": 65.0, "talk2.wav": 41.0}
+        wavs = [Path(tmp) / name for name in secs]
+        for seed, w in enumerate(wavs):
+            write_talk(w, secs[w.name], seed)
+
+        def run(mode, dtype, times):
+            backend.set_kernels(mode)
+            before = backend.launch_counts()
+            probs: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows, lengths = tree_rows(model, wavs, dev, dtype, B, 20.0, times,
+                                      **TREE, talk_probs=probs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            backend.set_kernels("auto")
+            if mode == "eager":
+                check(backend.launch_counts() == before,
+                      "stage 1: the eager run launched kernels")
+            check([n for n, _ in lengths] == list(secs)
+                  and {r["wav"] for r in rows} == set(secs),
+                  f"stage 1: a talk without a tree: {lengths}")
+            for name, p in probs.items():
+                check(p.shape == (round(secs[name] * 49.95),)
+                      and bool(np.isfinite(p).all()), "stage 1: probs")
+            return rows, lengths, probs, wall
+
+        run("auto", torch.bfloat16, 1)  # warm-up
+        backend.reset_launch_counts()
+        for times in (1, 2):
+            k = run("auto", torch.bfloat16, times)
+            if times == 1:
+                launches = backend.launch_counts()
+            e = run("eager", torch.bfloat16, times)
+            f = run("auto", torch.float32, times)
+
+            def dprob(a, b):
+                d = np.concatenate([np.abs(a[2][w] - b[2][w]) for w in secs])
+                return {"mean": float(d.mean()),
+                        "p99": float(np.percentile(d, 99)),
+                        "max": float(d.max())}
+
+            k_vs_f, e_vs_f, k_vs_e = dprob(k, f), dprob(e, f), dprob(k, e)
+            audio = sum(secs.values()) * times
+            out[f"times_{times}"] = {
+                "tree_rows": {"kernels": len(k[0]), "eager": len(e[0]),
+                              "f32": len(f[0])},
+                "tree_length": {"kernels": dict(k[1]), "eager": dict(e[1]),
+                                "f32": dict(f[1])},
+                "rows_differing_kernels_vs_eager": sum(
+                    a != b for a, b in zip(k[0], e[0])) + abs(
+                    len(k[0]) - len(e[0])),
+                "dprob_kernels_vs_f32": k_vs_f, "dprob_eager_vs_f32": e_vs_f,
+                "dprob_kernels_vs_eager": k_vs_e,
+                "wall_s": {"kernels": k[3], "eager": e[3], "f32": f[3]},
+                "audio_per_wall_kernels": audio / k[3],
+                "audio_per_wall_eager": audio / e[3]}
+            for q in ("mean", "p99"):
+                check(k_vs_f[q] <= KERNEL_SLACK * e_vs_f[q],
+                      f"stage 1 (times {times}): kernels add error: {q} "
+                      f"dprob to float32 {k_vs_f[q]} vs {e_vs_f[q]}")
+                check(k_vs_e[q] <= e_vs_f[q],
+                      f"stage 1 (times {times}): kernel vs eager {q} dprob "
+                      f"{k_vs_e[q]} beyond the bf16 envelope {e_vs_f[q]}")
+    for name in INFER_PATH:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} never launched in stage 1")
+    out["launches_times_1"] = launches
+    return out
+
+
+def st_eval_check(dev, model, generator, ckpt: Path, root: Path) -> dict:
+    """The st phase's (b): the in-training ST evaluation's device part
+    (``train.loop.st_eval_segments``) with the train phase's live model, in
+    train mode as the trainer leaves it, for conf/st_eval's pDAC and pTHR
+    at batch 1 over two talks of the train corpus: the model back in train
+    mode, the trainer's dropout generator and the global generators
+    untouched, and the rows equal to ``segment_wavs``'s on the checkpoint
+    the trainer saved, loaded into a fresh model."""
+    from wav2vecsegmenter_tpu_torch.checkpoints.convert import (
+        load_reference_checkpoint)
+    from wav2vecsegmenter_tpu_torch.cli.common import build_model
+    from wav2vecsegmenter_tpu_torch.config import Config, merge
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
+    from wav2vecsegmenter_tpu_torch.train.loop import st_eval_segments
+
+    t_start = time.perf_counter()
+    wav_dir = root / "st_wavs"
+    wav_dir.mkdir()
+    for i in range(2):
+        write_talk(wav_dir / f"talk{i}.wav", TRAIN_SECS, seed=10 + i)
+    base = {"batch_size": 1, "inference_segment_length": 20,
+            "inference_times": 1, "infer_data": {"wav_dir": str(wav_dir)}}
+    config = merge(Config(), {
+        "st_eval": {**base, "algorithm": DAC},
+        "st_eval_online": {**base, "algorithm": {"tag": "pthr", **{
+            k: v for k, v in PTHR.items() if k != "tag"}}}})
+    engine = WindowInference(model, dev, torch.bfloat16, loss_tag="bce")
+    model.train()
+    state = (generator.get_state(), torch.get_rng_state(),
+             torch.cuda.get_rng_state())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    segs = st_eval_segments(config, model, engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(model.training, "st eval: the model did not go back to train mode")
+    check(all(torch.equal(a, b) for a, b in zip(state, (
+        generator.get_state(), torch.get_rng_state(),
+        torch.cuda.get_rng_state()))), "st eval: a generator moved")
+    fresh, _ = build_model(SHAS_TASK["model"], dev)
+    init_from_numpy(fresh, seed=0)
+    load_reference_checkpoint(ckpt, fresh, allow_random_wav2vec=True)
+    fresh.eval()
+    out = {"wall_s": wall, "talks": 2, "audio_secs": 2 * TRAIN_SECS}
+    for key, (tag, rows) in segs.items():
+        algo = dict(config[key].algorithm)
+        want = segment_wavs(fresh, sorted(wav_dir.glob("*.wav")), algo, 1,
+                            20.0, 1, dev, torch.bfloat16)
+        check(rows == want, f"st eval {key}: the live model's rows differ "
+                            f"from the saved checkpoint's")
+        out[key] = {"algorithm": tag, "segments": len(rows)}
+    check(list(segs) == ["st_eval", "st_eval_online"],
+          f"st eval: keys {list(segs)}")
+    del fresh
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
 
 
 def spread(xs: list) -> dict:
@@ -1871,9 +2168,21 @@ def run_online(dev, model) -> dict:
           first_call=first, single=single, multi=multi,
           invariance=invariance, server=server,
           cudnn_benchmark=torch.backends.cudnn.benchmark, launches=launches)
-    for name in DEFAULT_PATH:
+    for name in INFER_PATH:
         check(launches.get(name, 0) > 0,
               f"kernel {name} never launched on the online path")
+    # C18: the output layer's rows alone as batched, and so every window's
+    # probabilities and every stream's commits
+    head_out = {op: r["output"] for op, r in by_op["ops"].items()
+                if op.startswith("output_layer")}
+    check(bool(head_out) and not any(head_out.values()),
+          f"online: the output layer hangs on the batch: {head_out}")
+    check(dmax == 0 and equal_by_slot == [n_windows] * ONLINE_STREAMS,
+          f"online: batched windows differ from alone (max |dprob| {dmax}, "
+          f"rows bitwise equal by slot {equal_by_slot} of {n_windows})")
+    check(segs_mux == solo,
+          f"online: multiplexed commits differ from each stream alone: "
+          f"{invariance['boundaries_differing']} boundaries")
     return launches
 
 
@@ -2188,9 +2497,10 @@ def train_config(dev, split: dict, exp: str, mode: str, dtype: str,
                     "kernels": mode, "seed": 0}, **extra})
 
 
-def run_train(dev, profile: bool) -> dict:
+def run_train(dev, profile: bool) -> tuple[dict, dict]:
     """The train phase; returns the launch counts of the kernels' bf16
-    run.  A fifth run, bf16 with the kernels, is profiled over micro-step
+    run and the st phase's (b), run on that run's model
+    (:func:`st_eval_check`).  A fifth run, bf16 with the kernels, is profiled over micro-step
     PROFILED + 1 for the device's busy time (with ``profile``, its
     torch.profiler table goes to standard error)."""
     from torch.profiler import ProfilerActivity, schedule
@@ -2242,6 +2552,9 @@ def run_train(dev, profile: bool) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         model = out_k.pop("model")
         book = check_checkpoints(Path(tmp) / "auto_bfloat16", out_k, model)
+        st_eval = st_eval_check(dev, model, out_k.pop("generator"),
+                                Path(tmp) / "auto_bfloat16" / "ckpts"
+                                / "final.pt", Path(tmp))
         fresh, _ = build_model(SHAS_TASK["model"], dev)
         init_from_numpy(fresh, seed=0)
         for key, value in fresh.wav2vec_model.state_dict().items():
@@ -2335,7 +2648,7 @@ def run_train(dev, profile: bool) -> dict:
           f"vs {e_vs_f} on the plain path")
     check(f32_k_vs_e <= F32_GRAD,
           f"float32 kernels vs eager head gradients {f32_k_vs_e} > {F32_GRAD}")
-    return counts
+    return counts, st_eval
 
 
 class _Stop(Exception):
@@ -3595,9 +3908,14 @@ def main() -> int:
     run_int8(dev, model)
     run_packing(dev, model)
     counts_online = run_online(dev, model)
+    t_st = time.perf_counter()
+    stage1 = run_stage1(dev, model)
+    t_st = time.perf_counter() - t_st
     del model
     torch.cuda.empty_cache()
-    counts_train = run_train(dev, profile="--profile" in sys.argv)
+    counts_train, st_eval = run_train(dev, profile="--profile" in sys.argv)
+    phase("st", seconds=t_st + st_eval["seconds"], stage1=stage1,
+          st_eval=st_eval)
     torch.cuda.empty_cache()
     run_resume(dev)
     torch.cuda.empty_cache()
@@ -3609,9 +3927,12 @@ def main() -> int:
 
     def launches(name):
         # the LNA recipe's run: every kernel of the trainer's path; K2
-        # runs on the unfused arm only
+        # runs on the unfused arm only; the output layer's kernel at
+        # inference only (the slice)
         if name in TRAIN_PATH:
             return "lna", lna["launches"][name]
+        if name == "row_dot":
+            return "slice", counts[name]
         return "slice_unfused", counts_unfused[name]
 
     phase("total", seconds=time.perf_counter() - start)

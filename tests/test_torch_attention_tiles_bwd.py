@@ -42,6 +42,7 @@ from .test_torch_attention_tiles_fwd import (BF16_ATOL, BF16_RTOL, CASES, LOG2E,
                               assert_close, bias, constants, emulate_fwd,
                               fwd_tiles, key_tiles, make_inputs, make_mask,
                               rows, stack_tiles)
+from .torch_tiny import threads_per_worker  # noqa: F401
 
 BWD = constants("attention_bwd.cu")
 STATS_RTOL = 1e-5  # float32 sums of one set of terms in two orders

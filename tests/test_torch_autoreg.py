@@ -42,7 +42,7 @@ from .helpers import TINY_W2V
 from .test_torch_ops import kernels_forced  # noqa: F401
 from .test_torch_train import LR, TOTAL_STEPS, corpus  # noqa: F401
 from .torch_tiny import (autoreg_pair, jax_tiny_autoreg,  # noqa: F401
-                         one_torch_thread, port_tiny_autoreg)
+                         threads_per_worker, port_tiny_autoreg)
 
 BOUND = 2e-4        # float32 forward, decode and train-step parity
 GRAD_F32 = 1e-5     # float32 attention gradients

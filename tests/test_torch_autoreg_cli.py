@@ -25,7 +25,7 @@ from wav2vecsegmenter_tpu_torch.infer.online import OnlineSegmenter
 
 from .helpers import make_speechlike_wav
 from .torch_tiny import (JAX_SIDE, PORT_SIDE, autoreg_params,  # noqa: F401
-                         jax_tiny_autoreg, one_torch_thread,
+                         jax_tiny_autoreg, threads_per_worker,
                          port_tiny_autoreg)
 
 TALKS = {"talkA.wav": 11.3, "talkB.wav": 7.6}

@@ -1,5 +1,5 @@
-"""The port's segment, inference, train, online and serve CLIs refuse the
-options of the JAX CLIs that they do not carry out yet
+"""The port's segment, inference, ST-pipe, train, online and serve CLIs
+refuse the options of the JAX CLIs that they do not carry out yet
 (``cli.common.UNPORTED``): each one set away from its default in
 ``conf/<app>.yaml`` raises NotImplementedError naming the key, before any
 model is built, and the defaults pass.  Keys that the JAX CLIs read but no
@@ -12,6 +12,7 @@ import pytest
 
 from wav2vecsegmenter_tpu_torch.cli import common
 from wav2vecsegmenter_tpu_torch.cli import inference as inference_cli
+from wav2vecsegmenter_tpu_torch.cli import inference_st_pipe as st_pipe_cli
 from wav2vecsegmenter_tpu_torch.cli import online as online_cli
 from wav2vecsegmenter_tpu_torch.cli import segment as segment_cli
 from wav2vecsegmenter_tpu_torch.cli import serve as serve_cli
@@ -25,7 +26,6 @@ SEGMENT = {
 }
 INFERENCE = {**SEGMENT, "log_wandb": "log_wandb=true"}
 TRAIN = {
-    "perform_st_evaluation": "perform_st_evaluation=true",
     "log_wandb": "log_wandb=true",
     "runtime.profile_steps": "runtime.profile_steps=2",
     "runtime.mesh": "runtime.mesh.model=2",
@@ -86,6 +86,18 @@ def test_inference_cli_refuses_unported_option(tmp_path, monkeypatch, key):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         inference_cli.main(_inference_args(tmp_path) + [INFERENCE[key]])
+    assert not (tmp_path / "out").exists()  # raised before any work
+
+
+@pytest.mark.parametrize("key", sorted(INFERENCE))
+def test_st_pipe_cli_refuses_unported_option(tmp_path, monkeypatch, key):
+    """The ST-pipe CLI composes conf/inference.yaml and refuses what the
+    inference CLI refuses, naming the ROADMAP item, before any job."""
+    monkeypatch.chdir(tmp_path)
+    item = common.UNPORTED["inference"][key].split(" (")[0]
+    with pytest.raises(NotImplementedError,
+                       match=rf"{key.replace('.', '[.]')}.*ROADMAP {item}"):
+        st_pipe_cli.main(_inference_args(tmp_path) + [INFERENCE[key]])
     assert not (tmp_path / "out").exists()  # raised before any work
 
 

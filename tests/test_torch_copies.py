@@ -308,3 +308,225 @@ def test_pdac_with_logits_equal(vocab):
         talgo.update_yaml_content(rows_t, got, f"talk{seed}.wav")
         jalgo.update_yaml_content(rows_j, want, f"talk{seed}.wav")
     assert rows_t == rows_j
+
+
+# ------------------------------------- the ST harness and the data tools
+
+def test_fbank_equal():
+    """fbank80 arrays (an impulse train with a DC offset, and noise) and
+    the mel filterbank."""
+    from wav2vecsegmenter_tpu.stpipe import fbank as jfbank
+    from wav2vecsegmenter_tpu_torch.stpipe import fbank as tfbank
+
+    rng = np.random.RandomState(7)
+    noise = (rng.randn(23456) * 0.2).astype(np.float32)
+    impulses = np.full(9000, 0.05, np.float32)
+    impulses[::400] = 0.9
+    for wav in (noise, impulses, noise[:300]):
+        np.testing.assert_array_equal(tfbank.fbank80(wav),
+                                      jfbank.fbank80(wav))
+    np.testing.assert_array_equal(tfbank.mel_filterbank(80, 512, 16000),
+                                  jfbank.mel_filterbank(80, 512, 16000))
+
+
+@pytest.mark.parametrize("n", [0, 4096, 12345])
+def test_flac_equal(n):
+    """The port's native encoder = its Python encoder = the JAX package's
+    Python encoder (which the JAX tests hold equal to its native one); a
+    silent block; the decode round trip; a corrupted byte fails the CRC."""
+    from wav2vecsegmenter_tpu.stpipe import flac as jflac
+    from wav2vecsegmenter_tpu_torch.data import native_audio
+    from wav2vecsegmenter_tpu_torch.stpipe import flac as tflac
+
+    rng = np.random.RandomState(n)
+    x = (rng.randn(n) * 0.3).astype(np.float32)
+    x[: min(n, 5000)] = 0.0  # a constant block
+    assert native_audio.available()
+    got = tflac.encode_flac(x)
+    assert got == tflac._encode_flac_py(tflac.to_int16(x), 16000)
+    assert got == jflac._encode_flac_py(jflac.to_int16(x), 16000)
+    samples, sr = tflac.decode_flac(got)
+    assert sr == 16000
+    np.testing.assert_array_equal(samples, tflac.to_int16(x))
+    if n:
+        bad = bytearray(got)
+        bad[-3] ^= 0x40
+        with pytest.raises(ValueError, match="CRC"):
+            tflac.decode_flac(bytes(bad))
+
+
+@pytest.mark.parametrize("use_audio_input", [0, 1])
+def test_prepare_custom_dataset_equal(tmp_path, monkeypatch,
+                                      use_audio_input):
+    """The fairseq dataset of a segmentation (two talks, a segment too
+    short for the manifest, unsorted offsets): the TSV and the zip, byte
+    for byte (the zip entries' times pinned), fbank features or FLAC."""
+    import time
+
+    import yaml
+
+    from wav2vecsegmenter_tpu.data import native_audio as jnative
+    from wav2vecsegmenter_tpu.stpipe.manifest import (
+        prepare_custom_dataset as jprep)
+    from wav2vecsegmenter_tpu_torch.stpipe.manifest import (
+        prepare_custom_dataset as tprep)
+
+    # the JAX encoder's Python path (its native one builds in native/)
+    monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)
+    rows = [{"duration": 1.5, "offset": 2.0, "speaker_id": "spk1",
+             "wav": "a.wav"},
+            {"duration": 2.0, "offset": 0.1, "speaker_id": "spk1",
+             "wav": "a.wav"},
+            {"duration": 0.01, "offset": 3.9, "speaker_id": "spk1",
+             "wav": "a.wav"},
+            {"duration": 1.0, "offset": 0.5, "speaker_id": "spk2",
+             "wav": "b.wav"}]
+    wav_dir = tmp_path / "wav"
+    wav_dir.mkdir()
+    make_speechlike_wav(wav_dir / "a.wav", duration_secs=4.2, seed=1)
+    make_speechlike_wav(wav_dir / "b.wav", duration_secs=2.0, seed=2)
+    out = {}
+    for side, prep in (("jax", jprep), ("port", tprep)):
+        (tmp_path / side).mkdir()
+        with open(tmp_path / side / "segs.yaml", "w") as f:
+            yaml.dump(rows, f)
+        tsv = prep(tmp_path / side / "segs.yaml", wav_dir, "de",
+                   use_audio_input)
+        zipname = "flac.zip" if use_audio_input else "fbank80.zip"
+        out[side] = (tsv.read_text().replace(str(tmp_path / side), "<d>"),
+                     (tmp_path / side / zipname).read_bytes())
+    assert out["port"] == out["jax"]
+    assert out["port"][0].count("\n") == 4  # the short segment dropped
+
+
+def test_xml_and_generation_equal(tmp_path):
+    """original_segmentation_to_xml's pair (an empty src/tgt pair
+    dropped), format_generation_output, and fairseq_generate_cmd in both
+    styles."""
+    import yaml
+
+    from wav2vecsegmenter_tpu.stpipe import eval_st as jeval
+    from wav2vecsegmenter_tpu.stpipe import generation as jgen
+    from wav2vecsegmenter_tpu.stpipe import xml as jxml
+    from wav2vecsegmenter_tpu_torch.stpipe import eval_st as teval
+    from wav2vecsegmenter_tpu_torch.stpipe import generation as tgen
+    from wav2vecsegmenter_tpu_torch.stpipe import xml as txml
+
+    seg = [{"duration": 2.0, "offset": 0.0, "wav": "t1.wav"},
+           {"duration": 2.0, "offset": 2.0, "wav": "t1.wav"},
+           {"duration": 1.0, "offset": 4.0, "wav": "t1.wav"},
+           {"duration": 2.0, "offset": 0.0, "wav": "t2.wav"}]
+    for side, mod, gen in (("jax", jxml, jgen), ("port", txml, tgen)):
+        d = tmp_path / side
+        d.mkdir()
+        with open(d / "dev.yaml", "w") as f:
+            yaml.dump(seg, f)
+        (d / "dev.en").write_text("hello there\nsecond\n\nother talk\n")
+        (d / "dev.de").write_text("hallo da\nzweite\nnur de\nanderer\n")
+        assert [p.name for p in mod.original_segmentation_to_xml(
+            d / "dev.yaml", d / "dev.en", d / "dev.de", d)] == [
+            "dev.en.xml", "dev.de.xml"]
+        (d / "translations.txt").write_text(
+            "S-1 x\nH-1 -0.5 foo\nD-1 -0.5 zweite zeile\nD-0 -0.3 hallo\n"
+            "D-2 -0.9\nD-10 -0.1 zehn\n")
+        gen.format_generation_output(d / "translations.txt")
+    for name in ("dev.en.xml", "dev.de.xml", "translations_formatted.txt"):
+        assert (tmp_path / "port" / name).read_bytes() == (
+            tmp_path / "jax" / name).read_bytes(), name
+
+    def conf(cls, model_dir):
+        return cls({"st_model_dir": model_dir, "st_ckpt": "c.pt",
+                    "cust_seg_yaml": "custom_segments.yaml",
+                    "fairseq_root": "/fsq"})
+
+    for model_dir in ("/m/whatever", "/m/joint-s2t-mustc-en-de",
+                      "/m/mustc_multilingual_st"):
+        for style in ("train", "cli"):
+            if style == "cli" and model_dir.endswith("whatever"):
+                for mod, cls in ((teval, tconfig.Config),
+                                 (jeval, jconfig.Config)):
+                    with pytest.raises(ValueError, match="Unknown model"):
+                        mod.fairseq_generate_cmd(conf(cls, model_dir),
+                                                 tmp_path, style)
+                continue
+            assert teval.fairseq_generate_cmd(
+                conf(tconfig.Config, model_dir), tmp_path, style) == \
+                jeval.fairseq_generate_cmd(
+                    conf(jconfig.Config, model_dir), tmp_path, style)
+
+
+@pytest.mark.parametrize("depth", [0, 3, 6])
+def test_pdac_tree_equal(depth):
+    """pdac_tree's nodes (the soft trims, the empty placeholder nodes),
+    update_tree_yaml_content's rows and visualize_tree's text."""
+    rows_t, rows_j = [], []
+    for seed in range(3):
+        probs = _probs(seed, 3000)
+        got = talgo.pdac_tree(probs.copy(), 18, 0.2, 0.5, 0.1, depth)
+        want = jalgo.pdac_tree(probs.copy(), 18, 0.2, 0.5, 0.1, depth)
+        assert _spans(got) == _spans(want) and len(got) >= 1
+        assert talgo.visualize_tree(got, 4) == jalgo.visualize_tree(want, 4)
+        talgo.update_tree_yaml_content(rows_t, got, f"t{seed}.wav", 18, 0.2)
+        jalgo.update_tree_yaml_content(rows_j, want, f"t{seed}.wav", 18, 0.2)
+    assert rows_t == rows_j and (depth == 0 or len(rows_t) > 6)
+
+
+@pytest.mark.parametrize("with_text", [False, True])
+def test_prepare_dataset_for_segmentation_equal(tmp_path, with_text):
+    """The talks and segments TSVs of a MuST-C style yaml, with and without
+    the transcripts' column."""
+    import yaml
+
+    from wav2vecsegmenter_tpu.data.prep import (
+        prepare_dataset_for_segmentation as jprep)
+    from wav2vecsegmenter_tpu_torch.data.prep import (
+        prepare_dataset_for_segmentation as tprep)
+
+    wav_dir = tmp_path / "wav"
+    wav_dir.mkdir()
+    make_speechlike_wav(wav_dir / "a.wav", duration_secs=5.0, seed=1)
+    make_speechlike_wav(wav_dir / "b.wav", duration_secs=3.0, seed=2)
+    rows = [{"duration": 2.0, "offset": 0.5, "wav": "a.wav"},
+            {"duration": 9.0, "offset": 3.0, "wav": "a.wav"},
+            {"duration": 1.2, "offset": 0.25, "wav": "b.wav"}]
+    with open(tmp_path / "dev.yaml", "w") as f:
+        yaml.dump(rows, f)
+    (tmp_path / "dev.en").write_text("one two\n three \nfour\n")
+    txt = tmp_path / "dev.en" if with_text else None
+    got = tprep(tmp_path / "dev.yaml", wav_dir, tmp_path / "port", None, txt)
+    want = jprep(tmp_path / "dev.yaml", wav_dir, tmp_path / "jax", None, txt)
+    for a, b in zip(got, want):
+        assert a.name == b.name
+        assert a.read_bytes() == b.read_bytes()
+
+
+def test_score_functions_equal(tmp_path):
+    """sacreBLEU corpus and sentence scores, the parallel reader, and the
+    optional scorers' RuntimeError where they are not installed."""
+    from wav2vecsegmenter_tpu.stpipe import score as jscore
+    from wav2vecsegmenter_tpu_torch.stpipe import score as tscore
+
+    ref, hyp = tmp_path / "ref", tmp_path / "hyp"
+    ref.write_text("das ist ein test\nund noch einer hier\nkurz\n")
+    hyp.write_text("das ist test\nund noch einer hier\nlang\n")
+    assert str(tscore.score_sacrebleu(str(ref), str(hyp))) == str(
+        jscore.score_sacrebleu(str(ref), str(hyp)))
+    assert tscore.score_sentence_bleu(str(ref), str(hyp),
+                                      str(tmp_path / "t")) == \
+        jscore.score_sentence_bleu(str(ref), str(hyp), str(tmp_path / "j"))
+    assert (tmp_path / "t").read_text() == (tmp_path / "j").read_text()
+    assert tscore.get_parallel(ref, hyp) == jscore.get_parallel(ref, hyp)
+    import importlib.util
+
+    for mod in (tscore, jscore):
+        for package, call in (
+                ("bert_score", lambda: mod.score_bertscore(
+                    str(ref), str(hyp), "de")),
+                ("bleurt", lambda: mod.score_bleurt(str(ref), str(hyp),
+                                                    "/x")),
+                ("bert_score", lambda: mod.score_sentence_bertscore(
+                    str(ref), str(hyp), None, "de"))):
+            if importlib.util.find_spec(package) is None:
+                with pytest.raises(RuntimeError, match="not installed"):
+                    call()

@@ -18,7 +18,7 @@ from wav2vecsegmenter_tpu.infer import pipeline as jpipe
 from wav2vecsegmenter_tpu_torch.infer import pipeline as tpipe
 
 from .torch_tiny import (cli_workspace, jax_tiny_ssl,  # noqa: F401
-                         offline_both, one_torch_thread, port_tiny_ssl,
+                         offline_both, threads_per_worker, port_tiny_ssl,
                          tiny_ssl_pair)
 
 TALKS = {"talkA.wav": 15.3, "talkB.wav": 9.7}

@@ -77,7 +77,10 @@ def test_chip_smoke_path_imports_no_jax_pandas_yaml(target):
                "wav2vecsegmenter_tpu_torch.data.datasets, "
                "wav2vecsegmenter_tpu_torch.data.loader, "
                "wav2vecsegmenter_tpu_torch.data.vocab, "
-               "wav2vecsegmenter_tpu_torch.eval.metrics")
+               "wav2vecsegmenter_tpu_torch.eval.metrics, "
+               "wav2vecsegmenter_tpu_torch.ops.rowdot, "
+               "wav2vecsegmenter_tpu_torch.cli.prepare_synthetic_data, "
+               "wav2vecsegmenter_tpu_torch.cli.inference_st_pipe")
     out = _run(imports + """
 print(sorted(m for m in sys.modules if m.split(".")[0] in %r))
 """ % sorted(BLOCKED), BLOCKED)

@@ -35,6 +35,7 @@ from .helpers import TINY_W2V
 from .test_torch_train import (GNORM_RTOL, KEY_BIAS, LOSS_RTOL, LR,
                                PARAM_ATOL, POS_WEIGHT, TOTAL_STEPS, _batches,
                                _jax_batch)
+from .torch_tiny import threads_per_worker  # noqa: F401
 
 CFG = dataclasses.replace(TINY_W2V, apply_spec_augment=False, adapter_dim=16)
 # Adam's step is lr * m / (sqrt(v) + eps), about lr * sign(g): where an

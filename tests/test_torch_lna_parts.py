@@ -45,6 +45,7 @@ from .test_torch_lna import CASES, CFG, _models
 from .test_torch_ops import (DTYPES, LENGTHS, _assert_grads_close, _key_mask,
                              _pallas_vjp, kernels_forced)  # noqa: F401
 from .test_torch_train import _cli_args, corpus  # noqa: F401
+from .torch_tiny import threads_per_worker  # noqa: F401
 
 BOUND = 2e-4  # float32 logits, tests/test_model_parity.py's bound
 EPS = 1e-5

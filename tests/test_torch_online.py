@@ -18,7 +18,7 @@ from wav2vecsegmenter_tpu_torch.core.frames import inframes_to_outframes
 from wav2vecsegmenter_tpu_torch.infer import online as tonline
 from wav2vecsegmenter_tpu_torch.infer import pipeline as tpipe
 
-from .torch_tiny import one_torch_thread, tiny_pair  # noqa: F401
+from .torch_tiny import threads_per_worker, tiny_pair  # noqa: F401
 
 STRM = dict(algorithm="strm", max_segment_length=3, min_segment_length=0.2,
             min_pause_length=0.2, threshold=0.5)

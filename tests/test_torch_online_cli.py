@@ -17,7 +17,7 @@ import torch
 import yaml
 
 from .helpers import make_speechlike_wav
-from .torch_tiny import (one_torch_thread, tiny_builders,  # noqa: F401
+from .torch_tiny import (threads_per_worker, tiny_builders,  # noqa: F401
                          tiny_pair)
 
 TALKS = {"talkA.wav": 21.7, "talkB.wav": 13.4}

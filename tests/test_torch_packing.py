@@ -25,7 +25,7 @@ from wav2vecsegmenter_tpu_torch.infer import pipeline as tpipe
 
 from .helpers import make_speechlike_wav
 from .torch_tiny import (cli_workspace, offline_both,  # noqa: F401
-                         one_torch_thread, tiny_builders, tiny_pair)
+                         threads_per_worker, tiny_builders, tiny_pair)
 
 SEG_LEN = 4.0
 PROBS_ATOL = 2e-4  # float32 engines, the port's model tolerance

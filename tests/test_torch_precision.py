@@ -18,7 +18,7 @@ from wav2vecsegmenter_tpu_torch.infer import pipeline as tpipe
 from wav2vecsegmenter_tpu_torch.models import sfc, wav2vec2
 
 from .helpers import tiny_shas
-from .torch_tiny import one_torch_thread, port_tiny, tiny_pair  # noqa: F401
+from .torch_tiny import threads_per_worker, port_tiny, tiny_pair  # noqa: F401
 
 ARMS = ("bf16", "f32head", "f32res", "f32last1", "f32last2", "f32")
 LOGITS_ATOL = 2e-4  # float32 engines, the port's model tolerance

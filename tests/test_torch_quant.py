@@ -26,7 +26,7 @@ from wav2vecsegmenter_tpu_torch.models import wav2vec2
 from wav2vecsegmenter_tpu_torch.ops import quant
 
 from .torch_tiny import (JAX_SIDE, PORT_SIDE, cli_workspace,  # noqa: F401
-                         offline_both, one_torch_thread, port_tiny,
+                         offline_both, threads_per_worker, port_tiny,
                          tiny_builders, tiny_pair)
 
 # int8_matmul against the JAX function as the jitted forward runs it: the

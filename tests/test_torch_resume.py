@@ -23,6 +23,7 @@ from wav2vecsegmenter_tpu_torch.models.shas import SHAS
 from wav2vecsegmenter_tpu_torch.train import loop as tloop
 
 from .helpers import make_speechlike_wav, tiny_shas
+from .torch_tiny import threads_per_worker  # noqa: F401
 
 RESUME_RTOL = 1e-6  # a resumed run replays the same float32 operations
 

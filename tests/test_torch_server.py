@@ -27,7 +27,7 @@ from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
 from wav2vecsegmenter_tpu_torch.infer.server import (SegmentationServer,
                                                      segment_stream_client)
 
-from .torch_tiny import one_torch_thread, port_tiny, tiny_pair  # noqa: F401
+from .torch_tiny import threads_per_worker, port_tiny, tiny_pair  # noqa: F401
 
 ALGO = dict(segment_length=4.0, algorithm="strm", max_segment_length=3,
             min_segment_length=0.2, min_pause_length=0.2, threshold=0.5)

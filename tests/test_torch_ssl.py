@@ -43,7 +43,7 @@ from wav2vecsegmenter_tpu_torch.train import step as tstep
 from .helpers import TINY_W2V
 from .test_torch_lna import _is_key_bias
 from .test_torch_train import LOSS_RTOL, LR, PARAM_ATOL, TOTAL_STEPS
-from .torch_tiny import (jax_tiny_ssl, one_torch_thread,  # noqa: F401
+from .torch_tiny import (jax_tiny_ssl, threads_per_worker,  # noqa: F401
                          port_tiny_ssl, ssl_params)
 
 BOUND = 2e-4  # float32 forward parity, tests/test_torch_model.py's

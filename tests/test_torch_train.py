@@ -40,6 +40,7 @@ from wav2vecsegmenter_tpu_torch.train import loss as tloss
 from wav2vecsegmenter_tpu_torch.train import step as tstep
 
 from .helpers import TINY_W2V, make_speechlike_wav
+from .torch_tiny import threads_per_worker  # noqa: F401
 
 CFG = dataclasses.replace(TINY_W2V, apply_spec_augment=False)
 LR, TOTAL_STEPS, POS_WEIGHT = 1e-3, 10, 0.3

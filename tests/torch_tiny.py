@@ -5,6 +5,7 @@ on which the segment and inference CLIs of both packages run."""
 
 import dataclasses
 import importlib
+import os
 from pathlib import Path
 
 import jax
@@ -40,12 +41,18 @@ def tiny_pair(ckpt_path, seed: int = 0):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's CPU ops on one thread for a module (imported into it):
-    serving tests run many small forwards, which a pool of threads slows
-    many times over when test workers share the host's cores."""
+def threads_per_worker():
+    """Under pytest-xdist, the port's CPU ops of a module (imported into it)
+    on the host's cores divided among the workers (one thread on 8 cores
+    and 6 workers): torch's default pool of a thread a core in every worker
+    oversubscribes the host, and its threads then wait on each other (a
+    training test took 11 times as long beside five busy processes as
+    alone, and no longer than alone on one thread; serving tests' many
+    small forwards slowed ~20x).  Outside xdist the default stays."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
     n = torch.get_num_threads()
-    torch.set_num_threads(1)
+    if workers:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
     yield
     torch.set_num_threads(n)
 

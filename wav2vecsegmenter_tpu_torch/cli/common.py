@@ -46,7 +46,6 @@ UNPORTED = {
         "runtime.mesh": "A9 (parallel)",
     },
     "train": {
-        "perform_st_evaluation": "A8 (the ST-eval harness)",
         "log_wandb": "A9 (wandb)",
         "runtime.profile_steps": "A11 (profiler traces)",
         "runtime.mesh": "A9 (parallel)",
@@ -311,7 +310,8 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
                  read_seconds: list | None = None,
                  precision: str | None = None, quantize: str | None = None,
                  pack_across_talks: bool = False, loss_tag: str = "bce",
-                 vocab=None) -> list[dict]:
+                 vocab=None, engine: WindowInference | None = None
+                 ) -> list[dict]:
     """The product loop: per wav, multi-pass sliding-window inference,
     probability averaging, the segmentation algorithm, yaml rows.
 
@@ -329,13 +329,17 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
     talk's last batch fills only with the next talk's windows.
     ``loss_tag`` is the task's (the engine's probability) and ``vocab`` its
     vocabulary; ``dac_logits`` downloads and stitches the frame logits,
-    summed over the passes, and no other algorithm does.
+    summed over the passes, and no other algorithm does.  ``engine``, when
+    given (the trainer's, for its ST evaluation), runs the batches in place
+    of one built from ``device``, ``compute_dtype``, ``precision``,
+    ``quantize`` and ``loss_tag``.
     """
     algorithm = dict(algorithm)
     tag = algorithm.pop("tag")
     need_logits = tag == "dac_logits"
-    engine = WindowInference(model, device, compute_dtype, precision,
-                             quantize, loss_tag)
+    if engine is None:
+        engine = WindowInference(model, device, compute_dtype, precision,
+                                 quantize, loss_tag)
     packer = None
     if pack_across_talks:
         packer = PackedSweep(engine, batch_size, float(segment_length),

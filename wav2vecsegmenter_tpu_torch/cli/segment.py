@@ -34,21 +34,15 @@ from . import common
 CONF_DIR = Path(__file__).resolve().parents[2] / "conf"
 
 
-def segment_to_yaml(config, ckpt_path, wav_paths: list[Path],
-                    output_dir: Path) -> list[dict]:
-    """Load the checkpoint into the task's model, segment ``wav_paths`` and
-    write ``output_dir/<cust_seg_yaml>``; returns the yaml rows.  Shared
-    with ``cli/inference.py``."""
-    import yaml
-
+def segment_rows(config, ckpt_path, wav_paths: list[Path]) -> list[dict]:
+    """Load the checkpoint into the task's model and segment ``wav_paths``
+    on the runtime's device: the yaml rows.  Shared with
+    ``cli/inference.py`` and ``cli/inference_st_pipe.py``."""
     from ..config import to_plain
 
-    output_dir.mkdir(parents=True, exist_ok=True)
-    common.init_logging()
     rt = config.get("runtime") or {}
     model, vocab, device, dtype = common.load_model(config, ckpt_path)
-
-    yaml_content = common.segment_wavs(
+    return common.segment_wavs(
         model, wav_paths, to_plain(config.algorithm),
         int(config.batch_size), float(config.inference_segment_length),
         int(config.inference_times), device, dtype,
@@ -57,6 +51,16 @@ def segment_to_yaml(config, ckpt_path, wav_paths: list[Path],
         pack_across_talks=bool(rt.get("pack_across_talks", False)),
         loss_tag=config.task.loss.tag, vocab=vocab)
 
+
+def segment_to_yaml(config, ckpt_path, wav_paths: list[Path],
+                    output_dir: Path) -> list[dict]:
+    """:func:`segment_rows`, written to ``output_dir/<cust_seg_yaml>``;
+    returns the yaml rows.  Shared with ``cli/inference.py``."""
+    import yaml
+
+    output_dir.mkdir(parents=True, exist_ok=True)
+    common.init_logging()
+    yaml_content = segment_rows(config, ckpt_path, wav_paths)
     common.logger.info("Number of segments: %d", len(yaml_content))
     out = output_dir / config.cust_seg_yaml
     with open(out, "w") as f:

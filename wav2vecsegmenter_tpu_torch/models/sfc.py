@@ -21,8 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import backend
 from ..ops.attention import attention_qkv
 from ..ops.layernorm import layer_norm
+from ..ops.rowdot import row_dot
 from .wav2vec2 import _lin, dropout
 
 EPS = 1e-5
@@ -84,8 +86,19 @@ def sfc_forward(head: SegmentationFrameClassifier, x: torch.Tensor,
         h = encoder_layer(layer, h, out_mask, head.n_heads, dt, dropout_rate,
                           generator)
     h = layer_norm(h, head.layer_norm.weight, head.layer_norm.bias, EPS)
-    logits = _lin(head.output_layer, h, dt).float()
+    logits = output_layer(head.output_layer, h, dt).float()
     return logits[..., 0] if logits.shape[-1] == 1 else logits
+
+
+def output_layer(lin: nn.Linear, h: torch.Tensor, dt) -> torch.Tensor:
+    """The head's output layer over h [B, T, H] in ``dt``: [B, T, V].  The
+    bce head (V = 1) at inference goes through ``ops.rowdot.row_dot``, on
+    the card a row-local kernel whose logit does not hang on the batch
+    (ROADMAP C18); under grad, and at V > 1, ``_lin``."""
+    if lin.out_features == 1 and not backend.needs_grad(h, lin.weight,
+                                                        lin.bias):
+        return row_dot(h, lin.weight.to(dt)[0], lin.bias.to(dt))[..., None]
+    return _lin(lin, h, dt)
 
 
 def encoder_layer(layer: SFCLayer, h: torch.Tensor, key_mask: torch.Tensor,

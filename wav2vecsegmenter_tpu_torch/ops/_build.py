@@ -61,6 +61,8 @@ _SIGNATURES = {
     # array of 24), b, tq, tk, heads, d, scale, dtype, stream
     "w2v_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _F, _I, _P),
+    # x, w, b, out, rows, h, dtype, stream
+    "w2v_row_dot": (_P, _P, _P, _P, _L, _I, _I, _P),
 }
 
 _lib = None

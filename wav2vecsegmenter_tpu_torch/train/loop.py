@@ -25,6 +25,14 @@ position):
 * evaluation on the eval split at each epoch's end, and every
   ``save_every_steps`` micro-steps (on ``task=arseg`` the first raises
   ``NotImplementedError``, where the JAX trainer fails: ROADMAP C15);
+* with ``perform_st_evaluation``, after each evaluation the ST
+  evaluation (reference train.py:36-212): the dev wav dir of each of
+  ``st_eval`` and ``st_eval_online`` segmented with the live model
+  (:func:`st_eval_segments`, on the run's device), then translated,
+  realigned and scored on the host (``stpipe.eval_st.eval_st``, which
+  shells out to ``fairseq-generate``) under
+  ``eval_st/<checkpoint name>/<algorithm>``; its keys join the
+  evaluation's results;
 * after each evaluation a model checkpoint, ``ckpts/epoch-{n}.pt`` or
   ``ckpts/epoch-{n}_step-{s}.pt``, in the reference's ``.pt`` layout that
   ``SHAS.save_full_state`` picks (the full state_dict under LNA, the head's
@@ -46,8 +54,8 @@ seeds the model's numpy weights, the per-epoch window grids (unless
 masks; the backbone then comes from a local HF snapshot of the pretrained
 model where there is one, the head from ``finetune_from_model`` where that
 is set.  The ``ctc`` tag with a frozen backbone raises, as in the JAX
-package (nothing would train).  Not ported yet: wandb, ``steps_per_call``,
-device meshes and the in-training ST evaluation.
+package (nothing would train).  Not ported yet: wandb, ``steps_per_call``
+and device meshes.
 """
 
 from __future__ import annotations
@@ -68,7 +76,8 @@ from ..checkpoints.io import (
     save_model_checkpoint,
     save_run_state,
 )
-from ..cli.common import build_model, runtime_device_dtype
+from ..cli.common import build_model, runtime_device_dtype, segment_wavs
+from ..cli.inference import wavs_from_dir
 from ..config import to_plain
 from ..constants import WAV2VEC_FRAME_LEN
 from ..data.loader import FixedDataloaderGenerator, RandomDataloaderGenerator
@@ -122,6 +131,65 @@ def train_generator(config, batch_size: int, seed: int,
     conf["batch_size"] = batch_size
     return GENERATORS[target](**conf, pin_memory=pin_memory, vocab=vocab,
                               ctc=ctc, autoregression=autoregression)
+
+
+def st_eval_segments(config, model, engine, vocab=None) -> dict:
+    """The in-training ST evaluation's device part: for each of
+    ``st_eval`` and ``st_eval_online`` that the config sets, {key:
+    (algorithm tag, yaml rows)} of its ``infer_data.wav_dir`` segmented
+    through ``cli.common.segment_wavs`` with the trainer's ``engine`` and
+    live ``model``, at the st config's ``batch_size``,
+    ``inference_segment_length`` and ``inference_times`` (the JAX
+    ``_run_st_eval``'s segmentation).  The model runs in eval mode under
+    ``torch.no_grad`` and is put back in the mode it was in; nothing is
+    drawn from the trainer's generator.  A key whose wav dir is missing is
+    logged as skipped."""
+    out: dict = {}
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            for key in ("st_eval", "st_eval_online"):
+                st_cfg = config.get(key)
+                if not st_cfg:
+                    continue
+                algorithm = to_plain(st_cfg.algorithm)
+                try:
+                    wav_dir = Path(st_cfg.infer_data.wav_dir)
+                    if not wav_dir.is_dir():
+                        raise FileNotFoundError(f"no wav dir {wav_dir}")
+                    rows = segment_wavs(
+                        model, wavs_from_dir(st_cfg), algorithm,
+                        int(st_cfg.batch_size),
+                        float(st_cfg.inference_segment_length),
+                        int(st_cfg.inference_times), engine.device,
+                        engine.compute_dtype, loss_tag=engine.loss_tag,
+                        vocab=vocab, engine=engine)
+                except FileNotFoundError as e:
+                    logger.warning("%s skipped: %s", key, e)
+                    continue
+                out[key] = (algorithm["tag"], rows)
+    finally:
+        model.train(was_training)
+    return out
+
+
+def run_st_eval(config, model, engine, vocab, results_path: Path,
+                checkpoint_name: str) -> dict:
+    """The in-training ST evaluation (reference train.py:36-212): the
+    segmentation of :func:`st_eval_segments`, then per key
+    ``stpipe.eval_st.eval_st`` (host work: the fairseq dataset,
+    ``fairseq-generate``, the mWER realignment, the scores) into
+    ``results_path/eval_st/<checkpoint_name>/<algorithm>``.  Returns the
+    merged results."""
+    from ..stpipe.eval_st import eval_st
+
+    results: dict = {}
+    for key, (algorithm, rows) in st_eval_segments(config, model, engine,
+                                                   vocab).items():
+        out = Path(results_path) / "eval_st" / checkpoint_name / algorithm
+        results.update(eval_st(config[key], rows, out, algorithm))
+    return results
 
 
 def _generate(gen):
@@ -187,9 +255,11 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     read_seconds (its read and collate in the reader), "steps_per_epoch",
     "updates": optimizer updates applied, "total_steps": the schedule's
     length, "start_epoch": 0, or the epoch a resumed run started at,
-    "evals": (checkpoint name, eval metrics) of each evaluation, "model":
-    the trained SHAS, "checkpoint": the final checkpoint's path or None,
-    "checkpoints": the rotation's bookkeeping}``.  ``on_step``, when given,
+    "evals": (checkpoint name, eval metrics and, with
+    ``perform_st_evaluation``, the ST results) of each evaluation, "model":
+    the trained SHAS, "generator": the dropout generator, "checkpoint": the
+    final checkpoint's path or None, "checkpoints": the rotation's
+    bookkeeping}``.  ``on_step``, when given,
     is called with each micro-step's metrics
     (``train.step.make_train_step``)."""
     task = config.task
@@ -286,6 +356,9 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     def evaluate_and_save(name: str) -> dict:
         out = evaluate(eval_gen, engine, vocab)
         logger.info("eval @ %s: %s", name, out)
+        if config.get("perform_st_evaluation"):
+            out.update(run_st_eval(config, model, engine, vocab,
+                                   results_path, name))
         evals.append((name, out))
         ckpts.save(name, model, out)
         return out
@@ -378,5 +451,6 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     return {"eval": results, "history": history,
             "steps_per_epoch": steps_per_epoch, "updates": optimizer.updates,
             "total_steps": total_steps, "start_epoch": start_epoch,
-            "evals": evals, "model": model, "checkpoint": checkpoint,
+            "evals": evals, "model": model, "generator": generator,
+            "checkpoint": checkpoint,
             "checkpoints": ckpts.state()}
