@@ -43,7 +43,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    head's output layer (C18: the row-local kernel of ops/csrc/rowdot.cu
    at 14 x 999 rows of 1024, both dtypes, beside cuBLAS's F.linear; in
    bf16 bitwise the kernel order's plain rendering, ``row_dot_ordered``,
-   and in both a window's rows alone bitwise as in the batch);
+   and in both a window's rows alone bitwise as in the batch); last, K4
+   at the base models' SFC head (8 heads of D=96, [14, 999], both
+   dtypes, ragged keys and an all-masked row, beside SDPA);
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
@@ -234,11 +236,25 @@ Phases, each printed on its own line; any failure exits non-zero:
    equal to segment_wavs's on the trainer's final.pt loaded fresh, the
    wall.  The host part (eval_st, mWER, sacreBLEU, pyyaml) is not run on
    the card: tier-1 holds it;
-16. the script's seconds; a JSON line of every kernel (launches on the
+16. base: the base models' geometry (``facebook/wav2vec2-base``: 12
+   post-LN layers of 768, 12 heads of 64, the group-norm conv stack without
+   conv bias, which no conv kernel takes; SFC 1 x 8 heads of D=96; seeded
+   random weights, output layer x40): the slice's two talks through
+   cli.common.segment_wavs at batch 14 with pTHR, bf16 kernels (launch
+   counters reset just before; K1 28, K3 12, K5 12, K4 1, row_dot 1 a
+   batch, no conv kernel), bf16 eager (counters unmoved) and float32: the
+   slice's |dprob| rules, the kernels' yaml rows against eager's within
+   tests/test_packing.py's bounds; one full batch of 14 x 20 s, kernels
+   and eager in turns: wall ms, device busy ms and idle share, the conv
+   stack's plain group route alone, mean and p99 |dprob| against the eager
+   float32 batch (the kernels within KERNEL_SLACK of eager), the batch's
+   launches; reported: a window alone bitwise as in a batch of 8 or not;
+17. the script's seconds; a JSON line of every kernel (launches on the
    LNA recipe's run, or for K2 the unfused slice's, for the output layer's
    kernel the slice's, and on the online,
-   ssl and arseg phases; error, times, bound, and the float32 route's
-   row; K5/K6/K7/K2 add their Function row), the nvidia-smi line, and the
+   ssl, arseg and base phases; error, times, bound, and the float32 route's
+   row; K5/K6/K7/K2 add their Function row; K4 adds its D=96 rows under
+   ``d96``), the nvidia-smi line, and the
    last line: {"ok": true, "device": {...}}.
 
 The kernel phase runs each backward kernel twice on the same inputs: the
@@ -391,6 +407,10 @@ LN_TAIL_H = 1020
 # encoder layers and three in the SFC head; the unfused arm's conv epilogue
 # runs once a conv layer.  The slice segments its two talks in two batches.
 LN_PER_BATCH, CONV_LAYERS, SLICE_BATCHES = 34, 7, 2
+# the base models' preset (facebook/wav2vec2-base: 12 post-LN layers of
+# 768, 12 heads of 64, the group-norm conv stack without conv bias) under
+# conf/task/shas.yaml's head (1 layer, 8 heads: D = 96)
+BASE_MODEL, BASE_HEAD_DIM = "facebook/wav2vec2-base", 96
 
 
 def phase(tag: str, **fields) -> None:
@@ -625,17 +645,18 @@ def check_kernels(dev) -> dict:
                     bound=attn_bound(q, mask, 16, 64, dtype),
                     library=sdpa(q, k, v, mask))
 
-    def bthd_case(t, dtype, b=B, valid=None):
-        qkv = randn(b, t, 3, 8, 128, dtype=dtype)  # the SFC's view layout
+    def bthd_case(t, dtype, b=B, valid=None, d=128):
+        # the SFC's view layout; d = 96 at a base model's width (768 / 8)
+        qkv = randn(b, t, 3, 8, d, dtype=dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         mask = window_mask(b, t, valid, g, dev)
         if b > 3:
             mask[3] = False
         return dict(fn=lambda: attn.attention_bthd(q, k, v, mask),
                     plain=lambda: attn.attention_bthd_plain(
-                        q, k, v, mask, 128 ** -0.5),
-                    uniform=uniform_row(v, 8, 128) if b > 3 else None,
-                    bound=attn_bound(q, mask, 8, 128, dtype),
+                        q, k, v, mask, d ** -0.5),
+                    uniform=uniform_row(v, 8, d) if b > 3 else None,
+                    bound=attn_bound(q, mask, 8, d, dtype),
                     library=sdpa(q, k, v, mask))
 
     def cross_case(tq, tk, dtype):
@@ -992,6 +1013,13 @@ def check_kernels(dev) -> dict:
         cases.append(("row_dot", f"[{B}*{T},1024]x1", dtype,
                       lambda d=dtype: row_dot_case(B * T, d)))
 
+    # K4 at the base models' SFC head (768 channels, 8 heads of 96; the
+    # D = 128 schedule over a zero-filled half box), last, for the same
+    # reason
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(("attention_bthd", f"[{B},{T},8,{BASE_HEAD_DIM}]", dtype,
+                      lambda d=dtype: bthd_case(T, d, d=BASE_HEAD_DIM)))
+
     results: dict = {}
     results_f32: dict = {}
     for name, label, dtype, make in cases:
@@ -1064,11 +1092,15 @@ def check_kernels(dev) -> dict:
         # the record keeps the main path's dtype (bf16) at its first shape,
         # and the float32 route's row at that shape (the precision ladder's
         # f32 arms)
+        # (and K4's row at the base models' head dim under "d96")
         record = results if dtype == torch.bfloat16 else results_f32
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms}
         if name not in record:
-            record[name] = {"max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by, "library_ms": library_ms}
+            record[name] = row
+        elif label == f"[{B},{T},8,{BASE_HEAD_DIM}]":
+            record[name]["d96"] = row
     for name, row in results_f32.items():
         results[name]["f32"] = row
     return results
@@ -1299,13 +1331,17 @@ def batch_launches(model) -> dict:
     LayerNorm for the feature projection, two a layer of the encoder and
     of the head and the head's last; attention and the FFN once an encoder
     layer; the head's attention once a head layer; conv layers 1-6 and
-    layer 0; the bce head's output layer (the row-local kernel; a head of
+    layer 0 (none in a base model's group-norm stack, which no conv kernel
+    takes); the bce head's output layer (the row-local kernel; a head of
     V > 1 stays a matmul)."""
-    layers = model.w2v_cfg.num_layers
+    cfg = model.w2v_cfg
+    layers = cfg.num_layers
     head = len(model.seg_model.transformer.layers)
+    conv_kernels = cfg.feat_extract_norm == "layer" and cfg.conv_bias
     return {"layer_norm": 1 + 2 * layers + 2 * head + 1,
             "attention_packed": layers, "attention_bthd": head,
-            "ffn": layers, "conv_bias_ln_gelu": 6, "conv_audio_ln_gelu": 1,
+            "ffn": layers, "conv_bias_ln_gelu": 6 * conv_kernels,
+            "conv_audio_ln_gelu": int(conv_kernels),
             "row_dot": int(model.seg_model.vocab_size == 1)}
 
 
@@ -1615,12 +1651,13 @@ PACK_TALKS = {"talk1.wav": 65.0, "talk2.wav": 41.0, "talk3.wav": 33.0,
 PACK_ENV_SLACK, PACK_OFFSET_S, PACK_DURATION_S = 1.5, 0.06, 0.12
 
 
-def row_gap(rows_a: list, rows_b: list) -> dict:
-    """Two sweeps' yaml rows talk by talk: rows that differ, rows whose
-    pair in order lies beyond tests/test_packing.py's offset and duration
-    bounds, and the largest difference in a talk's row count."""
+def row_gap(rows_a: list, rows_b: list, talks=None) -> dict:
+    """Two sweeps' yaml rows talk by talk (``talks``: PACK_TALKS by
+    default): rows that differ, rows whose pair in order lies beyond
+    tests/test_packing.py's offset and duration bounds, and the largest
+    difference in a talk's row count."""
     gap = {"differing": 0, "beyond_bounds": 0, "count_gap": 0}
-    for name in PACK_TALKS:
+    for name in talks or PACK_TALKS:
         a, b = ([r for r in rows if r["wav"] == name]
                 for rows in (rows_a, rows_b))
         gap["count_gap"] = max(gap["count_gap"], abs(len(a) - len(b)))
@@ -3871,6 +3908,181 @@ def run_arseg(dev) -> dict:
     return counts
 
 
+def run_base(dev) -> dict:
+    """The base models' geometry at full width: SHAS on facebook/wav2vec2-
+    base (12 post-LN layers of 768, the group-norm conv stack without conv
+    bias; conf/task/shas.yaml's head of 8 heads of 96), seeded random
+    weights, output layer x40 as in the slice.  (a) The slice's two talks
+    through segment_wavs at batch 14 with pTHR: bf16 kernels (launch
+    counters reset just before), bf16 eager (counters unmoved), float32;
+    the slice's |dprob| rules, and the kernels' yaml rows against eager's
+    within tests/test_packing.py's bounds.  (b) One full batch of 14 x 20 s
+    in bf16, kernels and eager in turns: wall ms, device busy ms and idle
+    share of a profiled batch of each, the conv stack's plain group route
+    alone (its share of the kernels' busy ms); mean and p99 |dprob| of
+    both against the eager float32 batch (the kernels within KERNEL_SLACK
+    of eager); the batch's launches (K1 28, K3 12, K5 12, K4 1 at D = 96,
+    row_dot 1, no conv kernel).  (c) Reported: whether a window's
+    probabilities are bitwise the same alone as in a batch of 8.  Returns
+    the launches of (a)."""
+    from wav2vecsegmenter_tpu_torch.data.collate import collate, out_len_for
+    from wav2vecsegmenter_tpu_torch.data.windows import BatchIterator
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
+    from wav2vecsegmenter_tpu_torch.models.wav2vec2 import feature_extractor
+
+    t_phase = time.perf_counter()
+    model = SHAS(wav2vec_model_name=BASE_MODEL, device=dev)
+    init_from_numpy(model, seed=0)
+    with torch.no_grad():
+        model.seg_model.output_layer.weight.mul_(40.0)
+    model.eval()
+    cfg = model.w2v_cfg
+    check((cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.ffn_dim,
+           cfg.feat_extract_norm, cfg.do_stable_layer_norm, cfg.conv_bias)
+          == (768, 12, 12, 3072, "group", False, False)
+          and cfg.hidden_size // model.seg_model.n_heads == BASE_HEAD_DIM,
+          "not the base geometry at full width")
+    want = batch_launches(model)
+
+    # (a) the slice's talks
+    secs = {"talk1.wav": 65.0, "talk2.wav": 41.0}
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = [Path(tmp) / name for name in secs]
+        for seed, w in enumerate(wavs):
+            write_talk(w, secs[w.name], seed)
+
+        def run(mode: str, dtype=torch.bfloat16):
+            backend.set_kernels(mode)
+            probs: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = segment_wavs(model, wavs, PTHR, B, 20.0, 1, dev, dtype,
+                                talk_probs=probs)
+            torch.cuda.synchronize()
+            backend.set_kernels("auto")
+            return rows, probs, time.perf_counter() - t0
+
+        run("auto")  # warm-up
+        backend.reset_launch_counts()
+        rows_k, probs_k, wall_k = run("auto")
+        counts = backend.launch_counts()
+        rows_e, probs_e, wall_e = run("eager")
+        check(backend.launch_counts() == counts,
+              "the eager base run launched kernels")
+        rows_f, probs_f, _ = run("auto", torch.float32)
+    for name, n in want.items():
+        check(counts.get(name, 0) == n * SLICE_BATCHES,
+              f"base segment path: {name} launched {counts.get(name, 0)} "
+              f"times, not {n} a batch")
+    check(not counts.get("bias_layer_norm_gelu"),
+          "base segment path: the conv epilogue kernel launched")
+    for rows in (rows_k, rows_e, rows_f):
+        check({r["wav"] for r in rows} == set(secs),
+              "base: a talk got no segments")
+    for probs in (probs_k, probs_e, probs_f):
+        for name in secs:
+            check(probs[name].shape == (round(secs[name] * 49.95),)
+                  and bool(np.isfinite(probs[name]).all()),
+                  "base: probs shape or non-finite")
+
+    def dprob(a, b):
+        return dprob_stats(np.concatenate([np.abs(a[n] - b[n])
+                                           for n in secs]))
+
+    talks = {"kernels_vs_f32": dprob(probs_k, probs_f),
+             "eager_vs_f32": dprob(probs_e, probs_f),
+             "kernels_vs_eager": dprob(probs_k, probs_e)}
+    gap = row_gap(rows_k, rows_e, secs)
+
+    # (b) one full batch
+    batch = full_batch()
+    engine = WindowInference(model, dev, torch.bfloat16)
+
+    def once(mode, dtype=torch.bfloat16):
+        backend.set_kernels(mode)
+        eng = engine if dtype == torch.bfloat16 else WindowInference(
+            model, dev, dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = eng.run_batch(batch).numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        backend.set_kernels("auto")
+        return probs, ms
+
+    oracle, _ = once("eager", torch.float32)
+    once("auto")
+    once("eager")
+    backend.reset_launch_counts()
+    probs_bk, _ = once("auto")
+    launches = {k: v for k, v in backend.launch_counts().items() if v}
+    probs_be, _ = once("eager")
+    ms = {"auto": [], "eager": []}
+    for mode in ("auto", "eager", "eager", "auto", "auto", "eager"):
+        ms[mode].append(once(mode)[1])
+    traced = {mode: profiled(lambda m=mode: once(m))[1:]
+              for mode in ("auto", "eager")}
+    busy = traced["auto"][0]
+    mask = batch.out_mask
+    fidelity = {arm: dprob_stats(np.abs(p - oracle)[mask])
+                for arm, p in (("kernels", probs_bk), ("eager", probs_be))}
+    coll = collate(full_batch_examples(), B, L_AUDIO, out_len_for(L_AUDIO))
+    audio = torch.from_numpy(coll.audio).to(dev)
+    with torch.inference_mode():
+        conv_ms = cuda_ms(lambda: feature_extractor(
+            model.backbone.feature_extractor, audio, cfg, torch.bfloat16), 5)
+    del audio
+
+    # (c) a window alone and in a batch of 8
+    examples = full_batch_examples()
+    eight, = BatchIterator(examples[:8], 8, 20.0)
+    alone, = BatchIterator(examples[:1], 1, 20.0)
+    p8 = engine.run_batch(eight).numpy()[0]
+    p1 = engine.run_batch(alone).numpy()[0]
+    med = {m: float(np.median(v)) for m, v in ms.items()}
+    phase("base", model=BASE_MODEL, layers=cfg.num_layers,
+          hidden=cfg.hidden_size, head_dim=BASE_HEAD_DIM,
+          params=sum(p.numel() for p in model.parameters()),
+          segments_kernels=len(rows_k), segments_eager=len(rows_e),
+          segments_f32=len(rows_f), dprob_talks=talks,
+          rows_kernels_vs_eager=gap,
+          rows_eager_vs_f32=row_gap(rows_e, rows_f, secs),
+          wall_s_kernels=wall_k, wall_s_eager=wall_e,
+          audio_per_wall_kernels=sum(secs.values()) / wall_k,
+          launches=counts, batch_launches=launches,
+          batch_ms_kernels=ms["auto"], batch_ms_eager=ms["eager"],
+          batch_ms_median={"kernels": med["auto"], "eager": med["eager"]},
+          device_busy_ms={("kernels" if m == "auto" else m): b
+                          for m, (b, _) in traced.items()},
+          profiled_wall_ms={("kernels" if m == "auto" else m): w
+                            for m, (_, w) in traced.items()},
+          idle_share={("kernels" if m == "auto" else m): 1 - b / w
+                      for m, (b, w) in traced.items()},
+          conv_stack_ms=conv_ms,
+          conv_stack_share=conv_ms / busy,
+          dprob_batch_vs_f32_eager=fidelity,
+          window_alone_bitwise_as_in_8=bool(np.array_equal(p1, p8)),
+          window_alone_vs_8_max_abs=float(np.abs(p1 - p8).max()),
+          seconds=time.perf_counter() - t_phase)
+    check(launches == {k: v for k, v in want.items() if v},
+          f"base batch launches {launches}, not {want}")
+    for q in ("mean", "p99"):
+        k_f, e_f = (talks[f"{a}_vs_f32"][q] for a in ("kernels", "eager"))
+        check(k_f <= KERNEL_SLACK * e_f,
+              f"base kernels add error: {q} dprob to float32 {k_f} vs "
+              f"{e_f} on the plain path")
+        check(talks["kernels_vs_eager"][q] <= e_f,
+              f"base kernel vs eager {q} dprob "
+              f"{talks['kernels_vs_eager'][q]} exceeds the bf16 envelope "
+              f"{e_f}")
+        k, e = (fidelity[a][q] for a in ("kernels", "eager"))
+        check(k <= KERNEL_SLACK * e,
+              f"base batch: kernels {q} dprob {k} vs eager's {e}")
+    check(gap["beyond_bounds"] == 0 and gap["count_gap"] <= 1,
+          f"base: kernels' rows against eager's {gap}, beyond "
+          f"tests/test_packing.py's bounds")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3924,6 +4136,8 @@ def main() -> int:
     counts_ssl = run_ssl(dev)
     torch.cuda.empty_cache()
     counts_arseg = run_arseg(dev)
+    torch.cuda.empty_cache()
+    counts_base = run_base(dev)
 
     def launches(name):
         # the LNA recipe's run: every kernel of the trainer's path; K2
@@ -3943,7 +4157,8 @@ def main() -> int:
          "launches_train": counts_train.get(name, 0),
          "launches_online": counts_online.get(name, 0),
          "launches_ssl": counts_ssl.get(name, 0),
-         "launches_arseg": counts_arseg.get(name, 0), **kernels[name],
+         "launches_arseg": counts_arseg.get(name, 0),
+         "launches_base": counts_base.get(name, 0), **kernels[name],
          **({"function": lna["functions"][name]}
             if name in lna["functions"] else {})}
         for name, (src, rep) in SOURCES.items()]}))

@@ -3,7 +3,9 @@ CPU.
 
 The tensor-core kernel of ``ops/csrc/attention.cu`` (``wgmma``) runs only
 on the card.  This file writes its schedule out in torch, at the kernel's
-own tile sizes (read from the source): query tiles of 128, the key tiles the source picks for each head dim, the online
+own tile sizes (read from the source): query tiles of 128, the key tiles the source picks for each head dim, the head dim
+padded with zeros to whole TMA boxes (D=96 computes over 128 columns, as
+the kernel's map fills the second box's last 32 with zeros), the online
 softmax in log2 units with P rounded to bf16 against the running max, the
 two kinds of minus infinity (-1e30 for a masked key in range, -inf for a
 zero-filled key past T) and the skip rule (a key tile with no valid key is
@@ -52,6 +54,14 @@ def fwd_tiles(d: int) -> tuple[int, int]:
     return FWD["kTcRows"], FWD[f"kTcKeyTile{d}"]
 
 
+def box_padded(x: torch.Tensor) -> torch.Tensor:
+    """x [..., D] with zero columns up to whole TMA boxes of the source's
+    width: what the forward's tiles hold past the head dim."""
+    d = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, -(-d // FWD["kTcBox"])
+                                       * FWD["kTcBox"] - d))
+
+
 def key_tiles(valid: torch.Tensor, bk: int) -> list[int]:
     """w2v_key_tiles: the tiles holding a valid key, or all of them when
     the row has none."""
@@ -90,12 +100,13 @@ def emulate_fwd(q, k, v, mask, scale, with_stats=False):
     Every query tile of a batch row at once, over the key tiles in order."""
     b, t, h, d = q.shape
     bq, bk = fwd_tiles(d)
+    q, k, v = (box_padded(a) for a in (q, k, v))
     c = scale * LOG2E
     out = torch.empty(b, t, h, d)
     stats = torch.empty(b, h, t, 2)
     for bi in range(b):
         valid = mask[bi]
-        qt = stack_tiles(q[bi], bq)  # [tiles, H, bq, D]
+        qt = stack_tiles(q[bi], bq)  # [tiles, H, bq, DP]
         m = torch.full((*qt.shape[:3], 1), -1e30)
         l = torch.zeros(*qt.shape[:3], 1)
         o = torch.zeros(qt.shape)
@@ -108,7 +119,8 @@ def emulate_fwd(q, k, v, mask, scale, with_stats=False):
             l = l * alpha + p.sum(-1, keepdim=True)
             o = o * alpha + p.to(torch.bfloat16).float() @ vt
             m = m_new
-        out[bi] = (o / l).transpose(1, 2).reshape(-1, h, d)[:t]
+        out[bi] = (o / l).transpose(1, 2).reshape(-1, h, o.shape[-1])[
+            :t, :, :d]
         stats[bi] = torch.cat([m, l], -1).transpose(0, 1).reshape(
             h, -1, 2)[:, :t]
     out = out.to(q.dtype)
@@ -155,7 +167,7 @@ def assert_close(got, want, atol, rtol=0.0):
 CASES = [(999, "prefix"), (1099, "scattered"), (1, "prefix")]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("t,kind", CASES)
 def test_forward_schedule_matches_plain_and_jax(t, kind, d):
     q, k, v, _ = make_inputs(t, d, seed=t + d)

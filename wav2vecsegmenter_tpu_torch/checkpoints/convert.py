@@ -61,9 +61,12 @@ def _wav2vec_sd(p: dict, prefix: str) -> dict:
     for i, layer in enumerate(p["feature_extractor"]["convs"]):
         base = f"{prefix}feature_extractor.conv_layers.{i}"
         sd[f"{base}.conv.weight"] = _t(np.transpose(layer["w"], (2, 1, 0)))
-        sd[f"{base}.conv.bias"] = _t(layer["b"])
-        sd[f"{base}.layer_norm.weight"] = _t(layer["ln"]["scale"])
-        sd[f"{base}.layer_norm.bias"] = _t(layer["ln"]["bias"])
+        if "b" in layer:
+            sd[f"{base}.conv.bias"] = _t(layer["b"])
+        norm = layer.get("ln") or layer.get("gn")  # the base models: "gn"
+        if norm is not None:
+            sd[f"{base}.layer_norm.weight"] = _t(norm["scale"])
+            sd[f"{base}.layer_norm.bias"] = _t(norm["bias"])
     fp = p["feature_projection"]
     sd[f"{prefix}feature_projection.layer_norm.weight"] = _t(fp["ln"]["scale"])
     sd[f"{prefix}feature_projection.layer_norm.bias"] = _t(fp["ln"]["bias"])
@@ -74,6 +77,11 @@ def _wav2vec_sd(p: dict, prefix: str) -> dict:
     sd[f"{prefix}encoder.pos_conv_embed.conv.weight_g"] = _t(pc["w_g"])
     sd[f"{prefix}encoder.pos_conv_embed.conv.weight_v"] = _t(pc["w_v"])
     sd[f"{prefix}encoder.pos_conv_embed.conv.bias"] = _t(pc["b"])
+    if "encoder_pre_ln" in p:  # a post-LN backbone's, never applied
+        sd[f"{prefix}encoder.layer_norm.weight"] = _t(
+            p["encoder_pre_ln"]["scale"])
+        sd[f"{prefix}encoder.layer_norm.bias"] = _t(
+            p["encoder_pre_ln"]["bias"])
     if "masked_spec_embed" in p:
         sd[f"{prefix}masked_spec_embed"] = _t(p["masked_spec_embed"])
     layers = p["layers"]
@@ -189,14 +197,29 @@ def state_dict_from_jax_params(np_tree: dict, model) -> dict:
     return sd
 
 
+def _unapplied_keys(module: torch.nn.Module) -> set:
+    """The keys of ``module``'s post-LN backbones' pre-layers
+    ``encoder.layer_norm``: the forward never applies it, and a reference
+    checkpoint lacks it (the reference's truncation replaced it with
+    Identity; the JAX converter takes it where it is there)."""
+    from ..models.wav2vec2 import Wav2Vec2Model
+
+    return {f"{name}{'.' if name else ''}encoder.layer_norm.{leaf}"
+            for name, m in module.named_modules()
+            if isinstance(m, Wav2Vec2Model) and not m.cfg.do_stable_layer_norm
+            for leaf in ("weight", "bias")}
+
+
 def _load_strict(module: torch.nn.Module, sd: dict,
                  adapters_optional: bool = False) -> None:
     """load_state_dict(strict=True), except that the optional keys (and,
-    with ``adapters_optional``, the FFN adapters) may be absent from
-    ``sd``."""
+    with ``adapters_optional``, the FFN adapters, and a post-LN backbone's
+    unapplied ``encoder.layer_norm``) may be absent from ``sd``."""
     missing, unexpected = module.load_state_dict(sd, strict=False)
+    unapplied = _unapplied_keys(module)
     missing = [k for k in missing if not k.endswith(_OPTIONAL_KEYS)
-               and not (adapters_optional and _ADAPTER in k)]
+               and not (adapters_optional and _ADAPTER in k)
+               and k not in unapplied]
     if missing or unexpected:
         raise KeyError(f"checkpoint does not fit the model: missing "
                        f"{missing}, unexpected {unexpected}")
@@ -233,10 +256,12 @@ def hf_local_snapshot(model_name: str) -> Path | None:
 
 
 def backbone_state_dict(model_dir: Path, num_layers: int,
-                        ctc: bool = False) -> dict:
+                        ctc: bool = False, post_ln: bool = False) -> dict:
     """HF Wav2Vec2Model / ForCTC weights -> the backbone's state_dict,
     truncated to ``num_layers`` encoder layers (the final encoder LayerNorm,
-    quantizer and heads are dropped, as the reference truncation does).
+    quantizer and heads are dropped, as the reference truncation does;
+    ``post_ln``, a base model's, keeps its pre-layers ``encoder.layer_norm``,
+    which the backbone holds and does not apply).
     With ``ctc``, a ForCTC snapshot -> the ``_ForCTC`` state_dict of
     ``SHASWithSSL``: the backbone under ``wav2vec2.`` with its final
     encoder LayerNorm, and ``lm_head``."""
@@ -251,7 +276,8 @@ def backbone_state_dict(model_dir: Path, num_layers: int,
     keep = re.compile(r"^(feature_extractor\.|feature_projection\."
                       r"|encoder\.pos_conv_embed\.|masked_spec_embed$"
                       r"|encoder\.layers\.(\d+)\."
-                      + (r"|encoder\.layer_norm\." if ctc else "") + ")")
+                      + (r"|encoder\.layer_norm\." if ctc or post_ln
+                         else "") + ")")
     sd = _rename_weight_norm(sd)
     out = {}
     for k, v in sd.items():
@@ -278,7 +304,9 @@ def load_pretrained_backbone(model) -> bool:
     logger.info("Loading wav2vec2 weights from %s", snap)
     ctc = hasattr(model, "ctc_vocab_size")
     _load_strict(model.wav2vec_model.model,
-                 backbone_state_dict(snap, model.keep_layers, ctc),
+                 backbone_state_dict(
+                     snap, model.keep_layers, ctc,
+                     not model.w2v_cfg.do_stable_layer_norm),
                  adapters_optional=True)
     return True
 

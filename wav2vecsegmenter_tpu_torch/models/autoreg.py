@@ -55,7 +55,8 @@ from ..ops.attention import NEG_INF, attention_cross
 from ..ops.layernorm import layer_norm
 from .sfc import EPS, SelfAttention, Transformer, encoder_layer
 from .shas import _Backbone, _Trainable
-from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, _lin, config_for, dropout
+from .wav2vec2 import (Wav2Vec2Config, Wav2Vec2Model, _lin, config_for,
+                       dropout, refuse_post_ln)
 
 # nn.TransformerEncoderLayer / DecoderLayer's default dropout, which the
 # reference leaves as it is (JAX ``_LAYER_DROPOUT``)
@@ -167,6 +168,7 @@ class AutoRegSegmenter(_Trainable):
         self.vocab_size = vocab_size
         self.w2v_cfg = w2v_cfg or config_for(wav2vec_model_name,
                                              wav2vec_keep_layers)
+        refuse_post_ln(self.w2v_cfg, "task=arseg")
         self.keep_layers = self.w2v_cfg.num_layers
         self.wav2vec_model = _Backbone(Wav2Vec2Model(self.w2v_cfg, device))
         self.seg_model = EncoderDecoder(

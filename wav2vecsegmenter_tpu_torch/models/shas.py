@@ -206,7 +206,8 @@ class SHASWithSSL(_Trainable):
     as the JAX ``trainable_mask``), else the backbone runs without a graph
     (the JAX ``stop_gradient``).  ``wav2vec_ft_layers`` and
     ``finetune_w2v_feat_enc`` are accepted for the reference's surface and,
-    as in the JAX package, split nothing.
+    as in the JAX package, split nothing.  A base-model backbone (post-LN,
+    group-norm conv stack) raises ``NotImplementedError`` (ROADMAP A12b).
 
     The JAX ``SHASWithSSL.apply`` takes no precision-ladder knobs, so
     ``precision_ladder`` is False: the engine refuses the ladder's middle

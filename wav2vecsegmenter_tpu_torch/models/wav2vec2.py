@@ -1,14 +1,30 @@
-"""wav2vec 2.0 encoder (LayerNorm-mode conv stack, stable-LN transformer).
+"""wav2vec 2.0 encoder, both geometries of the JAX package.
 
-Counterpart of ``wav2vecsegmenter_tpu/models/wav2vec2.py`` in the JAX
-package's default configuration: each conv layer is one fused kernel
-(``ops.convfuse``: the product, conv bias, LayerNorm and GELU) and the
-encoder FFN is the fused ``ops.ffn``.  The JAX package's A/B flags select
-the other arm, read at call time: ``W2VSEG_CONVFUSE=0`` runs each conv
-layer as a GEMM over a stride-folded view followed by the fused bias ->
-LayerNorm -> GELU kernel, ``W2VSEG_FFNFUSE=0`` the FFN as two GEMMs around
-an exact GELU.  The truncated encoder's final LayerNorm is not applied (the
-reference replaces it with Identity).
+Counterpart of ``wav2vecsegmenter_tpu/models/wav2vec2.py``.  The large
+models (xls-r-300m, lv60: ``feat_extract_norm="layer"``, stable-LN
+encoder) in the JAX package's default configuration: each conv layer is
+one fused kernel (``ops.convfuse``: the product, conv bias, LayerNorm and
+GELU) and the encoder FFN is the fused ``ops.ffn``.  The JAX package's A/B
+flags select the other arm, read at call time: ``W2VSEG_CONVFUSE=0`` runs
+each conv layer as a GEMM over a stride-folded view followed by the fused
+bias -> LayerNorm -> GELU kernel, ``W2VSEG_FFNFUSE=0`` the FFN as two GEMMs
+around an exact GELU.  The truncated encoder's final LayerNorm is not
+applied (the reference replaces it with Identity).
+
+The base models (``facebook/wav2vec2-base(-960h)``: ``feat_extract_norm=
+"group"``, no conv bias, a post-LN encoder) run as the JAX package runs
+them: each conv layer is the stride-folded product and an exact GELU, and
+layer 0 adds a float32 GroupNorm over time between them (groups ==
+channels: ``_group_norm_time``); no conv kernel runs, since their gates
+need a LayerNorm and a conv bias.  The encoder layer is post-LN,
+``h = LN1(h + attn(h)); h = LN2(h + ffn(h))``, on the same kernels (K3, K1,
+K5).  Its ``encoder.layer_norm`` (the HF pre-layers LayerNorm, the JAX
+``encoder_pre_ln``) is held so that checkpoints load strictly, and is not
+applied: the reference's truncation replaces it with Identity too.  As in
+the JAX package, a post-LN layer applies no FFN adapter.  Training a base
+backbone (the post-LN body under autograd with LNA's splits, K10 at the
+head's D=96) is ROADMAP A12b: the trainer and the tasks other than
+``shas`` refuse it (:func:`refuse_post_ln`).
 
 Submodule names follow the HF ``Wav2Vec2Model`` state_dict keys, so a
 reference checkpoint loads with ``load_state_dict`` and no renaming.  The
@@ -47,9 +63,6 @@ int8 layers (``ops.quant.quantize_layers``) down as ``quantized``: each
 layer's QKV, attention output and FFN products run int8 x int8, and the
 FFN takes the separate products around the GELU instead of the fused
 kernel, as in the JAX package.
-
-Not ported yet (they raise ``NotImplementedError``): the group-norm conv
-stack of the base models, post-LN encoders.
 """
 
 from __future__ import annotations
@@ -170,19 +183,35 @@ def config_for(model_name: str, keep_layers: int | None = None,
 # --------------------------------------------------------------------------
 
 class ConvLayer(nn.Module):
-    def __init__(self, c_in, c_out, k, s, device=None):
+    """One conv layer: the conv (with a bias where ``conv_bias``) and its
+    norm under ``layer_norm``: a LayerNorm (``norm="layer"``, HF
+    ``Wav2Vec2LayerNormConvLayer``), a GroupNorm with a group a channel
+    (``"group"``, HF ``Wav2Vec2GroupNormConvLayer``) or none (HF
+    ``Wav2Vec2NoLayerNormConvLayer``)."""
+
+    def __init__(self, c_in, c_out, k, s, conv_bias: bool = True,
+                 norm: str | None = "layer", device=None):
         super().__init__()
-        self.conv = nn.Conv1d(c_in, c_out, k, s, bias=True, device=device)
-        self.layer_norm = nn.LayerNorm(c_out, device=device)
+        self.conv = nn.Conv1d(c_in, c_out, k, s, bias=conv_bias,
+                              device=device)
+        if norm == "layer":
+            self.layer_norm = nn.LayerNorm(c_out, device=device)
+        elif norm == "group":
+            self.layer_norm = nn.GroupNorm(c_out, c_out, device=device)
+        else:
+            self.layer_norm = None
 
 
 class FeatureExtractor(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config, device=None):
         super().__init__()
         dims = (1,) + tuple(cfg.conv_dim)
+        group = cfg.feat_extract_norm == "group"
         self.conv_layers = nn.ModuleList(
             ConvLayer(dims[i], dims[i + 1], cfg.conv_kernel[i],
-                      cfg.conv_stride[i], device)
+                      cfg.conv_stride[i], cfg.conv_bias,
+                      ("group" if i == 0 else None) if group else "layer",
+                      device)
             for i in range(len(cfg.conv_dim)))
 
 
@@ -259,27 +288,38 @@ class Encoder(nn.Module):
             for i in range(cfg.num_layers))
 
 
+def refuse_post_ln(cfg: Wav2Vec2Config, what: str) -> None:
+    """Raise ``NotImplementedError`` for ``what`` on a base-model backbone
+    (a post-LN encoder or a group-norm conv stack; the presets have both):
+    only the SHAS forward (``task=shas`` at inference) runs it yet."""
+    if not cfg.do_stable_layer_norm or cfg.feat_extract_norm != "layer":
+        raise NotImplementedError(
+            f"{what} on a post-LN / group-norm backbone (the base models) "
+            f"is not ported: ROADMAP A12b (training the base models)")
+
+
 class Wav2Vec2Model(nn.Module):
     """The truncated backbone: conv stack, projection, pos conv, layers;
     with ``cfg.ffn_adapter``, FFN adapters in layers ``adapter_from`` on;
     with ``final_layer_norm``, the parameters of the final encoder
-    LayerNorm (``SHASWithSSL`` applies it)."""
+    LayerNorm (``SHASWithSSL`` applies it).  A post-LN backbone holds its
+    pre-layers ``encoder.layer_norm``, which the forward does not apply."""
 
     def __init__(self, cfg: Wav2Vec2Config, device=None,
                  adapter_from: int = 0, final_layer_norm: bool = False):
         super().__init__()
-        if cfg.feat_extract_norm != "layer" or not cfg.conv_bias:
-            raise NotImplementedError(
-                "only the LayerNorm-mode conv stack with conv bias is ported")
-        if not cfg.do_stable_layer_norm:
-            raise NotImplementedError("post-LN encoders are not ported yet")
+        if final_layer_norm:
+            refuse_post_ln(cfg, "task=shas_ssl / shas_ctc (SHASWithSSL's "
+                                "final encoder LayerNorm)")
         self.cfg = cfg
         self.feature_extractor = FeatureExtractor(cfg, device)
         self.feature_projection = FeatureProjection(cfg, device)
         self.encoder = Encoder(cfg, adapter_from, device)
-        if final_layer_norm:
-            # the untruncated model's final encoder LayerNorm (HF
-            # ``encoder.layer_norm``); the forward leaves it to the caller
+        if final_layer_norm or not cfg.do_stable_layer_norm:
+            # HF ``encoder.layer_norm``: the untruncated stable-LN model's
+            # final LayerNorm, which the forward leaves to the caller, or
+            # the post-LN model's pre-layers one, which the truncation
+            # drops
             self.encoder.layer_norm = nn.LayerNorm(cfg.hidden_size,
                                                    device=device)
         # SpecAugment's learned mask vector: a training-only parameter, kept
@@ -345,6 +385,43 @@ def sample_time_mask(generator: torch.Generator, b: int, t: int,
     return cover.any(dim=1)
 
 
+def _group_norm_time(x: torch.Tensor, gn: nn.GroupNorm,
+                     eps: float) -> torch.Tensor:
+    """GroupNorm with a group a channel over x [B, T, C]: each channel
+    normalised over time in float32 (the mean, then the biased variance of
+    x - mean, then rsqrt), scaled, shifted and cast back to x's type, as
+    the JAX group route (HF ``Wav2Vec2GroupNormConvLayer``).  Every row of
+    the window counts, a short window's zero-padded tail too."""
+    x32 = x.float()
+    mean = x32.mean(dim=1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps) * gn.weight
+            + gn.bias).to(x.dtype)
+
+
+def feature_extractor_unfused(fe: FeatureExtractor, audio: torch.Tensor,
+                              cfg: Wav2Vec2Config, dt) -> torch.Tensor:
+    """A conv stack that no conv kernel takes (their gates need a
+    LayerNorm and a conv bias): the base models' group-norm stack, or a
+    LayerNorm stack without conv bias.  Each layer is the stride-folded
+    product, its conv bias where it has one, its norm where it has one
+    (the GroupNorm over time of :func:`_group_norm_time`, or K1) and an
+    exact GELU, as the JAX package's unfused branch."""
+    x = audio[:, :, None].to(dt)
+    for i, layer in enumerate(fe.conv_layers):
+        x = strided_conv1d_as_matmul(x, layer.conv.weight,
+                                     cfg.conv_stride[i], dt)
+        norm = layer.layer_norm
+        if layer.conv.bias is not None:
+            x = x + layer.conv.bias.to(dt)
+        if isinstance(norm, nn.GroupNorm):
+            x = _group_norm_time(x, norm, cfg.layer_norm_eps)
+        elif norm is not None:
+            x = layer_norm(x, norm.weight, norm.bias, cfg.layer_norm_eps)
+        x = F.gelu(x)
+    return x
+
+
 def feature_extractor(fe: FeatureExtractor, audio: torch.Tensor,
                       cfg: Wav2Vec2Config, dt) -> torch.Tensor:
     """audio [B, L] -> features [B, T, conv_dim[-1]] (exact T rows; the TPU
@@ -353,7 +430,10 @@ def feature_extractor(fe: FeatureExtractor, audio: torch.Tensor,
     A layer takes the fused kernel where the JAX package's does
     (``wav2vec2.feature_extractor``): the wide layers (s*C a multiple of
     128, at most two stride-folded taps: layers 1-6) and the raw-audio
-    layer (s*C <= 64: layer 0)."""
+    layer (s*C <= 64: layer 0).  The group-norm stack of the base models
+    goes to :func:`feature_extractor_unfused`."""
+    if cfg.feat_extract_norm != "layer" or not cfg.conv_bias:
+        return feature_extractor_unfused(fe, audio, cfg, dt)
     x = audio[:, :, None].to(dt)
     fused = convfuse_enabled()
     for i, layer in enumerate(fe.conv_layers):
@@ -433,7 +513,10 @@ def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
             cfg: Wav2Vec2Config, dt, generator=None, residual_dtype=None,
             f32_last_k: int = 0, quantized: list | None = None
             ) -> torch.Tensor:
-    """Pre-LN transformer over [B, T, H]; padded frames are zeroed once,
+    """Transformer over [B, T, H], pre-LN (``cfg.do_stable_layer_norm``)
+    or post-LN (the base models: ``h = LN1(h + attn(h)); h = LN2(h +
+    ffn(h))``, no adapter, the pre-layers ``encoder.layer_norm`` not
+    applied: the JAX ``layer_body``); padded frames are zeroed once,
     before the positional conv, and carry finite values after that.  With
     a generator, hidden dropout after the positional conv and after each
     sub-block; an FFN adapter's output joins the FFN's after its dropout.
@@ -467,9 +550,21 @@ def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
     h = dropout(h, cfg.hidden_dropout, generator)
     for i, layer in enumerate(enc.layers):
         ldt = torch.float32 if i >= first_f32 else dt
+        quant = None if quantized is None else quantized[i]
+        if not cfg.do_stable_layer_norm:
+            a = _mha(layer.attention, h.to(ldt), frame_mask, cfg.num_heads,
+                     ldt, quant)
+            h = layer_norm(h + dropout(a, cfg.hidden_dropout,
+                                       generator).to(res_dt),
+                           layer.layer_norm.weight, layer.layer_norm.bias,
+                           eps)
+            f = dropout(_ffn(layer.feed_forward, h.to(ldt), cfg, ldt,
+                             generator, quant), cfg.hidden_dropout, generator)
+            h = layer_norm(h + f.to(res_dt), layer.final_layer_norm.weight,
+                           layer.final_layer_norm.bias, eps)
+            continue
         hn = layer_norm(h, layer.layer_norm.weight, layer.layer_norm.bias,
                         eps).to(ldt)
-        quant = None if quantized is None else quantized[i]
         a = _mha(layer.attention, hn, frame_mask, cfg.num_heads, ldt, quant)
         h = h + dropout(a, cfg.hidden_dropout, generator).to(res_dt)
         hn = layer_norm(h, layer.final_layer_norm.weight,
@@ -536,7 +631,8 @@ def init_from_numpy(model: nn.Module, seed: int) -> None:
     """Seeded random weights drawn with numpy, in state_dict order: linear
     and conv weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)), conv
     biases and LayerNorm biases 0, LayerNorm scales 1, the positional conv
-    direction N(0, 0.02) with its gain set to the direction's norm."""
+    direction N(0, 0.02) with its gain set to the direction's norm.
+    GroupNorm scales and biases as LayerNorm ones."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -545,7 +641,7 @@ def init_from_numpy(model: nn.Module, seed: int) -> None:
         for name, p in model.named_parameters():
             owner_name, _, leaf = name.rpartition(".")
             owner = named[owner_name]
-            if isinstance(owner, nn.LayerNorm):
+            if isinstance(owner, (nn.LayerNorm, nn.GroupNorm)):
                 p.fill_(1.0 if leaf == "weight" else 0.0)
                 continue
             if isinstance(owner, WeightNormConv):

@@ -15,7 +15,9 @@ tensors, reading the operands where they lie (no head transposes), and run
 the plain versions on CPU tensors: bf16 on the tensor cores (``wgmma``,
 operands by TMA, so q, k and v need 16-byte-aligned starts and strides of
 whole 16-byte units), float32 on scalar FMAs.  The source file says what
-bounds the kernels on the H100 and how their designs answer that.
+bounds the kernels on the H100 and how their designs answer that.  The
+forward takes head dims 64, 96 (the SFC head of a base model: 768 / 8)
+and 128; the backward 64 and 128 (training a base model is ROADMAP A12b).
 
 Where a gradient is needed, ``attention_qkv`` (the QKV projection viewed
 [B, T, 3, H, D]) goes through ``_AttentionFn``, the
@@ -126,8 +128,9 @@ def _launch(q, k, v, key_mask, scale, out, name: str,
     query row's (m, l) (``attention_stats_plain``)."""
     b, tq, heads, d = q.shape
     tk = k.shape[1]
-    if d not in (64, 128):
-        raise ValueError(f"attention kernel takes head dims 64 or 128, got {d}")
+    if d not in (64, 96, 128):
+        raise ValueError(f"attention kernel takes head dims 64, 96 or 128, "
+                         f"got {d}")
     if k.shape != (b, tk, heads, d) or v.shape != k.shape:
         raise ValueError("attention kernel: q/k/v shapes disagree")
     for a in (q, k, v, out):

@@ -4,7 +4,7 @@
 //   _attn_fwd_packed_kernel (K3): heads read straight from the fused QKV
 //       projection [B, T, 3H] (encoder, 16 heads of D=64);
 //   _attn_fwd_kernel        (K4): q/k/v [B, T, H, D] (SFC head, 8 heads of
-//       D=128).
+//       D=128, or of D=96 over a base model's 768 channels).
 // Both are one computation: out[b,i,h] = softmax_j(q.k * scale + bias_j) . v
 // with bias_j = 0 for a valid key and -1e30 for a padded one.  The kernels
 // take the operands where they lie (strides for batch, time and head, the
@@ -25,10 +25,16 @@
 //   producer warp.  The producer loads the Q tile once and streams K and V
 //   tiles through a two-stage ring in shared memory by TMA, with mbarriers
 //   (full: bytes landed; empty: both warpgroups done).  Each operand has a
-//   3-D tensor map over [B, T, row] as it lies in memory (the packed
-//   projection's rows of 3*H*D, the SFC's [B, T, 3, 8, 128] view), so keys
+//   4-D tensor map over [B, T, H, D] as it lies in memory (the packed
+//   projection's rows of 3*H*D, the SFC's [B, T, 3, 8, D] view), so keys
 //   past T arrive as zeros and no tile reads the next window's rows; the
-//   128-byte swizzle needs D/64 boxes of 64 columns a tile.  S = Q K^T is a
+//   128-byte swizzle takes boxes of 64 columns, ceil(D/64) a tile.  At
+//   D=96 the second box is half real: the head dim is the map's own
+//   innermost dim, so its columns 96-127 arrive as zeros (not the next
+//   head's), and the kernel runs the D=128 schedule over the padded width
+//   DP = 128 (key tile 64; P V at N = 128, whose output columns past 96
+//   are zeros and never stored) with S over the 96 real columns (6 steps
+//   of k16).  S = Q K^T is a
 //   wgmma with both operands in shared memory (K-major); the online softmax
 //   runs on the float32 accumulator in registers (running max from -1e30,
 //   running sum, rescale of O by exp(m_old - m_new)), with -1e30 added for a
@@ -41,23 +47,25 @@
 //   the batch row has no valid key at all (then every tile counts); the
 //   kernel works this out from the mask bytes, so a mask that is not a
 //   prefix stays right.  Query tiles are never skipped: padded query rows
-//   stay finite.  Key tiles: 128 keys at D=64, 64 at D=128 (S holds BK/2
-//   floats a thread beside O's D/2).  Under grad (the SFC head in
+//   stay finite.  Key tiles: 128 keys at D=64, 64 at D=96 and 128 (S holds
+//   BK/2 floats a thread beside O's DP/2).  Under grad (the SFC head in
 //   training) the kernel also writes each query row's final running max
 //   and sum, (m, l), which the backward kernels (attention_bwd.cu) read
 //   instead of sweeping the keys for them; the inference launch passes no
 //   pointer and writes nothing more.
 // float32 (the oracle arm, TF32 off): attn_fwd_kernel, scalar FMAs, as
-//   before.  One block of 128 threads per (batch, head, tile of 4096/D
-//   queries); a query row is owned by D/32 neighbouring lanes, 32 head dims
-//   each, with its q slice and output accumulator in registers; the partial
-//   dot products meet through warp shuffles.  Keys and values stream
-//   through shared memory in tiles of 4096/D rows (float32, each 32-dim
+//   before.  One block of 128 threads per (batch, head, tile of 4096/DP
+//   queries), DP the head dim rounded up to a multiple of 64 (D=96 takes
+//   D=128's layout: its dims at 96 and above load as 0 and are never
+//   stored); a query row is owned by DP/32 neighbouring lanes, 32 head
+//   dims each, with its q slice and output accumulator in registers; the
+//   partial dot products meet through warp shuffles.  Keys and values
+//   stream through shared memory in tiles of 4096/DP rows (float32, each
+//   32-dim
 //   segment padded by 4 floats so the float4 reads of the lanes of one row
 //   hit distinct banks), scored in chunks of 16 between softmax rescales.
 //   TF32 tensor cores would miss the arm's 1e-4 tolerance.
 
-#include <limits.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -68,6 +76,14 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kSeg = 36;    // 32 head dims + 4 floats of bank padding
 constexpr int kChunk = 16;  // keys scored before each softmax rescale
+constexpr int kTcBox = 64;  // columns of a bf16 TMA box (128 bytes)
+
+// the width both routes compute over: D rounded up to whole 64-column
+// boxes (96 -> 128); the columns past D are zeros and never stored
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return (D + kTcBox - 1) / kTcBox * kTcBox;
+}
 
 struct Strides {
   long long b, t, h;
@@ -80,9 +96,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const unsigned char* __restrict__ key_mask,
                 T* __restrict__ out, int tq, int tk, Strides qs, Strides ks,
                 Strides vs, Strides os, float scale) {
-  constexpr int G = D / 32;             // lanes per query row
+  constexpr int DP = padded_dim<D>();
+  constexpr int G = DP / 32;            // lanes per query row
   constexpr int BQ = kThreads / G;      // query rows per block
-  constexpr int BK = 4096 / D;          // key rows per shared-memory tile
+  constexpr int BK = 4096 / DP;         // key rows per shared-memory tile
   constexpr int RS = G * kSeg;          // shared-memory row stride (floats)
   static_assert(BK % kChunk == 0, "key tile must hold whole chunks");
 
@@ -96,6 +113,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const bool active = qi < tq;
+  const bool real = part * 32 < D;      // not a padding lane (D=96)
 
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
@@ -108,7 +126,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   h * qs.h + part * 32;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      qr[i] = active ? w2v_load(qp + i) : 0.f;
+      qr[i] = active && real ? w2v_load(qp + i) : 0.f;
       acc[i] = 0.f;
     }
   }
@@ -118,12 +136,12 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < tk; k0 += BK) {
     const int kt = min(BK, tk - k0);
     __syncthreads();  // the previous tile is fully consumed
-    for (int idx = tid; idx < BK * D; idx += kThreads) {
-      const int j = idx / D;
-      const int c = idx % D;
+    for (int idx = tid; idx < BK * DP; idx += kThreads) {
+      const int j = idx / DP;
+      const int c = idx % DP;
       const int so = j * RS + (c / 32) * kSeg + (c % 32);
       float kv = 0.f, vv = 0.f;
-      if (j < kt) {
+      if (j < kt && c < D) {
         const long long t = k0 + j;
         kv = w2v_load(kb + t * ks.t + c);
         vv = w2v_load(vb + t * vs.t + c);
@@ -181,7 +199,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (active) {
+  if (active && real) {
     T* op = out + b * os.b + (long long)qi * os.t + h * os.h + part * 32;
 #pragma unroll
     for (int i = 0; i < 32; ++i) w2v_store(op + i, acc[i] / l);
@@ -193,7 +211,7 @@ int launch_attn(const void* q, const void* k, const void* v,
                 const unsigned char* key_mask, void* out, int b, int tq,
                 int tk, int heads, Strides qs, Strides ks, Strides vs,
                 Strides os, float scale, cudaStream_t stream) {
-  constexpr int BQ = kThreads / (D / 32);
+  constexpr int BQ = kThreads / (padded_dim<D>() / 32);
   const dim3 grid((tq + BQ - 1) / BQ, heads, b);
   attn_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -210,6 +228,9 @@ int dispatch_d(const void* q, const void* k, const void* v,
   if (d == 64)
     return launch_attn<T, 64>(q, k, v, key_mask, out, b, tq, tk, heads, qs,
                               ks, vs, os, scale, stream);
+  if (d == 96)
+    return launch_attn<T, 96>(q, k, v, key_mask, out, b, tq, tk, heads, qs,
+                              ks, vs, os, scale, stream);
   if (d == 128)
     return launch_attn<T, 128>(q, k, v, key_mask, out, b, tq, tk, heads, qs,
                                ks, vs, os, scale, stream);
@@ -225,15 +246,19 @@ constexpr int kTcConsumers = 256;   // threads of the two consumer warpgroups
 constexpr int kTcThreads = kTcConsumers + 32;  // + the producer warp
 constexpr int kTcStages = 2;        // K/V ring depth
 constexpr int kTcKeyTile64 = 128;   // key rows a tile at D=64
+constexpr int kTcKeyTile96 = 64;    // at D=96 (D=128's schedule, padded)
 constexpr int kTcKeyTile128 = 64;   // and at D=128
 constexpr int kTcSmemMax = 227 * 1024;
 
 template <int D>
 struct TcFwd {
-  static constexpr int BK = D == 64 ? kTcKeyTile64 : kTcKeyTile128;
-  static constexpr int kBoxes = D / 64;       // 64-column boxes a row
-  static constexpr int kQBytes = kTcRows * D * 2;
-  static constexpr int kKVBytes = BK * D * 2;  // one K or V tile
+  static_assert(D == 64 || D == 96 || D == 128, "head dim");
+  static constexpr int BK =
+      D == 64 ? kTcKeyTile64 : D == 96 ? kTcKeyTile96 : kTcKeyTile128;
+  static constexpr int DP = padded_dim<D>();  // P V's N, O's columns
+  static constexpr int kBoxes = DP / kTcBox;  // 64-column boxes a row
+  static constexpr int kQBytes = kTcRows * DP * 2;
+  static constexpr int kKVBytes = BK * DP * 2;  // one K or V tile
   static constexpr int kK = kQBytes;           // stage s at kK + s*kKVBytes
   static constexpr int kV = kK + kTcStages * kKVBytes;
   static constexpr int kBars = kV + kTcStages * kKVBytes;
@@ -257,8 +282,8 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const unsigned char* __restrict__ key_mask,
                    __nv_bfloat16* __restrict__ out,
-                   float2* __restrict__ stats, int tq, int tk, int q_sh,
-                   int k_sh, int v_sh, Strides os, float scale_log2) {
+                   float2* __restrict__ stats, int tq, int tk, Strides os,
+                   float scale_log2) {
   using L = TcFwd<D>;
   constexpr int BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
@@ -293,18 +318,18 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if (tid == kTcConsumers) {
       hop_mbar_expect_tx(q_full, L::kQBytes);
       for (int c = 0; c < L::kBoxes; ++c)
-        hop_tma_load_3d(smem + c * kTcRows * 128, &qmap, q_full,
-                        h * q_sh + 64 * c, q0, b);
+        hop_tma_load_4d(smem + c * kTcRows * 128, &qmap, q_full, kTcBox * c,
+                        h, q0, b);
       for (int it = 0; it < n; ++it) {
         const int s = it % kTcStages;
         hop_mbar_wait(&empty[s], ((it / kTcStages) & 1) ^ 1);
         hop_mbar_expect_tx(&full[s], 2 * L::kKVBytes);
         const int k0 = tiles[it] * BK;
         for (int c = 0; c < L::kBoxes; ++c) {
-          hop_tma_load_3d(smem + L::kK + s * L::kKVBytes + c * BK * 128,
-                          &kmap, &full[s], h * k_sh + 64 * c, k0, b);
-          hop_tma_load_3d(smem + L::kV + s * L::kKVBytes + c * BK * 128,
-                          &vmap, &full[s], h * v_sh + 64 * c, k0, b);
+          hop_tma_load_4d(smem + L::kK + s * L::kKVBytes + c * BK * 128,
+                          &kmap, &full[s], kTcBox * c, h, k0, b);
+          hop_tma_load_4d(smem + L::kV + s * L::kKVBytes + c * BK * 128,
+                          &vmap, &full[s], kTcBox * c, h, k0, b);
         }
       }
     }
@@ -318,9 +343,9 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int lane = tid % 32;
   const int quad = lane % 4;
   const int r0 = q0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
-  float o[D / 2];
+  float o[L::DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < L::DP / 2; ++i) o[i] = 0.f;
   float m[2] = {-1e30f, -1e30f};
   float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
@@ -332,7 +357,8 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const unsigned char* k_s = smem + L::kK + s * L::kKVBytes;
     const unsigned char* v_s = smem + L::kV + s * L::kKVBytes;
 
-    // S = Q K^T: D/16 steps of k16, within 64-column boxes by 32 bytes
+    // S = Q K^T: D/16 steps of k16 (the real columns only), within
+    // 64-column boxes by 32 bytes
     float sc[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
@@ -371,7 +397,7 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     hop_fence_regs(o);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < L::DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // P = exp2(s - m), summed in float32 and packed to bf16 pairs: the A
     // fragment of k-step kk is accumulator pairs 8 kk + {0,2,4,6}
@@ -385,16 +411,16 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       p[i / 2] = w2v_pack_bf16(e0, e1);
     }
 
-    // O += P V: V MN-major, k-steps of 16 key rows (2048 bytes), the two
-    // 64-column boxes of D=128 one leading byte offset apart
+    // O += P V: V MN-major, k-steps of 16 key rows (2048 bytes), N = DP,
+    // the two 64-column boxes of DP=128 one leading byte offset apart
     hop_fence_regs(o);
     hop_wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                              p[4 * kk + 3]};
-      hop_wgmma_rs_tb<D>(o, a, hop_desc_sw128(v_s + kk * 2048, BK * 128,
-                                              1024));
+      hop_wgmma_rs_tb<L::DP>(o, a, hop_desc_sw128(v_s + kk * 2048,
+                                                  BK * 128, 1024));
     }
     hop_wgmma_commit();
     hop_wgmma_wait<0>();
@@ -426,8 +452,7 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
 bool make_map(CUtensorMap* map, const void* base, int b, int t, int heads,
               int d, Strides st, int box_rows) {
-  return hop_operand_map(map, base, b, t, heads, d, st.b, st.t, st.h,
-                         box_rows);
+  return hop_head_map(map, base, b, t, heads, d, st.b, st.t, st.h, box_rows);
 }
 
 bool tma_ok(const void* p, Strides st, int heads, int d) {
@@ -442,8 +467,7 @@ int launch_tc(const void* q, const void* k, const void* v,
   using L = TcFwd<D>;
   if (!tma_ok(q, qs, heads, D) || !tma_ok(k, ks, heads, D) ||
       !tma_ok(v, vs, heads, D) || reinterpret_cast<uintptr_t>(out) % 4 ||
-      os.b % 2 || os.t % 2 || os.h % 2 || qs.h > INT_MAX / heads ||
-      ks.h > INT_MAX / heads || vs.h > INT_MAX / heads)
+      os.b % 2 || os.t % 2 || os.h % 2)
     return W2V_BAD_ARGS;
   const long long smem = L::smem_bytes(tk);
   if (smem > kTcSmemMax) return W2V_BAD_ARGS;
@@ -459,8 +483,7 @@ int launch_tc(const void* q, const void* k, const void* v,
   const dim3 grid((tq + kTcRows - 1) / kTcRows, heads, b);
   attn_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
       qmap, kmap, vmap, key_mask, static_cast<__nv_bfloat16*>(out), stats,
-      tq, tk, (int)qs.h, (int)ks.h, (int)vs.h, os,
-      scale * 1.4426950408889634f);
+      tq, tk, os, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -472,6 +495,9 @@ int dispatch_tc(const void* q, const void* k, const void* v,
   if (d == 64)
     return launch_tc<64>(q, k, v, key_mask, out, stats, b, tq, tk, heads, qs,
                          ks, vs, os, scale, stream);
+  if (d == 96)
+    return launch_tc<96>(q, k, v, key_mask, out, stats, b, tq, tk, heads, qs,
+                         ks, vs, os, scale, stream);
   if (d == 128)
     return launch_tc<128>(q, k, v, key_mask, out, stats, b, tq, tk, heads,
                           qs, ks, vs, os, scale, stream);
@@ -481,7 +507,7 @@ int dispatch_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, out: element (b, t, h, 0..d) at ptr + b*sb + t*st + h*sh, head
-// dim contiguous.  key_mask: [b, tk] bytes (nonzero = valid key) or NULL for
+// dim contiguous; d is 64, 96 or 128.  key_mask: [b, tk] bytes (nonzero = valid key) or NULL for
 // no padding.  dtype W2V_F32 runs the scalar kernel, W2V_BF16 the tensor-core
 // one, which also needs q, k and v 16-byte aligned with strides that are
 // multiples of 8 elements, and out's strides even (else W2V_BAD_ARGS).

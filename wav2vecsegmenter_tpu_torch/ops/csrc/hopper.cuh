@@ -79,6 +79,19 @@ __device__ __forceinline__ void hop_tma_load_3d(void* dst,
       : "memory");
 }
 
+// the same for a 4-D tensor map
+__device__ __forceinline__ void hop_tma_load_4d(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c0, int c1,
+                                                int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(hop_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(hop_smem(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // TMA multicast: the box into the shared memory of every CTA of the
 // cluster named in `mask` (bit r: cluster rank r), at dst's offset in each,
 // the completion counted on each one's barrier at bar's offset
@@ -451,7 +464,7 @@ inline HopEncodeTiledFn hop_encode_tiled() {
   return fn;
 }
 
-// A map of `rank` (2 or 3) dims over `base`: dims[0] innermost, in
+// A map of `rank` (2 to 4) dims over `base`: dims[0] innermost, in
 // elements; strides[i] the byte step of dim i + 1; boxes of `box`
 // elements; elements outside the dims arrive as zeros.  bf16 maps take
 // the 128-byte swizzle (box[0] = 64), float32 ones none.
@@ -460,7 +473,7 @@ inline bool hop_make_map(CUtensorMap* map, bool bf16, int rank,
                          const cuuint64_t* strides, const cuuint32_t* box) {
   const HopEncodeTiledFn encode = hop_encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map,
                 bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
@@ -488,6 +501,28 @@ inline bool hop_operand_map(CUtensorMap* map, const void* base, int b, int t,
                                  static_cast<cuuint64_t>(batch_bytes)};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   return hop_make_map(map, true, 3, base, dims, strides, box);
+}
+
+// A 4-D map over the same operand with the head dim as its own innermost
+// dim: [b, t, heads, d], boxes of 64 columns x 1 head x box_rows rows x 1,
+// 128-byte swizzle.  A box that reaches past d (the second box of d = 96)
+// gets zeros there, never the next head's columns; rows past t too.  With
+// one head its stride is never stepped: any multiple of 16 bytes does.
+inline bool hop_head_map(CUtensorMap* map, const void* base, int b, int t,
+                         int heads, int d, long long sb, long long st,
+                         long long sh, int box_rows) {
+  const long long row_bytes = 2 * st;
+  const long long batch_bytes = b == 1 ? row_bytes * t : 2 * sb;
+  const long long head_bytes = heads == 1 ? 2 * ((d + 7) / 8 * 8) : 2 * sh;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(head_bytes),
+                                 static_cast<cuuint64_t>(row_bytes),
+                                 static_cast<cuuint64_t>(batch_bytes)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  return hop_make_map(map, true, 4, base, dims, strides, box);
 }
 
 // what TMA needs of such an operand: a 16-byte-aligned base and strides that
