@@ -45,7 +45,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    bf16 bitwise the kernel order's plain rendering, ``row_dot_ordered``,
    and in both a window's rows alone bitwise as in the batch); last, K4
    at the base models' SFC head (8 heads of D=96, [14, 999], both
-   dtypes, ragged keys and an all-masked row, beside SDPA);
+   dtypes, ragged keys and an all-masked row, beside SDPA); last, K10 at
+   D=96: the head's [14, 999, 8, 96] and a cross row at arseg's base
+   geometry (1000 queries over 999 keys), both dtypes, ragged keys and an
+   all-masked row, twice (bitwise), beside SDPA's forward + backward less
+   its forward;
 4. slice: a full-width SHAS (xls-r-300m geometry, 15 encoder layers, SFC
    1 x 8 heads, seeded random weights, output layer x40) segments two
    synthetic talks through cli.common.segment_wavs at batch 14 in bf16 with
@@ -249,12 +253,37 @@ Phases, each printed on its own line; any failure exits non-zero:
    stack's plain group route alone, mean and p99 |dprob| against the eager
    float32 batch (the kernels within KERNEL_SLACK of eager), the batch's
    launches; reported: a window alone bitwise as in a batch of 8 or not;
-17. the script's seconds; a JSON line of every kernel (launches on the
+17. base_train: training at the base width (facebook/wav2vec2-base: 12
+   post-LN layers of 768, the SFC head at D=96, seeded weights) through
+   train.loop.train on the train phase's synthetic corpus, the launch
+   counters reset before each run and each micro-step's launches checked:
+   (a) the head on a frozen backbone, batch 14, two epochs of three
+   micro-steps (K10 1, K4 1, K9 3 of which 1 without dx, K1 28, K3 12,
+   no conv kernel, and no K5: the base models' activation dropout takes
+   the FFN to its two GEMMs in train mode); (b) LNA, every layer
+   fine-tuned, FFNs and the feature encoder frozen, at batch 14 and
+   batch 4, each two epochs of
+   three micro-steps in four arms (bf16 and float32, kernels and eager):
+   finite losses, frozen parameters bitwise unchanged, trained ones moved
+   (the unapplied encoder.layer_norm by weight decay alone: its gradient
+   is 0, and its zero bias stays), K10 13 (12 at D=64, the head's at
+   D=96), the first gradients within KERNEL_SLACK of eager's distance to
+   float32, float32 kernels within F32_GRAD of eager; (c) one epoch of
+   conf/task/shas.yaml's default (adapters, not applied on a post-LN
+   layer) with the feature encoder trained: the group-norm stack and the
+   adapters move; (d) three micro-steps each of shas_ssl (base-960h,
+   frozen, batch 14), shas_ctc (fine-tuned, batch 4) and arseg (frozen,
+   batch 14; K4 and K10 5, at D=96); (e) one arseg decode batch through
+   segment_wavs (bf16 kernels) with its launches.  Reported: ms a
+   micro-step, device busy ms of a profiled micro-step and its wall,
+   peak memory;
+18. the script's seconds; a JSON line of every kernel (launches on the
    LNA recipe's run, or for K2 the unfused slice's, for the output layer's
    kernel the slice's, and on the online,
-   ssl, arseg and base phases; error, times, bound, and the float32 route's
-   row; K5/K6/K7/K2 add their Function row; K4 adds its D=96 rows under
-   ``d96``), the nvidia-smi line, and the
+   ssl, arseg, base and base_train phases; error, times, bound, and the
+   float32 route's row; K5/K6/K7/K2 add their Function row; K4 and K10
+   add their D=96 rows under ``d96``, K10 its D=96 cross row under
+   ``d96_cross``), the nvidia-smi line, and the
    last line: {"ok": true, "device": {...}}.
 
 The kernel phase runs each backward kernel twice on the same inputs: the
@@ -1020,6 +1049,18 @@ def check_kernels(dev) -> dict:
         cases.append(("attention_bthd", f"[{B},{T},8,{BASE_HEAD_DIM}]", dtype,
                       lambda d=dtype: bthd_case(T, d, d=BASE_HEAD_DIM)))
 
+    # K10 at the base models' head dim: the SFC head's [14, 999, 8, 96]
+    # and arseg's cross-attention on a base backbone (1000 queries over
+    # 999 keys), both with ragged keys and an all-masked row, last, for
+    # the same reason
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(("attention_bwd", f"[{B},{T},8,{BASE_HEAD_DIM}]", dtype,
+                      lambda d=dtype: attn_bwd_case(T, 8, BASE_HEAD_DIM, d)))
+        cases.append(("attention_bwd",
+                      f"[{B},{T + 1}x{T},8,{BASE_HEAD_DIM}] cross", dtype,
+                      lambda d=dtype: attn_bwd_case(T, 8, BASE_HEAD_DIM, d,
+                                                    T + 1)))
+
     results: dict = {}
     results_f32: dict = {}
     for name, label, dtype, make in cases:
@@ -1092,7 +1133,8 @@ def check_kernels(dev) -> dict:
         # the record keeps the main path's dtype (bf16) at its first shape,
         # and the float32 route's row at that shape (the precision ladder's
         # f32 arms)
-        # (and K4's row at the base models' head dim under "d96")
+        # (and K4's and K10's rows at the base models' head dim under
+        # "d96", K10's cross row under "d96_cross")
         record = results if dtype == torch.bfloat16 else results_f32
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1101,6 +1143,8 @@ def check_kernels(dev) -> dict:
             record[name] = row
         elif label == f"[{B},{T},8,{BASE_HEAD_DIM}]":
             record[name]["d96"] = row
+        elif label == f"[{B},{T + 1}x{T},8,{BASE_HEAD_DIM}] cross":
+            record[name]["d96_cross"] = row
     for name, row in results_f32.items():
         results[name]["f32"] = row
     return results
@@ -3075,15 +3119,7 @@ def run_lna(dev) -> dict:
         fresh, _ = build_model(LNA_TASK, dev)
         init_from_numpy(fresh, seed=0)
         trained = {n for n, p in model.named_parameters() if p.requires_grad}
-        frozen_n = moved_n = 0
-        for (name, p), (_, p0) in zip(model.named_parameters(),
-                                      fresh.named_parameters()):
-            same = torch.equal(p, p0)
-            check(same != (name in trained),
-                  f"LNA: {name} {'moved' if not same else 'did not move'}"
-                  f" ({'trained' if name in trained else 'frozen'})")
-            frozen_n += name not in trained
-            moved_n += name in trained
+        moved = moved_check(model, fresh, trained, "LNA")
         groups = ("layer_norm", "final_layer_norm", "q_proj", "k_proj",
                   "v_proj", "out_proj", "pos_conv_embed", "seg_model")
         check(all(any(f".{g}." in "." + n + "." for n in trained)
@@ -3207,7 +3243,7 @@ def run_lna(dev) -> dict:
           eval_kernels=k["eval"],
           grad_dist_kernels_vs_f32=k_vs_f, grad_dist_eager_vs_f32=e_vs_f,
           grad_dist_f32_kernels_vs_eager=f32_k_vs_e,
-          params_frozen=frozen_n, params_trained=moved_n,
+          params_frozen=moved["frozen"], params_trained=moved["trained"],
           launches_per_micro_step=want,
           launches_per_micro_step_default_task=want_c,
           batch4={**step_times(k, TIMED_SKIP), "peak_mem_gb": k["peak_gb"],
@@ -4083,6 +4119,260 @@ def run_base(dev) -> dict:
     return counts
 
 
+# base_train: facebook/wav2vec2-base (12 post-LN layers of 768, the
+# group-norm conv stack) under conf/task/shas.yaml's head (8 heads of 96):
+# (a) frozen; (b) LNA, every layer fine-tuned, FFNs and the feature encoder
+# frozen; (c) the default task's adapters (not applied on a post-LN layer:
+# they move by weight decay alone) with the feature encoder trained.  The
+# SSL tasks on base-960h (frozen) and base (ctc, fine-tuned), arseg frozen.
+BASE_TASK = {**SHAS_TASK["model"], "wav2vec_model_name": BASE_MODEL}
+BASE_LNA_TASK = {**BASE_TASK, "finetune_wav2vec": True,
+                 "wav2vec_ft_layers": 12, "ffn_adapter": False}
+BASE_FEAT_TASK = {**BASE_TASK, "finetune_wav2vec": True,
+                  "wav2vec_ft_layers": 12, "finetune_w2v_feat_enc": True}
+BASE_SSL_TASK = {**SSL_TASK, "model": {
+    **SSL_TASK["model"], "wav2vec_model_name": BASE_MODEL + "-960h"}}
+BASE_CTC_TASK = {**CTC_TASK, "model": {
+    **CTC_TASK["model"], "wav2vec_model_name": BASE_MODEL}}
+BASE_ARSEG_TASK = {**ARSEG_TASK, "model": {
+    **ARSEG_TASK["model"], "wav2vec_model_name": BASE_MODEL}}
+# the base encoder's LayerNorm of the unapplied pre-layers kind
+BASE_PRE_LN = "wav2vec_model.model.encoder.layer_norm."
+
+
+def base_launches(feat_enc: bool) -> dict:
+    """A base LNA micro-step's launches: the LNA path's at 12 layers (K1
+    28: the projection's, two in each post-LN layer, the head's three),
+    with no conv kernel (the group-norm stack takes none) and no K5 (the
+    base models' activation dropout, 0.1, takes the FFN to its two GEMMs
+    with the dropout between them in train mode, as in the JAX package);
+    K10 13 (12 at D=64, the head's at D=96)."""
+    return {**lna_launches(12, feat_enc), "conv_bias_ln_gelu": 0,
+            "conv_audio_ln_gelu": 0, "ffn": 0}
+
+
+def moved_check(model, fresh, trained: set, tag: str) -> dict:
+    """Frozen parameters bitwise unchanged, trained ones moved (but for a
+    zero parameter that gets no gradient: the unapplied encoder.layer_norm's
+    bias, which weight decay leaves at 0); counts."""
+    n = {"frozen": 0, "trained": 0}
+    for (name, p), (_, p0) in zip(model.named_parameters(),
+                                  fresh.named_parameters()):
+        same = torch.equal(p, p0)
+        if name.startswith(BASE_PRE_LN) and not p0.any():
+            check(same, f"{tag}: {name} moved from 0 with no gradient")
+            n["trained"] += 1
+            continue
+        check(same != (name in trained),
+              f"{tag}: {name} {'moved' if not same else 'did not move'} "
+              f"({'trained' if name in trained else 'frozen'})")
+        n["trained" if name in trained else "frozen"] += 1
+    return n
+
+
+def run_base_train(dev) -> dict:
+    """The base_train phase ((a)-(e) of the module docstring); returns
+    the launches of the LNA bf16 kernels run at batch 14."""
+    from wav2vecsegmenter_tpu_torch.cli.common import build_model
+    from wav2vecsegmenter_tpu_torch.data.loader import (
+        RandomDataloaderGenerator)
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for sub in ("two", "six", "text"):
+            (root / sub).mkdir()
+        split = dict(zip(("talk_list", "segments_list"),
+                         write_corpus(root / "two", LNA_TALKS)),
+                     segment_length=TRAIN_WINDOW)
+        split14 = dict(zip(("talk_list", "segments_list"),
+                           write_corpus(root / "six")),
+                       segment_length=TRAIN_WINDOW)
+        text = dict(zip(("talk_list", "segments_list"),
+                        write_corpus(root / "text", CTC_TALKS, texts=True)),
+                    segment_length=TRAIN_WINDOW)
+
+        # (a) the head on a frozen backbone, batch 14
+        a = lna_run(dev, tmp, split14, BASE_TASK, B, 2, "auto", "bfloat16",
+                    profile=True, tag="_base_frozen")
+        a.pop("model")
+        want_a = {"attention_bwd": 1, "attention_bthd": 1,
+                  "attention_packed": 12, "ffn": 0, "layer_norm": 28,
+                  "layer_norm_bwd": 3, "layer_norm_bwd_no_dx": 1,
+                  "conv_bias_ln_gelu": 0, "conv_audio_ln_gelu": 0}
+        for i, got in enumerate(a["steps"]):
+            check({n: got[n] for n in want_a} == want_a,
+                  f"base frozen micro-step {i} launches {got}")
+        out["frozen_b14"] = {
+            **step_times(a, TIMED_SKIP), "loss": a["history"]["loss"],
+            "peak_mem_gb": a["peak_gb"],
+            "device_busy_ms": a["profiled"]["busy_ms"],
+            "profiled_ms": a["history"]["step_seconds"][PROFILED] * 1e3,
+            "top_ops": a["profiled"]["top_ops"]}
+
+        # (b) LNA, every layer, batch 14 and 4, four arms each
+        want = base_launches(feat_enc=False)
+        for batch, sp in ((B, split14), (LNA_B, split)):
+            runs = {}
+            for mode, dtype in (("auto", "bfloat16"), ("eager", "bfloat16"),
+                                ("auto", "float32"), ("eager", "float32")):
+                kernels = (mode, dtype) == ("auto", "bfloat16")
+                r = lna_run(dev, tmp, sp, BASE_LNA_TASK, batch, 2, mode,
+                            dtype, profile=kernels, tag="_base")
+                check(r["steps_per_epoch"] == [3, 3] and r["updates"] == 4,
+                      f"base LNA batch {batch}: {r['steps_per_epoch']}")
+                model = r.pop("model")
+                if kernels:
+                    for i, got in enumerate(r["steps"]):
+                        check({n: got[n] for n in want} == want,
+                              f"base LNA batch {batch} micro-step {i} "
+                              f"launches {got}, not {want}")
+                    fresh, _ = build_model(BASE_LNA_TASK, dev)
+                    init_from_numpy(fresh, seed=0)
+                    trained = {n for n, p in model.named_parameters()
+                               if p.requires_grad}
+                    counts = moved_check(model, fresh, trained,
+                                         f"base LNA batch {batch}")
+                    check(not any(".feed_forward." in n or ".feature_" in n
+                                  for n in trained) and
+                          BASE_PRE_LN + "weight" in trained,
+                          "base LNA: not the split asked for")
+                    names = [n for n, p in model.named_parameters()
+                             if p.requires_grad]
+                    pre = r["grads"][names.index(BASE_PRE_LN + "weight")]
+                    check(not pre.any(), "base LNA: the unapplied "
+                                         "encoder.layer_norm got a gradient")
+                    del fresh
+                del model
+                torch.cuda.empty_cache()
+                runs[mode, dtype] = r
+            k = runs["auto", "bfloat16"]
+            k_vs_f = grad_dist(k["grads"], runs["auto", "float32"]["grads"])
+            e_vs_f = grad_dist(runs["eager", "bfloat16"]["grads"],
+                               runs["auto", "float32"]["grads"])
+            f32_k_vs_e = grad_dist(runs["auto", "float32"]["grads"],
+                                   runs["eager", "float32"]["grads"])
+            check(k_vs_f <= KERNEL_SLACK * e_vs_f,
+                  f"base LNA batch {batch}: kernels add error to the "
+                  f"gradients: {k_vs_f} from float32 vs {e_vs_f}")
+            check(f32_k_vs_e <= F32_GRAD,
+                  f"base LNA batch {batch}: float32 kernels vs eager "
+                  f"gradients {f32_k_vs_e} > {F32_GRAD}")
+            out[f"lna_b{batch}"] = {
+                **step_times(k, TIMED_SKIP),
+                "ms_per_micro_step_eager": step_times(
+                    runs["eager", "bfloat16"])["ms_per_micro_step"],
+                "ms_per_micro_step_f32": step_times(
+                    runs["auto", "float32"])["ms_per_micro_step"],
+                "loss": {f"{m}_{d}": r["history"]["loss"]
+                         for (m, d), r in runs.items()},
+                "grad_dist_kernels_vs_f32": k_vs_f,
+                "grad_dist_eager_vs_f32": e_vs_f,
+                "grad_dist_f32_kernels_vs_eager": f32_k_vs_e,
+                "peak_mem_gb": k["peak_gb"],
+                "device_busy_ms": k["profiled"]["busy_ms"],
+                "profiled_ms": k["history"]["step_seconds"][PROFILED] * 1e3,
+                "top_ops": k["profiled"]["top_ops"], "params": counts}
+            if batch == B:
+                launches = k["launches"]
+            for r in runs.values():
+                del r["grads"]
+
+        # (c) the feature encoder and the adapters, one epoch at batch 4
+        c = lna_run(dev, tmp, split, BASE_FEAT_TASK, LNA_B, 1, "auto",
+                    "bfloat16", tag="_base_feat")
+        want_c = base_launches(feat_enc=True)
+        for i, got in enumerate(c["steps"]):
+            check({n: got[n] for n in want_c} == want_c,
+                  f"base feature-encoder micro-step {i} launches {got}")
+        model = c.pop("model")
+        fresh, _ = build_model(BASE_FEAT_TASK, dev)
+        init_from_numpy(fresh, seed=0)
+        trained = {n for n, p in model.named_parameters() if p.requires_grad}
+        moved_check(model, fresh, trained, "base feature encoder")
+        check(any(".feature_extractor.conv_layers.0.layer_norm." in n
+                  for n in trained)
+              and any(".ffn_adapter." in n for n in trained),
+              "base feature encoder: the group-norm stack or the adapters "
+              "were not trained")
+        out["feat_enc_b4"] = {"loss": c["history"]["loss"],
+                              "peak_mem_gb": c["peak_gb"],
+                              **step_times(c, (0,))}
+        del model, fresh
+        torch.cuda.empty_cache()
+
+        # (d) shas_ssl (base-960h, frozen, batch 14), shas_ctc (fine-tuned,
+        # batch 4) and arseg (frozen, batch 14): three micro-steps each
+        for tag, task, sp, batch in (("ssl", BASE_SSL_TASK, split14, B),
+                                     ("ctc", BASE_CTC_TASK, text, CTC_B)):
+            r = ssl_train_run(dev, tmp, sp, task, batch, "auto", "bfloat16")
+            check(r["updates"] == 3 and r["launches"]["attention_bwd"] > 0,
+                  f"base {tag}: {r['updates']} updates, launches "
+                  f"{r['launches']}")
+            out[tag] = {"loss": r["history"]["loss"],
+                        "grad_norm": r["history"]["grad_norm"],
+                        "launches": r["launches"], "peak_mem_gb": r["peak_gb"],
+                        **step_times(r, (0,))}
+            del r
+            torch.cuda.empty_cache()
+        ar, vocab = build_model(BASE_ARSEG_TASK, dev)
+        init_from_numpy(ar, seed=0)
+        sd = {k: v.detach().clone() for k, v in ar.state_dict().items()}
+        gen = RandomDataloaderGenerator(split14["talk_list"],
+                                        split14["segments_list"],
+                                        TRAIN_WINDOW, B,
+                                        seed=0, vocab=vocab,
+                                        autoregression=True)
+        batches = list(gen.generate())[:TRAIN_STEPS]
+        r = arseg_train(dev, ar, sd, batches, "auto", torch.bfloat16)
+        n_dec = len(ar.seg_model.decoder.layers)
+        want_ar = {"attention_bthd": 1 + n_dec, "attention_bwd": 1 + n_dec,
+                   "layer_norm_bwd": 3 * n_dec + 4, "layer_norm_bwd_no_dx": 1}
+        for i, got in enumerate(r["launches"]):
+            check(all(got.get(n, 0) == m for n, m in want_ar.items()),
+                  f"base arseg micro-step {i}: launches {got}")
+        check(r["backbone_unchanged"] and r["head_moved"],
+              "base arseg: the backbone moved or the head did not")
+        out["arseg"] = {"loss": r["loss"], "ms": r["ms"],
+                        "device_busy_ms": r["device_busy_ms"],
+                        "profiled_wall_ms": r["profiled_wall_ms"],
+                        "peak_mem_gb": r["peak_gb"],
+                        "launches": r["launches"][0]}
+        del r
+
+        # (e) one arseg decode batch through segment_wavs, bf16 kernels
+        ar.load_state_dict(sd)
+        ar.eval()
+        talk = root / "talk.wav"
+        write_talk(talk, 19.0, seed=5)
+        probs: dict = {}
+        backend.reset_launch_counts()
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter()
+        rows = segment_wavs(ar, [talk], PTHR, B, 20.0, 1, dev,
+                            torch.bfloat16, talk_probs=probs, loss_tag="ce",
+                            vocab=vocab)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t_dec) * 1e3
+        dec = backend.launch_counts()
+        p = probs[talk.name]
+        check(p.shape == (round(19.0 * 49.95),) and bool(np.isfinite(p).all())
+              and rows is not None, "base arseg decode: probs")
+        check(dec["attention_bthd"] >= 1 and dec["attention_packed"] >= 12
+              and not dec["conv_bias_ln_gelu"],
+              f"base arseg decode launches {dec}")
+        out["arseg_decode"] = {"wall_ms": dec_ms, "launches": {
+            n: v for n, v in dec.items() if v}, "segments": len(rows)}
+        del ar
+        torch.cuda.empty_cache()
+    phase("base_train", model=BASE_MODEL, head_dim=BASE_HEAD_DIM,
+          launches_per_micro_step=want,
+          launches_per_micro_step_feat_enc=want_c,
+          seconds=time.perf_counter() - t0, **out)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4138,6 +4428,8 @@ def main() -> int:
     counts_arseg = run_arseg(dev)
     torch.cuda.empty_cache()
     counts_base = run_base(dev)
+    torch.cuda.empty_cache()
+    counts_base_train = run_base_train(dev)
 
     def launches(name):
         # the LNA recipe's run: every kernel of the trainer's path; K2
@@ -4158,7 +4450,9 @@ def main() -> int:
          "launches_online": counts_online.get(name, 0),
          "launches_ssl": counts_ssl.get(name, 0),
          "launches_arseg": counts_arseg.get(name, 0),
-         "launches_base": counts_base.get(name, 0), **kernels[name],
+         "launches_base": counts_base.get(name, 0),
+         "launches_base_train": counts_base_train.get(name, 0),
+         **kernels[name],
          **({"function": lna["functions"][name]}
             if name in lna["functions"] else {})}
         for name, (src, rep) in SOURCES.items()]}))

@@ -39,9 +39,9 @@ from wav2vecsegmenter_tpu.ops.backend import set_backend
 from wav2vecsegmenter_tpu_torch.ops import attention as tattn
 
 from .test_torch_attention_tiles_fwd import (BF16_ATOL, BF16_RTOL, CASES, LOG2E,
-                              assert_close, bias, constants, emulate_fwd,
-                              fwd_tiles, key_tiles, make_inputs, make_mask,
-                              rows, stack_tiles)
+                              assert_close, bias, box_padded, constants,
+                              emulate_fwd, fwd_tiles, key_tiles, make_inputs,
+                              make_mask, rows, stack_tiles)
 from .torch_tiny import threads_per_worker  # noqa: F401
 
 BWD = constants("attention_bwd.cu")
@@ -62,15 +62,19 @@ def emulate_pre_pass(o, do, stats) -> torch.Tensor:
 def emulate_bwd(q, k, v, mask, do, scale, o, stats):
     """The pre-pass, attn_bwd_dq_tc_kernel and attn_bwd_dkdv_tc_kernel ->
     (dq, dk, dv) in q's type; q and do [B, Tq, H, D], k and v [B, Tk, H,
-    D]."""
+    D].  The operands are padded with zero columns to whole TMA boxes
+    (D=96 runs D=128's schedule: its loads fill columns 96-127 with zeros)
+    and the outputs keep the first D columns, as the kernels store them."""
     b, t, h, d = q.shape
     tk = k.shape[1]
     own, bn = bwd_tiles(d)
+    table = emulate_pre_pass(o, do, stats)
+    q, k, v, do = (box_padded(a) for a in (q, k, v, do))
+    dp_ = q.shape[-1]
     c = scale * LOG2E
     rnd = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
-    table = emulate_pre_pass(o, do, stats)
-    dq = torch.empty(b, t, h, d)
-    dk, dv = torch.empty(b, tk, h, d), torch.empty(b, tk, h, d)
+    dq = torch.empty(b, t, h, dp_)
+    dk, dv = torch.empty(b, tk, h, dp_), torch.empty(b, tk, h, dp_)
     for bi in range(b):
         valid = mask[bi]
         rw = table[bi].transpose(0, 1)  # [T, H, 3]
@@ -84,7 +88,7 @@ def emulate_bwd(q, k, v, mask, do, scale, o, stats):
             p = torch.exp2(s - m) * il
             dp = dot @ vt.transpose(1, 2)
             acc = acc + rnd(p * (dp - dl)) @ kt
-        dq[bi] = (acc * scale).transpose(1, 2).reshape(-1, h, d)[:t]
+        dq[bi] = (acc * scale).transpose(1, 2).reshape(-1, h, dp_)[:t]
         # dk/dv kernel: every CTA of key rows at once, over the query tiles
         kt, vt = stack_tiles(k[bi], own), stack_tiles(v[bi], own)
         kb = torch.stack([bias(valid, k0, own)
@@ -99,14 +103,14 @@ def emulate_bwd(q, k, v, mask, do, scale, o, stats):
             ds = p * (vt @ dos.transpose(1, 2) - dl)
             va = va + rnd(p) @ dos
             ka = ka + rnd(ds) @ qs
-        dk[bi] = (ka * scale).transpose(1, 2).reshape(-1, h, d)[:tk]
-        dv[bi] = va.transpose(1, 2).reshape(-1, h, d)[:tk]
+        dk[bi] = (ka * scale).transpose(1, 2).reshape(-1, h, dp_)[:tk]
+        dv[bi] = va.transpose(1, 2).reshape(-1, h, dp_)[:tk]
         if valid.any():  # the skip rule: all-masked own tiles write zeros
             for k0 in range(0, tk, own):
                 if not valid[k0:k0 + own].any():
                     dk[bi, k0:k0 + own] = 0.0
                     dv[bi, k0:k0 + own] = 0.0
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    return tuple(a[..., :d].to(q.dtype) for a in (dq, dk, dv))
 
 
 def _jax_bwd(q, k, v, mask, do, scale):
@@ -156,6 +160,34 @@ def test_backward_schedule_matches_plain_and_jax(t, kind, d):
         assert_close(g, w, BF16_ATOL, BF16_RTOL)
 
 
+@pytest.mark.parametrize("t,kind", [(1099, "scattered"), (999, "cross")])
+def test_backward_schedule_at_head_dim_96(t, kind):
+    """A base model's D=96 (D=128's schedule over operands whose last 32
+    columns load as zeros).  The SFC head, ragged against every tile, with
+    whole masked tiles and an all-masked row: the forward's statistics,
+    then the backward against the port's plain backward and the JAX
+    package's Pallas backward.  The arseg decoder's cross-attention, 1000
+    queries over 999 keys: as test_cross_schedule_within_chip_smoke_limits
+    at D=128."""
+    if kind == "cross":
+        _check_cross(t + 1, t, 96)
+        return
+    q, k, v, do = make_inputs(t, 96, seed=2 * t + 96)
+    mask = torch.from_numpy(make_mask(t, kind))
+    scale = 96 ** -0.5
+    o, stats = emulate_fwd(q, k, v, mask, scale, with_stats=True)
+    torch.testing.assert_close(
+        stats, tattn.attention_stats_plain(q, k, mask, scale),
+        rtol=STATS_RTOL, atol=1e-6)
+    got = emulate_bwd(q, k, v, mask, do, scale, o, stats)
+    assert all(g.shape == q.shape for g in got)
+    want = tattn.attention_bwd_plain(q, k, v, mask, do, scale)
+    for g, w in zip(got, want):
+        assert_close(g, w, BF16_ATOL, BF16_RTOL)
+    for g, w in zip(got, _jax_bwd(q, k, v, mask, do, scale)):
+        assert_close(g, w, BF16_ATOL, BF16_RTOL)
+
+
 def test_skip_rules():
     """The tiles each kernel visits: a masked tile among valid ones is
     skipped, an all-masked row visits every tile, and the dk/dv tile of an
@@ -188,16 +220,21 @@ def test_cross_schedule_within_chip_smoke_limits(tq, tk):
     its cross rows (the bf16 atol and rtol plus attn_bwd_slack: on a row of
     a few keys dk sums ~Tq large terms, and the two routes' bf16 roundings
     of dS part by more than the self rows' limits)."""
+    _check_cross(tq, tk, 128)
+
+
+def _check_cross(tq: int, tk: int, d: int) -> None:
+    """test_cross_schedule_within_chip_smoke_limits at head dim d."""
     import chip_smoke
 
     rng = np.random.RandomState(tq + tk)
     lengths = [tk, tk // 2, 2, 0, 3, 5, 1, 17]
-    q, do = (torch.from_numpy(rng.randn(8, tq, 2, 128).astype(np.float32))
+    q, do = (torch.from_numpy(rng.randn(8, tq, 2, d).astype(np.float32))
              .to(torch.bfloat16) for _ in range(2))
-    k, v = (torch.from_numpy(rng.randn(8, tk, 2, 128).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(8, tk, 2, d).astype(np.float32))
             .to(torch.bfloat16) for _ in range(2))
     mask = torch.arange(tk)[None, :] < torch.tensor(lengths)[:, None]
-    scale = 128 ** -0.5
+    scale = d ** -0.5
     o, stats = emulate_fwd(q, k, v, mask, scale, with_stats=True)
     assert_close(o, tattn.attention_bthd_plain(q, k, v, mask, scale),
                  BF16_ATOL)

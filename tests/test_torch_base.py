@@ -31,9 +31,7 @@ from wav2vecsegmenter_tpu.models.shas import SHAS as JaxSHAS
 from wav2vecsegmenter_tpu.ops.backend import set_backend
 from wav2vecsegmenter_tpu_torch.checkpoints.convert import (
     load_reference_checkpoint)
-from wav2vecsegmenter_tpu_torch.cli import common as tcommon
 from wav2vecsegmenter_tpu_torch.cli import train as tcli
-from wav2vecsegmenter_tpu_torch.config import compose, to_plain
 from wav2vecsegmenter_tpu_torch.models import wav2vec2 as tw2v
 from wav2vecsegmenter_tpu_torch.models.shas import SHAS
 
@@ -342,28 +340,3 @@ def test_segment_cli_yaml_equals_jax_cli(base_dirs, tmp_path):
     assert {r["wav"] for r in rows_port} == set(talks)
     assert ((out_port / "custom_segments.yaml").read_bytes()
             == (out_jax / "custom_segments.yaml").read_bytes())
-
-
-@pytest.mark.parametrize("device", [[], ["+runtime.device=cpu"]])
-def test_train_cli_refuses_a_base_backbone(base_dirs, tmp_path, monkeypatch,
-                                           device):
-    """Training a base backbone is A12b: the trainer raises before any step,
-    on the card (here, before it looks for one) and on the CPU."""
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tcli.main(["exp_name=run",
-                   f"task.model.wav2vec_model_name={base_dirs[64]}",
-                   "task.model.n_transformer_enc_heads=1", *device])
-    assert not (tmp_path / "run" / "ckpts").exists()
-
-
-@pytest.mark.parametrize("task", ["shas_ssl", "shas_ctc", "arseg"])
-def test_other_tasks_refuse_a_base_backbone(base_dirs, task):
-    """The tasks other than ``shas`` raise naming A12b on a base backbone,
-    built as the CLIs build them; on the large presets they build."""
-    config = compose(tcli.CONF_DIR, "train", [f"task={task}"])
-    node = to_plain(config.task)
-    tcommon.build_model(node, "meta")
-    node["model"]["wav2vec_model_name"] = str(base_dirs[64])
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tcommon.build_model(node, "meta")

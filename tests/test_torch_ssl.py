@@ -268,6 +268,27 @@ def test_multiclass_steps_match_jax(tag):
         assert diff.max() <= PARAM_ATOL, (key, diff.max().item())
 
 
+def test_ctc_step_grad_norm_matches_float64():
+    """The ctc micro-step of test_multiclass_steps_match_jax against the
+    same step on a float64 copy of the model (the loss in float64, as the
+    port's CTC runs): grad_norm within 1e-6, relative.  The exact value
+    is 432.06729; the JAX package's float32 optax CTC gives 432.05826
+    (2.1e-5 off), the port's 432.06730."""
+    vocab = tvocab.UppercasedCharVocabulary()
+    batch, _ = _frame_batch(vocab.pad_token_id, TRANSCRIPTS, vocab)
+    loss_fn, _, _ = tloss.build_loss(
+        {"_target_": "torch.nn.CTCLoss", "tag": "ctc"}, None, vocab)
+    norms = []
+    for dt in (torch.float32, torch.float64):
+        tm = _pair(finetune_wav2vec=True)[2].to(dt)
+        opt = tstep.AccumulatingAdamW(tm.set_requires_grad(), LR,
+                                      TOTAL_STEPS, 1)
+        step = tstep.make_train_step(tm, loss_fn, 0, opt, dt,
+                                     loss_tag="ctc", vocab=vocab)
+        norms.append(float(step(batch)["grad_norm"]))
+    np.testing.assert_allclose(norms[0], norms[1], rtol=1e-6)
+
+
 def test_ctc_with_a_frozen_backbone_raises(tmp_path):
     """The JAX loop's ValueError: the CTC loss reaches no trained
     parameter when the backbone is frozen."""

@@ -17,7 +17,16 @@
   ``wav2vec_model.model.lm_head.*``); its head-only file takes all three
   from a local ForCTC snapshot (JAX ``checkpoints/io.py:104-130``).
   Module names follow those keys, so loading is ``load_state_dict`` as
-  is.
+  is.  On a post-LN backbone (the base models) the ForCTC key
+  ``wav2vec2.encoder.layer_norm`` is the unapplied pre-layers LayerNorm
+  (the JAX ``wav2vec.encoder_pre_ln``) and the applied final LayerNorm
+  (the JAX ``final_ln``) has a key of its own,
+  ``wav2vec_model.model.final_layer_norm.*``, which the port's files
+  carry; a file without it (an HF snapshot, a reference ``.pt``) fills it
+  from the one key, as the JAX loader fills both leaves from it
+  (:func:`_fill_final_ln`).  The JAX package reads a port file's one key
+  into both leaves, so it does not see a ``final_layer_norm`` trained
+  apart from the pre-layers one.
 
 The autoregressive segmenter (``models.autoreg.AutoRegSegmenter``) has
 the port's own layout: the backbone under ``wav2vec_model.model.*`` as
@@ -183,8 +192,11 @@ def state_dict_from_jax_params(np_tree: dict, model) -> dict:
         ctc = "wav2vec_model.model."
         sd = _wav2vec_sd(np_tree["wav2vec"], f"{ctc}wav2vec2.")
         ln = np_tree["final_ln"]
-        sd[f"{ctc}wav2vec2.encoder.layer_norm.weight"] = _t(ln["scale"])
-        sd[f"{ctc}wav2vec2.encoder.layer_norm.bias"] = _t(ln["bias"])
+        # a post-LN tree's encoder_pre_ln holds wav2vec2.encoder.layer_norm
+        final = ("final_layer_norm" if "encoder_pre_ln" in np_tree["wav2vec"]
+                 else "wav2vec2.encoder.layer_norm")
+        sd[f"{ctc}{final}.weight"] = _t(ln["scale"])
+        sd[f"{ctc}{final}.bias"] = _t(ln["bias"])
         sd[f"{ctc}lm_head.weight"] = _t(np.asarray(np_tree["lm_head"]["w"]).T)
         sd[f"{ctc}lm_head.bias"] = _t(np_tree["lm_head"]["b"])
     else:
@@ -210,11 +222,32 @@ def _unapplied_keys(module: torch.nn.Module) -> set:
             for leaf in ("weight", "bias")}
 
 
+def _fill_final_ln(module: torch.nn.Module, sd: dict) -> dict:
+    """``sd`` with the post-LN ``_ForCTC.final_layer_norm`` keys of
+    ``module`` filled from ``wav2vec2.encoder.layer_norm`` where only that
+    one key is there (an HF ForCTC snapshot, a reference file): the JAX
+    loader reads it into both ``final_ln`` and ``encoder_pre_ln``."""
+    from ..models.shas import _ForCTC
+
+    sd = dict(sd)
+    for name, m in module.named_modules():
+        if isinstance(m, _ForCTC) and hasattr(m, "final_layer_norm"):
+            p = f"{name}{'.' if name else ''}"
+            for leaf in ("weight", "bias"):
+                src = f"{p}wav2vec2.encoder.layer_norm.{leaf}"
+                if src in sd:
+                    sd.setdefault(f"{p}final_layer_norm.{leaf}", sd[src])
+    return sd
+
+
 def _load_strict(module: torch.nn.Module, sd: dict,
                  adapters_optional: bool = False) -> None:
     """load_state_dict(strict=True), except that the optional keys (and,
     with ``adapters_optional``, the FFN adapters, and a post-LN backbone's
-    unapplied ``encoder.layer_norm``) may be absent from ``sd``."""
+    unapplied ``encoder.layer_norm``) may be absent from ``sd``; a post-LN
+    SSL backbone's final LayerNorm comes from ``wav2vec2.encoder.layer_norm``
+    where the file has no key of its own for it."""
+    sd = _fill_final_ln(module, sd)
     missing, unexpected = module.load_state_dict(sd, strict=False)
     unapplied = _unapplied_keys(module)
     missing = [k for k in missing if not k.endswith(_OPTIONAL_KEYS)

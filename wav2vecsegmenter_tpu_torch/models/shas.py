@@ -17,7 +17,9 @@ Training covers both arms of the reference's ``finetune_wav2vec``:
 * ``True`` (LNA fine-tuning, reference lib/models.py:335-365): the
   backbone under grad, with the JAX ``trainable_mask``'s split as
   ``trainable_parameters``: the head, ``pos_conv``, ``masked_spec_embed``
-  where SpecAugment is on, the LayerNorms and attention of the top
+  where SpecAugment is on, a post-LN backbone's unapplied pre-layers
+  ``encoder.layer_norm`` (the JAX ``encoder_pre_ln``: a zero gradient,
+  moved by weight decay alone), the LayerNorms and attention of the top
   ``wav2vec_ft_layers`` layers, their FFNs with ``finetune_w2v_ffn``, their
   FFN adapters with ``ffn_adapter``, and the conv stack and feature
   projection with ``finetune_w2v_feat_enc`` (without it they run without
@@ -156,7 +158,7 @@ class SHAS(_Trainable):
         if name == "masked_spec_embed":
             # the JAX tree has the leaf only where SpecAugment is on
             return self.w2v_cfg.apply_spec_augment
-        if name.startswith("encoder.pos_conv_embed."):
+        if name.startswith(("encoder.pos_conv_embed.", "encoder.layer_norm.")):
             return True
         layer, _, rest = name[len("encoder.layers."):].partition(".")
         if int(layer) < self.first_ft_layer:
@@ -180,7 +182,15 @@ class SHAS(_Trainable):
 
 class _ForCTC(nn.Module):
     """HF ``Wav2Vec2ForCTC``'s layout: the backbone with its final encoder
-    LayerNorm under ``wav2vec2``, the CTC head ``lm_head``."""
+    LayerNorm under ``wav2vec2``, the CTC head ``lm_head``.
+
+    A post-LN backbone's ``wav2vec2.encoder.layer_norm`` is its pre-layers
+    LayerNorm, which the forward does not apply; the final LayerNorm that
+    ``SHASWithSSL`` applies is then a parameter of its own,
+    ``final_layer_norm`` (the JAX tree's ``final_ln`` beside
+    ``wav2vec.encoder_pre_ln``).  An HF snapshot or a reference file has
+    the one key ``wav2vec2.encoder.layer_norm``, and the loaders fill both
+    from it, as the JAX loader does (``checkpoints.convert``)."""
 
     def __init__(self, cfg: Wav2Vec2Config, ctc_vocab_size: int,
                  device=None):
@@ -188,6 +198,16 @@ class _ForCTC(nn.Module):
         self.wav2vec2 = Wav2Vec2Model(cfg, device, final_layer_norm=True)
         self.lm_head = nn.Linear(cfg.hidden_size, ctc_vocab_size,
                                  device=device)
+        if not cfg.do_stable_layer_norm:
+            self.final_layer_norm = nn.LayerNorm(cfg.hidden_size,
+                                                 device=device)
+
+    @property
+    def final_ln(self) -> nn.LayerNorm:
+        """The final LayerNorm the SSL forward applies."""
+        if self.wav2vec2.cfg.do_stable_layer_norm:
+            return self.wav2vec2.encoder.layer_norm
+        return self.final_layer_norm
 
 
 class SHASWithSSL(_Trainable):
@@ -206,8 +226,10 @@ class SHASWithSSL(_Trainable):
     as the JAX ``trainable_mask``), else the backbone runs without a graph
     (the JAX ``stop_gradient``).  ``wav2vec_ft_layers`` and
     ``finetune_w2v_feat_enc`` are accepted for the reference's surface and,
-    as in the JAX package, split nothing.  A base-model backbone (post-LN,
-    group-norm conv stack) raises ``NotImplementedError`` (ROADMAP A12b).
+    as in the JAX package, split nothing.  On a base-model backbone
+    (post-LN, group-norm conv stack) the applied final LayerNorm is
+    ``_ForCTC.final_layer_norm`` and the unapplied pre-layers
+    ``encoder.layer_norm`` trains with the backbone (by weight decay alone).
 
     The JAX ``SHASWithSSL.apply`` takes no precision-ladder knobs, so
     ``precision_ladder`` is False: the engine refuses the ladder's middle
@@ -283,7 +305,7 @@ class SHASWithSSL(_Trainable):
             h, _ = w2v(audio, in_lengths, dt, generator, quantized=quantized)
         # HF Wav2Vec2ForCTC: the final encoder LayerNorm, then lm_head, on
         # the float32 hidden states
-        ln = w2v.encoder.layer_norm
+        ln = ctc.final_ln
         h = layer_norm(h, ln.weight, ln.bias, self.w2v_cfg.layer_norm_eps)
         ctc_logits = _lin(ctc.lm_head, h, torch.float32)
         frame_logits = self.seg_model(

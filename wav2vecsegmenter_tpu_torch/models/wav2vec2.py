@@ -21,10 +21,12 @@ need a LayerNorm and a conv bias.  The encoder layer is post-LN,
 K5).  Its ``encoder.layer_norm`` (the HF pre-layers LayerNorm, the JAX
 ``encoder_pre_ln``) is held so that checkpoints load strictly, and is not
 applied: the reference's truncation replaces it with Identity too.  As in
-the JAX package, a post-LN layer applies no FFN adapter.  Training a base
-backbone (the post-LN body under autograd with LNA's splits, K10 at the
-head's D=96) is ROADMAP A12b: the trainer and the tasks other than
-``shas`` refuse it (:func:`refuse_post_ln`).
+the JAX package, a post-LN layer applies no FFN adapter.  Both geometries
+train alike: the post-LN body and the group-norm stack under autograd
+(the stack's backward is plain autograd, as no Pallas kernel takes it in
+the JAX package), LNA's splits as ``requires_grad``; an unapplied
+``encoder.layer_norm`` or adapter that a split trains gets a zero
+gradient and moves by weight decay alone, as the JAX leaves do.
 
 Submodule names follow the HF ``Wav2Vec2Model`` state_dict keys, so a
 reference checkpoint loads with ``load_state_dict`` and no renaming.  The
@@ -288,29 +290,18 @@ class Encoder(nn.Module):
             for i in range(cfg.num_layers))
 
 
-def refuse_post_ln(cfg: Wav2Vec2Config, what: str) -> None:
-    """Raise ``NotImplementedError`` for ``what`` on a base-model backbone
-    (a post-LN encoder or a group-norm conv stack; the presets have both):
-    only the SHAS forward (``task=shas`` at inference) runs it yet."""
-    if not cfg.do_stable_layer_norm or cfg.feat_extract_norm != "layer":
-        raise NotImplementedError(
-            f"{what} on a post-LN / group-norm backbone (the base models) "
-            f"is not ported: ROADMAP A12b (training the base models)")
-
-
 class Wav2Vec2Model(nn.Module):
     """The truncated backbone: conv stack, projection, pos conv, layers;
     with ``cfg.ffn_adapter``, FFN adapters in layers ``adapter_from`` on;
     with ``final_layer_norm``, the parameters of the final encoder
-    LayerNorm (``SHASWithSSL`` applies it).  A post-LN backbone holds its
-    pre-layers ``encoder.layer_norm``, which the forward does not apply."""
+    LayerNorm (``SHASWithSSL`` applies it; on a post-LN backbone it holds
+    them elsewhere, ``_ForCTC.final_layer_norm``).  A post-LN backbone holds
+    its pre-layers ``encoder.layer_norm``, which the forward does not
+    apply."""
 
     def __init__(self, cfg: Wav2Vec2Config, device=None,
                  adapter_from: int = 0, final_layer_norm: bool = False):
         super().__init__()
-        if final_layer_norm:
-            refuse_post_ln(cfg, "task=shas_ssl / shas_ctc (SHASWithSSL's "
-                                "final encoder LayerNorm)")
         self.cfg = cfg
         self.feature_extractor = FeatureExtractor(cfg, device)
         self.feature_projection = FeatureProjection(cfg, device)

@@ -16,8 +16,8 @@ the plain versions on CPU tensors: bf16 on the tensor cores (``wgmma``,
 operands by TMA, so q, k and v need 16-byte-aligned starts and strides of
 whole 16-byte units), float32 on scalar FMAs.  The source file says what
 bounds the kernels on the H100 and how their designs answer that.  The
-forward takes head dims 64, 96 (the SFC head of a base model: 768 / 8)
-and 128; the backward 64 and 128 (training a base model is ROADMAP A12b).
+forward and the backward take head dims 64, 96 (the SFC head of a base
+model: 768 / 8) and 128.
 
 Where a gradient is needed, ``attention_qkv`` (the QKV projection viewed
 [B, T, 3, H, D]) goes through ``_AttentionFn``, the
@@ -243,9 +243,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_bwd(q, k, v, key_mask, do, scale, o, stats, out):
     b, tq, heads, d = q.shape
     tk = k.shape[1]
-    if d not in (64, 128):
-        raise ValueError(f"attention backward kernel takes head dims 64 or "
-                         f"128, got {d}")
+    if d not in (64, 96, 128):
+        raise ValueError(f"attention backward kernel takes head dims 64, 96 "
+                         f"or 128, got {d}")
     if k.shape != (b, tk, heads, d) or v.shape != k.shape \
             or do.shape != q.shape:
         raise ValueError("attention backward kernel: shapes disagree")

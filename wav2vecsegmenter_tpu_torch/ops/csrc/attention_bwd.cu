@@ -55,13 +55,23 @@
 //   Each CTA is two consumer warpgroups of 64 own rows and a producer
 //   warpgroup; one producer thread loads the own tiles once and streams the
 //   other side (K/V, or Q/dO and their rows) through a two-stage ring by
-//   TMA with full/empty mbarriers.  The operands have 3-D tensor maps over
-//   their strided [B, T, row] views (128-byte swizzle), so rows past T
-//   arrive as zeros; the rows table has one over [B*H, Tq, 4] floats, whose
-//   zero rows give P = 0.  The producer gives its registers to the
-//   consumers (setmaxnreg), which hold S, dP and dq (or dk and dv) in
-//   float32: at D=128 dk + dv are 128 floats a thread.  Streamed tiles: 128
-//   rows at D=64, 64 at D=128.  Under tensor cores the dk/dv kernel's
+//   TMA with full/empty mbarriers.  The operands have 4-D tensor maps over
+//   [B, T, H, D] as they lie, the head dim innermost (128-byte swizzle,
+//   boxes of 64 columns), so rows past T arrive as zeros, and so do the
+//   columns past D of a box that reaches beyond the head (never the next
+//   head's); the rows table has one over [B*H, Tq, 4] floats, whose zero
+//   rows give P = 0.  The producer gives its registers to the consumers
+//   (setmaxnreg), which hold S, dP and dq (or dk and dv) in float32: at
+//   D=128 dk + dv are 128 floats a thread.  Streamed tiles: 128 rows at
+//   D=64, 64 at D=96 and 128.  D=96 (the SFC head of a base model, 768 /
+//   8, and the autoregressive segmenter's attention on one) runs D=128's
+//   schedule over the padded width DP = 128: S and dP take the 96 real
+//   columns (6 steps of k16), the dq, dk and dv products run at N = 128
+//   over operands whose last 32 columns arrive as zeros, so those
+//   accumulator columns stay zero, and the epilogues store the first 96
+//   columns and no more (the gradient of a packed [B, T, 3, H, D]
+//   projection holds the next head's columns right after them).  Under
+//   tensor cores the dk/dv kernel's
 //   recomputed scores need not equal the forward's bit for bit (another
 //   summation order); the bf16 tolerances cover that.
 // float32 (the oracle arm, TF32 off): attn_bwd_{dq,dkdv}_kernel, scalar
@@ -69,12 +79,13 @@
 //   exponentials and delta in a first sweep over the keys (online, rescaled
 //   per tile of keys) and dq in a second, through a [B, H, Tq, 3]
 //   workspace; a key-major kernel sweeps all query rows for dk and dv.  A
-//   row (query or key) is owned by D/32 neighbouring lanes, 32 head dims
-//   each, its operands and accumulators in registers; the other side
-//   streams through shared memory as float32 tiles of 4096/D rows, each
-//   32-dim segment padded by 4 floats; partial dot products meet through
-//   warp shuffles.  TF32 tensor cores would miss the arm's 1e-4 gradient
-//   tolerance.
+//   row (query or key) is owned by DP/32 neighbouring lanes, 32 head dims
+//   each, its operands and accumulators in registers (DP the head dim
+//   rounded up to a multiple of 64: at D=96 the fourth lane holds zeros
+//   and stores nothing); the other side streams through shared memory as
+//   float32 tiles of 4096/DP rows, each 32-dim segment padded by 4 floats;
+//   partial dot products meet through warp shuffles.  TF32 tensor cores
+//   would miss the arm's 1e-4 gradient tolerance.
 
 #include <limits.h>
 #include <math.h>
@@ -86,6 +97,14 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kSeg = 36;    // 32 head dims + 4 floats of bank padding
 constexpr int kChunk = 16;  // keys scored before each rescale of sweep 1
+constexpr int kTcBox = 64;  // columns of a bf16 TMA box (128 bytes)
+
+// the width both routes compute over: D rounded up to whole 64-column
+// boxes (96 -> 128); the columns past D are zeros and never stored
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return (D + kTcBox - 1) / kTcBox * kTcBox;
+}
 
 struct Strides {
   long long b, t, h;
@@ -115,17 +134,19 @@ __device__ __forceinline__ float row_sum(float v) {
 }
 
 // rows [r0, r0 + n) of a [.., T, .., D] operand (one batch and head) into a
-// padded float32 tile of `rows` rows; rows past n are zero
+// padded float32 tile of `rows` rows, padded_dim<D>() columns; rows past n
+// and columns past D are zero
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long st, int r0, int n,
                                           int rows) {
-  constexpr int RS = (D / 32) * kSeg;
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const int j = idx / D;
-    const int c = idx % D;
+  constexpr int DP = padded_dim<D>();
+  constexpr int RS = (DP / 32) * kSeg;
+  for (int idx = threadIdx.x; idx < rows * DP; idx += kThreads) {
+    const int j = idx / DP;
+    const int c = idx % DP;
     dst[j * RS + (c / 32) * kSeg + (c % 32)] =
-        j < n ? w2v_load(src + (long long)(r0 + j) * st + c) : 0.f;
+        j < n && c < D ? w2v_load(src + (long long)(r0 + j) * st + c) : 0.f;
   }
 }
 
@@ -138,9 +159,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    float* __restrict__ stats, int tq, int tk, Strides qs,
                    Strides ks, Strides vs, Strides dos, Strides dqs,
                    float scale) {
-  constexpr int G = D / 32;             // lanes per query row
+  constexpr int G = padded_dim<D>() / 32;  // lanes per query row
   constexpr int BQ = kThreads / G;      // query rows per block
-  constexpr int BK = 4096 / D;          // key rows per shared-memory tile
+  constexpr int BK = 4096 / padded_dim<D>();  // key rows per shared tile
   constexpr int RS = G * kSeg;          // shared-memory row stride (floats)
   static_assert(BK % kChunk == 0, "key tile must hold whole chunks");
 
@@ -155,6 +176,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int heads = gridDim.y;
   const bool active = qi < tq;
+  const bool real = part * 32 < D;      // not a padding lane (D=96)
 
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
@@ -167,8 +189,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* dp = dout + b * dos.b + row * dos.t + h * dos.h + part * 32;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      qr[i] = active ? w2v_load(qp + i) : 0.f;
-      dor[i] = active ? w2v_load(dp + i) : 0.f;
+      qr[i] = active && real ? w2v_load(qp + i) : 0.f;
+      dor[i] = active && real ? w2v_load(dp + i) : 0.f;
     }
   }
 
@@ -240,8 +262,10 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (active) {
     T* op = dq + b * dqs.b + (long long)qi * dqs.t + h * dqs.h + part * 32;
+    if (real) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) w2v_store(op + i, acc[i] * scale);
+      for (int i = 0; i < 32; ++i) w2v_store(op + i, acc[i] * scale);
+    }
     if (part == 0) {
       float* st = stats + (((long long)b * heads + h) * tq + qi) * 3;
       st[0] = m;
@@ -260,9 +284,9 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dv, const float* __restrict__ stats,
                      int tq, int tk, Strides qs, Strides ks, Strides vs,
                      Strides dos, Strides dks, Strides dvs, float scale) {
-  constexpr int G = D / 32;             // lanes per key row
+  constexpr int G = padded_dim<D>() / 32;  // lanes per key row
   constexpr int BKR = kThreads / G;     // key rows per block
-  constexpr int BQ = 4096 / D;          // query rows per shared-memory tile
+  constexpr int BQ = 4096 / padded_dim<D>();  // query rows per shared tile
   constexpr int RS = G * kSeg;
 
   __shared__ __align__(16) float q_s[BQ * RS];
@@ -276,6 +300,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int heads = gridDim.y;
   const bool active = kj < tk;
+  const bool real = part * 32 < D;      // not a padding lane (D=96)
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* db = dout + b * dos.b + h * dos.h;
@@ -288,8 +313,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* vp = v + b * vs.b + row * vs.t + h * vs.h + part * 32;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      kr[i] = active ? w2v_load(kp + i) : 0.f;
-      vr[i] = active ? w2v_load(vp + i) : 0.f;
+      kr[i] = active && real ? w2v_load(kp + i) : 0.f;
+      vr[i] = active && real ? w2v_load(vp + i) : 0.f;
       dk_acc[i] = 0.f;
       dv_acc[i] = 0.f;
     }
@@ -333,7 +358,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (active) {
+  if (active && real) {
     T* kp = dk + b * dks.b + (long long)kj * dks.t + h * dks.h + part * 32;
     T* vp = dv + b * dvs.b + (long long)kj * dvs.t + h * dvs.h + part * 32;
 #pragma unroll
@@ -350,7 +375,7 @@ int launch_attn_bwd(const void* q, const void* k, const void* v,
                     void* dq, void* dk, void* dv, float* stats, int b, int tq,
                     int tk, int heads, const Strides* st, float scale,
                     cudaStream_t stream) {
-  constexpr int G = D / 32;
+  constexpr int G = padded_dim<D>() / 32;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -377,6 +402,9 @@ int dispatch_d(const void* q, const void* k, const void* v,
   if (d == 64)
     return launch_attn_bwd<T, 64>(q, k, v, key_mask, dout, dq, dk, dv, stats,
                                   b, tq, tk, heads, st, scale, stream);
+  if (d == 96)
+    return launch_attn_bwd<T, 96>(q, k, v, key_mask, dout, dq, dk, dv, stats,
+                                  b, tq, tk, heads, st, scale, stream);
   if (d == 128)
     return launch_attn_bwd<T, 128>(q, k, v, key_mask, dout, dq, dk, dv, stats,
                                    b, tq, tk, heads, st, scale, stream);
@@ -392,6 +420,7 @@ constexpr int kTcConsumers = 256;  // threads of the two consumer warpgroups
 constexpr int kTcThreads = kTcConsumers + 128;  // + the producer warpgroup
 constexpr int kTcStages = 2;       // ring depth of the streamed tiles
 constexpr int kTcStream64 = 128;   // streamed rows a tile at D=64
+constexpr int kTcStream96 = 64;    // at D=96 (D=128's schedule, padded)
 constexpr int kTcStream128 = 64;   // and at D=128 (dk and dv: 128 floats)
 constexpr int kTcProducerRegs = 24;   // setmaxnreg: the producer gives up
 constexpr int kTcConsumerRegs = 240;  // what the consumers take
@@ -400,10 +429,13 @@ constexpr int kRowsThreads = 256;  // the pre-pass: one warp a query row
 
 template <int D>
 struct TcBwd {
-  static constexpr int BN = D == 64 ? kTcStream64 : kTcStream128;
-  static constexpr int kBoxes = D / 64;          // 64-column boxes a row
-  static constexpr int kOwnBytes = kTcRows * D * 2;  // Q or dO; K or V
-  static constexpr int kStrBytes = BN * D * 2;       // a streamed tile
+  static_assert(D == 64 || D == 96 || D == 128, "head dim");
+  static constexpr int BN =
+      D == 64 ? kTcStream64 : D == 96 ? kTcStream96 : kTcStream128;
+  static constexpr int DP = padded_dim<D>();     // the products' N
+  static constexpr int kBoxes = DP / kTcBox;     // 64-column boxes a row
+  static constexpr int kOwnBytes = kTcRows * DP * 2;  // Q or dO; K or V
+  static constexpr int kStrBytes = BN * DP * 2;       // a streamed tile
   static constexpr int kRowsBytes = BN * 16;         // its (m, 1/l, delta, 0)
   // own tiles at 0 and kOwnBytes; stage s at kStream + s * kStage: two
   // streamed tiles, then (dk/dv kernel) the rows of their queries
@@ -480,8 +512,7 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                       const unsigned char* __restrict__ key_mask,
                       const float4* __restrict__ rows,
                       __nv_bfloat16* __restrict__ dq, int tq, int tk,
-                      int q_sh, int k_sh, int v_sh, int do_sh, Strides dqs,
-                      float scale_log2, float scale) {
+                      Strides dqs, float scale_log2, float scale) {
   using L = TcBwd<D>;
   constexpr int BN = L::BN;
   extern __shared__ unsigned char smem_raw[];
@@ -516,10 +547,10 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if (tid == kTcConsumers) {
       hop_mbar_expect_tx(own_full, 2 * L::kOwnBytes);
       for (int c = 0; c < L::kBoxes; ++c) {
-        hop_tma_load_3d(smem + c * kTcRows * 128, &qmap, own_full,
-                        h * q_sh + 64 * c, q0, b);
-        hop_tma_load_3d(smem + L::kOwnBytes + c * kTcRows * 128, &domap,
-                        own_full, h * do_sh + 64 * c, q0, b);
+        hop_tma_load_4d(smem + c * kTcRows * 128, &qmap, own_full,
+                        kTcBox * c, h, q0, b);
+        hop_tma_load_4d(smem + L::kOwnBytes + c * kTcRows * 128, &domap,
+                        own_full, kTcBox * c, h, q0, b);
       }
       for (int it = 0; it < n; ++it) {
         const int s = it % kTcStages;
@@ -528,10 +559,10 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         hop_mbar_expect_tx(&full[s], 2 * L::kStrBytes);
         const int k0 = tiles[it] * BN;
         for (int c = 0; c < L::kBoxes; ++c) {
-          hop_tma_load_3d(st + c * BN * 128, &kmap, &full[s],
-                          h * k_sh + 64 * c, k0, b);
-          hop_tma_load_3d(st + L::kStrBytes + c * BN * 128, &vmap, &full[s],
-                          h * v_sh + 64 * c, k0, b);
+          hop_tma_load_4d(st + c * BN * 128, &kmap, &full[s], kTcBox * c, h,
+                          k0, b);
+          hop_tma_load_4d(st + L::kStrBytes + c * BN * 128, &vmap, &full[s],
+                          kTcBox * c, h, k0, b);
         }
       }
     }
@@ -554,9 +585,9 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     il[r] = rw.y;
     dl[r] = rw.z;
   }
-  float acc[D / 2];
+  float acc[L::DP / 2];  // columns past D stay zero (zero-filled K)
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::DP / 2; ++i) acc[i] = 0.f;
 
   const unsigned char* q_s = smem + wg * 64 * 128;
   const unsigned char* do_s = smem + L::kOwnBytes + wg * 64 * 128;
@@ -607,15 +638,15 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       ds[i / 2] = w2v_pack_bf16(v2[0], v2[1]);
     }
 
-    // dQ += dS K: K MN-major, k-steps of 16 key rows (2048 bytes), the two
-    // 64-column boxes of D=128 one leading byte offset apart
+    // dQ += dS K: K MN-major, k-steps of 16 key rows (2048 bytes), N = DP,
+    // the two 64-column boxes of DP=128 one leading byte offset apart
     hop_fence_regs(acc);
     hop_wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       const uint32_t a[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2],
                              ds[4 * kk + 3]};
-      hop_wgmma_rs_tb<D>(acc, a, hop_desc_sw128(k_s + kk * 2048, BN * 128,
+      hop_wgmma_rs_tb<L::DP>(acc, a, hop_desc_sw128(k_s + kk * 2048, BN * 128,
                                                 1024));
     }
     hop_wgmma_commit();
@@ -638,12 +669,13 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// rows of a [64, D] warpgroup accumulator (this thread's r0, r0 + 8) below
-// n to dst through its time stride, times `mul`, as bf16 pairs
+// rows of a [64, DP] warpgroup accumulator (this thread's r0, r0 + 8)
+// below n to dst through its time stride, times `mul`, as bf16 pairs: the
+// first D columns only
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long st,
-                                           const float (&acc)[D / 2], int r0,
-                                           int n, float mul) {
+__device__ __forceinline__ void store_rows(
+    __nv_bfloat16* dst, long long st, const float (&acc)[padded_dim<D>() / 2],
+    int r0, int n, float mul) {
   const int quad = threadIdx.x % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -676,8 +708,8 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                         const unsigned char* __restrict__ key_mask,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int tq, int tk,
-                        int q_sh, int k_sh, int v_sh, int do_sh, Strides dks,
-                        Strides dvs, float scale_log2, float scale) {
+                        Strides dks, Strides dvs, float scale_log2,
+                        float scale) {
   using L = TcBwd<D>;
   constexpr int BN = L::BN;
   extern __shared__ unsigned char smem_raw[];
@@ -706,9 +738,9 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     any = tid < kTcRows && k0 + tid < tk && mrow[k0 + tid] != 0;
     tile_any = __syncthreads_or(any);
   }
-  float ka[D / 2], va[D / 2];  // the dk and dv sums
+  float ka[L::DP / 2], va[L::DP / 2];  // the dk and dv sums
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) ka[i] = va[i] = 0.f;
+  for (int i = 0; i < L::DP / 2; ++i) ka[i] = va[i] = 0.f;
   if (row_any && !tile_any) {
     if (tid < kTcConsumers) {
       store_rows<D>(dkb, dks.t, ka, r0, tk, 0.f);
@@ -733,10 +765,10 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if (tid == kTcConsumers) {
       hop_mbar_expect_tx(own_full, 2 * L::kOwnBytes);
       for (int c = 0; c < L::kBoxes; ++c) {
-        hop_tma_load_3d(smem + c * kTcRows * 128, &kmap, own_full,
-                        h * k_sh + 64 * c, k0, b);
-        hop_tma_load_3d(smem + L::kOwnBytes + c * kTcRows * 128, &vmap,
-                        own_full, h * v_sh + 64 * c, k0, b);
+        hop_tma_load_4d(smem + c * kTcRows * 128, &kmap, own_full,
+                        kTcBox * c, h, k0, b);
+        hop_tma_load_4d(smem + L::kOwnBytes + c * kTcRows * 128, &vmap,
+                        own_full, kTcBox * c, h, k0, b);
       }
       for (int it = 0; it < nq; ++it) {
         const int s = it % kTcStages;
@@ -744,10 +776,10 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         hop_mbar_wait(&empty[s], ((it / kTcStages) & 1) ^ 1);
         hop_mbar_expect_tx(&full[s], 2 * L::kStrBytes + L::kRowsBytes);
         for (int c = 0; c < L::kBoxes; ++c) {
-          hop_tma_load_3d(st + c * BN * 128, &qmap, &full[s],
-                          h * q_sh + 64 * c, it * BN, b);
-          hop_tma_load_3d(st + L::kStrBytes + c * BN * 128, &domap,
-                          &full[s], h * do_sh + 64 * c, it * BN, b);
+          hop_tma_load_4d(st + c * BN * 128, &qmap, &full[s], kTcBox * c, h,
+                          it * BN, b);
+          hop_tma_load_4d(st + L::kStrBytes + c * BN * 128, &domap,
+                          &full[s], kTcBox * c, h, it * BN, b);
         }
         hop_tma_load_3d(st + 2 * L::kStrBytes, &rowmap, &full[s], 0, it * BN,
                         b * heads + h);
@@ -822,7 +854,7 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 
     // dV += T(P^T) dO and dK += T(dS^T) Q: dO and Q MN-major, k-steps of
-    // 16 query rows (2048 bytes)
+    // 16 query rows (2048 bytes), N = DP (columns past D stay zero)
     hop_fence_regs(va);
     hop_fence_regs(ka);
     hop_wgmma_fence();
@@ -833,9 +865,9 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t ad[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
                               da[4 * kk + 3]};
       const uint32_t off = hop_opaque(kk * 2048);
-      hop_wgmma_rs_tb<D>(va, ap, hop_desc_sw128_at(do_addr + off, BN * 128,
+      hop_wgmma_rs_tb<L::DP>(va, ap, hop_desc_sw128_at(do_addr + off, BN * 128,
                                                    1024));
-      hop_wgmma_rs_tb<D>(ka, ad, hop_desc_sw128_at(q_addr + off, BN * 128,
+      hop_wgmma_rs_tb<L::DP>(ka, ad, hop_desc_sw128_at(q_addr + off, BN * 128,
                                                    1024));
     }
     hop_wgmma_commit();
@@ -860,8 +892,7 @@ int launch_tc(const void* q, const void* k, const void* v,
   // write dq, dk and dv, as bf16 pairs (4-byte alignment, even strides)
   const void* in[4] = {q, k, v, dout};
   for (int n = 0; n < 4; ++n)
-    if (!hop_operand_ok(in[n], st[n].b, st[n].t, st[n].h, heads, D) ||
-        st[n].h > INT_MAX / heads)
+    if (!hop_operand_ok(in[n], st[n].b, st[n].t, st[n].h, heads, D))
       return W2V_BAD_ARGS;
   const void* pairs[4] = {dq, dk, dv, o};
   for (int n = 0; n < 4; ++n)
@@ -885,16 +916,17 @@ int launch_tc(const void* q, const void* k, const void* v,
       n_rows, tq, heads, st[7], st[3]);
   int status = (int)cudaGetLastError();
   if (status != 0) return status;
-  // q and do in boxes of `qrows` rows, k and v in boxes of `krows`
+  // q and do in boxes of `qrows` rows, k and v in boxes of `krows`; 4-D
+  // maps with the head dim innermost, so a box past D reads zeros
   auto maps = [&](CUtensorMap* m4, int qrows, int krows) {
-    return hop_operand_map(&m4[0], q, b, tq, heads, D, st[0].b, st[0].t,
-                           st[0].h, qrows) &&
-           hop_operand_map(&m4[1], k, b, tk, heads, D, st[1].b, st[1].t,
-                           st[1].h, krows) &&
-           hop_operand_map(&m4[2], v, b, tk, heads, D, st[2].b, st[2].t,
-                           st[2].h, krows) &&
-           hop_operand_map(&m4[3], dout, b, tq, heads, D, st[3].b, st[3].t,
-                           st[3].h, qrows);
+    return hop_head_map(&m4[0], q, b, tq, heads, D, st[0].b, st[0].t,
+                        st[0].h, qrows) &&
+           hop_head_map(&m4[1], k, b, tk, heads, D, st[1].b, st[1].t,
+                        st[1].h, krows) &&
+           hop_head_map(&m4[2], v, b, tk, heads, D, st[2].b, st[2].t,
+                        st[2].h, krows) &&
+           hop_head_map(&m4[3], dout, b, tq, heads, D, st[3].b, st[3].t,
+                        st[3].h, qrows);
   };
   {  // dq: owns query rows, streams keys
     CUtensorMap m4[4];
@@ -907,8 +939,7 @@ int launch_tc(const void* q, const void* k, const void* v,
     attn_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem1, stream>>>(
         m4[0], m4[1], m4[2], m4[3], key_mask,
         reinterpret_cast<const float4*>(rows),
-        static_cast<__nv_bfloat16*>(dq), tq, tk, (int)st[0].h, (int)st[1].h,
-        (int)st[2].h, (int)st[3].h, st[4], scale_log2, scale);
+        static_cast<__nv_bfloat16*>(dq), tq, tk, st[4], scale_log2, scale);
     status = (int)cudaGetLastError();
     if (status != 0) return status;
   }
@@ -929,8 +960,7 @@ int launch_tc(const void* q, const void* k, const void* v,
     attn_bwd_dkdv_tc_kernel<D><<<grid, kTcThreads, L::kSmemDkdv, stream>>>(
         m4[0], m4[1], m4[2], m4[3], rowmap, key_mask,
         static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), tq,
-        tk, (int)st[0].h, (int)st[1].h, (int)st[2].h, (int)st[3].h, st[5],
-        st[6], scale_log2, scale);
+        tk, st[5], st[6], scale_log2, scale);
     status = (int)cudaGetLastError();
   }
   return status;
@@ -944,6 +974,9 @@ int dispatch_tc(const void* q, const void* k, const void* v,
   if (d == 64)
     return launch_tc<64>(q, k, v, key_mask, dout, dq, dk, dv, o, stats, rows,
                          b, tq, tk, heads, st, scale, stream);
+  if (d == 96)
+    return launch_tc<96>(q, k, v, key_mask, dout, dq, dk, dv, o, stats, rows,
+                         b, tq, tk, heads, st, scale, stream);
   if (d == 128)
     return launch_tc<128>(q, k, v, key_mask, dout, dq, dk, dv, o, stats,
                           rows, b, tq, tk, heads, st, scale, stream);
@@ -956,7 +989,7 @@ int dispatch_tc(const void* q, const void* k, const void* v,
 // (b, t, h, 0..d) of operand n at ptr + b*s[3n] + t*s[3n+1] + h*s[3n+2],
 // head dim contiguous, operands in the order q, k, v, do, dq, dk, dv, o of
 // the host array `strides` (24 long longs).  key_mask: [b, tk] bytes
-// (nonzero = valid key) or NULL.  d is 64 or 128.
+// (nonzero = valid key) or NULL.  d is 64, 96 or 128.
 // dtype W2V_F32 runs the scalar kernels (o and stats unused; rows a
 // [b, heads, tq, 3] float32 workspace).  W2V_BF16 runs the
 // tensor-core ones: o [b, tq, heads, d] is the forward's output and stats

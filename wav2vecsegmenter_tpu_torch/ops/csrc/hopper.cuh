@@ -484,30 +484,13 @@ inline bool hop_make_map(CUtensorMap* map, bool bf16, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A 3-D map over one bf16 attention operand as it lies, element
-// (b, t, h, 0..d) at base + b sb + t st + h sh (in elements): [b, t, row]
-// with the row holding every head ((heads - 1) sh + d elements from the
-// operand's first), boxes of 64 columns x box_rows rows x 1, 128-byte
-// swizzle; rows past t read as zeros.
-inline bool hop_operand_map(CUtensorMap* map, const void* base, int b, int t,
-                            int heads, int d, long long sb, long long st,
-                            long long sh, int box_rows) {
-  const long long row_bytes = 2 * st;
-  const long long batch_bytes = b == 1 ? row_bytes * t : 2 * sb;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>((heads - 1) * sh + d),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
-                                 static_cast<cuuint64_t>(batch_bytes)};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  return hop_make_map(map, true, 3, base, dims, strides, box);
-}
-
-// A 4-D map over the same operand with the head dim as its own innermost
-// dim: [b, t, heads, d], boxes of 64 columns x 1 head x box_rows rows x 1,
-// 128-byte swizzle.  A box that reaches past d (the second box of d = 96)
-// gets zeros there, never the next head's columns; rows past t too.  With
-// one head its stride is never stepped: any multiple of 16 bytes does.
+// A 4-D map over one bf16 attention operand as it lies, element
+// (b, t, h, 0..d) at base + b sb + t st + h sh (in elements), with the
+// head dim as its own innermost dim: [b, t, heads, d], boxes of 64
+// columns x 1 head x box_rows rows x 1, 128-byte swizzle.  A box that
+// reaches past d (the second box of d = 96) gets zeros there, never the
+// next head's columns; rows past t too.  With one head its stride is
+// never stepped: any multiple of 16 bytes does.
 inline bool hop_head_map(CUtensorMap* map, const void* base, int b, int t,
                          int heads, int d, long long sb, long long st,
                          long long sh, int box_rows) {

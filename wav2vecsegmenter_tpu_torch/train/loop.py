@@ -10,9 +10,9 @@ the ``ce`` tag, and ``SHASWithSSL``'s ``ssl`` and ``ctc`` tags,
 vocabulary's ``<PAD>`` and, for ``ctc``, carry the windows' transcripts)
 and the autoregressive task (``task=arseg``: ``AutoRegSegmenter``, its
 batches ``AutoRegBatch``es, the decoder's cross-entropy summed over every
-position).  A base-model backbone (``facebook/wav2vec2-base``: post-LN,
-group-norm conv stack) raises ``NotImplementedError`` before the device is
-picked (training it is ROADMAP A12b).  A run has:
+position), on either backbone geometry: the large models' stable-LN
+encoder and the base models' (``facebook/wav2vec2-base``: post-LN,
+group-norm conv stack).  A run has:
 
 * the training loader from ``task.train_generator`` (merged with
   ``data.train``): per epoch a fresh random segmentation of the corpus
@@ -85,7 +85,7 @@ from ..constants import WAV2VEC_FRAME_LEN
 from ..data.loader import FixedDataloaderGenerator, RandomDataloaderGenerator
 from ..eval.metrics import evaluate, train_step_metrics
 from ..infer.pipeline import WindowInference
-from ..models.wav2vec2 import config_for, init_from_numpy, refuse_post_ln
+from ..models.wav2vec2 import init_from_numpy
 from ..ops import backend
 from .loss import build_loss
 from .step import AccumulatingAdamW, make_train_step
@@ -266,9 +266,6 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     (``train.step.make_train_step``)."""
     task = config.task
     model_conf = task.get("model") or {}
-    refuse_post_ln(config_for(
-        model_conf.get("wav2vec_model_name", "facebook/wav2vec2-xls-r-300m"),
-        model_conf.get("wav2vec_keep_layers")), "training")
     autoregression = bool(task.get("autoregression"))
     rt = config.get("runtime") or {}
     backend.set_kernels(rt.get("kernels", "auto"))
