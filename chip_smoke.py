@@ -277,10 +277,35 @@ Phases, each printed on its own line; any failure exits non-zero:
    segment_wavs (bf16 kernels) with its launches.  Reported: ms a
    micro-step, device busy ms of a profiled micro-step and its wall,
    peak memory;
-18. the script's seconds; a JSON line of every kernel (launches on the
+18. mesh (parallel.mesh, ops.shmap, core.runtime, core.trace) at the
+   slice's width (xls-r-300m, 15 layers, the SFC head; seed 0) on the
+   slice's two talks: (a) world size 1 over NCCL (a group of one rank
+   joined through W2VSEG_COORDINATOR): runtime.mesh data=1 and the
+   default -1 make no mesh, and the segment run's rows and three frozen
+   micro-steps (losses and gradients) equal the run without a group,
+   bitwise; (b) two ranks on the one card over gloo (NCCL refuses two
+   ranks on one device), launched by core.runtime.launch_ranks: data
+   parallel (data=2, 7 rows a rank of batch 14) and tensor parallel
+   (model=2: K3 at 8 heads, K5 at F=2048, the head's K4 at 4 heads): each
+   run's probabilities within KERNEL_SLACK of the one-rank bf16 run's
+   distance to float32 (mean and p99), the data-parallel yaml rows
+   within tests/test_packing.py's bounds of the one-rank run's; one
+   micro-step of conf/task/shas.yaml's LNA split under model=2 (K9 and
+   K10 on the shards, adapters split too): the first gradients, joined
+   whole, within KERNEL_SLACK of the one-rank bf16 step's relative L2
+   distance to float32 eager; one FSDP step (data=2) where gloo carries
+   it on CUDA tensors (its loss within MESH_LOSS_RTOL of the one-rank
+   step's), else the refusal recorded; each rank's ms a batch under both
+   meshes and the all-reduce share of a TP batch (gloo's all-reduces go
+   through the host); the TP runs' launches (every kernel of the path
+   must launch) go to the kernels line as ``launches_mesh``; (c) a train
+   run with runtime.profile_steps=2 leaves a torch.profiler trace under
+   profile/ whose CUDA kernels include the port's (attn_fwd_tc_kernel,
+   ffn_wg_kernel, ln_vec_kernel);
+19. the script's seconds; a JSON line of every kernel (launches on the
    LNA recipe's run, or for K2 the unfused slice's, for the output layer's
    kernel the slice's, and on the online,
-   ssl, arseg, base and base_train phases; error, times, bound, and the
+   ssl, arseg, base, base_train and mesh phases; error, times, bound, and the
    float32 route's row; K5/K6/K7/K2 add their Function row; K4 and K10
    add their D=96 rows under ``d96``, K10 its D=96 cross row under
    ``d96_cross``), the nvidia-smi line, and the
@@ -4373,6 +4398,406 @@ def run_base_train(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- mesh (18)
+
+# the slice's talks; two ranks on the one card (gloo: NCCL refuses two
+# ranks on one device); the port's kernels the profiled train run's trace
+# must name
+MESH_TALKS = {"talk1.wav": 65.0, "talk2.wav": 41.0}
+MESH_RANKS = 2
+# a mesh LNA step's loss (the global batch's, its rows' sums in another
+# order) against the one-rank step's, bf16
+MESH_LOSS_RTOL = 1e-3
+# a mesh step's grad_norm (its ranks' squares summed over the mesh)
+# against the norm of its gradients gathered whole: float32 sums of the
+# same squares in another order
+MESH_NORM_RTOL = 1e-4
+TRACE_KERNELS = ("attn_fwd_tc_kernel", "ffn_wg_kernel", "ln_vec_kernel")
+
+
+def mesh_model(dev, task: dict | None = None) -> SHAS:
+    """The slice's full-width SHAS (seed 0, the output layer x40), or the
+    SHAS of ``task`` (seed 0)."""
+    model = SHAS(**(task or {}), device=dev)
+    init_from_numpy(model, seed=0)
+    if task is None:
+        with torch.no_grad():
+            model.seg_model.output_layer.weight.mul_(40.0)
+    return model
+
+
+def mesh_train_batch(n: int, seed: int = 3):
+    """n windows of 20 s with speech-burst targets, collated as the
+    trainer reads them."""
+    from wav2vecsegmenter_tpu_torch.data.collate import collate, out_len_for
+
+    rng = np.random.RandomState(seed)
+    env_ = (np.arange(L_AUDIO) / 16000 % 3.5) < 3.0
+    t_out = out_len_for(L_AUDIO)
+    target = ((np.arange(t_out) / 49.95 % 3.5) < 3.0).astype(np.float32)
+    examples = [((rng.randn(L_AUDIO) * 0.1 * env_).astype(np.float32),
+                 target, 0, t_out) for _ in range(n)]
+    return collate(examples, n, L_AUDIO, t_out, device_normalize=True)
+
+
+def mesh_segment(model, wavs, dev, dtype=torch.bfloat16, mesh=None):
+    """(rows, talk probabilities, wall s) of the slice's sweep at batch 14,
+    pTHR, on ``mesh``."""
+    probs: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = segment_wavs(model, wavs, PTHR, B, 20.0, 1, dev, dtype,
+                        talk_probs=probs, mesh=mesh)
+    torch.cuda.synchronize()
+    return rows, probs, time.perf_counter() - t0
+
+
+def dprob_to(probs: dict, ref: dict) -> dict:
+    d = np.concatenate([np.abs(probs[n] - ref[n]) for n in sorted(ref)])
+    return {"mean": float(d.mean()), "p99": float(np.percentile(d, 99)),
+            "max": float(d.max())}
+
+
+def frozen_steps(model, dev, mesh=None, n: int = 3) -> list:
+    """``n`` micro-steps of the head on the frozen backbone (bf16, the
+    kernels, dropout from seed 0) from the model's weights, which are put
+    back after: each step's loss and head gradients."""
+    from wav2vecsegmenter_tpu_torch.train import loss as tloss
+    from wav2vecsegmenter_tpu_torch.train import step as tstep
+
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    params = model.set_requires_grad()
+    opt = tstep.AccumulatingAdamW(params, 2.5e-4, 10, 1)
+    step = tstep.make_train_step(
+        model, tloss.BCEWithLogitsLoss(None), 0, opt, torch.bfloat16,
+        torch.Generator(device=dev).manual_seed(0), mesh=mesh)
+    out = []
+    for i in range(n):
+        m = step(mesh_train_batch(B, seed=20 + i), 0.5)
+        out.append((m["loss"].clone(), [g.clone() for g in m["grads"]]))
+    model.load_state_dict(saved)
+    model.eval()
+    return out
+
+
+def time_engine(engine, batch, n: int = 3) -> float:
+    """Median ms of a full batch through ``engine``, to its probabilities
+    on the host."""
+    engine.run_batch(batch).numpy()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_batch(batch).numpy()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def allreduce_share(engine, batch) -> float:
+    """The share of one tensor-parallel batch's wall that its model-axis
+    all-reduces take (each timed from a synchronize to a synchronize)."""
+    from wav2vecsegmenter_tpu_torch.ops import shmap
+
+    spent = [0.0]
+    reduce = shmap.all_reduce
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(t, group)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    shmap.all_reduce = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_batch(batch).numpy()
+        wall = time.perf_counter() - t0
+    finally:
+        shmap.all_reduce = reduce
+    return spent[0] / wall
+
+
+def mesh_lna_step(dev, mesh, mode: str = "auto", dtype=torch.bfloat16,
+                  fsdp: bool = False) -> dict:
+    """One micro-step of conf/task/shas.yaml's LNA split (its top 8
+    layers with their FFNs and adapters, the feature encoder) on 4 windows
+    on ``mesh`` (``fsdp``: the model ``fully_shard``-ed over 'data'): its
+    loss, grad_norm, launches, and its first gradients gathered whole in
+    float32 (on 'data' each rank's are the global batch's) with their
+    norm."""
+    from wav2vecsegmenter_tpu_torch.parallel import mesh as pmesh
+    from wav2vecsegmenter_tpu_torch.train import loss as tloss
+    from wav2vecsegmenter_tpu_torch.train import step as tstep
+
+    backend.set_kernels(mode)
+    model = mesh_model(dev, LNA_DEFAULT_TASK)
+    model.set_requires_grad()
+    pmesh.shard_model(model, mesh)
+    if fsdp:
+        pmesh.apply_fsdp(model, mesh)
+    params = model.trainable_parameters()
+    names = [n for n, _ in model.named_parameters() if model._trains(n)]
+    opt = tstep.AccumulatingAdamW(params, 2.5e-4, 10, 1)
+    step = tstep.make_train_step(
+        model, tloss.BCEWithLogitsLoss(None), 0, opt, dtype,
+        torch.Generator(device=dev).manual_seed(0), mesh=mesh, fsdp=fsdp)
+    backend.reset_launch_counts()
+    m = step(mesh_train_batch(LNA_B), 0.5)
+    counts = backend.launch_counts()
+    backend.set_kernels("auto")
+    split = pmesh.split_parameters(model)
+    grads = [pmesh.full_tensor(n, g, split.get(n)).float()
+             for n, g in zip(names, m["grads"])]
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "launches": counts, "grads": grads,
+            "full_norm": float(torch.sqrt(sum(g.square().sum()
+                                              for g in grads)))}
+
+
+def mesh_rank(argv: list) -> dict:
+    """One of the mesh phase's two ranks on the one card, run by
+    ``core.runtime.launch_ranks`` over gloo; ``argv`` holds the talks'
+    paths.  Rank 0 also runs the one-rank references (the others wait)."""
+    from torch import distributed as dist
+
+    from wav2vecsegmenter_tpu_torch.core import runtime
+    from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
+    from wav2vecsegmenter_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runtime.maybe_init_distributed("cuda")
+    dev = runtime.rank_device(torch.device("cuda"))
+    rank0 = runtime.is_rank0()
+    wavs = [Path(w) for w in argv]
+    out: dict = {"backend": dist.get_backend()}
+    model = mesh_model(dev).eval()
+    ref: dict = {}
+    if rank0:
+        mesh_segment(model, wavs, dev)
+        ref["rows"], ref["bf16"], _ = mesh_segment(model, wavs, dev)
+        _, ref["f32"], _ = mesh_segment(model, wavs, dev, torch.float32)
+        out["one_vs_f32"] = dprob_to(ref["bf16"], ref["f32"])
+    dist.barrier()
+    batch = full_batch()
+    for name, conf in (("dp", {"data": 2}), ("tp", {"data": 1,
+                                                     "model": 2})):
+        mesh, _, _ = pmesh.resolve_mesh(conf, MESH_RANKS, "cuda")
+        if name == "tp":
+            pmesh.shard_model(model, mesh)
+        mesh_segment(model, wavs, dev, mesh=mesh)  # warm-up
+        backend.reset_launch_counts()
+        rows, probs, wall = mesh_segment(model, wavs, dev, mesh=mesh)
+        counts = backend.launch_counts()
+        engine = WindowInference(model, dev, torch.bfloat16, mesh=mesh)
+        ms = [None] * MESH_RANKS
+        dist.all_gather_object(ms, time_engine(engine, batch))
+        res = {"segments": len(rows), "wall_s": wall,
+               "batch_ms_per_rank": ms, "launches": counts}
+        if name == "tp":
+            res["allreduce_share"] = allreduce_share(engine, batch)
+        if rank0:
+            res["vs_f32"] = dprob_to(probs, ref["f32"])
+            res["vs_one"] = dprob_to(probs, ref["bf16"])
+            res["rows_vs_one"] = row_gap(rows, ref["rows"], MESH_TALKS)
+        out[name] = res
+    del model, engine
+    torch.cuda.empty_cache()
+    out.update(mesh_lna_runs(dev, MESH_LNA_RUNS, MESH_RANKS))
+    return out
+
+
+# the mesh LNA steps on the two ranks: (name, runtime.mesh, fsdp)
+MESH_LNA_RUNS = (("lna_tp", {"data": 1, "model": 2}, False),
+                 ("lna_dp", {"data": 2}, False),
+                 ("fsdp", {"data": 2}, True))
+
+
+def mesh_lna_runs(dev, runs, n_ranks: int) -> dict:
+    """The LNA micro-step on rank 0 alone (``lna_one``: bf16 with the
+    kernels, and eager float32) and on each mesh of ``runs`` (name,
+    ``runtime.mesh``, fsdp) over the group's ``n_ranks`` ranks: the
+    figures :func:`check_lna_runs` holds, rank 0's complete."""
+    from torch import distributed as dist
+
+    from wav2vecsegmenter_tpu_torch.parallel import mesh as pmesh
+
+    rank0 = dist.get_rank() == 0
+    out: dict = {}
+    if rank0:
+        one = mesh_lna_step(dev, None)
+        f32 = mesh_lna_step(dev, None, "eager", torch.float32)
+        out["lna_one"] = {"loss": one["loss"], "grad_norm": one["grad_norm"],
+                          "loss_f32": f32["loss"],
+                          "grad_norm_f32": f32["grad_norm"],
+                          "dist": grad_dist(one["grads"], f32["grads"])}
+        del one
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for name, conf, fsdp in runs:
+        mesh, _, _ = pmesh.resolve_mesh(conf, n_ranks, "cuda")
+        run = mesh_lna_step(dev, mesh, fsdp=fsdp)
+        grads = run.pop("grads")
+        if rank0:
+            run["dist"] = grad_dist(grads, f32["grads"])
+        out[name] = run
+        del grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_lna_runs(ranks: dict, names) -> None:
+    """Hold each mesh LNA step ``names`` of :func:`mesh_lna_runs` to the
+    one-rank step: the trainer's kernels launched on its shards; its loss;
+    its gradients' distance to float32's; its grad_norm against its
+    gradients gathered whole and against the one-rank step's."""
+    one = ranks["lna_one"]
+    for name in names:
+        run = ranks[name]
+        for k in ("layer_norm_bwd", "attention_bwd", "attention_packed",
+                  "ffn"):
+            check(run["launches"].get(k, 0) > 0,
+                  f"kernel {k} never launched on the {name} step")
+        check(abs(run["loss"] - one["loss"])
+              <= MESH_LOSS_RTOL * abs(one["loss"]),
+              f"{name} loss {run['loss']} vs {one['loss']} on one rank")
+        check(run["dist"] <= KERNEL_SLACK * one["dist"],
+              f"{name} gradients {run['dist']} from float32 vs "
+              f"{one['dist']} on one rank")
+        check(abs(run["grad_norm"] - run["full_norm"])
+              <= MESH_NORM_RTOL * run["full_norm"],
+              f"{name} grad_norm {run['grad_norm']} vs its gathered "
+              f"gradients' {run['full_norm']}")
+        # each step's gradients lie within their distance bound of
+        # float32's, so their norms lie within the sum of the two bounds
+        # of each other
+        check(abs(run["grad_norm"] - one["grad_norm"])
+              <= (1 + KERNEL_SLACK) * one["dist"] * one["grad_norm_f32"],
+              f"{name} grad_norm {run['grad_norm']} vs "
+              f"{one['grad_norm']} on one rank")
+
+
+def mesh_trace(dev, root: Path) -> dict:
+    """A train run (the head on a frozen 15-layer backbone, batch 4, two
+    talks, one epoch) with runtime.profile_steps=2: its trace file under
+    <run>/profile and the port's kernels among its CUDA events."""
+    from wav2vecsegmenter_tpu_torch.config import Config, merge
+    from wav2vecsegmenter_tpu_torch.train.loop import train
+
+    talks, segments = write_corpus(root, 2)
+    split = {"talk_list": talks, "segments_list": segments,
+             "segment_length": TRAIN_WINDOW}
+    config = merge(Config(), {
+        "exp_name": "profiled", "batch_size": 4, "learning_rate": 2.5e-4,
+        "max_epochs": 1, "update_freq": 1, "segment_length": TRAIN_WINDOW,
+        "print_every_steps": 100, "save_ckpts": False, "task": SHAS_TASK,
+        "data": {"train": split, "eval": split},
+        "runtime": {"device": dev.type, "compute_dtype": "bfloat16",
+                    "kernels": "auto", "seed": 0, "profile_steps": 2}})
+    out = train(config, work_dir=root)
+    files = sorted((root / "profiled" / "profile").glob("*.pt.trace.json"))
+    check(len(files) == 1, f"the profiled train run wrote {len(files)} "
+                           f"trace files")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    named = {k: any(k in name for name in kernels) for k in TRACE_KERNELS}
+    check(all(named.values()), f"the trace lacks the port's kernels: "
+                               f"{named}")
+    return {"file": files[0].name, "cuda_kernels": len(kernels),
+            "port_kernels": named, "micro_steps": len(out["history"]["loss"])}
+
+
+def run_mesh(dev) -> dict:
+    """The mesh phase (18); returns the tensor-parallel runs' launches
+    (the segment run's and the LNA step's)."""
+    from torch import distributed as dist
+
+    from wav2vecsegmenter_tpu_torch.cli.common import runtime_mesh
+    from wav2vecsegmenter_tpu_torch.config import Config
+    from wav2vecsegmenter_tpu_torch.core import runtime
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = [Path(tmp) / name for name in MESH_TALKS]
+        for seed, w in enumerate(wavs):
+            write_talk(w, MESH_TALKS[w.name], seed)
+        # (a) world size 1 over NCCL against no group
+        model = mesh_model(dev).eval()
+        mesh_segment(model, wavs, dev)
+        rows0, _, _ = mesh_segment(model, wavs, dev)
+        steps0 = frozen_steps(model, dev)
+        with env({"W2VSEG_COORDINATOR":
+                  f"127.0.0.1:{runtime._free_port()}",
+                  "W2VSEG_NUM_PROCESSES": "1", "W2VSEG_PROCESS_ID": "0"}):
+            runtime.maybe_init_distributed("cuda")
+        try:
+            one = {"backend": dist.get_backend(),
+                   "world": runtime.world_size()}
+            check(one == {"backend": "nccl", "world": 1},
+                  f"not a group of one NCCL rank: {one}")
+            for conf in ({"data": 1, "model": 1}, {"data": -1, "model": 1}):
+                mesh = runtime_mesh(Config({"runtime": {
+                    "device": "cuda", "mesh": conf}}))
+                check(mesh is None, f"a mesh of one rank from {conf}")
+                rows1, _, _ = mesh_segment(model, wavs, dev, mesh=mesh)
+                check(rows1 == rows0, f"the rows on {conf} differ from the "
+                                      f"run without a group")
+            steps1 = frozen_steps(model, dev, mesh)
+            for (l0, g0), (l1, g1) in zip(steps0, steps1):
+                check(torch.equal(l0, l1) and all(
+                    torch.equal(a, b) for a, b in zip(g0, g1)),
+                    "a frozen micro-step in the group of one differs from "
+                    "the run without a group")
+        finally:
+            dist.destroy_process_group()
+        del model, steps0, steps1
+        torch.cuda.empty_cache()
+        one_s = time.perf_counter() - start
+        # (b) two ranks on the one card over gloo
+        t0 = time.perf_counter()
+        ranks = runtime.launch_ranks("chip_smoke:mesh_rank",
+                                     [str(w) for w in wavs], MESH_RANKS)
+        ranks_s = time.perf_counter() - t0
+        # (c) the profiled train run's trace
+        t0 = time.perf_counter()
+        (Path(tmp) / "train").mkdir()
+        trace = mesh_trace(dev, Path(tmp) / "train")
+        trace_s = time.perf_counter() - t0
+    one_f32 = ranks["one_vs_f32"]
+    for name in ("dp", "tp"):
+        run = ranks[name]
+        check(run["segments"] > 0, f"{name}: no segments")
+        for q in ("mean", "p99"):
+            check(run["vs_f32"][q] <= KERNEL_SLACK * one_f32[q],
+                  f"{name} mesh: {q} dprob to float32 {run['vs_f32'][q]} "
+                  f"vs {one_f32[q]} on one rank")
+    # the data-parallel yaml: each rank's half of a batch is a change of
+    # batch size, held to tests/test_packing.py's row bounds
+    check(ranks["dp"]["rows_vs_one"]["beyond_bounds"] == 0,
+          f"data-parallel rows vs one rank: {ranks['dp']['rows_vs_one']}")
+    for name in DEFAULT_PATH + ("row_dot",):
+        check(ranks["tp"]["launches"].get(name, 0) > 0,
+              f"kernel {name} never launched on the tensor-parallel run")
+    check_lna_runs(ranks, [name for name, _, _ in MESH_LNA_RUNS])
+    lna = ranks["lna_tp"]
+    launches_mesh = {k: ranks["tp"]["launches"].get(k, 0)
+                     + lna["launches"].get(k, 0)
+                     for k in set(ranks["tp"]["launches"])
+                     | set(lna["launches"])}
+    phase("mesh", seconds=time.perf_counter() - start,
+          world1_nccl_seconds=one_s, ranks_seconds=ranks_s,
+          trace_seconds=trace_s, world1_nccl="rows and 3 frozen "
+          "micro-steps bitwise equal", backend=ranks["backend"],
+          one_rank_vs_f32=one_f32, data=ranks["dp"], model=ranks["tp"],
+          lna_one=ranks["lna_one"], lna_tp=lna, lna_dp=ranks["lna_dp"],
+          fsdp=ranks["fsdp"], trace=trace, launches_mesh=launches_mesh)
+    return launches_mesh
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4430,6 +4855,8 @@ def main() -> int:
     counts_base = run_base(dev)
     torch.cuda.empty_cache()
     counts_base_train = run_base_train(dev)
+    torch.cuda.empty_cache()
+    counts_mesh = run_mesh(dev)
 
     def launches(name):
         # the LNA recipe's run: every kernel of the trainer's path; K2
@@ -4452,6 +4879,7 @@ def main() -> int:
          "launches_arseg": counts_arseg.get(name, 0),
          "launches_base": counts_base.get(name, 0),
          "launches_base_train": counts_base_train.get(name, 0),
+         "launches_mesh": counts_mesh.get(name, 0),
          **kernels[name],
          **({"function": lna["functions"][name]}
             if name in lna["functions"] else {})}

@@ -530,3 +530,16 @@ def test_score_functions_equal(tmp_path):
             if importlib.util.find_spec(package) is None:
                 with pytest.raises(RuntimeError, match="not installed"):
                     call()
+
+
+def test_wandblog_equal():
+    """The port's ``core/wandblog.py``: the JAX module's functions, text for
+    text (the module docstring and logger name are its own)."""
+    import inspect
+
+    from wav2vecsegmenter_tpu.core import wandblog as jwandb
+    from wav2vecsegmenter_tpu_torch.core import wandblog as twandb
+
+    for name in ("init_wandb", "st_results_tables"):
+        assert inspect.getsource(getattr(twandb, name)) == \
+            inspect.getsource(getattr(jwandb, name)), name

@@ -80,7 +80,12 @@ def test_chip_smoke_path_imports_no_jax_pandas_yaml(target):
                "wav2vecsegmenter_tpu_torch.eval.metrics, "
                "wav2vecsegmenter_tpu_torch.ops.rowdot, "
                "wav2vecsegmenter_tpu_torch.cli.prepare_synthetic_data, "
-               "wav2vecsegmenter_tpu_torch.cli.inference_st_pipe")
+               "wav2vecsegmenter_tpu_torch.cli.inference_st_pipe, "
+               "wav2vecsegmenter_tpu_torch.core.runtime, "
+               "wav2vecsegmenter_tpu_torch.core.trace, "
+               "wav2vecsegmenter_tpu_torch.core.wandblog, "
+               "wav2vecsegmenter_tpu_torch.parallel.mesh, "
+               "wav2vecsegmenter_tpu_torch.ops.shmap")
     out = _run(imports + """
 print(sorted(m for m in sys.modules if m.split(".")[0] in %r))
 """ % sorted(BLOCKED), BLOCKED)

@@ -43,13 +43,22 @@ def atomic_save(obj, path: str | Path) -> Path:
 
 def model_state_dict(model) -> dict:
     """The layout a training run saves: the full state_dict under LNA, the
-    head's alone otherwise, on the CPU."""
-    saved = model if model.save_full_state else model.seg_model
-    return {k: v.detach().cpu() for k, v in saved.state_dict().items()}
+    head's alone otherwise, on the CPU; whole on a mesh (split and sharded
+    parameters gathered: every rank takes part,
+    ``parallel.mesh.full_state_dict``)."""
+    from ..parallel.mesh import full_state_dict
+
+    return full_state_dict(model,
+                           "" if model.save_full_state else "seg_model.")
 
 
-def save_model_checkpoint(path: str | Path, model) -> Path:
-    return atomic_save({"state_dict": model_state_dict(model)}, path)
+def save_model_checkpoint(path: str | Path, model,
+                          state_dict: dict | None = None) -> Path:
+    """Write ``model``'s checkpoint (or ``state_dict``, one of
+    :func:`model_state_dict`) to ``path``."""
+    if state_dict is None:
+        state_dict = model_state_dict(model)
+    return atomic_save({"state_dict": state_dict}, path)
 
 
 def save_run_state(run_dir: str | Path, state: dict) -> Path:

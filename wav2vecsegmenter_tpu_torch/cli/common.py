@@ -36,26 +36,6 @@ from ..models.shas import SHAS, SHASWithSSL
 logger = logging.getLogger("wav2vecsegmenter_tpu_torch")
 
 
-# Options of the JAX CLIs that the port does not carry out yet, by app, with
-# the ROADMAP item that ports each.  ``refuse_unported`` raises for any of
-# them set away from its default in conf/<app>.yaml.
-UNPORTED = {
-    "segment": {
-        "runtime.profile_steps": "A11 (profiler traces)",
-        "runtime.profile_dir": "A11 (profiler traces)",
-        "runtime.mesh": "A9 (parallel)",
-    },
-    "train": {
-        "log_wandb": "A9 (wandb)",
-        "runtime.profile_steps": "A11 (profiler traces)",
-        "runtime.mesh": "A9 (parallel)",
-    },
-}
-UNPORTED["inference"] = {**UNPORTED["segment"], "log_wandb": "A9 (wandb)"}
-UNPORTED["online"] = {"runtime.profile_steps": "A11 (profiler traces)"}
-UNPORTED["serve"] = dict(UNPORTED["online"])
-
-
 def parse_overrides(argv: list[str] | None = None) -> list[str]:
     argv = sys.argv[1:] if argv is None else argv
     return [a for a in argv if "=" in a and not a.startswith("--")]
@@ -128,16 +108,15 @@ def hydra_override_dirname(overrides: list[str],
 
 def compose_app(conf_dir, app: str, overrides: list[str],
                 multirun: bool = False):
-    """``conf_dir/<app>.yaml`` composed with ``overrides`` and checked by
-    :func:`refuse_unported`, and the job's hydra-style run directory: the
-    conf's ``hydra.run.dir`` for a single run, ``hydra.sweep.dir`` /
+    """``conf_dir/<app>.yaml`` composed with ``overrides``, and the job's
+    hydra-style run directory: the conf's ``hydra.run.dir`` for a single
+    run, ``hydra.sweep.dir`` /
     ``subdir`` for a sweep job, both named by the job's
     ``${hydra.job.override_dirname}``.  Returns (config, run_dir or None),
     as the JAX package's ``compose_app``."""
     from ..config import compose, resolve
 
     cfg = compose(conf_dir, app, overrides, resolve_interp=False)
-    refuse_unported(cfg, app, conf_dir)
     exclude = cfg.select(
         "hydra.job.config.override_dirname.exclude_keys") or []
     dirname = hydra_override_dirname(overrides, exclude)
@@ -156,28 +135,65 @@ def compose_app(conf_dir, app: str, overrides: list[str],
 
 def cli_jobs(conf_dir, app: str, argv: list[str] | None):
     """(multirun, jobs) of a CLI call, each job (config, run_dir): one, or
-    with ``-m`` one per point of the sweep; every job's options are checked
-    before the first one runs."""
+    with ``-m`` one per point of the sweep; every job is composed before
+    the first one runs."""
     multirun, overrides = parse_cli(argv)
     jobs = expand_sweeps(overrides) if multirun else [overrides]
     return multirun, [compose_app(conf_dir, app, job, multirun)
                       for job in jobs]
 
 
-def refuse_unported(config, app: str, conf_dir) -> None:
-    """Raise NotImplementedError for an option of ``UNPORTED[app]`` that
-    ``config`` sets away from its default in ``conf_dir/<app>.yaml``, so
-    that no option is accepted and then silently not carried out."""
-    from ..config import compose, to_plain
+def rank_count(configs) -> int:
+    """The ranks a CLI call must launch on this host (``core.runtime``):
+    1 inside a process group, else what the jobs' ``runtime.mesh`` asks
+    for, the same for every job of a sweep."""
+    import os
 
-    defaults = compose(conf_dir, app, [], resolve_interp=False)
-    for key, item in UNPORTED[app].items():
-        value = to_plain(config.select(key))
-        default = to_plain(defaults.select(key))
-        if value != default:
-            raise NotImplementedError(
-                f"{key}={value} is not ported (only its default {default} "
-                f"runs); ROADMAP {item} ports it")
+    from ..config import to_plain
+    from ..core.runtime import mesh_ranks
+
+    if os.environ.get("W2VSEG_COORDINATOR") or os.environ.get(
+            "W2VSEG_DISTRIBUTED", "").lower() == "auto":
+        return 1
+    counts = set()
+    for config in configs:
+        rt = config.get("runtime") or {}
+        counts.add(mesh_ranks(to_plain(rt.get("mesh")),
+                              torch.device(rt.get("device", "cuda")).type))
+    if len(counts) > 1:
+        raise ValueError(f"the jobs of a sweep ask for meshes of "
+                         f"{sorted(counts)} ranks; a call takes one size")
+    return counts.pop() if counts else 1
+
+
+def launch_if_mesh(module: str, argv, configs):
+    """``(True, rank 0's result)`` where the call's mesh needs more than
+    one rank and this process is not one yet: the call runs again as that
+    many ranks (``core.runtime.launch_ranks``); else ``(False, None)``."""
+    from ..core.runtime import launch_ranks
+
+    n = rank_count(configs)
+    if n <= 1:
+        return False, None
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return True, launch_ranks(f"{module}:main", argv, n)
+
+
+def runtime_mesh(config):
+    """The run's mesh (``parallel.mesh.resolve_mesh`` of ``runtime.mesh``
+    over the process group it joins, ``core.runtime``), or None."""
+    from ..config import to_plain
+    from ..core.runtime import maybe_init_distributed, rank_device, world_size
+    from ..parallel.mesh import resolve_mesh
+
+    rt = config.get("runtime") or {}
+    device = torch.device(rt.get("device", "cuda"))
+    device_type = device.type
+    if maybe_init_distributed(device_type):
+        rank_device(device)  # before the mesh picks a card
+    mesh, _, _ = resolve_mesh(to_plain(rt.get("mesh")), world_size(),
+                              device_type)
+    return mesh
 
 
 def init_logging() -> None:
@@ -190,12 +206,17 @@ def runtime_device_dtype(device: str = "cuda",
                          compute_dtype: str = "bfloat16"):
     """(device, compute dtype) as the caller asks: ``cuda`` (the default)
     with the configured dtype (bf16 by default), or ``cpu`` in float32.
-    Without a CUDA device, ``cuda`` raises: the CPU runs only on request."""
+    Without a CUDA device, ``cuda`` raises: the CPU runs only on request.
+    A rank of a process group takes its own CUDA device
+    (``core.runtime.rank_device``)."""
+    from ..core.runtime import rank_device
+
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device found; to run on the CPU, ask for it with the "
             "option +runtime.device=cpu")
+    device = rank_device(device)
     if device.type == "cpu" or compute_dtype != "bfloat16":
         return device, torch.float32
     return device, torch.bfloat16
@@ -245,10 +266,13 @@ def build_model(task: dict, device=None):
     return MODELS[target](**node, device=device), vocab
 
 
-def load_model(config, ckpt_path):
+def load_model(config, ckpt_path, mesh=None):
     """The task's model with the checkpoint at ``ckpt_path`` loaded, in eval
     mode on the runtime's device, after the runtime's kernel mode is set:
-    (model, vocab, device, compute dtype)."""
+    (model, vocab, device, compute dtype).  On a ``mesh`` with a model axis
+    the model keeps this rank's split (``parallel.mesh.shard_model``)."""
+    from ..parallel.mesh import shard_model
+
     from ..checkpoints.convert import load_reference_checkpoint
     from ..config import to_plain
     from ..ops.backend import set_kernels
@@ -261,7 +285,7 @@ def load_model(config, ckpt_path):
     load_reference_checkpoint(
         ckpt_path, model,
         allow_random_wav2vec=bool(config.get("allow_random_wav2vec", False)))
-    return model.eval(), vocab, device, dtype
+    return shard_model(model, mesh).eval(), vocab, device, dtype
 
 
 def hop_conf(config) -> dict:
@@ -310,8 +334,8 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
                  read_seconds: list | None = None,
                  precision: str | None = None, quantize: str | None = None,
                  pack_across_talks: bool = False, loss_tag: str = "bce",
-                 vocab=None, engine: WindowInference | None = None
-                 ) -> list[dict]:
+                 vocab=None, engine: WindowInference | None = None,
+                 mesh=None, profile_dir=None) -> list[dict]:
     """The product loop: per wav, multi-pass sliding-window inference,
     probability averaging, the segmentation algorithm, yaml rows.
 
@@ -333,13 +357,31 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
     given (the trainer's, for its ST evaluation), runs the batches in place
     of one built from ``device``, ``compute_dtype``, ``precision``,
     ``quantize`` and ``loss_tag``.
+
+    On a ``mesh`` (``parallel.mesh``) each data rank runs its rows of every
+    batch (the engine's) and gets the batch's probabilities back; the batch
+    size rounds up to a multiple of the data ranks, and so does each
+    remainder batch of the ladder.  ``profile_dir`` traces the first talk
+    with ``torch.profiler`` (``core.trace``), from the first dispatch until
+    the talk is drained or the sweep fails.
     """
+    from ..core.trace import start_trace, stop_trace
+    from ..parallel.mesh import pad_batch_to_devices
+
     algorithm = dict(algorithm)
     tag = algorithm.pop("tag")
     need_logits = tag == "dac_logits"
+    if mesh is None and engine is not None:
+        mesh = engine.mesh
+    n_data = 1 if mesh is None else mesh.n_data
+    padded = pad_batch_to_devices(batch_size, n_data)
+    if padded != batch_size:
+        logger.info("batch_size %d -> %d (multiple of %d devices)",
+                    batch_size, padded, n_data)
+        batch_size = padded
     if engine is None:
         engine = WindowInference(model, device, compute_dtype, precision,
-                                 quantize, loss_tag)
+                                 quantize, loss_tag, mesh)
     packer = None
     if pack_across_talks:
         packer = PackedSweep(engine, batch_size, float(segment_length),
@@ -358,7 +400,8 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
                 continue
             batches = BatchIterator(dataset, batch_size, float(segment_length),
                                     remainder_ladder=remainder_ladder,
-                                    pin_memory=engine.device.type == "cuda")
+                                    pin_memory=engine.device.type == "cuda",
+                                    min_multiple=n_data)
             passes.append(dispatch_talk(engine, batches, need_logits))
             if read_seconds is not None:
                 read_seconds.extend(batches.read_seconds)
@@ -398,21 +441,42 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
         logger.info("%s: %.1fs audio in %.2fs (%.0fx RT, pipelined)",
                     name, secs, dt, secs / dt)
 
+    prof = None
+
+    def drain_and_maybe_stop_trace(h):
+        nonlocal prof
+        drain_one(h)
+        if prof is not None:
+            stop_trace(prof)
+            prof = None
+            logger.info("profiler trace of the first talk written to %s",
+                        profile_dir)
+
     t_all = time.perf_counter()
     lookahead = 2 if packer is not None else 1
     in_flight: deque = deque()
     try:
+        if profile_dir:
+            prof = start_trace(profile_dir)
         for wav_path in wav_paths:
             in_flight.append(dispatch_one(wav_path))
             if len(in_flight) > lookahead:
-                drain_one(in_flight.popleft())
+                drain_and_maybe_stop_trace(in_flight.popleft())
         while in_flight:
-            drain_one(in_flight.popleft())
+            drain_and_maybe_stop_trace(in_flight.popleft())
     finally:
-        # a failed drain must not leave the packer's decode threads behind;
-        # each pass's reader has already run to its end in dispatch_talk
-        if packer is not None:
-            packer.close()
+        # a failed sweep must not leave a running trace (the next one in
+        # this process could not start) or the packer's decode threads
+        # behind; each pass's reader has already run to its end in
+        # dispatch_talk.  A failing stop does not mask the sweep's error.
+        try:
+            if prof is not None:
+                stop_trace(prof)
+        except Exception:
+            logger.exception("profiler stop failed during sweep cleanup")
+        finally:
+            if packer is not None:
+                packer.close()
     wall = time.perf_counter() - t_all
     if wall > 0 and total_audio_secs:
         logger.info("segmented %.1fs of audio in %.1fs (%.0fx RT overall)",

@@ -19,11 +19,12 @@ the CLI's.  The port's train CLI writes that config to
 job writes to ``results_path``, or to ``outputs/infer_outputs/
 <override_dirname>``.  The run is on the first CUDA device and raises
 without one; ``+runtime.device=cpu`` asks for the CPU.
-``runtime.precision``, ``runtime.quantize`` and
-``runtime.pack_across_talks`` act as in the segment CLI.  The options of the
-JAX CLI that the port does not carry out (``common.UNPORTED["inference"]``:
-the segment CLI's and wandb) raise when set away from their defaults,
-before any job runs.  pyyaml is imported inside :func:`main` only.
+``runtime.precision``, ``runtime.quantize``, ``runtime.pack_across_talks``,
+``runtime.mesh`` and ``runtime.profile_dir`` act as in the segment CLI.
+``log_wandb=true`` logs each job's ``n_segments`` to a wandb run named
+``<exp_name>/<run dir name>`` (reference inference.py:171-186; without the
+wandb package a warning, and the run goes on: ``core.wandblog``).  pyyaml
+is imported inside :func:`main` only.
 """
 
 from __future__ import annotations
@@ -74,12 +75,26 @@ def resolve_run(config, run_dir):
 def main(argv: list[str] | None = None):
     """A single run returns the yaml rows; ``-m`` returns one list per
     sweep job."""
+    from ..core.runtime import is_rank0
+    from ..core.wandblog import init_wandb
+
     multirun, jobs = common.cli_jobs(CONF_DIR, "inference", argv)
+    launched, out = common.launch_if_mesh(__name__, argv,
+                                          [c for c, _ in jobs])
+    if launched:
+        return out
     outputs = []
     for config, run_dir in jobs:
         config, out_dir = resolve_run(config, run_dir)
-        outputs.append(segment_to_yaml(config, resolve_ckpt_path(config),
-                                       wavs_from_dir(config), out_dir))
+        run = init_wandb(config, out_dir, name="/".join(
+            [str(config.get("exp_name", "infer")), out_dir.name])) \
+            if is_rank0() else None
+        rows = segment_to_yaml(config, resolve_ckpt_path(config),
+                               wavs_from_dir(config), out_dir)
+        if run is not None:
+            run.log({"n_segments": len(rows)}, step=0)
+            run.finish()
+        outputs.append(rows)
     return outputs if multirun else outputs[0]
 
 

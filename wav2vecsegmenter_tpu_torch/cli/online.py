@@ -22,9 +22,9 @@ Only the causal algorithms serve online: ``strm`` and ``pthr`` (+moving
 average); pDAC needs the whole talk.  The run is on the first CUDA device
 and raises without one; ``+runtime.device=cpu`` asks for the CPU.
 ``runtime.kernels``, ``runtime.compute_dtype``, ``runtime.precision`` and
-``runtime.quantize`` act as in the segment CLI; the options of
-``common.UNPORTED["online"]`` raise.  pyyaml is imported inside
-:func:`main` only.
+``runtime.quantize`` act as in the segment CLI; ``runtime.profile_steps``
+is accepted and does nothing, as in the JAX CLI (ROADMAP C22).  pyyaml is
+imported inside :func:`main` only.
 """
 
 from __future__ import annotations

@@ -19,9 +19,16 @@ runs the encoder's products int8 (``ops.quant``);
 ``runtime.pack_across_talks=true`` packs consecutive talks' windows into
 full batches (``infer.packing``).
 A sweep (``-m``) runs one job per combination of the comma-separated
-values, each in ``output_dir/<override_dirname>``.  The runtime options of
-the JAX CLI that the port does not carry out (``common.UNPORTED``) raise
-when set away from their defaults, before any job runs.  pyyaml is
+values, each in ``output_dir/<override_dirname>``.
+
+``runtime.mesh`` (``data``, ``model``) runs the segmentation on a mesh
+(``parallel.mesh``): started outside a process group, the call runs again
+as one rank a device (``core.runtime``; on the CPU, ``+runtime.device=cpu
+runtime.mesh.data=2`` runs two gloo ranks), each data rank runs its rows
+of every batch, the batch size rounds up to a multiple of the data ranks,
+and rank 0 writes the yaml.  ``+runtime.profile_dir=<dir>`` writes a
+``torch.profiler`` trace of the first talk there; ``runtime.profile_steps``
+is accepted and does nothing, as in the JAX CLI (ROADMAP C22).  pyyaml is
 imported inside :func:`main` only.
 """
 
@@ -41,7 +48,8 @@ def segment_rows(config, ckpt_path, wav_paths: list[Path]) -> list[dict]:
     from ..config import to_plain
 
     rt = config.get("runtime") or {}
-    model, vocab, device, dtype = common.load_model(config, ckpt_path)
+    mesh = common.runtime_mesh(config)
+    model, vocab, device, dtype = common.load_model(config, ckpt_path, mesh)
     return common.segment_wavs(
         model, wav_paths, to_plain(config.algorithm),
         int(config.batch_size), float(config.inference_segment_length),
@@ -49,19 +57,25 @@ def segment_rows(config, ckpt_path, wav_paths: list[Path]) -> list[dict]:
         remainder_ladder=bool(rt.get("infer_remainder_ladder", True)),
         precision=rt.get("precision"), quantize=rt.get("quantize"),
         pack_across_talks=bool(rt.get("pack_across_talks", False)),
-        loss_tag=config.task.loss.tag, vocab=vocab)
+        loss_tag=config.task.loss.tag, vocab=vocab, mesh=mesh,
+        profile_dir=rt.get("profile_dir"))
 
 
 def segment_to_yaml(config, ckpt_path, wav_paths: list[Path],
                     output_dir: Path) -> list[dict]:
-    """:func:`segment_rows`, written to ``output_dir/<cust_seg_yaml>``;
-    returns the yaml rows.  Shared with ``cli/inference.py``."""
+    """:func:`segment_rows`, written to ``output_dir/<cust_seg_yaml>`` by
+    rank 0 of a mesh; returns the yaml rows.  Shared with
+    ``cli/inference.py``."""
     import yaml
+
+    from ..core.runtime import is_rank0
 
     output_dir.mkdir(parents=True, exist_ok=True)
     common.init_logging()
     yaml_content = segment_rows(config, ckpt_path, wav_paths)
     common.logger.info("Number of segments: %d", len(yaml_content))
+    if not is_rank0():
+        return yaml_content
     out = output_dir / config.cust_seg_yaml
     with open(out, "w") as f:
         yaml.dump(yaml_content, f, default_flow_style=True)
@@ -75,6 +89,10 @@ def main(argv: list[str] | None = None):
     from ..config import load_config, merge
 
     multirun, jobs = common.cli_jobs(CONF_DIR, "segment", argv)
+    launched, out = common.launch_if_mesh(__name__, argv,
+                                          [c for c, _ in jobs])
+    if launched:
+        return out
     outputs = []
     for config, run_dir in jobs:
         if config.get("config_path"):

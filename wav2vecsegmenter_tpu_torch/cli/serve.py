@@ -14,9 +14,9 @@ wire protocol is in its docstring):
 The bound address prints as one JSON line, ``{"type": "listening",
 "address": ...}``; SIGTERM or SIGINT drains every active stream before the
 daemon exits.  The engine runs on the first CUDA device and raises without
-one; ``+runtime.device=cpu`` asks for the CPU.  ``-m`` is refused, as are
-the options of ``common.UNPORTED["serve"]``.  pyyaml is imported inside
-:func:`main` only.
+one; ``+runtime.device=cpu`` asks for the CPU.  ``-m`` is refused;
+``runtime.profile_steps`` is accepted and does nothing, as in the JAX CLI
+(ROADMAP C22).  pyyaml is imported inside :func:`main` only.
 """
 
 from __future__ import annotations

@@ -15,10 +15,12 @@ The run is on the first CUDA device and raises without one;
 ``<exp_name>/.hydra/config.yaml`` (the file the segment CLI's
 ``config_path`` and the inference CLI's ``base_cfg`` read), the run's
 checkpoints, its run state and its final model under ``<exp_name>/``
-(``train.loop``).  The options of the JAX CLI that the port does not
-carry out yet (ST evaluation, wandb, profiling, meshes:
-``common.UNPORTED``) raise when set away from their defaults.
-pyyaml is imported inside :func:`main` only.
+(``train.loop``).  ``runtime.mesh`` (``data``, ``model``, ``fsdp``) trains
+on a mesh: started outside a process group, the call runs again as one
+rank a device (``core.runtime``; on the CPU ``+runtime.device=cpu
+runtime.mesh.data=2`` runs two gloo ranks), and rank 0 writes the files.
+``runtime.profile_steps`` and ``log_wandb`` act as in the JAX CLI
+(``train.loop``).  pyyaml is imported inside :func:`main` only.
 """
 
 from __future__ import annotations
@@ -34,19 +36,27 @@ def main(argv: list[str] | None = None) -> dict:
     import yaml
 
     from ..config import compose, to_plain
+    from ..core.runtime import is_rank0, maybe_init_distributed
     from ..train.loop import train
-    from .common import refuse_unported
+    from .common import launch_if_mesh
 
     argv = sys.argv[1:] if argv is None else argv
     overrides = [a for a in argv if "=" in a and not a.startswith("--")]
     config = compose(CONF_DIR, "train", overrides)
-    refuse_unported(config, "train", CONF_DIR)
+    launched, out = launch_if_mesh(__name__, argv, [config])
+    if launched:
+        return out
     logging.basicConfig(level=logging.INFO,
                         format="[%(levelname)s %(asctime)s] %(message)s")
-    hydra_dir = Path(config.exp_name) / ".hydra"
-    hydra_dir.mkdir(parents=True, exist_ok=True)
-    with open(hydra_dir / "config.yaml", "w") as f:
-        yaml.safe_dump(to_plain(config), f, sort_keys=False)
+    import torch
+
+    maybe_init_distributed(torch.device(
+        (config.get("runtime") or {}).get("device", "cuda")).type)
+    if is_rank0():
+        hydra_dir = Path(config.exp_name) / ".hydra"
+        hydra_dir.mkdir(parents=True, exist_ok=True)
+        with open(hydra_dir / "config.yaml", "w") as f:
+            yaml.safe_dump(to_plain(config), f, sort_keys=False)
     return train(config)
 
 

@@ -74,13 +74,16 @@ class FixedDataloaderGenerator:
                  inference_times: int = 1,
                  remainder_ladder: bool = False,
                  pin_memory: bool = False, vocab=None,
-                 ctc: bool = False, autoregression: bool = False) -> None:
+                 ctc: bool = False, autoregression: bool = False,
+                 min_multiple: int = 1) -> None:
         self.vocab = vocab
         self.ctc = ctc
         self.autoregression = autoregression
         self.batch_size = batch_size
         self.segment_length = segment_length
         self.remainder_ladder = remainder_ladder
+        # a mesh's data ranks: every ladder slot count a multiple of them
+        self.min_multiple = min_multiple
         self.pin_memory = pin_memory
         self.dataset = FixedSegmentationDataset(
             talk_list, segments_list, segment_length, inference_times)
@@ -95,6 +98,7 @@ class FixedDataloaderGenerator:
                              float(self.segment_length),
                              remainder_ladder=self.remainder_ladder,
                              pin_memory=self.pin_memory,
+                             min_multiple=self.min_multiple,
                              **_vocab_kwargs(self.vocab, self.ctc,
                                              self.autoregression))
 

@@ -94,11 +94,13 @@ class BatchIterator:
                  seed: int | None = None, pin_memory: bool = False,
                  pad_token_id: float = 0.0, ctc_vocab=None,
                  autoregression: bool = False,
-                 sep_token_id: int = 3) -> None:
+                 sep_token_id: int = 3, min_multiple: int = 1) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.std_len, self.tail_len = audio_bucket_lengths(segment_length_secs)
         self.remainder_ladder = remainder_ladder
+        # a mesh's data ranks: every slot count a multiple of them
+        self.min_multiple = max(1, int(min_multiple))
         self.shuffle = shuffle
         self.seed = seed
         self.pin_memory = pin_memory
@@ -115,12 +117,15 @@ class BatchIterator:
 
     def _slots_for(self, n: int) -> int:
         """Rows of a batch of ``n`` examples: ``batch_size``, or for a final
-        partial batch under the ladder the smallest power of two >= n."""
+        partial batch under the ladder the smallest power of two >= n,
+        rounded up to ``min_multiple``."""
         if not self.remainder_ladder or n >= self.batch_size:
             return self.batch_size
+        m = self.min_multiple
         slots = 1
         while slots < n:
             slots *= 2
+        slots = ((slots + m - 1) // m) * m
         return min(slots, self.batch_size)
 
     def _index_batches(self) -> list[np.ndarray]:

@@ -32,6 +32,13 @@ the ladder's knobs (``SHASWithSSL``, whose JAX ``apply`` takes none, and
 ``AutoRegSegmenter``, whose JAX decode ignores them: ROADMAP C17)
 refuses the arms between bf16 and float32.
 
+On a mesh (``mesh``, ``parallel.mesh``) each data rank runs its rows of
+every batch, on a model split over the mesh's model axis where it has one,
+and the probabilities, logits and row losses come back gathered, in batch
+order, on every rank; a batch's rows are normalized over the whole batch's
+``norm_length``.  int8 does not compose with tensor parallelism, as in the
+JAX engine.
+
 A model with a ``greedy_decode`` (the autoregressive segmenter,
 ``task=arseg``) decodes each batch one token a frame instead: its
 probabilities are p(in-segment) = softmax([l_B, l_NB])[1], and its
@@ -40,11 +47,14 @@ probabilities are p(in-segment) = softmax([l_B, l_NB])[1], and its
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..data.collate import Batch
 from ..ops.quant import quantize_layers
+from ..parallel.mesh import all_gather, local_rows
 
 # runtime.precision: CUMULATIVE arms between bf16 and float32, trading
 # throughput for near-threshold probability fidelity (the JAX package's
@@ -143,15 +153,34 @@ class ProbsHandle:
         return float(self._loss)
 
 
-def batch_loss(loss_fn, logits: torch.Tensor, target: torch.Tensor,
-               out_mask: torch.Tensor, n_real: int) -> torch.Tensor:
-    """Masked eval loss of one batch (reference lib/evaluate.py:74-81):
-    per-point loss zeroed off ``out_mask``, summed per row, meaned over the
-    batch's real rows only."""
+def row_losses(loss_fn, logits: torch.Tensor, target: torch.Tensor,
+               out_mask: torch.Tensor) -> torch.Tensor:
+    """Each row's masked eval loss: the per-point loss zeroed off
+    ``out_mask``, summed over the row."""
     t = min(logits.shape[1], target.shape[1])
     lpp = torch.where(out_mask[:, :t], loss_fn(logits[:, :t].float(),
                                                target[:, :t]), 0.0)
-    return lpp.sum(dim=1)[:n_real or len(lpp)].mean()
+    return lpp.sum(dim=1)
+
+
+def batch_loss(loss_fn, logits: torch.Tensor, target: torch.Tensor,
+               out_mask: torch.Tensor, n_real: int) -> torch.Tensor:
+    """Masked eval loss of one batch (reference lib/evaluate.py:74-81):
+    :func:`row_losses` meaned over the batch's real rows only."""
+    rows = row_losses(loss_fn, logits, target, out_mask)
+    return rows[:n_real or len(rows)].mean()
+
+
+def local_batch(batch, mesh):
+    """This data rank's rows of a batch (every per-row field sliced; the
+    batch-wide ones, ``norm_length`` and ``n_real``, kept)."""
+    if mesh is None or mesh.n_data == 1:
+        return batch
+    b = len(batch.included)
+    return dataclasses.replace(batch, **{
+        f.name: local_rows(v, mesh) for f in dataclasses.fields(batch)
+        if isinstance(v := getattr(batch, f.name), np.ndarray)
+        and v.ndim and v.shape[0] == b})
 
 
 class WindowInference:
@@ -163,10 +192,11 @@ class WindowInference:
 
     def __init__(self, model, device, compute_dtype=torch.float32,
                  precision: str | None = None, quantize: str | None = None,
-                 loss_tag: str = "bce"):
+                 loss_tag: str = "bce", mesh=None):
         self.model = model
         self.device = torch.device(device)
         self.loss_tag = loss_tag
+        self.mesh = mesh
         # the model's keyword arguments: the precision arm's, and the int8
         # layers under quantize
         self.compute_dtype, self.forward_kwargs = resolve_precision(
@@ -182,16 +212,42 @@ class WindowInference:
             if quantize != "int8":
                 raise ValueError(f"unknown quantize mode '{quantize}' "
                                  "(supported: int8)")
+            if mesh is not None and mesh.n_model > 1:
+                raise ValueError(
+                    "runtime.quantize=int8 does not compose with tensor "
+                    "parallelism (per-channel scales are not partitioned)")
             self.quantized = quantize_layers(model.backbone.encoder)
             self.forward_kwargs = {**self.forward_kwargs,
                                    "quantized": self.quantized}
         self.loss_fn = None  # the trainer sets its epoch's loss for eval
 
-    @torch.inference_mode()
     def run_batch(self, batch: Batch, need_logits: bool = False
                   ) -> ProbsHandle:
         """Launch one batch; the handle downloads its probabilities, and its
-        frame logits (zero off ``out_mask``) under ``need_logits``."""
+        frame logits (zero off ``out_mask``) under ``need_logits``.  On a
+        mesh this rank runs its rows and the handle holds the batch's (under
+        ``no_grad``: an FSDP model's gathered parameters must not become
+        inference tensors)."""
+        mode = torch.inference_mode if self.mesh is None else torch.no_grad
+        with mode():
+            return self._run_batch(batch, need_logits)
+
+    def _run_batch(self, batch: Batch, need_logits: bool) -> ProbsHandle:
+        probs, loss, logits = self._run_rows(local_batch(batch, self.mesh),
+                                             need_logits)
+        mesh = self.mesh
+        if mesh is not None and mesh.n_data > 1:
+            def gather(t):
+                return None if t is None else all_gather(
+                    t, mesh.data_group)
+            probs, loss, logits = gather(probs), gather(loss), gather(logits)
+        if loss is not None:
+            loss = loss[:batch.n_real or len(loss)].mean()
+        return ProbsHandle(probs, loss, logits)
+
+    def _run_rows(self, batch: Batch, need_logits: bool):
+        """(probabilities, row losses or None, logits or None) of a batch's
+        rows on the device."""
         def up(a):
             return upload(a, self.device)
 
@@ -207,8 +263,7 @@ class WindowInference:
             logits_out = None
             if need_logits:
                 logits_out = torch.where(out_mask[..., None], logits, 0.0)
-            return ProbsHandle(torch.where(out_mask, probs, 0.0), None,
-                               logits_out)
+            return torch.where(out_mask, probs, 0.0), None, logits_out
         logits = self.model(audio, up(batch.in_lengths), out_mask,
                             self.compute_dtype, **self.forward_kwargs)
         if isinstance(logits, tuple):  # SHASWithSSL: (ctc, frame)
@@ -220,13 +275,13 @@ class WindowInference:
         probs = torch.where(out_mask, probs, 0.0)
         loss = None
         if self.loss_fn is not None and batch.target is not None:
-            loss = batch_loss(self.loss_fn, logits, up(batch.target),
-                              out_mask, batch.n_real)
+            loss = row_losses(self.loss_fn, logits, up(batch.target),
+                              out_mask)
         logits_out = None
         if need_logits:
             mask = out_mask if logits.dim() == 2 else out_mask[..., None]
             logits_out = torch.where(mask, logits, 0.0)
-        return ProbsHandle(probs, loss, logits_out)
+        return probs, loss, logits_out
 
 
 def nan_fill(arr: np.ndarray, duration: int) -> None:

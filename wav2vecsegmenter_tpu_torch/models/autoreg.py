@@ -54,7 +54,8 @@ from torch import nn
 
 from ..ops.attention import NEG_INF, attention_cross
 from ..ops.layernorm import layer_norm
-from .sfc import EPS, SelfAttention, Transformer, encoder_layer
+from ..ops.shmap import copy_to_model, reduce_from_model, shard_attention
+from .sfc import EPS, SelfAttention, Transformer, encoder_layer, feed_forward
 from .shas import _Backbone, _Trainable
 from .wav2vec2 import (Wav2Vec2Config, Wav2Vec2Model, _lin, config_for,
                        dropout)
@@ -102,39 +103,63 @@ def _ln(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return layer_norm(x, norm.weight, norm.bias, EPS)
 
 
+def _heads(attn: SelfAttention, n_heads: int):
+    """(the attention's mesh or None, the rank's head count)."""
+    mesh = getattr(attn, "tp_mesh", None)
+    return mesh, n_heads // (1 if mesh is None else mesh.n_model)
+
+
 def _causal_attention(attn: SelfAttention, y: torch.Tensor,
                       tgt_mask: torch.Tensor, n_heads: int, dt
                       ) -> torch.Tensor:
     """The decoder's causal self-attention, plain (JAX ``_attn_block`` with
     ``causal``): float32 scores of q * scale (rounded to ``dt``) against k,
     -1e30 on future keys and keys off ``tgt_mask``, softmax cast to ``dt``
-    before the PV product."""
+    before the PV product.  Split over a mesh's model axis, on the rank's
+    heads."""
     b, t, d = y.shape
     dh = d // n_heads
-    qkv = (y @ attn.in_proj_weight.to(dt).t() + attn.in_proj_bias.to(dt))
-    q, k, v = qkv.view(b, t, 3, n_heads, dh).unbind(2)
-    s = torch.einsum("bqhd,bkhd->bhqk", (q * dh ** -0.5).float(), k.float())
-    causal = torch.ones(t, t, dtype=torch.bool, device=y.device).tril()
-    s = torch.where(causal, s, NEG_INF)
-    s = torch.where(tgt_mask[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(dt)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, t, d)
-    return _lin(attn.out_proj, out, dt)
+    mesh, heads = _heads(attn, n_heads)
+
+    def heads_out(y):
+        qkv = (y @ attn.in_proj_weight.to(dt).t() + attn.in_proj_bias.to(dt))
+        q, k, v = qkv.view(b, t, 3, heads, dh).unbind(2)
+        s = torch.einsum("bqhd,bkhd->bhqk", (q * dh ** -0.5).float(),
+                         k.float())
+        causal = torch.ones(t, t, dtype=torch.bool, device=y.device).tril()
+        s = torch.where(causal, s, NEG_INF)
+        s = torch.where(tgt_mask[:, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(dt)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, t, heads * dh)
+        return out @ attn.out_proj.weight.to(dt).t()
+
+    return shard_attention(heads_out, y, mesh, attn.out_proj.bias.to(dt))
 
 
 def _cross_attention(attn: SelfAttention, y: torch.Tensor,
                      memory: torch.Tensor, key_mask: torch.Tensor,
                      n_heads: int, dt) -> torch.Tensor:
     """Queries of y [B, T_tgt, d] over the memory [B, T_mem, d] on K4, its
-    K/V projection packed [B, T_mem, 2, H, D]."""
+    K/V projection packed [B, T_mem, 2, H, D]; split over a mesh's model
+    axis, on the rank's heads (both y and the memory enter the split)."""
     b, tq, d = y.shape
     dh = d // n_heads
+    mesh, heads = _heads(attn, n_heads)
     w, bias = attn.in_proj_weight.to(dt), attn.in_proj_bias.to(dt)
-    q = (y @ w[:d].t() + bias[:d]).view(b, tq, n_heads, dh)
-    kv = (memory @ w[d:].t() + bias[d:]).view(b, memory.shape[1], 2,
-                                              n_heads, dh)
-    out = attention_cross(q, kv, key_mask, dh ** -0.5)
-    return _lin(attn.out_proj, out.reshape(b, tq, d), dt)
+    dl = heads * dh
+
+    def heads_out(y, memory):
+        q = (y @ w[:dl].t() + bias[:dl]).view(b, tq, heads, dh)
+        kv = (memory @ w[dl:].t() + bias[dl:]).view(b, memory.shape[1], 2,
+                                                    heads, dh)
+        out = attention_cross(q, kv, key_mask, dh ** -0.5)
+        return out.reshape(b, tq, dl) @ attn.out_proj.weight.to(dt).t()
+
+    if mesh is None:
+        return heads_out(y, memory) + attn.out_proj.bias.to(dt)
+    return reduce_from_model(heads_out(copy_to_model(y, mesh),
+                                       copy_to_model(memory, mesh)),
+                             mesh) + attn.out_proj.bias.to(dt)
 
 
 class AutoRegSegmenter(_Trainable):
@@ -228,8 +253,9 @@ class AutoRegSegmenter(_Trainable):
             a = _cross_attention(layer.multihead_attn, _ln(layer.norm2, y),
                                  memory, frame_mask, heads, dt)
             y = y + drop(a)
-            f = drop(F.gelu(_lin(layer.linear1, _ln(layer.norm3, y), dt)))
-            y = y + drop(_lin(layer.linear2, f, dt))
+            f = feed_forward(layer, _ln(layer.norm3, y), dt, LAYER_DROPOUT,
+                             generator)
+            y = y + drop(f)
         return _lin(seg.output_layer, _ln(seg.norm, y), dt).float()
 
     def forward(self, audio: torch.Tensor, in_lengths: torch.Tensor,
@@ -264,9 +290,11 @@ class AutoRegSegmenter(_Trainable):
 
         The memory and each layer's cross K/V are computed once.  Step i
         feeds the token decoded at i - 1 (``<SEP>`` at i = 0), writes its
-        self-attention K/V into a preallocated [L, B, H, t_out, D] cache at
-        i and scores the whole cache, -1e30 past i, so that every step has
-        the same shapes.  The next token is ``<NB>`` where its logit
+        self-attention K/V into a layer's preallocated [2, B, H, t_out, D]
+        cache at i and scores the whole cache, -1e30 past i, so that every
+        step has the same shapes.  A decoder split over a mesh's model axis
+        runs the rank's heads and F columns, its row-parallel products
+        summed over 'model'.  The next token is ``<NB>`` where its logit
         exceeds ``<B>``'s, else ``<B>`` (a tie goes to ``<B>``, as
         ``jnp.argmax`` breaks it); ``probs`` is softmax([l_B, l_NB])[1],
         the in-segment probability.  ``quantized`` holds the backbone
@@ -283,14 +311,20 @@ class AutoRegSegmenter(_Trainable):
         layers = []
         for layer in seg.decoder.layers:
             sa, ca = layer.self_attn, layer.multihead_attn
+            sa_mesh, sa_heads = _heads(sa, heads)
+            ca_mesh, ca_heads = _heads(ca, heads)
             cw, cb = ca.in_proj_weight.to(dt), ca.in_proj_bias.to(dt)
-            kv = (memory @ cw[d:].t() + cb[d:]).view(b, -1, 2, heads, dh)
+            dl = ca_heads * dh
+            kv = (memory @ cw[dl:].t() + cb[dl:]).view(b, -1, 2, ca_heads,
+                                                       dh)
             layers.append({
-                "layer": layer,
+                "layer": layer, "sa": (sa_mesh, sa_heads),
+                "ca": (ca_mesh, ca_heads),
+                "ff": getattr(layer, "tp_mesh", None),
                 "qkv": (sa.in_proj_weight.to(dt).t(),
                         sa.in_proj_bias.to(dt)),
                 "o": (sa.out_proj.weight.to(dt).t(), sa.out_proj.bias.to(dt)),
-                "cq": (cw[:d].t(), cb[:d]),
+                "cq": (cw[:dl].t(), cb[:dl]),
                 "co": (ca.out_proj.weight.to(dt).t(), ca.out_proj.bias.to(dt)),
                 # [B, H, T_mem, D]
                 "ck": kv[:, :, 0].transpose(1, 2).contiguous(),
@@ -303,8 +337,8 @@ class AutoRegSegmenter(_Trainable):
         out_w = (seg.output_layer.weight.to(dt).t(),
                  seg.output_layer.bias.to(dt))
         emb = (seg.embedding.weight * math.sqrt(d)).to(dt)
-        cache = torch.zeros((2, len(layers), b, heads, t_out, dh), dtype=dt,
-                            device=dev)
+        cache = [torch.zeros((2, b, p["sa"][1], t_out, dh), dtype=dt,
+                             device=dev) for p in layers]
         pos = torch.arange(t_out, device=dev)
         cross_ok = frame_mask[:, None, :]
         logits = torch.empty((b, t_out, self.vocab_size),
@@ -315,26 +349,32 @@ class AutoRegSegmenter(_Trainable):
         def lin(x, wb):
             return x @ wb[0] + wb[1]
 
+        def lin_split(x, wb, mesh):
+            """A row-parallel product: the rank's partial, summed over
+            'model', then the bias."""
+            return reduce_from_model(x @ wb[0], mesh) + wb[1]
+
         for i in range(t_out):
             y = emb[tok]
             ok = pos <= i
             for li, p in enumerate(layers):
-                layer = p["layer"]
+                layer, c = p["layer"], cache[li]
+                (sa_mesh, sa_h), (ca_mesh, ca_h) = p["sa"], p["ca"]
                 q, k, v = lin(_ln(layer.norm1, y), p["qkv"]).view(
-                    b, 3, heads, dh).unbind(1)
-                cache[0, li, :, :, i] = k
-                cache[1, li, :, :, i] = v
-                s = torch.einsum("bhd,bhkd->bhk", q * scale, cache[0, li])
+                    b, 3, sa_h, dh).unbind(1)
+                c[0, :, :, i] = k
+                c[1, :, :, i] = v
+                s = torch.einsum("bhd,bhkd->bhk", q * scale, c[0])
                 s = torch.softmax(torch.where(ok, s, NEG_INF), dim=-1)
-                a = torch.einsum("bhk,bhkd->bhd", s, cache[1, li])
-                y = y + lin(a.reshape(b, d), p["o"])
-                q = lin(_ln(layer.norm2, y), p["cq"]).view(b, heads, dh)
+                a = torch.einsum("bhk,bhkd->bhd", s, c[1])
+                y = y + lin_split(a.reshape(b, sa_h * dh), p["o"], sa_mesh)
+                q = lin(_ln(layer.norm2, y), p["cq"]).view(b, ca_h, dh)
                 s = torch.einsum("bhd,bhkd->bhk", q * scale, p["ck"])
                 s = torch.softmax(torch.where(cross_ok, s, NEG_INF), dim=-1)
                 a = torch.einsum("bhk,bhkd->bhd", s, p["cv"])
-                y = y + lin(a.reshape(b, d), p["co"])
+                y = y + lin_split(a.reshape(b, ca_h * dh), p["co"], ca_mesh)
                 f = F.gelu(lin(_ln(layer.norm3, y), p["w1"]))
-                y = y + lin(f, p["w2"])
+                y = y + lin_split(f, p["w2"], p["ff"])
             step = lin(_ln(seg.norm, y), out_w).float()
             tok = torch.where(step[:, nonboundary_id] > step[:, boundary_id],
                               nonboundary_id, boundary_id)

@@ -25,6 +25,7 @@ from ..ops import backend
 from ..ops.attention import attention_qkv
 from ..ops.layernorm import layer_norm
 from ..ops.rowdot import row_dot
+from ..ops.shmap import shard_attention, shard_ffn, tp_cols
 from .wav2vec2 import _lin, dropout
 
 EPS = 1e-5
@@ -108,15 +109,46 @@ def encoder_layer(layer: SFCLayer, h: torch.Tensor, key_mask: torch.Tensor,
     GEMM -> attention keyed by ``key_mask`` (K4) -> output projection ->
     dropout -> residual; LayerNorm -> linear1 -> exact GELU -> dropout ->
     linear2 -> dropout -> residual (the dropouts at ``dropout_rate``, drawn
-    from ``generator``; none without one)."""
+    from ``generator``; none without one).  A block split over a mesh's
+    model axis (``tp_mesh`` on the attention or the layer) runs the rank's
+    heads or F columns, summed over 'model' (``ops.shmap``)."""
     hn = layer_norm(h, layer.norm1.weight, layer.norm1.bias, EPS)
-    b, t, d_model = hn.shape
-    dh = d_model // n_heads
-    sa = layer.self_attn
-    qkv = (hn @ sa.in_proj_weight.to(dt).t() + sa.in_proj_bias.to(dt))
-    a = attention_qkv(qkv.view(b, t, 3, n_heads, dh), key_mask, dh ** -0.5)
-    a = _lin(sa.out_proj, a.reshape(b, t, d_model), dt)
+    a = self_attention(layer.self_attn, hn, key_mask, n_heads, dt)
     h = h + dropout(a, dropout_rate, generator)
     hn = layer_norm(h, layer.norm2.weight, layer.norm2.bias, EPS)
-    f = dropout(F.gelu(_lin(layer.linear1, hn, dt)), dropout_rate, generator)
-    return h + dropout(_lin(layer.linear2, f, dt), dropout_rate, generator)
+    f = feed_forward(layer, hn, dt, dropout_rate, generator)
+    return h + dropout(f, dropout_rate, generator)
+
+
+def self_attention(sa: SelfAttention, hn: torch.Tensor,
+                   key_mask: torch.Tensor, n_heads: int, dt) -> torch.Tensor:
+    """The packed QKV GEMM, K4 and the output projection, on the rank's
+    heads where ``sa`` is split."""
+    mesh = getattr(sa, "tp_mesh", None)
+    heads = n_heads // (1 if mesh is None else mesh.n_model)
+    b, t, d_model = hn.shape
+    dh = d_model // n_heads
+
+    def heads_out(x):
+        qkv = x @ sa.in_proj_weight.to(dt).t() + sa.in_proj_bias.to(dt)
+        a = attention_qkv(qkv.view(b, t, 3, heads, dh), key_mask,
+                          dh ** -0.5)
+        return a.reshape(b, t, heads * dh) @ sa.out_proj.weight.to(dt).t()
+
+    return shard_attention(heads_out, hn, mesh, sa.out_proj.bias.to(dt))
+
+
+def feed_forward(layer, hn: torch.Tensor, dt, dropout_rate: float = 0.0,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """linear1 -> exact GELU -> dropout -> linear2 of a head layer (an
+    ``SFCLayer`` or a decoder layer), on the rank's F columns where the
+    layer is split."""
+    mesh = getattr(layer, "tp_mesh", None)
+
+    def composed(x, w1, b1, w2, b2):
+        f = dropout(F.gelu(x @ w1.to(dt).t() + b1.to(dt)), dropout_rate,
+                    generator, tp_cols(mesh))
+        return f @ w2.to(dt).t() + b2.to(dt)
+
+    return shard_ffn(composed, hn, layer.linear1.weight, layer.linear1.bias,
+                     layer.linear2.weight, layer.linear2.bias, mesh)

@@ -82,6 +82,7 @@ from ..ops.convfuse import (conv_bias_ln_gelu, convfuse_enabled,
 from ..ops.ffn import ffn, ffnfuse_enabled
 from ..ops.layernorm import bias_layer_norm_gelu, layer_norm
 from ..ops.quant import int8_linear
+from ..ops.shmap import rand_rows, shard_attention, shard_ffn, tp_cols
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,14 +336,15 @@ def _lin(lin: nn.Linear, x: torch.Tensor, dt) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None, cols=None) -> torch.Tensor:
     """Inverted dropout with a mask drawn from ``generator`` (JAX
     ``_dropout``: keep with probability 1 - rate, scale by 1/(1 - rate));
-    the identity without a generator or at rate 0."""
+    the identity without a generator or at rate 0.  On a mesh the mask is
+    this rank's part of the global batch's (``ops.shmap.rand_rows``;
+    ``cols`` for a split block's activation)."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < 1.0 - rate
+    keep = rand_rows(x.shape, generator, x.device, cols) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0)
 
 
@@ -367,7 +369,7 @@ def sample_time_mask(generator: torch.Generator, b: int, t: int,
     num = torch.where(num * length > t, t // length, num)
     num = torch.minimum(num, n_starts)
     k_max = max(1, t // length)
-    keys = torch.rand((b, t), generator=generator, device=dev)
+    keys = rand_rows((b, t), generator, dev)
     pos = torch.arange(t, device=dev)
     keys = torch.where(pos[None, :] < n_starts[:, None], keys, torch.inf)
     starts = keys.argsort(dim=-1)[:, :k_max, None]
@@ -465,21 +467,27 @@ def _mha(attn: Attention, x: torch.Tensor, key_mask: torch.Tensor,
          num_heads: int, dt, quant: dict | None = None) -> torch.Tensor:
     """One fused [H, 3H] QKV GEMM, then attention straight off its output;
     with ``quant`` (the layer's ``ops.quant.quantize_layers`` entry) both
-    products run int8."""
-    h = x.shape[-1]
+    products run int8.  A block split over a mesh's model axis
+    (``tp_mesh``) runs its heads: the QKV of the rank's q/k/v rows, K3 on
+    them, its columns of the output projection, summed over 'model'
+    (``ops.shmap.shard_attention``)."""
+    scale = (x.shape[-1] // num_heads) ** -0.5
     if quant is not None:
-        proj = int8_linear(x, quant["qkv"], dt)
-    else:
+        out = attention_packed(int8_linear(x, quant["qkv"], dt), key_mask,
+                               num_heads, scale)
+        return int8_linear(out, quant["o"], dt)
+    mesh = getattr(attn, "tp_mesh", None)
+    heads = num_heads // (1 if mesh is None else mesh.n_model)
+
+    def heads_out(x):
         w = torch.cat([attn.q_proj.weight, attn.k_proj.weight,
                        attn.v_proj.weight]).to(dt)
         bias = torch.cat([attn.q_proj.bias, attn.k_proj.bias,
                           attn.v_proj.bias]).to(dt)
-        proj = x @ w.t() + bias
-    out = attention_packed(proj, key_mask, num_heads,
-                           (h // num_heads) ** -0.5)
-    if quant is not None:
-        return int8_linear(out, quant["o"], dt)
-    return _lin(attn.out_proj, out, dt)
+        out = attention_packed(x @ w.t() + bias, key_mask, heads, scale)
+        return out @ attn.out_proj.weight.to(dt).t()
+
+    return shard_attention(heads_out, x, mesh, attn.out_proj.bias.to(dt))
 
 
 def _ffn(ff: FeedForward, x: torch.Tensor, cfg: Wav2Vec2Config, dt,
@@ -493,11 +501,32 @@ def _ffn(ff: FeedForward, x: torch.Tensor, cfg: Wav2Vec2Config, dt,
         return int8_linear(F.gelu(int8_linear(x, quant["w1"], dt)),
                            quant["w2"], dt)
     w1, w2 = ff.intermediate_dense, ff.output_dense
+    mesh = getattr(ff, "tp_mesh", None)
     act_drop = cfg.activation_dropout if generator is not None else 0.0
     if ffnfuse_enabled() and act_drop == 0.0:
-        return ffn(x, w1.weight, w1.bias, w2.weight, w2.bias)
-    return _lin(w2, dropout(F.gelu(_lin(w1, x, dt)), act_drop, generator),
-                dt)
+        return shard_ffn(ffn, x, w1.weight, w1.bias, w2.weight, w2.bias,
+                         mesh)
+
+    def composed(x, w1w, b1, w2w, b2):
+        f = dropout(F.gelu(x @ w1w.to(dt).t() + b1.to(dt)), act_drop,
+                    generator, tp_cols(mesh))
+        return f @ w2w.to(dt).t() + b2.to(dt)
+
+    return shard_ffn(composed, x, w1.weight, w1.bias, w2.weight, w2.bias,
+                     mesh)
+
+
+def _adapter(ad: Adapter, hn: torch.Tensor, dt) -> torch.Tensor:
+    """An FFN adapter, relu(hn·down + b)·up + b; split over a mesh's
+    model axis as the FFN is (down column-, up row-parallel)."""
+    mesh = getattr(ad, "tp_mesh", None)
+
+    def down_up(x, wd, bd, wu, bu):
+        return F.relu(x @ wd.to(dt).t() + bd.to(dt)) @ wu.to(dt).t() \
+            + bu.to(dt)
+
+    return shard_ffn(down_up, hn, ad.down_proj.weight, ad.down_proj.bias,
+                     ad.up_proj.weight, ad.up_proj.bias, mesh)
 
 
 def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
@@ -563,9 +592,7 @@ def encoder(enc: Encoder, x: torch.Tensor, frame_mask: torch.Tensor,
         f = dropout(_ffn(layer.feed_forward, hn, cfg, ldt, generator, quant),
                     cfg.hidden_dropout, generator)
         if layer.ffn_adapter is not None:
-            ad = layer.ffn_adapter
-            a = _lin(ad.up_proj, F.relu(_lin(ad.down_proj, hn, ldt)), ldt)
-            f = f + a * cfg.adapter_scale
+            f = f + _adapter(layer.ffn_adapter, hn, ldt) * cfg.adapter_scale
         h = h + f.to(res_dt)
     return h
 

@@ -56,8 +56,29 @@ seeds the model's numpy weights, the per-epoch window grids (unless
 masks; the backbone then comes from a local HF snapshot of the pretrained
 model where there is one, the head from ``finetune_from_model`` where that
 is set.  The ``ctc`` tag with a frozen backbone raises, as in the JAX
-package (nothing would train).  Not ported yet: wandb, ``steps_per_call``
-and device meshes.
+package (nothing would train).
+
+A run on a mesh (``runtime.mesh``: ``data``, ``model``, ``fsdp``;
+``parallel.mesh``) is one of a process group's ranks (``core.runtime``;
+the train CLI launches them): the effective batch is ``batch_size`` times
+the data ranks, every rank reads the same seeded global batch and takes
+its rows (``train.step``); the model is split over the model axis and,
+under ``fsdp``, ``fully_shard``-ed over 'data'.  Plain data parallelism
+evaluates the whole eval set on every rank with its replicated model; a
+model axis or FSDP evaluates through the sharded model, the rows over
+'data'.  Rank 0 writes the checkpoints and the run state, whole and in the
+single-device layout (``resume=true`` splits them again), and the files
+of the ST evaluation.
+
+``runtime.profile_steps=N`` writes a ``torch.profiler`` trace
+(``core.trace``) of the first N micro-steps that this process takes (after
+a resume, the first N after it) to ``<exp_name>/profile``, one file a
+rank; the trace is written early when the run ends before N and when a
+step raises.  ``log_wandb=true`` starts a wandb run on rank 0
+(``core.wandblog``) and logs ``{"epoch", **train metrics}`` at each print
+at the global step, the epoch's evaluation and ``finish``, the keys and
+steps of the JAX trainer.  Not ported: ``steps_per_call`` (one micro-step
+a call; ROADMAP).
 """
 
 from __future__ import annotations
@@ -75,6 +96,7 @@ from ..checkpoints.convert import (
 )
 from ..checkpoints.io import (
     load_run_state,
+    model_state_dict,
     save_model_checkpoint,
     save_run_state,
 )
@@ -82,11 +104,15 @@ from ..cli.common import build_model, runtime_device_dtype, segment_wavs
 from ..cli.inference import wavs_from_dir
 from ..config import to_plain
 from ..constants import WAV2VEC_FRAME_LEN
+from ..core import runtime
+from ..core.trace import start_trace, stop_trace
+from ..core.wandblog import init_wandb
 from ..data.loader import FixedDataloaderGenerator, RandomDataloaderGenerator
 from ..eval.metrics import evaluate, train_step_metrics
 from ..infer.pipeline import WindowInference
 from ..models.wav2vec2 import init_from_numpy
 from ..ops import backend
+from ..parallel import mesh as pmesh
 from .loss import build_loss
 from .step import AccumulatingAdamW, make_train_step
 
@@ -189,6 +215,8 @@ def run_st_eval(config, model, engine, vocab, results_path: Path,
     results: dict = {}
     for key, (algorithm, rows) in st_eval_segments(config, model, engine,
                                                    vocab).items():
+        if not runtime.is_rank0():
+            continue
         out = Path(results_path) / "eval_st" / checkpoint_name / algorithm
         results.update(eval_st(config[key], rows, out, algorithm))
     return results
@@ -218,22 +246,31 @@ class Checkpoints:
         self.best_checkpoint: str | None = None
 
     def save(self, name: str, model, results: dict | None) -> None:
+        """Save ``model`` as ``name``; on a mesh every rank gathers the
+        whole state and rank 0 writes the files."""
         if not self.enabled:
             return
-        path = save_model_checkpoint(self.directory / f"{name}.pt", model)
+        state = model_state_dict(model)
+        write = runtime.is_rank0()
+        path = self.directory / f"{name}.pt"
+        if write:
+            save_model_checkpoint(path, model, state)
         self.ckpt_list.append(path.name)
         if len(self.ckpt_list) > self.keep_last:
-            (self.directory / self.ckpt_list.pop(0)).unlink(missing_ok=True)
+            gone = self.directory / self.ckpt_list.pop(0)
+            if write:
+                gone.unlink(missing_ok=True)
         if self.keep_best and results:
             score = results.get(self.metric, 0.0)
             if score > self.best_score:
-                if self.best_checkpoint is not None:
+                if self.best_checkpoint is not None and write:
                     (self.directory / self.best_checkpoint).unlink(
                         missing_ok=True)
                 self.best_checkpoint = f"{name}_best_{self.metric}.pt"
                 self.best_score = float(score)
-                save_model_checkpoint(self.directory / self.best_checkpoint,
-                                      model)
+                if write:
+                    save_model_checkpoint(
+                        self.directory / self.best_checkpoint, model, state)
 
     def state(self) -> dict:
         return {"ckpt_list": list(self.ckpt_list),
@@ -265,17 +302,24 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     is called with each micro-step's metrics
     (``train.step.make_train_step``)."""
     task = config.task
-    model_conf = task.get("model") or {}
     autoregression = bool(task.get("autoregression"))
     rt = config.get("runtime") or {}
     backend.set_kernels(rt.get("kernels", "auto"))
+    device_type = torch.device(rt.get("device", "cuda")).type
+    runtime.maybe_init_distributed(device_type)
     device, dtype = runtime_device_dtype(rt.get("device", "cuda"),
                                          rt.get("compute_dtype", "bfloat16"))
+    mesh_conf = to_plain(rt.get("mesh"))
+    mesh, n_data, _ = pmesh.resolve_mesh(mesh_conf, runtime.world_size(),
+                                         device_type)
+    fsdp = mesh is not None and bool((mesh_conf or {}).get("fsdp"))
+    rank0 = runtime.is_rank0()
     seed = int(rt.get("seed", 0))
     results_path = Path(work_dir or ".") / config.exp_name
     checkpoints_path = results_path / "ckpts"
     checkpoints_path.mkdir(parents=True, exist_ok=True)
     resume_dir = results_path / "last_state"
+    wandb_run = init_wandb(config, results_path) if rank0 else None
 
     is_ctc = (task.get("loss") or {}).get("tag") == "ctc"
     if is_ctc and not task.model.get("finetune_wav2vec", False):
@@ -287,15 +331,25 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
             "task.model.finetune_wav2vec=true")
     model, vocab = build_model(to_plain(task), device)
     _init_weights(model, config, seed)
-    params = model.set_requires_grad()
+    model.set_requires_grad()
+    pmesh.shard_model(model, mesh)
+    if fsdp:
+        pmesh.apply_fsdp(model, mesh)
+    params = model.trainable_parameters()
+    names = [n for n, p in model.named_parameters() if model._trains(n)]
     logger.info("Model parameters: %.1fM (%.1fM trained)",
                 sum(p.numel() for p in model.parameters()) / 1e6,
                 sum(p.numel() for p in params) / 1e6)
 
-    batch_size = int(config.batch_size)
+    # the effective batch: batch_size a data rank (reference train.py:245)
+    batch_size = int(config.batch_size) * n_data
     pin = device.type == "cuda"
     train_gen = train_generator(config, batch_size, seed, pin, vocab, is_ctc,
                                 autoregression)
+    # plain data parallelism evaluates the whole set on every rank; a model
+    # axis or FSDP through the sharded model, rows over 'data'
+    eval_mesh = mesh if mesh is not None and (mesh.n_model > 1 or fsdp) \
+        else None
     eg = task.get("eval_generator") or {}
     eval_gen = FixedDataloaderGenerator(
         config.data.eval.talk_list, config.data.eval.segments_list,
@@ -303,7 +357,8 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
         inference_times=int(eg.get("inference_times", 1)),
         remainder_ladder=bool(rt.get("infer_remainder_ladder", False)),
         pin_memory=pin, vocab=vocab, ctc=is_ctc,
-        autoregression=autoregression)
+        autoregression=autoregression,
+        min_multiple=1 if eval_mesh is None else n_data)
 
     # the first epoch's loader sizes the schedule (reference train.py:321-332)
     train_loader = _generate(train_gen)
@@ -315,7 +370,8 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
                                   total_steps, update_freq)
     generator = torch.Generator(device=device).manual_seed(seed)
     loss_tag = (task.get("loss") or {}).get("tag", "bce")
-    engine = WindowInference(model, device, dtype, loss_tag=loss_tag)
+    engine = WindowInference(model, device, dtype, loss_tag=loss_tag,
+                             mesh=eval_mesh)
     ckpts = Checkpoints(checkpoints_path, config)
 
     start_epoch = global_step = 0
@@ -326,15 +382,13 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
                 f"cannot resume from {resume_dir}: its first epoch had "
                 f"{state['first_epoch_steps']} micro-steps, this run's has "
                 f"{first_epoch_steps} (another corpus, batch size or seed)")
-        trained = {n: p for n, p in model.named_parameters()
-                   if p.requires_grad}
-        if set(state["params"]) != set(trained):
+        if set(state["params"]) != set(names):
             raise RuntimeError(f"cannot resume from {resume_dir}: another "
                                f"set of trained parameters")
-        with torch.no_grad():
-            for name, value in state["params"].items():
-                trained[name].copy_(value)
-        optimizer.load_state_dict(state["optimizer"])
+        for name, value in state["params"].items():
+            pmesh.load_full(model, name, value)
+        optimizer.load_state_dict(_local_optimizer_state(
+            model, names, state["optimizer"]))
         generator.set_state(state["generator"])
         ckpts.restore(state)
         start_epoch = int(state["epoch"])
@@ -355,10 +409,16 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     results: dict = {}
     print_every = int(config.get("print_every_steps", 100))
     save_every = int(config.get("save_every_steps", 0) or 0)
+    # the trace of this process's first profile_steps micro-steps
+    profile_steps = int(rt.get("profile_steps", 0) or 0)
+    trace_stop_at = global_step + profile_steps
+    prof = None
 
-    def evaluate_and_save(name: str) -> dict:
+    def evaluate_and_save(name: str, log: bool = False) -> dict:
         out = evaluate(eval_gen, engine, vocab)
         logger.info("eval @ %s: %s", name, out)
+        if log and wandb_run is not None:
+            wandb_run.log(dict(out))
         if config.get("perform_st_evaluation"):
             out.update(run_st_eval(config, model, engine, vocab,
                                    results_path, name))
@@ -366,94 +426,159 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
         ckpts.save(name, model, out)
         return out
 
-    for epoch in range(start_epoch, max_epochs):
-        logger.info("Starting epoch %d ...", epoch)
-        if epoch:
-            train_loader = _generate(train_gen)
-        pos_pct = getattr(train_gen.dataset, "pos_class_percentage", None)
-        loss_fn, _, ma_window = build_loss(to_plain(task.loss), pos_pct,
-                                           vocab)
-        ma_steps = int(ma_window / (WAV2VEC_FRAME_LEN / 1000)) \
-            if ma_window else 0
-        pos_weight = None
-        if loss_tag == "bce":
-            if pos_pct is not None:
-                logger.info("pos_class_percentage = %s", pos_pct)
-            pos_weight = loss_fn.pos_weight
-            engine.loss_fn = loss_fn
-        step = make_train_step(model, loss_fn, ma_steps, optimizer, dtype,
-                               generator, loss_tag, vocab, autoregression)
-
-        steps_in_epoch = len(train_loader)
-        steps_per_epoch.append(steps_in_epoch)
-        losses, preds, targets = [], [], []
-        t_epoch = t0 = time.perf_counter()
-        # a micro-step's span runs from the request for its batch (the wait
-        # on the reader) to its loss on the host; the optimizer's update,
-        # when one falls due, is inside it
-        for n, batch in enumerate(train_loader, start=1):
-            t_batch = time.perf_counter()
-            global_step += 1
-            metrics = step(batch, pos_weight)
-            loss = float(metrics["loss"])  # waits for the device
-            history["step_seconds"].append(time.perf_counter() - t0)
-            history["fetch_seconds"].append(t_batch - t0)
-            history["read_seconds"].append(train_loader.read_seconds[n - 1])
-            history["loss"].append(loss)
-            history["grad_norm"].append(float(metrics["grad_norm"]))
-            if on_step is not None:
-                on_step(metrics)
-            losses.append(loss)
-            lg = metrics["logits"].float().cpu().numpy()
+    try:
+        for epoch in range(start_epoch, max_epochs):
+            logger.info("Starting epoch %d ...", epoch)
+            if epoch:
+                train_loader = _generate(train_gen)
+            pos_pct = getattr(train_gen.dataset, "pos_class_percentage", None)
+            loss_fn, _, ma_window = build_loss(to_plain(task.loss), pos_pct,
+                                               vocab)
+            ma_steps = int(ma_window / (WAV2VEC_FRAME_LEN / 1000)) \
+                if ma_window else 0
+            pos_weight = None
             if loss_tag == "bce":
-                t = min(lg.shape[1], batch.out_mask.shape[1])
-                m = batch.out_mask[:, :t]
-                preds.extend(
-                    (1 / (1 + np.exp(-lg[:, :t])) >= 0.5)[m].tolist())
-                targets.extend((batch.target[:, :t] >= 0.5)[m].tolist())
-            else:
-                # boundary / non-boundary frames (reference
-                # train.py:495-504)
-                tgt = batch.out_target if autoregression else batch.target
-                spe = (tgt == vocab.boundary_token_id) | (
-                    tgt == vocab.nonboundary_token_id)
-                pred = np.argmax(lg, axis=-1) != vocab.boundary_token_id
-                preds.extend(pred[spe].astype(float).tolist())
-                targets.extend(tgt[spe].astype(float).tolist())
-            if n % print_every == 0 or n == steps_in_epoch:
-                sm = train_step_metrics(targets, preds, losses)
-                logger.info(
-                    "Step %d/%d loss=%.4f acc=%.4f f1=%.4f p=%.4f r=%.4f "
-                    "grad_norm=%.4f (%.2f steps/s)", n, steps_in_epoch,
-                    sm["loss"], sm["accuracy"], sm["f1"], sm["precision"],
-                    sm["recall"], history["grad_norm"][-1],
-                    n / (time.perf_counter() - t_epoch))
-                losses, preds, targets = [], [], []
-            if save_every and global_step % save_every == 0:
-                results = evaluate_and_save(
-                    f"epoch-{epoch}_step-{global_step}")
-            t0 = time.perf_counter()
-        optimizer.flush()  # the reference steps at the epoch's end
-        results = evaluate_and_save(f"epoch-{epoch}")
-        if ckpts.enabled:
-            save_run_state(resume_dir, {
-                "params": {n: p.detach().cpu()
-                           for n, p in model.named_parameters()
-                           if p.requires_grad},
-                "optimizer": optimizer.state_dict(),
-                "generator": generator.get_state(),
-                "epoch": epoch + 1, "global_step": global_step,
-                "first_epoch_steps": first_epoch_steps, **ckpts.state()})
+                if pos_pct is not None:
+                    logger.info("pos_class_percentage = %s", pos_pct)
+                pos_weight = loss_fn.pos_weight
+                engine.loss_fn = loss_fn
+            step = make_train_step(model, loss_fn, ma_steps, optimizer, dtype,
+                                   generator, loss_tag, vocab,
+                                   autoregression, mesh, fsdp)
+
+            steps_in_epoch = len(train_loader)
+            steps_per_epoch.append(steps_in_epoch)
+            losses, preds, targets, gnorms = [], [], [], []
+            t_epoch = t0 = time.perf_counter()
+            # a micro-step's span runs from the request for its batch (the
+            # wait on the reader) to its loss on the host; the optimizer's
+            # update, when one falls due, is inside it
+            for n, batch in enumerate(train_loader, start=1):
+                t_batch = time.perf_counter()
+                if prof is None and global_step < trace_stop_at:
+                    prof = start_trace(results_path / "profile")
+                global_step += 1
+                metrics = step(batch, pos_weight)
+                loss = float(metrics["loss"])  # waits for the device
+                history["step_seconds"].append(time.perf_counter() - t0)
+                history["fetch_seconds"].append(t_batch - t0)
+                history["read_seconds"].append(
+                    train_loader.read_seconds[n - 1])
+                history["loss"].append(loss)
+                history["grad_norm"].append(float(metrics["grad_norm"]))
+                if prof is not None and global_step >= trace_stop_at:
+                    stop_trace(prof)
+                    prof = None
+                if on_step is not None:
+                    on_step(metrics)
+                losses.append(loss)
+                gnorms.append(history["grad_norm"][-1])
+                lg = metrics["logits"].float().cpu().numpy()
+                if loss_tag == "bce":
+                    t = min(lg.shape[1], batch.out_mask.shape[1])
+                    m = batch.out_mask[:, :t]
+                    preds.extend(
+                        (1 / (1 + np.exp(-lg[:, :t])) >= 0.5)[m].tolist())
+                    targets.extend((batch.target[:, :t] >= 0.5)[m].tolist())
+                else:
+                    # boundary / non-boundary frames (reference
+                    # train.py:495-504)
+                    tgt = batch.out_target if autoregression \
+                        else batch.target
+                    spe = (tgt == vocab.boundary_token_id) | (
+                        tgt == vocab.nonboundary_token_id)
+                    pred = np.argmax(lg, axis=-1) != vocab.boundary_token_id
+                    preds.extend(pred[spe].astype(float).tolist())
+                    targets.extend(tgt[spe].astype(float).tolist())
+                if n % print_every == 0 or n == steps_in_epoch:
+                    sm = train_step_metrics(targets, preds, losses)
+                    logger.info(
+                        "Step %d/%d loss=%.4f acc=%.4f f1=%.4f p=%.4f "
+                        "r=%.4f grad_norm=%.4f (%.2f steps/s)", n,
+                        steps_in_epoch, sm["loss"], sm["accuracy"], sm["f1"],
+                        sm["precision"], sm["recall"],
+                        history["grad_norm"][-1],
+                        n / (time.perf_counter() - t_epoch))
+                    if wandb_run is not None:
+                        # the mean gradient norm since the last print (the
+                        # JAX trainer's wandb.watch stand-in)
+                        wandb_run.log({"epoch": epoch, **sm,
+                                       "grad_norm": float(np.mean(gnorms))},
+                                      step=global_step)
+                    losses, preds, targets, gnorms = [], [], [], []
+                if save_every and global_step % save_every == 0:
+                    results = evaluate_and_save(
+                        f"epoch-{epoch}_step-{global_step}")
+                t0 = time.perf_counter()
+            optimizer.flush()  # the reference steps at the epoch's end
+            if prof is not None and global_step >= trace_stop_at:
+                stop_trace(prof)
+                prof = None
+            results = evaluate_and_save(f"epoch-{epoch}", log=True)
+            if ckpts.enabled:
+                split = pmesh.split_parameters(model)
+                run_state = {
+                    "params": {n: pmesh.full_tensor(n, p, split.get(n))
+                               .detach().cpu()
+                               for n, p in zip(names, params)},
+                    "optimizer": _whole_optimizer_state(model, names,
+                                                        optimizer),
+                    "generator": generator.get_state(),
+                    "epoch": epoch + 1, "global_step": global_step,
+                    "first_epoch_steps": first_epoch_steps, **ckpts.state()}
+                if rank0:
+                    save_run_state(resume_dir, run_state)
+    finally:
+        # a run that ends, or fails, before its trace's last step still
+        # writes it, and leaves no trace running in this process
+        if prof is not None:
+            stop_trace(prof)
 
     checkpoint = None
     if ckpts.enabled:
-        checkpoint = save_model_checkpoint(checkpoints_path / "final.pt",
-                                           model)
+        state_dict = model_state_dict(model)
+        checkpoint = checkpoints_path / "final.pt"
+        if rank0:
+            save_model_checkpoint(checkpoint, model, state_dict)
         logger.info("Saved the %s to [%s].",
                     "model" if model.save_full_state else "head", checkpoint)
+    if wandb_run is not None:
+        wandb_run.finish()
     return {"eval": results, "history": history,
             "steps_per_epoch": steps_per_epoch, "updates": optimizer.updates,
             "total_steps": total_steps, "start_epoch": start_epoch,
             "evals": evals, "model": model, "generator": generator,
             "checkpoint": checkpoint,
             "checkpoints": ckpts.state()}
+
+
+def _whole_optimizer_state(model, names, optimizer) -> dict:
+    """The optimizer's state with every parameter-shaped tensor whole (the
+    AdamW moments, the accumulation): the single-device layout, on the
+    CPU.  Every rank of a mesh takes part."""
+    split = pmesh.split_parameters(model)
+
+    def whole(name, value):
+        return pmesh.full_tensor(name, value, split.get(name)).detach().cpu()
+
+    state = optimizer.state_dict()
+    adamw = dict(state["adamw"])
+    adamw["state"] = {idx: {k: v if k == "step" else whole(names[idx], v)
+                            for k, v in st.items()}
+                      for idx, st in adamw["state"].items()}
+    return {**state, "adamw": adamw,
+            "acc": [whole(n, a) for n, a in zip(names, state["acc"])]}
+
+
+def _local_optimizer_state(model, names, state: dict) -> dict:
+    """A whole optimizer state (:func:`_whole_optimizer_state`) cut to this
+    rank's parts of the parameters."""
+    def local(name, value):
+        return pmesh.local_part(model, name, value)
+
+    adamw = dict(state["adamw"])
+    adamw["state"] = {idx: {k: v if k == "step" else local(names[int(idx)], v)
+                            for k, v in st.items()}
+                      for idx, st in adamw["state"].items()}
+    return {**state, "adamw": adamw,
+            "acc": [local(n, a) for n, a in zip(names, state["acc"])]}

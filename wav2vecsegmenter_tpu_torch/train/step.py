@@ -34,7 +34,17 @@ stands for ``make_optimizer``, its ``flush`` method for
   batch (reference train.py:455-459); the batch comes normalized from the
   host (``AutoRegBatch``);
 * the ``loss`` and ``grad_norm`` metrics, grad_norm the global norm of the
-  micro-step's raw gradients of the trainable parameters.
+  micro-step's raw gradients of the trainable parameters;
+* a mesh (``parallel.mesh``; JAX ``make_train_step(mesh=...)``): every rank
+  gets the same global batch and takes its rows; its loss is its share of
+  the global batch's loss (the bce mean over rows divided by the data
+  ranks, the sums as they are, the ctc mean over the global batch's
+  included rows), so the gradients summed over 'data' are the global
+  batch's; dropout and SpecAugment draw the global batch's masks
+  (``ops.shmap.rand_rows``); under FSDP the backward reduce-scatters them
+  (``loss.backward``), else one all-reduce sums them; ``loss`` is the
+  global batch's, ``grad_norm`` covers the whole parameters (split and
+  sharded parts summed) and ``logits`` are the global batch's.
 
 PyTorch runs eagerly, so there is no jit and no donated state: the
 optimizer object carries the moments, the accumulation and the counts,
@@ -48,8 +58,10 @@ import math
 import torch
 
 from ..data.collate import AutoRegBatch, Batch
-from ..infer.pipeline import normalize_int16, upload
+from ..infer.pipeline import local_batch, normalize_int16, upload
 from ..models.wav2vec2 import frame_lengths
+from ..ops.shmap import global_rows
+from ..parallel import mesh as pmesh
 from .loss import compute_bce_loss
 
 
@@ -186,12 +198,49 @@ def frame_loss(model, loss_fn, loss_tag: str, vocab, b: dict, logits,
     raise NotImplementedError(f"loss tag '{loss_tag}' is not ported")
 
 
+def loss_share(loss: torch.Tensor, loss_fn, loss_tag: str,
+               autoregression: bool, b: dict, mesh) -> torch.Tensor:
+    """This data rank's share of the global batch's loss, from the loss of
+    its rows: the shares of the ranks sum to the global batch's loss."""
+    if mesh is None or mesh.n_data == 1:
+        return loss
+    if loss_tag == "bce" and not autoregression:
+        return loss / mesh.n_data   # a mean over equal row counts
+    if loss_tag == "ctc" and getattr(loss_fn, "reduction", "") == "mean":
+        local = b["included"].sum().float()
+        total = pmesh.all_reduce(local.clone(), mesh.data_group)
+        return loss * local / total.clamp_min(1)
+    return loss                     # a sum over the rows
+
+
+def grad_norm_of(names, grads, split: dict, mesh) -> torch.Tensor:
+    """The global norm of the gradients of the parameters ``names`` on a
+    mesh: each rank's squares summed over the ranks that hold parts of a
+    parameter ('model' for a split one, ``split``; 'data' for an FSDP
+    shard), a replicated parameter's counted once."""
+    sums: dict = {}
+    for name, g in zip(names, grads):
+        sharded = hasattr(g, "to_local")
+        key = (name in split, sharded)
+        sq = (g.to_local() if sharded else g).float().square().sum()
+        sums[key] = sums[key] + sq if key in sums else sq
+    total = None
+    for (is_split, sharded), sq in sorted(sums.items()):
+        if is_split:
+            sq = pmesh.all_reduce(sq, mesh.model_group)
+        if sharded:
+            sq = pmesh.all_reduce(sq, mesh.data_group)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
 def make_train_step(model, loss_fn, ma_window_steps: int,
                     optimizer: AccumulatingAdamW,
                     compute_dtype=torch.float32,
                     generator: torch.Generator | None = None,
                     loss_tag: str = "bce", vocab=None,
-                    autoregression: bool = False):
+                    autoregression: bool = False, mesh=None,
+                    fsdp: bool = False):
     """Returns ``step(batch, pos_weight) -> metrics``: one micro-step of
     ``model.train_forward`` on the device of the optimizer's parameters
     (dropout and SpecAugment drawn from ``generator``, by default a fresh
@@ -200,35 +249,68 @@ def make_train_step(model, loss_fn, ma_window_steps: int,
     decoder's cross-entropy summed over every position), the gradients of
     the optimizer's parameters, and the optimizer's update.  A parameter
     the loss does not reach gets a zero gradient, so that AdamW still
-    applies its weight decay, as the JAX optimizer does.  Metrics:
-    ``loss``, ``grad_norm`` (0-dim tensors), ``logits`` (the frame logits,
-    detached) and the micro-step's raw ``grads``."""
+    applies its weight decay, as the JAX optimizer does.  On a ``mesh``
+    (``fsdp``: the model is ``fully_shard``-ed over 'data') the step is the
+    mesh step of the module docstring.  Metrics: ``loss``, ``grad_norm``
+    (0-dim tensors), ``logits`` (the frame logits, detached) and the
+    micro-step's raw ``grads`` (this rank's parts of them on a mesh)."""
     params = optimizer.params
-    device = params[0].device
+    device = params[0].device if not hasattr(params[0], "to_local") \
+        else params[0].to_local().device
     if generator is None:
         generator = torch.Generator(device=device)
+    ids = {id(p): n for n, p in model.named_parameters()}
+    names = [ids[id(p)] for p in params]
+    split = pmesh.split_parameters(model) if mesh is not None else {}
+    n_data = 1 if mesh is None else mesh.n_data
 
     def step(batch: Batch | AutoRegBatch,
              pos_weight: float | None = None) -> dict:
-        if autoregression:
-            b = autoreg_batch_to_device(batch, device)
-            logits = model.train_forward(b["audio"], b["in_lengths"],
-                                         b["in_target"], b["tgt_mask"],
-                                         generator, compute_dtype)
-            loss = loss_fn(logits.reshape(-1, logits.shape[-1]),
-                           b["out_target"].reshape(-1)).sum()
+        batch = local_batch(batch, mesh)
+        with global_rows(mesh):
+            if autoregression:
+                b = autoreg_batch_to_device(batch, device)
+                logits = model.train_forward(b["audio"], b["in_lengths"],
+                                             b["in_target"], b["tgt_mask"],
+                                             generator, compute_dtype)
+                loss = loss_fn(logits.reshape(-1, logits.shape[-1]),
+                               b["out_target"].reshape(-1)).sum()
+            else:
+                b = batch_to_device(batch, device)
+                out = model.train_forward(b["audio"], b["in_lengths"],
+                                          b["out_mask"], generator,
+                                          compute_dtype)
+                loss, logits = frame_loss(model, loss_fn, loss_tag, vocab,
+                                          b, out, pos_weight,
+                                          ma_window_steps)
+        loss = loss_share(loss, loss_fn, loss_tag, autoregression, b, mesh)
+        if fsdp:
+            loss.backward()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
+            for p in params:
+                p.grad = None
         else:
-            b = batch_to_device(batch, device)
-            out = model.train_forward(b["audio"], b["in_lengths"],
-                                      b["out_mask"], generator, compute_dtype)
-            loss, logits = frame_loss(model, loss_fn, loss_tag, vocab, b,
-                                      out, pos_weight, ma_window_steps)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in
-                 zip(params, torch.autograd.grad(loss, params,
-                                                 allow_unused=True))]
-        grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            grads = [torch.zeros_like(p) if g is None else g for p, g in
+                     zip(params, torch.autograd.grad(loss, params,
+                                                     allow_unused=True))]
+        loss = loss.detach()
+        logits = logits.detach()
+        if n_data > 1:
+            if not fsdp:
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                pmesh.all_reduce(flat, mesh.data_group)
+                grads = [f.view_as(g) for f, g in zip(
+                    flat.split([g.numel() for g in grads]), grads)]
+            loss = pmesh.all_reduce(loss.clone(), mesh.data_group)
+            logits = pmesh.all_gather(logits, mesh.data_group)
+        if mesh is None:
+            grad_norm = torch.sqrt(sum(g.float().square().sum()
+                                       for g in grads))
+        else:
+            grad_norm = grad_norm_of(names, grads, split, mesh)
         optimizer.update(grads)
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
-                "logits": logits.detach(), "grads": grads}
+        return {"loss": loss, "grad_norm": grad_norm, "logits": logits,
+                "grads": grads}
 
     return step
