@@ -352,12 +352,20 @@ B = 14              # conf/segment.yaml batch_size
 T, T_TAIL = 999, 1099   # frames of a 20 s window and of the 22 s tail bucket
 L_AUDIO = 320000    # samples of a 20 s window
 T_CONV0 = (L_AUDIO - 10) // 5 + 1  # frames of conv layer 0's output
-F32_ATOL = 1e-4     # float32, TF32 off: summation order only
+# float32 (TF32 off in PyTorch): summation order, and in the attention
+# kernels split-TF32 products (three TF32 products a product, ~2^-22 of it)
+F32_ATOL = 1e-4
 BF16_ATOL = 2 ** -5  # one bf16 step at |y| in [4, 8): independent roundings
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): memory, bf16 tensor
-# cores, float32 outside the tensor cores (the scalar kernels' arithmetic)
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): memory, bf16, int8
+# and TF32 tensor cores, float32 outside the tensor cores (the scalar
+# kernels' arithmetic)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16_tc": 989e12, "int8_tc": 1979e12, "f32": 67e12}
+PEAK_OPS = {"bf16_tc": 989e12, "int8_tc": 1979e12, "tf32_tc": 495e12,
+            "f32": 67e12}
+# the float32 attention kernels (K3, K4, K10) take each product as three
+# TF32 products on the tensor cores (split TF32): their bound counts the
+# products three times at the TF32 peak
+SPLIT_TF32 = 3
 # scalar operations an element of a LayerNorm (mean, variance, normalise,
 # scale, bias), of its backward (the statistics again, x-hat, g*scale, the
 # two row means, dx, the two column sums) and of a GELU (erf counted as
@@ -455,6 +463,17 @@ LIB_LN_KERNELS = ("layer_norm_kernel",)
 # device times; the library call's device time sums every kernel it runs
 LN_BWD_KERNELS = ("ln_bwd_vec_kernel", "ln_bwd_rows_kernel",
                   "ln_bwd_reduce_kernel")
+# K10's three kernels by dtype (the rows pre-pass, dq, dk/dv), for the
+# profiler's device times
+ATTN_BWD_KERNELS = {
+    torch.bfloat16: ("attn_bwd_rows_kernel", "attn_bwd_dq_tc_kernel",
+                     "attn_bwd_dkdv_tc_kernel"),
+    torch.float32: ("attn_bwd_rows_f32_kernel", "attn_bwd_dq_f32_kernel",
+                    "attn_bwd_dkdv_f32_kernel")}
+# the float32 attention kernels (split TF32), whose registers and spills
+# the build phase reports apart
+F32_ATTN_KERNELS = ("attn_fwd_f32_kernel", "attn_bwd_rows_f32_kernel",
+                    "attn_bwd_dq_f32_kernel", "attn_bwd_dkdv_f32_kernel")
 # a K1 row width with a masked tail: not a multiple of 8, a partial pass
 LN_TAIL_H = 1020
 # LayerNorm launches a batch: the feature projection, two in each of the 15
@@ -618,6 +637,13 @@ def check_kernels(dev) -> dict:
     def tc(dtype):  # the product's rate: tensor cores in bf16
         return "bf16_tc" if dtype == torch.bfloat16 else "f32"
 
+    def attn_ops(dtype, flops):
+        # the attention kernels' products: bf16 tensor cores, or split
+        # TF32 (three TF32 products each) in float32
+        if dtype == torch.bfloat16:
+            return ("bf16_tc", flops)
+        return ("tf32_tc", SPLIT_TF32 * flops)
+
     def ln_case(h, rows, gelu, dtype, valid=None):
         x = randn(rows, h, std=2.0, mean=0.5, dtype=dtype)
         if valid is not None:  # zero rows past a short window's audio
@@ -671,7 +697,7 @@ def check_kernels(dev) -> dict:
         # QK and PV (2 * D FLOP a pair each) over the pairs that need them
         valid, empty = pairs(mask)
         flops = heads * d * (4 * valid + 2 * empty)
-        return bound(4 * nbytes(q), (tc(dtype), flops))
+        return bound(4 * nbytes(q), attn_ops(dtype, flops))
 
     def sdpa(q, k, v, mask):  # [B, T, H, D] views -> the library call
         m = mask[:, None, None, :]
@@ -697,7 +723,7 @@ def check_kernels(dev) -> dict:
                         proj, mask, 16, 64 ** -0.5),
                     uniform=uniform_row(v, 16, 64) if b > 3 else None,
                     bound=attn_bound(q, mask, 16, 64, dtype),
-                    library=sdpa(q, k, v, mask))
+                    library=sdpa(q, k, v, mask), twice=True)
 
     def bthd_case(t, dtype, b=B, valid=None, d=128):
         # the SFC's view layout; d = 96 at a base model's width (768 / 8)
@@ -711,7 +737,7 @@ def check_kernels(dev) -> dict:
                         q, k, v, mask, d ** -0.5),
                     uniform=uniform_row(v, 8, d) if b > 3 else None,
                     bound=attn_bound(q, mask, 8, d, dtype),
-                    library=sdpa(q, k, v, mask))
+                    library=sdpa(q, k, v, mask), twice=True)
 
     def cross_case(tq, tk, dtype):
         # the arseg decoder's cross-attention: queries of the decoder's
@@ -726,9 +752,9 @@ def check_kernels(dev) -> dict:
                     plain=lambda: attn.attention_bthd_plain(
                         q, k, v, mask, 128 ** -0.5),
                     uniform=uniform_row(v, 8, 128),
-                    bound=bound(2 * nbytes(q) + nbytes(kv), (
-                        tc(dtype), 8 * 128 * (4 * valid + 2 * empty))),
-                    library=sdpa(q, k, v, mask))
+                    bound=bound(2 * nbytes(q) + nbytes(kv), attn_ops(
+                        dtype, 8 * 128 * (4 * valid + 2 * empty))),
+                    library=sdpa(q, k, v, mask), twice=True)
 
     def row_dot_case(rows, dtype):
         # the bce head's output layer: the final LayerNorm's output (about
@@ -834,18 +860,14 @@ def check_kernels(dev) -> dict:
                     # and dv out (the bf16 kernels' extra reads of the
                     # forward's output and statistics are not counted)
                     bound=bound(3 * nbytes(q) + 4 * nbytes(k),
-                                (tc(dtype), flops)),
+                                attn_ops(dtype, flops)),
                     library=lambda: torch.autograd.grad(lib_fwd(), leaves,
                                                         do_t),
                     library_less=lib_fwd, rtol=BWD_RTOL, twice=True)
-        if dtype != torch.bfloat16:  # the scalar kernels recompute it all
-            case.update(fn=lambda: attn.attention_bwd(q, k, v, mask, do,
-                                                      scale))
-            return case
-        # bf16: the forward under grad writes the statistics the backward
-        # reads, once, outside the timed region; they are held against
-        # their plain version, and the forward with them is timed against
-        # the inference forward
+        # the forward under grad writes the statistics the backward reads,
+        # once, outside the timed region; they are held against their
+        # plain version, and the forward with them is timed against the
+        # inference forward
         o, stats = attn._attention_bthd(q, k, v, mask, scale,
                                         with_stats=True)
         want = attn.attention_stats_plain(q, k, mask, scale)
@@ -855,7 +877,7 @@ def check_kernels(dev) -> dict:
               f"abs err {stats_err.max().item()}")
 
         cross = {}
-        if tq is not None:
+        if tq is not None and dtype == torch.bfloat16:
             # the cross rows: the outputs' room of attn_bwd_slack on top of
             # the self rows' limits (a random key count of a few keys,
             # which the self rows' draws happened not to give, puts two
@@ -880,6 +902,18 @@ def check_kernels(dev) -> dict:
                         for a, w in zip(out, truth)]
 
             case["inspect"] = cross_extra
+        elif dtype == torch.float32:
+            # each route's distance from the float64 backward: where a
+            # one-key row sums ~1000 terms into a dv of ~100, the plain
+            # version's own float32 rounding is most of the distance
+            def f64_extra(got, ref):
+                truth = attn_bwd_f64(q, k, v, mask, do, scale)
+                for name, out in (("kernel", got), ("plain", ref)):
+                    cross[f"f64_max_err_{name}"] = [
+                        float((a.double() - w).abs().max())
+                        for a, w in zip(out, truth)]
+
+            case["inspect"] = f64_extra
         case.update(
             fn=lambda: attn.attention_bwd(q, k, v, mask, do, scale, o, stats),
             extra=lambda: {
@@ -892,8 +926,7 @@ def check_kernels(dev) -> dict:
                 "device_ms": device_ms(
                     lambda: attn.attention_bwd(q, k, v, mask, do, scale, o,
                                                stats), 10,
-                    ("attn_bwd_rows_kernel", "attn_bwd_dq_tc_kernel",
-                     "attn_bwd_dkdv_tc_kernel"))})
+                    ATTN_BWD_KERNELS[dtype])})
         return case
 
     def ffn_case(t, dtype, windows=B, valid=None):
@@ -2673,8 +2706,11 @@ def run_train(dev, profile: bool) -> tuple[dict, dict]:
         del model, fresh, head
         out_e, grads_e = run("eager", "bfloat16")
         out_e.pop("model")
+        before_f = backend.launch_counts()
         out_f, grads_f = run("auto", "float32")
         out_f.pop("model")
+        counts_f = {k: v - before_f.get(k, 0)
+                    for k, v in backend.launch_counts().items()}
         out_fe, grads_fe = run("eager", "float32")
         out_fe.pop("model")
         torch.cuda.empty_cache()
@@ -2705,6 +2741,13 @@ def run_train(dev, profile: bool) -> tuple[dict, dict]:
     check(counts["attention_bwd"] == micro_steps,
           f"attention_bwd launched {counts['attention_bwd']} times in "
           f"{micro_steps} micro-steps")
+    # the float32 arm through the float32 kernels: K4 at least once a
+    # micro-step (and at eval), K10 once a micro-step
+    f32_steps = len(out_f["history"]["loss"])
+    check(counts_f.get("attention_bwd", 0) == f32_steps
+          and counts_f.get("attention_bthd", 0) >= f32_steps,
+          f"float32 train arm: attention launches {counts_f} in {f32_steps} "
+          f"micro-steps")
     check(counts["ffn"] % 15 == 0,
           f"ffn launched {counts['ffn']} times, not 15 a forward")
     # K9 three times a micro-step (the head's norm1, norm2 and final
@@ -2748,7 +2791,7 @@ def run_train(dev, profile: bool) -> tuple[dict, dict]:
           grad_dist_f32_kernels_vs_eager=f32_k_vs_e, head_moved=moved,
           layer_norm_bwd_launches=counts["layer_norm_bwd"],
           layer_norm_bwd_no_dx=counts["layer_norm_bwd_no_dx"],
-          launches=counts)
+          launches=counts, launches_f32=counts_f)
     check(k_vs_f <= KERNEL_SLACK * e_vs_f,
           f"kernels add error to the head gradients: {k_vs_f} from float32 "
           f"vs {e_vs_f} on the plain path")
@@ -3140,6 +3183,14 @@ def run_lna(dev) -> dict:
         for i, got in enumerate(k["steps"]):
             check({n: got[n] for n in want} == want,
                   f"LNA micro-step {i} launches {got}, not {want}")
+        # the float32 arm through the float32 attention kernels (K3, K4,
+        # K10) as many times a micro-step
+        attn_want = {n: want[n] for n in ("attention_packed",
+                                          "attention_bthd", "attention_bwd")}
+        for i, got in enumerate(runs["auto", "float32"]["steps"]):
+            check({n: got[n] for n in attn_want} == attn_want,
+                  f"LNA float32 micro-step {i} attention launches {got}, "
+                  f"not {attn_want}")
         model = k.pop("model")
         fresh, _ = build_model(LNA_TASK, dev)
         init_from_numpy(fresh, seed=0)
@@ -4816,8 +4867,14 @@ def main() -> int:
     start = t0 = time.perf_counter()
     _build.library()
     ptxas = ptxas_report(_build.build_log)
+    f32_attn = {k: v for k, v in ptxas.items()
+                if k.split(" ")[0] in F32_ATTN_KERNELS}
     phase("build", seconds=time.perf_counter() - t0,
-          nvcc_seconds=_build.build_seconds, ptxas=ptxas)
+          nvcc_seconds=_build.build_seconds, ptxas=ptxas,
+          f32_attention_ptxas=f32_attn)
+    # each of the four float32 attention kernels at D = 64, 96 and 128
+    check(len(f32_attn) == 3 * len(F32_ATTN_KERNELS),
+          f"float32 attention kernels in the ptxas report: {f32_attn}")
 
     kernels = check_kernels(dev)
     # the bf16 conv and LayerNorm kernels (K9's too): no spills (checked

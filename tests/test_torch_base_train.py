@@ -149,8 +149,10 @@ def test_k10_at_head_dim_96_matches_jax_vjp(kernels_forced, tq):  # noqa: F811
                                    rtol=0, err_msg=f"d{name}")
 
     args = [torch.from_numpy(a) for a in (q, k, v)]
+    o = tattn.attention_bthd_plain(*args, tmask, scale)
+    stats = tattn.attention_stats_plain(*args[:2], tmask, scale)
     with pytest.raises(LookupError):  # past the gate: the library is asked
-        _LAUNCH_BWD(*args, tmask, tdo, scale, None, None, None)
+        _LAUNCH_BWD(*args, tmask, tdo, scale, o, stats, None)
     with pytest.raises(ValueError, match="head dims 64, 96 or 128"):
         _LAUNCH_BWD(*(a[..., :80] for a in args), tmask, tdo[..., :80],
                     scale, None, None, None)

@@ -355,7 +355,8 @@ def test_kernel_paths_keep_the_graph_or_refuse(kernels_forced):
     kernels_forced.update(dict.fromkeys(kernels_forced, 0))
     got = _sfc_grads(head, hid, mask)
     inputs = kernels_forced.pop("attention_bwd_inputs")
-    assert inputs[0] is not None and inputs[1] is None  # float32: no stats
+    # float32 too: the forward kernel's statistics go to the backward
+    assert inputs[0] is not None and inputs[1].shape == (3, 1, 20, 2)
     want_calls = dict.fromkeys(kernels_forced, 0)
     want_calls.update(layer_norm=3, attention_bthd=1, layer_norm_bwd=3,
                       attention_bwd=1)

@@ -12,10 +12,12 @@ Counterpart of ``wav2vecsegmenter_tpu/ops/attention.py``:
 
 Both launch the strided CUDA kernels of ``csrc/attention.cu`` on CUDA
 tensors, reading the operands where they lie (no head transposes), and run
-the plain versions on CPU tensors: bf16 on the tensor cores (``wgmma``,
-operands by TMA, so q, k and v need 16-byte-aligned starts and strides of
-whole 16-byte units), float32 on scalar FMAs.  The source file says what
-bounds the kernels on the H100 and how their designs answer that.  The
+the plain versions on CPU tensors: bf16 on the tensor cores by ``wgmma``
+(operands by TMA), float32 on the tensor cores by ``mma.sync`` in split
+TF32 (three TF32 products a product, float32's accuracy; operands by
+``cp.async``), so q, k and v need 16-byte-aligned starts and strides of
+whole 16-byte units.  The source file says what bounds the kernels on the
+H100 and how their designs answer that.  The
 forward and the backward take head dims 64, 96 (the SFC head of a base
 model: 768 / 8) and 128.
 
@@ -24,11 +26,12 @@ Where a gradient is needed, ``attention_qkv`` (the QKV projection viewed
 counterpart of the JAX custom VJP ``_fused_attention``: its forward is the
 kernel above, its backward ``attention_bwd``, which replaces
 ``_attn_bwd_kernel`` (K10, ``csrc/attention_bwd.cu``: ``wgmma`` tensor
-cores fed by TMA in bf16, scalar FMAs in float32) on CUDA tensors and runs
-``attention_bwd_plain`` on CPU tensors.  In bf16 the forward also writes
-each query row's softmax statistics (``attention_stats_plain`` is their
-plain version) and the Function hands them and the output to the backward,
-which then needs no sweep of its own for them.  The Function takes the
+cores fed by TMA in bf16, split-TF32 ``mma.sync`` in float32) on CUDA
+tensors and runs ``attention_bwd_plain`` on CPU tensors.  Under grad the
+forward kernel also writes each query row's softmax statistics
+(``attention_stats_plain`` is their plain version) and the Function hands
+them and the output to the backward, which then needs no sweep of its own
+for them.  The Function takes the
 packed projection, so K10 writes dq, dk and dv straight into one
 [B, T, 3, H, D] gradient.  The SFC head trains through ``attention_qkv``
 and the encoder through ``attention_packed``, whose grad branch takes the
@@ -87,7 +90,7 @@ def attention_bthd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
                           key_mask: torch.Tensor | None,
                           scale: float) -> torch.Tensor:
-    """The softmax statistics the bf16 forward kernel writes under grad:
+    """The softmax statistics the forward kernel writes under grad:
     [B, H, Tq, 2] float32, per query row its largest score in log2 units,
     m = max_j s_j with s_j = q.k_j * scale * log2 e + bias_j (bias_j 0 or
     -1e30, as the kernel adds it), and l = sum_j exp2(s_j - m), so that
@@ -115,17 +118,18 @@ def attention_packed_plain(proj: torch.Tensor, key_mask: torch.Tensor | None,
 
 
 def _chunk_aligned(a: torch.Tensor) -> bool:
-    """What the bf16 kernels' TMA loads need of an
-    operand: a 16-byte-aligned start and (batch, time, head) strides of
-    whole 16-byte units."""
-    return a.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in a.stride()[:3])
+    """What the kernels' tile loads (TMA in bf16, ``cp.async`` in float32)
+    need of an operand: a 16-byte-aligned start and (batch, time, head)
+    strides of whole 16-byte units."""
+    return a.data_ptr() % 16 == 0 and all(
+        s * a.element_size() % 16 == 0 for s in a.stride()[:3])
 
 
 def _launch(q, k, v, key_mask, scale, out, name: str,
             stats=None) -> torch.Tensor:
-    """Launch the forward kernel into ``out``; ``stats``, when given (bf16
-    only), is a contiguous [B, H, Tq, 2] float32 tensor that gets each
-    query row's (m, l) (``attention_stats_plain``)."""
+    """Launch the forward kernel into ``out``; ``stats``, when given, is a
+    contiguous [B, H, Tq, 2] float32 tensor that gets each query row's
+    (m, l) (``attention_stats_plain``)."""
     b, tq, heads, d = q.shape
     tk = k.shape[1]
     if d not in (64, 96, 128):
@@ -137,20 +141,17 @@ def _launch(q, k, v, key_mask, scale, out, name: str,
         if a.stride(-1) != 1 or a.device != q.device or a.dtype != q.dtype:
             raise ValueError("attention kernel takes operands on one device, "
                              "of one type, with the head dim contiguous")
-    if q.dtype == torch.bfloat16 and not all(
-            _chunk_aligned(a) and (heads == 1 or a.stride(2) >= d)
-            for a in (q, k, v)):
-        raise ValueError("the bf16 attention kernel reads q, k and v by TMA: "
-                         "each needs a 16-byte-aligned start, strides that "
-                         "are multiples of 8 elements and heads that do not "
-                         "overlap")
+    if not all(_chunk_aligned(a) and (heads == 1 or a.stride(2) >= d)
+               for a in (q, k, v)):
+        raise ValueError("the attention kernel reads q, k and v in 16-byte "
+                         "chunks: each needs a 16-byte-aligned start, "
+                         "strides of whole 16-byte units and heads that do "
+                         "not overlap")
     if stats is not None and (
-            q.dtype != torch.bfloat16 or stats.shape != (b, heads, tq, 2)
-            or stats.dtype != torch.float32 or not stats.is_contiguous()
-            or stats.device != q.device):
-        raise ValueError("the forward's statistics come from the bf16 "
-                         "kernel, into a contiguous [B, H, Tq, 2] float32 "
-                         "tensor on q's device")
+            stats.shape != (b, heads, tq, 2) or stats.dtype != torch.float32
+            or not stats.is_contiguous() or stats.device != q.device):
+        raise ValueError("the forward's statistics go into a contiguous "
+                         "[B, H, Tq, 2] float32 tensor on q's device")
     mask = _device_mask(key_mask, b, tk, q.device)
     lib = _build.library()
     status = lib.w2v_attention(
@@ -179,14 +180,14 @@ def _attention_bthd(q, k, v, key_mask, scale, with_stats: bool = False,
                     name: str = "attention_bthd"):
     """The forward on the kernel or the plain path (the kernel's launch
     counted as ``name``); with ``with_stats`` -> (out, stats), stats the
-    bf16 kernel's [B, H, Tq, 2] statistics and None elsewhere (the float32
-    and plain backwards recompute theirs)."""
+    kernel's [B, H, Tq, 2] statistics, None on the plain path (the plain
+    backward recomputes its own)."""
     if not backend.use_kernel(q):
         out = attention_bthd_plain(q, k, v, key_mask, scale)
         return (out, None) if with_stats else out
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     stats = None
-    if with_stats and q.dtype == torch.bfloat16:
+    if with_stats:
         b, tq, heads, _ = q.shape
         stats = torch.empty((b, heads, tq, 2), dtype=torch.float32,
                             device=q.device)
@@ -226,10 +227,10 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   stats: torch.Tensor | None = None, out=None):
     """(dq, dk, dv) of ``attention_bthd`` from the output gradient ``do``
     [B, T, H, D]; ``out``, when given, is the (dq, dk, dv) destination
-    (views allowed, head dim contiguous).  The bf16 kernels take the
-    forward's output ``o`` and statistics ``stats`` (``_attention_bthd``
-    with ``with_stats``); the float32 kernels and the plain version
-    recompute what they need and take neither."""
+    (views allowed, head dim contiguous).  The kernels take the forward's
+    output ``o`` and statistics ``stats`` (``_attention_bthd`` with
+    ``with_stats``); the plain version recomputes what it needs and takes
+    neither."""
     if not backend.use_kernel(q):
         grads = attention_bwd_plain(q, k, v, key_mask, do, scale)
         if out is None:
@@ -249,20 +250,18 @@ def _launch_bwd(q, k, v, key_mask, do, scale, o, stats, out):
     if k.shape != (b, tk, heads, d) or v.shape != k.shape \
             or do.shape != q.shape:
         raise ValueError("attention backward kernel: shapes disagree")
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        if o is None or stats is None:
-            raise ValueError("the bf16 attention backward takes the "
-                             "forward's output o and statistics stats")
-        if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device \
-                or stats.shape != (b, heads, tq, 2) \
-                or stats.dtype != torch.float32 \
-                or not stats.is_contiguous() or stats.device != q.device:
-            raise ValueError("o must be [B, Tq, H, D] in q's type and stats "
-                             "a contiguous [B, H, Tq, 2] float32 tensor")
-        if o.stride(-1) != 1 or o.data_ptr() % 4 \
-                or any(st % 2 for st in o.stride()[:3]):
-            o = o.contiguous()
+    if o is None or stats is None:
+        raise ValueError("the attention backward kernel takes the forward's "
+                         "output o and statistics stats")
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device \
+            or stats.shape != (b, heads, tq, 2) \
+            or stats.dtype != torch.float32 \
+            or not stats.is_contiguous() or stats.device != q.device:
+        raise ValueError("o must be [B, Tq, H, D] in q's type and stats "
+                         "a contiguous [B, H, Tq, 2] float32 tensor")
+    if o.stride(-1) != 1 or o.data_ptr() % 4 \
+            or any(st % 2 for st in o.stride()[:3]):
+        o = o.contiguous()
     do = do.to(q.dtype)
     if do.stride(-1) != 1 or not _chunk_aligned(do):
         do = do.contiguous()
@@ -279,25 +278,23 @@ def _launch_bwd(q, k, v, key_mask, do, scale, o, stats, out):
     if out[0].shape != q.shape or out[1].shape != k.shape \
             or out[2].shape != k.shape:
         raise ValueError("attention backward kernel: out shapes disagree")
-    if bf16 and not all(_chunk_aligned(a) and (heads == 1 or a.stride(2) >= d)
-                        for a in (q, k, v, do)):
-        raise ValueError("the bf16 attention backward kernel reads q, k, v "
-                         "and do by TMA: each needs a 16-byte-aligned "
-                         "start, strides that are multiples of 8 elements "
-                         "and heads that do not overlap")
+    if not all(_chunk_aligned(a) and (heads == 1 or a.stride(2) >= d)
+               for a in (q, k, v, do)):
+        raise ValueError("the attention backward kernel reads q, k, v and "
+                         "do in 16-byte chunks: each needs a 16-byte-aligned "
+                         "start, strides of whole 16-byte units and heads "
+                         "that do not overlap")
     mask = _device_mask(key_mask, b, tk, q.device)
     strides = (ctypes.c_longlong * 24)(
-        *(st for a in operands for st in a.stride()[:3]),
-        *(o.stride()[:3] if bf16 else (0, 0, 0)))
-    # bf16: each query row's (m, 1/l, delta, 0), written by the pre-pass;
-    # float32: the scalar dq kernel's (m, l, delta)
-    rows = torch.empty((b, heads, tq, 4 if bf16 else 3), dtype=torch.float32,
+        *(st for a in (*operands, o) for st in a.stride()[:3]))
+    # each query row's (m, 1/l, delta, 0), written by the pre-pass
+    rows = torch.empty((b, heads, tq, 4), dtype=torch.float32,
                        device=q.device)
     status = _build.library().w2v_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), do.data_ptr(),
-        *(a.data_ptr() for a in out), o.data_ptr() if bf16 else None,
-        stats.data_ptr() if bf16 else None, rows.data_ptr(),
+        *(a.data_ptr() for a in out), o.data_ptr(), stats.data_ptr(),
+        rows.data_ptr(),
         ctypes.addressof(strides), b, tq, tk, heads, d, float(scale),
         _build.dtype_code(q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -309,8 +306,8 @@ def _launch_bwd(q, k, v, key_mask, do, scale, o, stats, out):
 class _AttentionFn(torch.autograd.Function):
     """Attention on the QKV projection viewed [B, T, 3, H, D], whose
     backward is ``attention_bwd`` (K10 on CUDA) writing one packed
-    gradient.  The forward's output and, from the bf16 kernel, its
-    statistics are saved for the backward."""
+    gradient.  The forward's output and, from the kernel, its statistics
+    are saved for the backward."""
 
     @staticmethod
     def forward(ctx, qkv, key_mask, scale, name):
@@ -334,8 +331,8 @@ class _CrossAttentionFn(torch.autograd.Function):
     """Attention of q [B, Tq, H, D] over the packed K/V projection kv
     [B, Tk, 2, H, D] (k, v on dim 2), Tq and Tk free; the backward is
     ``attention_bwd`` writing dq and one packed dkv.  The forward's output
-    and, from the bf16 kernel, its [B, H, Tq, 2] statistics are saved for
-    the backward."""
+    and, from the kernel, its [B, H, Tq, 2] statistics are saved for the
+    backward."""
 
     @staticmethod
     def forward(ctx, q, kv, key_mask, scale, name):

@@ -53,32 +53,38 @@
 //   and sum, (m, l), which the backward kernels (attention_bwd.cu) read
 //   instead of sweeping the keys for them; the inference launch passes no
 //   pointer and writes nothing more.
-// float32 (the oracle arm, TF32 off): attn_fwd_kernel, scalar FMAs, as
-//   before.  One block of 128 threads per (batch, head, tile of 4096/DP
-//   queries), DP the head dim rounded up to a multiple of 64 (D=96 takes
-//   D=128's layout: its dims at 96 and above load as 0 and are never
-//   stored); a query row is owned by DP/32 neighbouring lanes, 32 head
-//   dims each, with its q slice and output accumulator in registers; the
-//   partial dot products meet through warp shuffles.  Keys and values
-//   stream through shared memory in tiles of 4096/DP rows (float32, each
-//   32-dim
-//   segment padded by 4 floats so the float4 reads of the lanes of one row
-//   hit distinct banks), scored in chunks of 16 between softmax rescales.
-//   TF32 tensor cores would miss the arm's 1e-4 tolerance.
+// float32 (the precision ladder's float32 arms, float32 training, the
+//   oracle of every fidelity check): attn_fwd_f32_kernel, on the tensor
+//   cores in split TF32 (tf32.cuh): each operand x = hi + lo, both TF32,
+//   and a b = hi hi + hi lo + lo hi in three mma.sync.m16n8k8 into a float32
+//   accumulator.  The dropped lo lo term and lo's rounding are ~2^-22 of
+//   each product, a few float32 ulps, so the route stays within the float32
+//   arm's 1e-4 of its plain version (a single TF32 product, 2^-11, would
+//   not); its bound is the products counted three times at the 495 TFLOP/s
+//   TF32 peak.  FlashAttention-2's layout: one CTA of four warps per (batch,
+//   head, 64 query rows), 16 rows a warp; Q once in shared memory, K and V
+//   tiles of 32 keys double-buffered by cp.async (each K/V element is read
+//   by all four warps, a tile at a time, not once per query row as in the
+//   scalar kernel this replaces), S in float32 registers with the online
+//   softmax in log2 units (m from -1e30, the same biases and skip rule as
+//   the bf16 kernel), then O += P V with P split from S's accumulator as it
+//   lies: S's columns are keys in the order kappa(n) = n ^ (n >> 2) within
+//   each 8, which makes the m16n8 accumulator the A fragment of the next
+//   k8 step and keeps every shared read free of bank conflicts (tf32.cuh).
+//   D=96 runs 12 k-steps over its own columns; nothing is padded.  Under
+//   grad it writes (m, l) as the bf16 kernel does.
 
 #include <math.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSeg = 36;    // 32 head dims + 4 floats of bank padding
-constexpr int kChunk = 16;  // keys scored before each softmax rescale
 constexpr int kTcBox = 64;  // columns of a bf16 TMA box (128 bytes)
 
-// the width both routes compute over: D rounded up to whole 64-column
+// the width the bf16 route computes over: D rounded up to whole 64-column
 // boxes (96 -> 128); the columns past D are zeros and never stored
 template <int D>
 __host__ __device__ constexpr int padded_dim() {
@@ -89,151 +95,244 @@ struct Strides {
   long long b, t, h;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v,
-                const unsigned char* __restrict__ key_mask,
-                T* __restrict__ out, int tq, int tk, Strides qs, Strides ks,
-                Strides vs, Strides os, float scale) {
-  constexpr int DP = padded_dim<D>();
-  constexpr int G = DP / 32;            // lanes per query row
-  constexpr int BQ = kThreads / G;      // query rows per block
-  constexpr int BK = 4096 / DP;         // key rows per shared-memory tile
-  constexpr int RS = G * kSeg;          // shared-memory row stride (floats)
-  static_assert(BK % kChunk == 0, "key tile must hold whole chunks");
+// ---------------------------------------------------------------------------
+// float32: split-TF32 mma.sync (tf32.cuh)
+// ---------------------------------------------------------------------------
 
-  __shared__ __align__(16) float k_s[BK * RS];
-  __shared__ __align__(16) float v_s[BK * RS];
-  __shared__ float bias_s[BK];
+constexpr int kF32Warps = 4;       // warps a CTA, 16 query rows each
+constexpr int kF32Rows = 64;       // query rows a CTA
+constexpr int kF32KeyTile64 = 32;  // key rows a streamed tile, by head dim
+constexpr int kF32KeyTile96 = 32;
+constexpr int kF32KeyTile128 = 32;
+constexpr int kF32Pad = 8;         // floats past D a shared row (8 banks)
+constexpr int kF32Steps = 2;       // k-steps of a partial of S
+constexpr int kF32MinBlocks = 2;   // CTAs an SM: up to 255 registers
+constexpr int kF32SmemMax = 227 * 1024;
 
-  const int tid = threadIdx.x;
-  const int part = tid % G;             // which 32 head dims
-  const int qi = blockIdx.x * BQ + tid / G;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bool active = qi < tq;
-  const bool real = part * 32 < D;      // not a padding lane (D=96)
+template <int D>
+struct F32Fwd {
+  static_assert(D == 64 || D == 96 || D == 128, "head dim");
+  static_assert(kF32Rows == 16 * kF32Warps, "16 rows a warp");
+  static constexpr int BK =
+      D == 64 ? kF32KeyTile64 : D == 96 ? kF32KeyTile96 : kF32KeyTile128;
+  static constexpr int RS = D + kF32Pad;  // shared row stride (floats)
+  // floats: Q at 0, stage s's K at kKV + s * kStage and V BK rows later
+  static constexpr int kKV = kF32Rows * RS;
+  static constexpr int kStage = 2 * BK * RS;
+  // bytes: the tile count and list, the per-tile flags, the key mask row
+  static constexpr int kCount = 4 * (kKV + 2 * kStage);
+  static constexpr int kList = kCount + 16;
+  static_assert(BK % 8 == 0 && D % (8 * kF32Steps) == 0, "whole partials");
 
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const unsigned char* mb = key_mask ? key_mask + (long long)b * tk : nullptr;
-
-  float qr[32];
-  float acc[32];
-  {
-    const T* qp = q + b * qs.b + (long long)(active ? qi : 0) * qs.t +
-                  h * qs.h + part * 32;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      qr[i] = active && real ? w2v_load(qp + i) : 0.f;
-      acc[i] = 0.f;
-    }
+  static long long smem_bytes(int tk) {
+    const long long ntiles = (tk + BK - 1) / BK;
+    return kList + 4 * ntiles + ntiles + tk;
   }
-  float m = -1e30f;
-  float l = 0.f;
+};
 
-  for (int k0 = 0; k0 < tk; k0 += BK) {
-    const int kt = min(BK, tk - k0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int idx = tid; idx < BK * DP; idx += kThreads) {
-      const int j = idx / DP;
-      const int c = idx % DP;
-      const int so = j * RS + (c / 32) * kSeg + (c % 32);
-      float kv = 0.f, vv = 0.f;
-      if (j < kt && c < D) {
-        const long long t = k0 + j;
-        kv = w2v_load(kb + t * ks.t + c);
-        vv = w2v_load(vb + t * vs.t + c);
-      }
-      k_s[so] = kv;
-      v_s[so] = vv;
-    }
-    for (int j = tid; j < BK; j += kThreads)
-      bias_s[j] = (mb == nullptr || (j < kt && mb[k0 + j])) ? 0.f : -1e30f;
+// One CTA per (batch, head, 64 query rows); warp w owns query rows
+// q0 + 16 w .. + 15, and a lane rows g = lane / 4 and g + 8 of them.  Per
+// visited key tile (double-buffered by cp.async):
+//   S = Q K^T                      (split TF32; S's columns in kappa order)
+//   online softmax in log2 units   (float32 registers, row max over a quad)
+//   O += P V                       (P, split, is S's accumulator as it
+//                                   lies: the A fragment, no shuffle)
+// then O / l is stored, and (under grad) each row's (m, l).
+template <int D>
+__global__ void __launch_bounds__(kF32Warps * 32, kF32MinBlocks)
+attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const unsigned char* __restrict__ key_mask,
+                    float* __restrict__ out, float2* __restrict__ stats,
+                    int tq, int tk, Strides qs, Strides ks, Strides vs,
+                    Strides os, float scale_log2) {
+  using L = F32Fwd<D>;
+  constexpr int BK = L::BK, RS = L::RS;
+  constexpr int NT = BK / 8;  // 8-key column tiles of S
+  constexpr int NO = D / 8;   // 8-column tiles of O
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  float* q_s = reinterpret_cast<float*>(f32_smem);
+  float* kv_s = q_s + L::kKV;
+  int* count = reinterpret_cast<int*>(f32_smem + L::kCount);
+  int* tiles = reinterpret_cast<int*>(f32_smem + L::kList);
+  const int ntiles = (tk + BK - 1) / BK;
+  unsigned char* flag_s = f32_smem + L::kList + 4 * ntiles;
+  unsigned char* mask_s = flag_s + ntiles;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kF32Rows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+
+  tf32_load_rows<D, RS, kF32Rows>(q_s, q + b * qs.b + h * qs.h, qs.t, q0,
+                                  tq - q0);
+  tf32_cp_commit();
+  w2v_key_tiles(key_mask ? key_mask + (long long)b * tk : nullptr, tk, BK,
+                mask_s, flag_s, count, tiles);
+  const int n = *count;
+  auto load_kv = [&](int it) {
+    float* st = kv_s + (it % 2) * L::kStage;
+    const int k0 = tiles[it] * BK;
+    tf32_load_rows<D, RS, BK>(st, kb, ks.t, k0, tk - k0);
+    tf32_load_rows<D, RS, BK>(st + BK * RS, vb, vs.t, k0, tk - k0);
+  };
+  load_kv(0);  // n >= 1: every row has a key tile
+  tf32_cp_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[2] = {-1e30f, -1e30f};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+  const float* q_w = q_s + warp * 16 * RS;
+
+  for (int it = 0; it < n; ++it) {
+    if (it + 1 < n) load_kv(it + 1);
+    tf32_cp_commit();
+    tf32_cp_wait<1>();
     __syncthreads();
+    const float* k_s = kv_s + (it % 2) * L::kStage;
+    const float* v_s = k_s + BK * RS;
 
-    for (int j0 = 0; j0 < kt; j0 += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
+    // S in partials of kF32Steps k-steps (tf32_mma3_fresh)
+    float s[NT][4];
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int j = j0 + c;
-        const float4* kr =
-            reinterpret_cast<const float4*>(k_s + j * RS + part * kSeg);
-        float dot = 0.f;
+    for (int kk = 0; kk < D / 8; kk += kF32Steps) {
+      float part[NT][4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float4 kk = kr[i];
-          dot += qr[4 * i] * kk.x + qr[4 * i + 1] * kk.y +
-                 qr[4 * i + 2] * kk.z + qr[4 * i + 3] * kk.w;
-        }
+      for (int u = 0; u < kF32Steps; ++u) {
+        const Tf32A a = tf32_a_rows<RS>(q_w, kk + u);
 #pragma unroll
-        for (int o = 1; o < G; o <<= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        s[c] = j < kt ? dot * scale + bias_s[j] : -INFINITY;
-        cmax = fmaxf(cmax, s[c]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float p = expf(s[c] - m_new);
-        l += p;
-        const float pv = w2v_round(p, q);
-        const float4* vr = reinterpret_cast<const float4*>(
-            v_s + (j0 + c) * RS + part * kSeg);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float4 vv = vr[i];
-          acc[4 * i] += pv * vv.x;
-          acc[4 * i + 1] += pv * vv.y;
-          acc[4 * i + 2] += pv * vv.z;
-          acc[4 * i + 3] += pv * vv.w;
+        for (int j = 0; j < NT; ++j) {
+          const Tf32B bk = tf32_b_rows<RS>(k_s + 8 * j * RS, kk + u);
+          if (u == 0)
+            tf32_mma3_fresh(part[j], a, bk);
+          else
+            tf32_mma3(part[j], a, bk);
         }
       }
-      m = m_new;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = kk == 0 ? part[j][e] : s[j][e] + part[j][e];
     }
+
+    // scores in log2 units with the key biases (0 valid, -1e30 masked,
+    // -inf past tk); the tile's row maxima over the quad
+    const int k0 = tiles[it] * BK;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + tf32_kappa(2 * t + (e & 1));
+        const float bias =
+            key < tk ? (mask_s[key] ? 0.f : -1e30f) : -INFINITY;
+        s[j][e] = s[j][e] * scale_log2 + bias;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+    Tf32A pa[NT];  // P, split: k-step j over the tile's keys 8 j .. + 7
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+      pa[j] = tf32_a_acc(s[j]);
+    }
+
+    // O = alpha O + P V, the tile's P V one partial
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+      float c[4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const Tf32B bv = tf32_b_cols<RS>(v_s + 8 * j * RS, i);
+        if (j == 0)
+          tf32_mma3_fresh(c, pa[j], bv);
+        else
+          tf32_mma3(c, pa[j], bv);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][e] = o[i][e] * alpha[e >> 1] + c[e];
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
   }
 
-  if (active && real) {
-    T* op = out + b * os.b + (long long)qi * os.t + h * os.h + part * 32;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) w2v_store(op + i, acc[i] / l);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* ob = out + b * os.b + h * os.h + 2 * t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= tq) continue;
+    if (stats != nullptr && t == 0)
+      stats[((long long)b * gridDim.y + h) * tq + row] = make_float2(m[r], l[r]);
+    float* orow = ob + (long long)row * os.t;
+    const float inv = 1.f / l[r];
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+      *reinterpret_cast<float2*>(orow + 8 * i) =
+          make_float2(o[i][2 * r] * inv, o[i][2 * r + 1] * inv);
   }
 }
 
-template <typename T, int D>
-int launch_attn(const void* q, const void* k, const void* v,
-                const unsigned char* key_mask, void* out, int b, int tq,
-                int tk, int heads, Strides qs, Strides ks, Strides vs,
-                Strides os, float scale, cudaStream_t stream) {
-  constexpr int BQ = kThreads / (padded_dim<D>() / 32);
-  const dim3 grid((tq + BQ - 1) / BQ, heads, b);
-  attn_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), key_mask, static_cast<T*>(out), tq, tk, qs,
-      ks, vs, os, scale);
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v,
+               const unsigned char* key_mask, void* out, float2* stats, int b,
+               int tq, int tk, int heads, Strides qs, Strides ks, Strides vs,
+               Strides os, float scale, cudaStream_t stream) {
+  using L = F32Fwd<D>;
+  if (!tf32_rows_ok(q, qs.b, qs.t, qs.h) ||
+      !tf32_rows_ok(k, ks.b, ks.t, ks.h) ||
+      !tf32_rows_ok(v, vs.b, vs.t, vs.h) ||
+      !tf32_pairs_ok(out, os.b, os.t, os.h))
+    return W2V_BAD_ARGS;
+  const long long smem = L::smem_bytes(tk);
+  if (smem > kF32SmemMax) return W2V_BAD_ARGS;
+  int status = (int)cudaFuncSetAttribute(
+      attn_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (status != 0) return status;
+  const dim3 grid((tq + kF32Rows - 1) / kF32Rows, heads, b);
+  attn_fwd_f32_kernel<D><<<grid, kF32Warps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), key_mask, static_cast<float*>(out),
+      stats, tq, tk, qs, ks, vs, os, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v,
-               const unsigned char* key_mask, void* out, int b, int tq,
-               int tk, int heads, int d, Strides qs, Strides ks, Strides vs,
-               Strides os, float scale, cudaStream_t stream) {
+int dispatch_f32(const void* q, const void* k, const void* v,
+                 const unsigned char* key_mask, void* out, float2* stats,
+                 int b, int tq, int tk, int heads, int d, Strides qs,
+                 Strides ks, Strides vs, Strides os, float scale,
+                 cudaStream_t stream) {
   if (d == 64)
-    return launch_attn<T, 64>(q, k, v, key_mask, out, b, tq, tk, heads, qs,
-                              ks, vs, os, scale, stream);
+    return launch_f32<64>(q, k, v, key_mask, out, stats, b, tq, tk, heads,
+                          qs, ks, vs, os, scale, stream);
   if (d == 96)
-    return launch_attn<T, 96>(q, k, v, key_mask, out, b, tq, tk, heads, qs,
-                              ks, vs, os, scale, stream);
+    return launch_f32<96>(q, k, v, key_mask, out, stats, b, tq, tk, heads,
+                          qs, ks, vs, os, scale, stream);
   if (d == 128)
-    return launch_attn<T, 128>(q, k, v, key_mask, out, b, tq, tk, heads, qs,
-                               ks, vs, os, scale, stream);
+    return launch_f32<128>(q, k, v, key_mask, out, stats, b, tq, tk, heads,
+                           qs, ks, vs, os, scale, stream);
   return W2V_BAD_ARGS;
 }
 
@@ -507,12 +606,14 @@ int dispatch_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, out: element (b, t, h, 0..d) at ptr + b*sb + t*st + h*sh, head
-// dim contiguous; d is 64, 96 or 128.  key_mask: [b, tk] bytes (nonzero = valid key) or NULL for
-// no padding.  dtype W2V_F32 runs the scalar kernel, W2V_BF16 the tensor-core
-// one, which also needs q, k and v 16-byte aligned with strides that are
-// multiples of 8 elements, and out's strides even (else W2V_BAD_ARGS).
-// stats: NULL, or (bf16 only) a [b, heads, tq] array of float pairs that
-// gets each query row's (m, l): its largest score in log2 units and
+// dim contiguous; d is 64, 96 or 128.  key_mask: [b, tk] bytes (nonzero =
+// valid key) or NULL for no padding.  dtype W2V_F32 runs the split-TF32
+// kernel, which needs q, k and v 16-byte aligned with strides that are
+// multiples of 4 elements, and out 8-byte aligned with even strides;
+// W2V_BF16 the wgmma one, which needs q, k and v 16-byte aligned with
+// strides that are multiples of 8 elements, and out's strides even (else
+// W2V_BAD_ARGS).  stats: NULL, or a [b, heads, tq] array of float pairs
+// that gets each query row's (m, l): its largest score in log2 units and
 // sum_j exp2(s_j - m) in float32, so that P_ij = exp2(s_ij - m_i) / l_i
 // (the backward kernels' input).  Launches on `stream`; returns the
 // launch's cudaError_t.
@@ -531,9 +632,9 @@ extern "C" int w2v_attention(
       vs{v_sb, v_st, v_sh}, os{o_sb, o_st, o_sh};
   const unsigned char* mask = static_cast<const unsigned char*>(key_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == W2V_F32 && stats == nullptr)
-    return dispatch_d<float>(q, k, v, mask, out, b, tq, tk, heads, d, qs, ks,
-                             vs, os, scale, s);
+  if (dtype == W2V_F32)
+    return dispatch_f32(q, k, v, mask, out, static_cast<float2*>(stats), b,
+                        tq, tk, heads, d, qs, ks, vs, os, scale, s);
   if (dtype == W2V_BF16)
     return dispatch_tc(q, k, v, mask, out, static_cast<float2*>(stats), b,
                        tq, tk, heads, d, qs, ks, vs, os, scale, s);

@@ -74,32 +74,43 @@
 //   tensor cores the dk/dv kernel's
 //   recomputed scores need not equal the forward's bit for bit (another
 //   summation order); the bf16 tolerances cover that.
-// float32 (the oracle arm, TF32 off): attn_bwd_{dq,dkdv}_kernel, scalar
-//   FMAs, as before: a query-major kernel computes each row's max, sum of
-//   exponentials and delta in a first sweep over the keys (online, rescaled
-//   per tile of keys) and dq in a second, through a [B, H, Tq, 3]
-//   workspace; a key-major kernel sweeps all query rows for dk and dv.  A
-//   row (query or key) is owned by DP/32 neighbouring lanes, 32 head dims
-//   each, its operands and accumulators in registers (DP the head dim
-//   rounded up to a multiple of 64: at D=96 the fourth lane holds zeros
-//   and stores nothing); the other side streams through shared memory as
-//   float32 tiles of 4096/DP rows, each 32-dim segment padded by 4 floats;
-//   partial dot products meet through warp shuffles.  TF32 tensor cores
-//   would miss the arm's 1e-4 gradient tolerance.
+// float32 (float32 training, and the float32 arms of every fidelity
+//   check): the same three launches, on the tensor cores in split TF32
+//   (tf32.cuh: x = hi + lo, both TF32, and a b = hi hi + hi lo + lo hi in
+//   three mma.sync.m16n8k8 into a float32 accumulator; the dropped lo lo
+//   term and lo's rounding are ~2^-22 of each product, a few float32 ulps,
+//   so the gradients stay within the float32 limits, 1e-4 + 1e-5 relative,
+//   of their plain version, which one TF32 product, 2^-11, would miss).
+//   The bound is the products counted three times at the 495 TFLOP/s TF32
+//   peak.  The row statistics come from the forward as in bf16: the float32
+//   forward writes (m, l) under grad, attn_bwd_rows_f32_kernel forms
+//   delta = do . o from its float32 output, and no kernel sweeps the keys
+//   for them.  attn_bwd_dq_f32_kernel (one CTA of four warps per (batch,
+//   head, 64 query rows), Q and dO in shared memory, K and V tiles of the
+//   visited key tiles double-buffered by cp.async: S, dP, dQ += dS K, three
+//   products a tile) and attn_bwd_dkdv_f32_kernel (64 key rows a CTA, K
+//   and V in shared memory, Q, dO and the rows table of every query tile
+//   streamed: S^T, dP^T, dV += P^T dO, dK += dS^T Q, four products a tile;
+//   the all-masked key tile writes zeros) keep every sum in a fixed order,
+//   without atomics.  Each warp owns 16 rows and reads a streamed tile
+//   once for all of them; the accumulators of S and dP, whose columns are
+//   rows of the streamed tile in the order kappa(n) = n ^ (n >> 2) within
+//   each 8, are the A fragments of the next products with no shuffle
+//   (tf32.cuh).  Streamed tiles: 32 rows at D=64, 16 at D=96 and 128,
+//   where dk and dv alone are 128 floats a thread; D=96 runs 12 k-steps
+//   over its own columns, unpadded.
 
 #include <limits.h>
 #include <math.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSeg = 36;    // 32 head dims + 4 floats of bank padding
-constexpr int kChunk = 16;  // keys scored before each rescale of sweep 1
 constexpr int kTcBox = 64;  // columns of a bf16 TMA box (128 bytes)
 
-// the width both routes compute over: D rounded up to whole 64-column
+// the width the bf16 route computes over: D rounded up to whole 64-column
 // boxes (96 -> 128); the columns past D are zeros and never stored
 template <int D>
 __host__ __device__ constexpr int padded_dim() {
@@ -110,304 +121,484 @@ struct Strides {
   long long b, t, h;
 };
 
-// this lane's 32-dim share of a dot product: a in registers, b a padded
-// float32 segment in shared memory; the same order in every kernel, so a
-// score recomputed in kernel 2 equals kernel 1's bit for bit
-__device__ __forceinline__ float dot32(const float* a, const float* b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float dot = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float4 bb = b4[i];
-    dot += a[4 * i] * bb.x + a[4 * i + 1] * bb.y + a[4 * i + 2] * bb.z +
-           a[4 * i + 3] * bb.w;
+// ---------------------------------------------------------------------------
+// float32: split-TF32 mma.sync (tf32.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Warps = 4;       // warps a CTA, 16 own rows each
+constexpr int kF32Rows = 64;       // own rows a CTA (queries, or keys)
+constexpr int kF32Stream64 = 32;   // streamed rows a tile, by head dim
+constexpr int kF32Stream96 = 16;
+constexpr int kF32Stream128 = 16;
+constexpr int kF32Pad = 8;         // floats past D a shared row (8 banks)
+constexpr int kF32Steps = 2;       // k-steps of a partial of S and dP
+constexpr int kF32MinBlocks = 2;   // CTAs an SM: up to 255 registers
+constexpr int kF32SmemMax = 227 * 1024;
+constexpr int kF32RowsThreads = 256;  // the pre-pass: one warp a query row
+
+template <int D>
+struct F32Bwd {
+  static_assert(D == 64 || D == 96 || D == 128, "head dim");
+  static_assert(kF32Rows == 16 * kF32Warps, "16 rows a warp");
+  static constexpr int BN =
+      D == 64 ? kF32Stream64 : D == 96 ? kF32Stream96 : kF32Stream128;
+  static constexpr int RS = D + kF32Pad;  // shared row stride (floats)
+  // floats: the two own tiles (Q and dO, or K and V) at 0 and kOwn; stage
+  // s at 2 kOwn + s kStage: two streamed tiles, then (dk/dv kernel) the
+  // rows table of their queries, a float4 each
+  static constexpr int kOwn = kF32Rows * RS;
+  static constexpr int kStage = 2 * BN * RS + 4 * BN;
+  // bytes: (dq kernel) the key-tile count and list, the per-tile flags
+  // and the key mask row
+  static constexpr int kCount = 4 * (2 * kOwn + 2 * kStage);
+  static constexpr int kList = kCount + 16;
+  static_assert(BN % 8 == 0 && D % (8 * kF32Steps) == 0, "whole partials");
+
+  static constexpr long long kSmemDkdv = kCount;
+  static long long smem_dq(int tk) {
+    const long long ntiles = (tk + BN - 1) / BN;
+    return kList + 4 * ntiles + ntiles + tk;
   }
-  return dot;
-}
+};
 
-// sum over the G lanes that own one row
-template <int G>
-__device__ __forceinline__ float row_sum(float v) {
+// S = A B^T and dP = A' B'^T over the head dim for a warp's 16 own rows
+// (a, a2: A and A' in shared memory) against NT 8-row blocks of a streamed
+// tile (b, b2), columns in kappa order; each a sum of partials of
+// kF32Steps k-steps (tf32_mma3_fresh)
+template <int D, int NT, int RS>
+__device__ __forceinline__ void f32_scores(float (&s)[NT][4],
+                                           float (&dp)[NT][4],
+                                           const float* a, const float* a2,
+                                           const float* b, const float* b2) {
 #pragma unroll
-  for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows [r0, r0 + n) of a [.., T, .., D] operand (one batch and head) into a
-// padded float32 tile of `rows` rows, padded_dim<D>() columns; rows past n
-// and columns past D are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long st, int r0, int n,
-                                          int rows) {
-  constexpr int DP = padded_dim<D>();
-  constexpr int RS = (DP / 32) * kSeg;
-  for (int idx = threadIdx.x; idx < rows * DP; idx += kThreads) {
-    const int j = idx / DP;
-    const int c = idx % DP;
-    dst[j * RS + (c / 32) * kSeg + (c % 32)] =
-        j < n && c < D ? w2v_load(src + (long long)(r0 + j) * st + c) : 0.f;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v,
-                   const unsigned char* __restrict__ key_mask,
-                   const T* __restrict__ dout, T* __restrict__ dq,
-                   float* __restrict__ stats, int tq, int tk, Strides qs,
-                   Strides ks, Strides vs, Strides dos, Strides dqs,
-                   float scale) {
-  constexpr int G = padded_dim<D>() / 32;  // lanes per query row
-  constexpr int BQ = kThreads / G;      // query rows per block
-  constexpr int BK = 4096 / padded_dim<D>();  // key rows per shared tile
-  constexpr int RS = G * kSeg;          // shared-memory row stride (floats)
-  static_assert(BK % kChunk == 0, "key tile must hold whole chunks");
-
-  __shared__ __align__(16) float k_s[BK * RS];
-  __shared__ __align__(16) float v_s[BK * RS];
-  __shared__ float bias_s[BK];
-
-  const int tid = threadIdx.x;
-  const int part = tid % G;
-  const int qi = blockIdx.x * BQ + tid / G;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int heads = gridDim.y;
-  const bool active = qi < tq;
-  const bool real = part * 32 < D;      // not a padding lane (D=96)
-
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const unsigned char* mb = key_mask ? key_mask + (long long)b * tk : nullptr;
-
-  float qr[32], dor[32];
-  {
-    const long long row = active ? qi : 0;
-    const T* qp = q + b * qs.b + row * qs.t + h * qs.h + part * 32;
-    const T* dp = dout + b * dos.b + row * dos.t + h * dos.h + part * 32;
+  for (int kk = 0; kk < D / 8; kk += kF32Steps) {
+    float ps[NT][4], pd[NT][4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      qr[i] = active && real ? w2v_load(qp + i) : 0.f;
-      dor[i] = active && real ? w2v_load(dp + i) : 0.f;
-    }
-  }
-
-  // sweep 1: max m, sum of exponentials l and sum of exp * dP, online
-  float m = -1e30f, l = 0.f, dsum = 0.f;
-  for (int k0 = 0; k0 < tk; k0 += BK) {
-    const int kt = min(BK, tk - k0);
-    __syncthreads();
-    load_tile<T, D>(k_s, kb, ks.t, k0, kt, BK);
-    load_tile<T, D>(v_s, vb, vs.t, k0, kt, BK);
-    for (int j = tid; j < BK; j += kThreads)
-      bias_s[j] = (mb == nullptr || (j < kt && mb[k0 + j])) ? 0.f : -1e30f;
-    __syncthreads();
-    for (int j0 = 0; j0 < kt; j0 += kChunk) {
-      float s[kChunk], dp[kChunk];
-      float cmax = -INFINITY;
+    for (int u = 0; u < kF32Steps; ++u) {
+      const Tf32A x = tf32_a_rows<RS>(a, kk + u);
+      const Tf32A x2 = tf32_a_rows<RS>(a2, kk + u);
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int j = j0 + c;
-        const float sd = row_sum<G>(dot32(qr, k_s + j * RS + part * kSeg));
-        dp[c] = row_sum<G>(dot32(dor, v_s + j * RS + part * kSeg));
-        s[c] = j < kt ? sd * scale + bias_s[j] : -INFINITY;
-        cmax = fmaxf(cmax, s[c]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-      dsum *= alpha;
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float e = expf(s[c] - m_new);
-        l += e;
-        dsum += e * dp[c];
-      }
-      m = m_new;
-    }
-  }
-  const float delta = dsum / l;
-
-  // sweep 2: dq_i = scale * sum_j T(dS_ij) k_j
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < tk; k0 += BK) {
-    const int kt = min(BK, tk - k0);
-    __syncthreads();
-    load_tile<T, D>(k_s, kb, ks.t, k0, kt, BK);
-    load_tile<T, D>(v_s, vb, vs.t, k0, kt, BK);
-    for (int j = tid; j < BK; j += kThreads)
-      bias_s[j] = (mb == nullptr || (j < kt && mb[k0 + j])) ? 0.f : -1e30f;
-    __syncthreads();
-    for (int j = 0; j < kt; ++j) {
-      const float* kr = k_s + j * RS + part * kSeg;
-      const float sd = row_sum<G>(dot32(qr, kr));
-      const float dpj = row_sum<G>(dot32(dor, v_s + j * RS + part * kSeg));
-      const float p = expf(sd * scale + bias_s[j] - m) / l;
-      const float ds = w2v_round(p * (dpj - delta), q);
-      const float4* k4 = reinterpret_cast<const float4*>(kr);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 kk = k4[i];
-        acc[4 * i] += ds * kk.x;
-        acc[4 * i + 1] += ds * kk.y;
-        acc[4 * i + 2] += ds * kk.z;
-        acc[4 * i + 3] += ds * kk.w;
+      for (int j = 0; j < NT; ++j) {
+        const Tf32B y = tf32_b_rows<RS>(b + 8 * j * RS, kk + u);
+        const Tf32B y2 = tf32_b_rows<RS>(b2 + 8 * j * RS, kk + u);
+        if (u == 0) {
+          tf32_mma3_fresh(ps[j], x, y);
+          tf32_mma3_fresh(pd[j], x2, y2);
+        } else {
+          tf32_mma3(ps[j], x, y);
+          tf32_mma3(pd[j], x2, y2);
+        }
       }
     }
-  }
-
-  if (active) {
-    T* op = dq + b * dqs.b + (long long)qi * dqs.t + h * dqs.h + part * 32;
-    if (real) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) w2v_store(op + i, acc[i] * scale);
-    }
-    if (part == 0) {
-      float* st = stats + (((long long)b * heads + h) * tq + qi) * 3;
-      st[0] = m;
-      st[1] = l;
-      st[2] = delta;
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
-                     const unsigned char* __restrict__ key_mask,
-                     const T* __restrict__ dout, T* __restrict__ dk,
-                     T* __restrict__ dv, const float* __restrict__ stats,
-                     int tq, int tk, Strides qs, Strides ks, Strides vs,
-                     Strides dos, Strides dks, Strides dvs, float scale) {
-  constexpr int G = padded_dim<D>() / 32;  // lanes per key row
-  constexpr int BKR = kThreads / G;     // key rows per block
-  constexpr int BQ = 4096 / padded_dim<D>();  // query rows per shared tile
-  constexpr int RS = G * kSeg;
-
-  __shared__ __align__(16) float q_s[BQ * RS];
-  __shared__ __align__(16) float do_s[BQ * RS];
-  __shared__ float st_s[BQ * 3];
-
-  const int tid = threadIdx.x;
-  const int part = tid % G;
-  const int kj = blockIdx.x * BKR + tid / G;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int heads = gridDim.y;
-  const bool active = kj < tk;
-  const bool real = part * 32 < D;      // not a padding lane (D=96)
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* db = dout + b * dos.b + h * dos.h;
-  const float* sb = stats + ((long long)b * heads + h) * tq * 3;
-
-  float kr[32], vr[32], dk_acc[32], dv_acc[32];
-  {
-    const long long row = active ? kj : 0;
-    const T* kp = k + b * ks.b + row * ks.t + h * ks.h + part * 32;
-    const T* vp = v + b * vs.b + row * vs.t + h * vs.h + part * 32;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      kr[i] = active && real ? w2v_load(kp + i) : 0.f;
-      vr[i] = active && real ? w2v_load(vp + i) : 0.f;
-      dk_acc[i] = 0.f;
-      dv_acc[i] = 0.f;
-    }
-  }
-  const float bias =
-      (key_mask == nullptr || (active && key_mask[(long long)b * tk + kj]))
-          ? 0.f
-          : -1e30f;
-
-  for (int i0 = 0; i0 < tq; i0 += BQ) {
-    const int qt = min(BQ, tq - i0);
-    __syncthreads();
-    load_tile<T, D>(q_s, qb, qs.t, i0, qt, BQ);
-    load_tile<T, D>(do_s, db, dos.t, i0, qt, BQ);
-    for (int idx = tid; idx < qt * 3; idx += kThreads)
-      st_s[idx] = sb[(long long)i0 * 3 + idx];
-    __syncthreads();
-    for (int i = 0; i < qt; ++i) {
-      const float* qrow = q_s + i * RS + part * kSeg;
-      const float* drow = do_s + i * RS + part * kSeg;
-      const float sd = row_sum<G>(dot32(kr, qrow));
-      const float dpi = row_sum<G>(dot32(vr, drow));
-      const float p = expf(sd * scale + bias - st_s[3 * i]) / st_s[3 * i + 1];
-      const float pc = w2v_round(p, q);
-      const float ds = w2v_round(p * (dpi - st_s[3 * i + 2]), q);
-      const float4* q4 = reinterpret_cast<const float4*>(qrow);
-      const float4* d4 = reinterpret_cast<const float4*>(drow);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float4 qq = q4[c];
-        const float4 dd = d4[c];
-        dv_acc[4 * c] += pc * dd.x;
-        dv_acc[4 * c + 1] += pc * dd.y;
-        dv_acc[4 * c + 2] += pc * dd.z;
-        dv_acc[4 * c + 3] += pc * dd.w;
-        dk_acc[4 * c] += ds * qq.x;
-        dk_acc[4 * c + 1] += ds * qq.y;
-        dk_acc[4 * c + 2] += ds * qq.z;
-        dk_acc[4 * c + 3] += ds * qq.w;
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = kk == 0 ? ps[j][e] : s[j][e] + ps[j][e];
+        dp[j][e] = kk == 0 ? pd[j][e] : dp[j][e] + pd[j][e];
       }
-    }
-  }
-
-  if (active && real) {
-    T* kp = dk + b * dks.b + (long long)kj * dks.t + h * dks.h + part * 32;
-    T* vp = dv + b * dvs.b + (long long)kj * dvs.t + h * dvs.h + part * 32;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      w2v_store(kp + i, dk_acc[i] * scale);
-      w2v_store(vp + i, dv_acc[i]);
-    }
   }
 }
 
-template <typename T, int D>
-int launch_attn_bwd(const void* q, const void* k, const void* v,
-                    const unsigned char* key_mask, const void* dout,
-                    void* dq, void* dk, void* dv, float* stats, int b, int tq,
-                    int tk, int heads, const Strides* st, float scale,
-                    cudaStream_t stream) {
-  constexpr int G = padded_dim<D>() / 32;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  const dim3 grid1((tq + kThreads / G - 1) / (kThreads / G), heads, b);
-  attn_bwd_dq_kernel<T, D><<<grid1, kThreads, 0, stream>>>(
-      qt, kt, vt, key_mask, dot, static_cast<T*>(dq), stats, tq, tk, st[0],
-      st[1], st[2], st[3], st[4], scale);
+// acc += the tile's product at output columns 8 i .. 8 i + 7: the split
+// accumulator fragments a[j] (kappa order) against the streamed rows
+// 8 j .. 8 j + 7 of b, one partial over the NT k-steps
+template <int NT, int RS>
+__device__ __forceinline__ void f32_add_tile(float (&acc)[4],
+                                             const Tf32A (&a)[NT],
+                                             const float* b, int i) {
+  float c[4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const Tf32B y = tf32_b_cols<RS>(b + 8 * j * RS, i);
+    if (j == 0)
+      tf32_mma3_fresh(c, a[j], y);
+    else
+      tf32_mma3(c, a[j], y);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += c[e];
+}
+
+// The pre-pass: per query row, delta = do . o (float32, o the forward's
+// float32 output) beside the forward's statistics, as rows[b, h, t] =
+// (m, 1/l, delta, 0).  One warp a row, rows in (b, t, h) order.
+template <int D>
+__global__ void __launch_bounds__(kF32RowsThreads)
+attn_bwd_rows_f32_kernel(const float* __restrict__ o,
+                         const float* __restrict__ dout,
+                         const float2* __restrict__ stats,
+                         float4* __restrict__ rows, long long n_rows, int tq,
+                         int heads, Strides os, Strides dos) {
+  const long long w = (long long)blockIdx.x * (kF32RowsThreads / 32) +
+                      threadIdx.x / 32;
+  if (w >= n_rows) return;
+  const int lane = threadIdx.x % 32;
+  const int h = (int)(w % heads);
+  const long long bt = w / heads;
+  const int t = (int)(bt % tq);
+  const long long b = bt / tq;
+  const float* op = o + b * os.b + t * os.t + h * os.h;
+  const float* dp = dout + b * dos.b + t * dos.t + h * dos.h;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = lane; c < D; c += 32) acc += op[c] * dp[c];
+  acc = w2v_warp_sum(acc);
+  if (lane == 0) {
+    const long long i = (b * heads + h) * tq + t;
+    const float2 st = stats[i];
+    rows[i] = make_float4(st.x, 1.f / st.y, acc, 0.f);
+  }
+}
+
+// dq: one CTA per (batch, head, 64 query rows), warp w owning rows
+// q0 + 16 w .. + 15 (a lane rows g and g + 8); Q and dO stay in shared
+// memory, K and V tiles of the visited key tiles stream through two
+// cp.async stages.  Per tile:
+//   S = Q K^T, dP = dO V^T            (split TF32; columns in kappa order)
+//   P = exp2(S c + bias - m) / l,  dS = P (dP - delta)      (registers)
+//   dQ += dS K                        (dS, split, is the A fragment)
+template <int D>
+__global__ void __launch_bounds__(kF32Warps * 32, kF32MinBlocks)
+attn_bwd_dq_f32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const unsigned char* __restrict__ key_mask,
+                       const float* __restrict__ dout,
+                       const float4* __restrict__ rows,
+                       float* __restrict__ dq, int tq, int tk, Strides qs,
+                       Strides ks, Strides vs, Strides dos, Strides dqs,
+                       float scale_log2, float scale) {
+  using L = F32Bwd<D>;
+  constexpr int BN = L::BN, RS = L::RS;
+  constexpr int NT = BN / 8, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  float* q_s = reinterpret_cast<float*>(f32_smem);
+  float* do_s = q_s + L::kOwn;
+  float* str_s = q_s + 2 * L::kOwn;
+  int* count = reinterpret_cast<int*>(f32_smem + L::kCount);
+  int* tiles = reinterpret_cast<int*>(f32_smem + L::kList);
+  const int ntiles = (tk + BN - 1) / BN;
+  unsigned char* flag_s = f32_smem + L::kList + 4 * ntiles;
+  unsigned char* mask_s = flag_s + ntiles;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kF32Rows;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+
+  tf32_load_rows<D, RS, kF32Rows>(q_s, q + b * qs.b + h * qs.h, qs.t, q0,
+                                  tq - q0);
+  tf32_load_rows<D, RS, kF32Rows>(do_s, dout + b * dos.b + h * dos.h, dos.t,
+                                  q0, tq - q0);
+  tf32_cp_commit();
+  w2v_key_tiles(key_mask ? key_mask + (long long)b * tk : nullptr, tk, BN,
+                mask_s, flag_s, count, tiles);
+  const int n = *count;
+  auto load_kv = [&](int it) {
+    float* st = str_s + (it % 2) * L::kStage;
+    const int k0 = tiles[it] * BN;
+    tf32_load_rows<D, RS, BN>(st, kb, ks.t, k0, tk - k0);
+    tf32_load_rows<D, RS, BN>(st + BN * RS, vb, vs.t, k0, tk - k0);
+  };
+  load_kv(0);
+  tf32_cp_commit();
+
+  // this lane's rows: (m, 1/l, delta); rows past tq get P = 0
+  float m[2], il[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    const float4 rw = row < tq ? rows[((long long)b * heads + h) * tq + row]
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    m[r] = rw.x;
+    il[r] = rw.y;
+    dl[r] = rw.z;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const float* q_w = q_s + warp * 16 * RS;
+  const float* do_w = do_s + warp * 16 * RS;
+
+  for (int it = 0; it < n; ++it) {
+    if (it + 1 < n) load_kv(it + 1);
+    tf32_cp_commit();
+    tf32_cp_wait<1>();
+    __syncthreads();
+    const float* k_s = str_s + (it % 2) * L::kStage;
+    const float* v_s = k_s + BN * RS;
+
+    float s[NT][4], dp[NT][4];
+    f32_scores<D, NT, RS>(s, dp, q_w, do_w, k_s, v_s);
+
+    // dS = P (dP - delta), into s
+    const int k0 = tiles[it] * BN;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + tf32_kappa(2 * t + (e & 1));
+        const int r = e >> 1;
+        const float bias =
+            key < tk ? (mask_s[key] ? 0.f : -1e30f) : -INFINITY;
+        const float p = exp2f(s[j][e] * scale_log2 + bias - m[r]) * il[r];
+        s[j][e] = p * (dp[j][e] - dl[r]);
+      }
+
+    // dQ += dS K, the tile's one partial: k-step j over its keys 8 j .. + 7
+    Tf32A da[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) da[j] = tf32_a_acc(s[j]);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) f32_add_tile<NT, RS>(acc[i], da, k_s, i);
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+
+  float* ob = dq + b * dqs.b + h * dqs.h + 2 * t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= tq) continue;
+    float* orow = ob + (long long)row * dqs.t;
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+      *reinterpret_cast<float2*>(orow + 8 * i) =
+          make_float2(acc[i][2 * r] * scale, acc[i][2 * r + 1] * scale);
+  }
+}
+
+// rows r0 + g, r0 + g + 8 (this lane's) below n of a [16, D] warp
+// accumulator to dst through its time stride, times `mul`, as float pairs
+template <int D>
+__device__ __forceinline__ void f32_store_rows(float* dst, long long st,
+                                               const float (&acc)[D / 8][4],
+                                               int r0, int n, float mul) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + lane / 4 + 8 * r;
+    if (row >= n) continue;
+    float* p = dst + (long long)row * st + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(p + 8 * i) =
+          make_float2(acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
+  }
+}
+
+// dk/dv: one CTA per (batch, head, 64 key rows), warp w owning keys
+// k0 + 16 w .. + 15; K and V stay in shared memory, and every query tile
+// (with the rows table of its queries) streams through two cp.async
+// stages.  Per tile:
+//   S^T = K Q^T, dP^T = V dO^T        (split TF32; columns in kappa order)
+//   P^T = exp2(S^T c + bias - m) / l, dS^T = P^T (dP^T - delta)  (the
+//                                      query statistics along columns)
+//   dV += P^T dO, dK += dS^T Q        (P^T and dS^T, split, are the A
+//                                      fragments)
+template <int D>
+__global__ void __launch_bounds__(kF32Warps * 32, kF32MinBlocks)
+attn_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const unsigned char* __restrict__ key_mask,
+                         const float* __restrict__ dout,
+                         const float4* __restrict__ rows,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int tq, int tk, Strides qs, Strides ks, Strides vs,
+                         Strides dos, Strides dks, Strides dvs,
+                         float scale_log2, float scale) {
+  using L = F32Bwd<D>;
+  constexpr int BN = L::BN, RS = L::RS;
+  constexpr int NT = BN / 8, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  float* k_s = reinterpret_cast<float*>(f32_smem);
+  float* v_s = k_s + L::kOwn;
+  float* str_s = k_s + 2 * L::kOwn;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * kF32Rows;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int r0 = k0 + warp * 16;
+  float* dkb = dk + b * dks.b + h * dks.h;
+  float* dvb = dv + b * dvs.b + h * dvs.h;
+
+  // skip rule: keys that are all masked, in a batch row with a valid key,
+  // get P = 0 from every query, so dk = dv = 0 exactly
+  const unsigned char* mrow = key_mask ? key_mask + (long long)b * tk : nullptr;
+  int row_any = 1, tile_any = 1;
+  if (mrow != nullptr) {
+    int any = 0;
+    for (int j = tid; j < tk; j += blockDim.x) any |= mrow[j] != 0;
+    row_any = __syncthreads_or(any);
+    any = 0;
+    for (int j = tid; j < kF32Rows; j += blockDim.x)
+      any |= k0 + j < tk && mrow[k0 + j] != 0;
+    tile_any = __syncthreads_or(any);
+  }
+  float ka[NO][4], va[NO][4];  // the dk and dv sums
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ka[i][e] = va[i][e] = 0.f;
+  if (row_any && !tile_any) {
+    f32_store_rows<D>(dkb, dks.t, ka, r0, tk, 0.f);
+    f32_store_rows<D>(dvb, dvs.t, va, r0, tk, 0.f);
+    return;
+  }
+
+  tf32_load_rows<D, RS, kF32Rows>(k_s, k + b * ks.b + h * ks.h, ks.t, k0,
+                                  tk - k0);
+  tf32_load_rows<D, RS, kF32Rows>(v_s, v + b * vs.b + h * vs.h, vs.t, k0,
+                                  tk - k0);
+  tf32_cp_commit();
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* db = dout + b * dos.b + h * dos.h;
+  const float* rb =
+      reinterpret_cast<const float*>(rows + ((long long)b * heads + h) * tq);
+  auto load_q = [&](int it) {
+    float* st = str_s + (it % 2) * L::kStage;
+    const int i0 = it * BN;
+    tf32_load_rows<D, RS, BN>(st, qb, qs.t, i0, tq - i0);
+    tf32_load_rows<D, RS, BN>(st + BN * RS, db, dos.t, i0, tq - i0);
+    // the queries' rows table (zeros past tq: P = 0 there)
+    tf32_load_rows<4, 4, BN>(st + 2 * BN * RS, rb, 4, i0, tq - i0);
+  };
+  const int nq = (tq + BN - 1) / BN;
+  load_q(0);
+  tf32_cp_commit();
+
+  // this lane's key rows r0 + g, r0 + g + 8: their biases
+  float bias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r0 + g + 8 * r;
+    bias[r] = key >= tk ? -INFINITY
+                        : (mrow == nullptr || mrow[key] ? 0.f : -1e30f);
+  }
+  const float* k_w = k_s + warp * 16 * RS;
+  const float* v_w = v_s + warp * 16 * RS;
+
+  for (int it = 0; it < nq; ++it) {
+    if (it + 1 < nq) load_q(it + 1);
+    tf32_cp_commit();
+    tf32_cp_wait<1>();
+    __syncthreads();
+    const float* q_s = str_s + (it % 2) * L::kStage;
+    const float* do_s = q_s + BN * RS;
+    const float4* rw_s = reinterpret_cast<const float4*>(q_s + 2 * BN * RS);
+
+    float s[NT][4], dp[NT][4];
+    f32_scores<D, NT, RS>(s, dp, k_w, v_w, q_s, do_s);
+
+    // P^T into s, dS^T into dp
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 rw = rw_s[8 * j + tf32_kappa(2 * t + (e & 1))];
+        const float p =
+            exp2f(s[j][e] * scale_log2 + bias[e >> 1] - rw.x) * rw.y;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - rw.z);
+      }
+
+    // dV += P^T dO, dK += dS^T Q, each the tile's one partial: k-step j
+    // over its queries 8 j .. + 7
+    Tf32A pa[NT], da[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      pa[j] = tf32_a_acc(s[j]);
+      da[j] = tf32_a_acc(dp[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+      f32_add_tile<NT, RS>(va[i], pa, do_s, i);
+      f32_add_tile<NT, RS>(ka[i], da, q_s, i);
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+  f32_store_rows<D>(dkb, dks.t, ka, r0, tk, scale);
+  f32_store_rows<D>(dvb, dvs.t, va, r0, tk, 1.f);
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v,
+               const unsigned char* key_mask, const void* dout, void* dq,
+               void* dk, void* dv, const void* o, const void* stats,
+               float* rows, int b, int tq, int tk, int heads,
+               const Strides* st, float scale, cudaStream_t stream) {
+  using L = F32Bwd<D>;
+  const void* in[4] = {q, k, v, dout};
+  for (int n = 0; n < 4; ++n)
+    if (!tf32_rows_ok(in[n], st[n].b, st[n].t, st[n].h)) return W2V_BAD_ARGS;
+  void* out[3] = {dq, dk, dv};
+  for (int n = 0; n < 3; ++n)
+    if (!tf32_pairs_ok(out[n], st[4 + n].b, st[4 + n].t, st[4 + n].h))
+      return W2V_BAD_ARGS;
+  if (o == nullptr || stats == nullptr || rows == nullptr ||
+      reinterpret_cast<uintptr_t>(rows) % 16)
+    return W2V_BAD_ARGS;
+  const long long smem1 = L::smem_dq(tk);
+  if (smem1 > kF32SmemMax || L::kSmemDkdv > kF32SmemMax) return W2V_BAD_ARGS;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const long long n_rows = (long long)b * tq * heads;
+  const long long blocks = (n_rows + kF32RowsThreads / 32 - 1) /
+                           (kF32RowsThreads / 32);
+  if (blocks > 0x7fffffffLL) return W2V_BAD_ARGS;
+  attn_bwd_rows_f32_kernel<D><<<(unsigned)blocks, kF32RowsThreads, 0,
+                                stream>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout),
+      static_cast<const float2*>(stats), reinterpret_cast<float4*>(rows),
+      n_rows, tq, heads, st[7], st[3]);
   int status = (int)cudaGetLastError();
   if (status != 0) return status;
-  const dim3 grid2((tk + kThreads / G - 1) / (kThreads / G), heads, b);
-  attn_bwd_dkdv_kernel<T, D><<<grid2, kThreads, 0, stream>>>(
-      qt, kt, vt, key_mask, dot, static_cast<T*>(dk), static_cast<T*>(dv),
-      stats, tq, tk, st[0], st[1], st[2], st[3], st[5], st[6], scale);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* df = static_cast<const float*>(dout);
+  const float4* rw = reinterpret_cast<const float4*>(rows);
+  status = (int)cudaFuncSetAttribute(
+      attn_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem1);
+  if (status != 0) return status;
+  const dim3 grid1((tq + kF32Rows - 1) / kF32Rows, heads, b);
+  attn_bwd_dq_f32_kernel<D><<<grid1, kF32Warps * 32, smem1, stream>>>(
+      qf, kf, vf, key_mask, df, rw, static_cast<float*>(dq), tq, tk, st[0],
+      st[1], st[2], st[3], st[4], scale_log2, scale);
+  status = (int)cudaGetLastError();
+  if (status != 0) return status;
+  status = (int)cudaFuncSetAttribute(
+      attn_bwd_dkdv_f32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmemDkdv);
+  if (status != 0) return status;
+  const dim3 grid2((tk + kF32Rows - 1) / kF32Rows, heads, b);
+  attn_bwd_dkdv_f32_kernel<D><<<grid2, kF32Warps * 32, L::kSmemDkdv,
+                                stream>>>(
+      qf, kf, vf, key_mask, df, rw, static_cast<float*>(dk),
+      static_cast<float*>(dv), tq, tk, st[0], st[1], st[2], st[3], st[5],
+      st[6], scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v,
-               const unsigned char* key_mask, const void* dout, void* dq,
-               void* dk, void* dv, float* stats, int b, int tq, int tk,
-               int heads, int d, const Strides* st, float scale,
-               cudaStream_t stream) {
+int dispatch_f32(const void* q, const void* k, const void* v,
+                 const unsigned char* key_mask, const void* dout, void* dq,
+                 void* dk, void* dv, const void* o, const void* stats,
+                 float* rows, int b, int tq, int tk, int heads, int d,
+                 const Strides* st, float scale, cudaStream_t stream) {
   if (d == 64)
-    return launch_attn_bwd<T, 64>(q, k, v, key_mask, dout, dq, dk, dv, stats,
-                                  b, tq, tk, heads, st, scale, stream);
+    return launch_f32<64>(q, k, v, key_mask, dout, dq, dk, dv, o, stats,
+                          rows, b, tq, tk, heads, st, scale, stream);
   if (d == 96)
-    return launch_attn_bwd<T, 96>(q, k, v, key_mask, dout, dq, dk, dv, stats,
-                                  b, tq, tk, heads, st, scale, stream);
+    return launch_f32<96>(q, k, v, key_mask, dout, dq, dk, dv, o, stats,
+                          rows, b, tq, tk, heads, st, scale, stream);
   if (d == 128)
-    return launch_attn_bwd<T, 128>(q, k, v, key_mask, dout, dq, dk, dv, stats,
-                                   b, tq, tk, heads, st, scale, stream);
+    return launch_f32<128>(q, k, v, key_mask, dout, dq, dk, dv, o, stats,
+                           rows, b, tq, tk, heads, st, scale, stream);
   return W2V_BAD_ARGS;
 }
 
@@ -990,14 +1181,16 @@ int dispatch_tc(const void* q, const void* k, const void* v,
 // head dim contiguous, operands in the order q, k, v, do, dq, dk, dv, o of
 // the host array `strides` (24 long longs).  key_mask: [b, tk] bytes
 // (nonzero = valid key) or NULL.  d is 64, 96 or 128.
-// dtype W2V_F32 runs the scalar kernels (o and stats unused; rows a
-// [b, heads, tq, 3] float32 workspace).  W2V_BF16 runs the
-// tensor-core ones: o [b, tq, heads, d] is the forward's output and stats
-// [b, heads, tq, 2] float32 its (m, l) (w2v_attention); rows is a
-// [b, heads, tq, 4] float32 workspace; q, k, v and do need 16-byte-aligned
-// starts and strides that are multiples of 8 elements, o, dq, dk and dv
-// even strides (else W2V_BAD_ARGS).  Launches the pre-pass, the dq kernel
-// and the dk/dv kernel on `stream`; returns the first non-zero
+// Both dtypes take o [b, tq, heads, d], the forward's output, and stats
+// [b, heads, tq, 2] float32, its (m, l) (w2v_attention); rows is a
+// [b, heads, tq, 4] float32 workspace, 16-byte aligned.  dtype W2V_F32
+// runs the split-TF32 kernels: q, k, v and do need 16-byte-aligned starts
+// and strides that are multiples of 4 elements, dq, dk and dv 8-byte
+// alignment and even strides.  W2V_BF16 runs the wgmma ones: q, k, v and
+// do need 16-byte-aligned starts and strides that are multiples of 8
+// elements, o, dq, dk and dv even strides (else W2V_BAD_ARGS).  Launches
+// the pre-pass, the dq kernel and the dk/dv kernel on `stream`; returns
+// the first non-zero
 // cudaError_t.
 extern "C" int w2v_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* key_mask, const void* dout,
@@ -1017,8 +1210,8 @@ extern "C" int w2v_attention_bwd(const void* q, const void* k, const void* v,
   float* ws = static_cast<float*>(rows);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (dtype == W2V_F32)
-    return dispatch_d<float>(q, k, v, mask, dout, dq, dk, dv, ws, b, tq, tk,
-                             heads, d, st, scale, cs);
+    return dispatch_f32(q, k, v, mask, dout, dq, dk, dv, o, stats, ws, b, tq,
+                        tk, heads, d, st, scale, cs);
   if (dtype == W2V_BF16)
     return dispatch_tc(q, k, v, mask, dout, dq, dk, dv, o, stats, ws, b, tq,
                        tk, heads, d, st, scale, cs);
