@@ -362,9 +362,10 @@ BF16_ATOL = 2 ** -5  # one bf16 step at |y| in [4, 8): independent roundings
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bf16_tc": 989e12, "int8_tc": 1979e12, "tf32_tc": 495e12,
             "f32": 67e12}
-# the float32 attention kernels (K3, K4, K10) take each product as three
-# TF32 products on the tensor cores (split TF32): their bound counts the
-# products three times at the TF32 peak
+# the float32 attention kernels (K3, K4, K10), the float32 FFN (K5) and the
+# float32 conv layers 1-6 (K6) take each product as three TF32 products on
+# the tensor cores (split TF32): their bound counts the products three
+# times at the TF32 peak
 SPLIT_TF32 = 3
 # scalar operations an element of a LayerNorm (mean, variance, normalise,
 # scale, bias), of its backward (the statistics again, x-hat, g*scale, the
@@ -449,10 +450,14 @@ INFER_PATH = DEFAULT_PATH + ("row_dot",)
 # rows of their own, as has the raw-audio layer 0
 CONV_MIDDLE = ((31999, 3, 2), (15999, 3, 2), (7999, 3, 2), (3999, 2, 2))
 # the conv kernels by name (bf16: wgmma + TMA, tensor-core taps; float32:
-# the scalar oracle kernels), for the profiler's device times and the
-# build phase's spill check
+# split TF32 for layers 1-6 with its weight split, scalar taps for layer
+# 0), for the profiler's device times and (the bf16 two) the build phase's
+# spill check
 CONV_KERNELS = ("conv_wg_kernel", "conv_audio_tc_kernel",
-                "conv_ln_gelu_kernel", "conv_audio_kernel")
+                "conv_tf32_kernel", "conv_audio_kernel", "tf32_split_kernel")
+# K5's kernels by name (bf16: wgmma + TMA; float32: split TF32 and its
+# weights' split), for the profiler's device times
+FFN_KERNELS = ("ffn_wg_kernel", "ffn_tf32_kernel", "tf32_split_kernel")
 # the LayerNorm kernels by name (bf16: the vector kernel; float32: the
 # simple oracle kernel) and F.layer_norm's, for the profiler's device times
 # (the bf16 kernel also for the spill check)
@@ -474,6 +479,13 @@ ATTN_BWD_KERNELS = {
 # the build phase reports apart
 F32_ATTN_KERNELS = ("attn_fwd_f32_kernel", "attn_bwd_rows_f32_kernel",
                     "attn_bwd_dq_f32_kernel", "attn_bwd_dkdv_f32_kernel")
+# the float32 GEMM kernels of K5 and K6 (split TF32, gemm.cuh's Tf32Gemm)
+# and the weights' split, reported the same way, with the instances the
+# report must hold: K5's two tile shapes by its two epilogues, one conv
+# kernel, the split kernel (one name: ffn.cu's and convfuse.cu's copies
+# share it)
+F32_GEMM_KERNELS = {"ffn_tf32_kernel": 4, "conv_tf32_kernel": 1,
+                    "tf32_split_kernel": 1}
 # a K1 row width with a masked tail: not a multiple of 8, a partial pass
 LN_TAIL_H = 1020
 # LayerNorm launches a batch: the feature projection, two in each of the 15
@@ -637,9 +649,9 @@ def check_kernels(dev) -> dict:
     def tc(dtype):  # the product's rate: tensor cores in bf16
         return "bf16_tc" if dtype == torch.bfloat16 else "f32"
 
-    def attn_ops(dtype, flops):
-        # the attention kernels' products: bf16 tensor cores, or split
-        # TF32 (three TF32 products each) in float32
+    def tc_ops(dtype, flops):
+        # the attention, FFN and conv (layers 1-6) kernels' products: bf16
+        # tensor cores, or split TF32 (three TF32 products each) in float32
         if dtype == torch.bfloat16:
             return ("bf16_tc", flops)
         return ("tf32_tc", SPLIT_TF32 * flops)
@@ -697,7 +709,7 @@ def check_kernels(dev) -> dict:
         # QK and PV (2 * D FLOP a pair each) over the pairs that need them
         valid, empty = pairs(mask)
         flops = heads * d * (4 * valid + 2 * empty)
-        return bound(4 * nbytes(q), attn_ops(dtype, flops))
+        return bound(4 * nbytes(q), tc_ops(dtype, flops))
 
     def sdpa(q, k, v, mask):  # [B, T, H, D] views -> the library call
         m = mask[:, None, None, :]
@@ -752,7 +764,7 @@ def check_kernels(dev) -> dict:
                     plain=lambda: attn.attention_bthd_plain(
                         q, k, v, mask, 128 ** -0.5),
                     uniform=uniform_row(v, 8, 128),
-                    bound=bound(2 * nbytes(q) + nbytes(kv), attn_ops(
+                    bound=bound(2 * nbytes(q) + nbytes(kv), tc_ops(
                         dtype, 8 * 128 * (4 * valid + 2 * empty))),
                     library=sdpa(q, k, v, mask), twice=True)
 
@@ -860,7 +872,7 @@ def check_kernels(dev) -> dict:
                     # and dv out (the bf16 kernels' extra reads of the
                     # forward's output and statistics are not counted)
                     bound=bound(3 * nbytes(q) + 4 * nbytes(k),
-                                attn_ops(dtype, flops)),
+                                tc_ops(dtype, flops)),
                     library=lambda: torch.autograd.grad(lib_fwd(), leaves,
                                                         do_t),
                     library_less=lib_fwd, rtol=BWD_RTOL, twice=True)
@@ -946,15 +958,17 @@ def check_kernels(dev) -> dict:
         def chain():
             return F.linear(F.gelu(F.linear(x, lw1, lb1)), lw2, lb2)
 
+        # every FFN row twice (bitwise), three timings (the median on
+        # record), and the profiler's device time of the FFN kernels
         return dict(fn=lambda: tffn.ffn(*args),
                     plain=lambda: tffn.ffn_plain(*args),
-                    bound=bound(moved, (tc(dtype), 4 * rows * 1024 * 4096),
+                    bound=bound(moved, tc_ops(dtype, 4 * rows * 1024 * 4096),
                                 ("f32", rows * 4096 * (1 + GELU_OPS))),
-                    library=None,
+                    library=None, twice=True, repeats=3,
                     extra=lambda: {"cublas_chain_ms": cuda_ms(chain, 10),
                                    "device_ms": device_ms(
                                        lambda: tffn.ffn(*args), 10,
-                                       ("ffn_wg_kernel", "ffn_gemm_kernel"))})
+                                       FFN_KERNELS)})
 
     def conv_case(t, c, k, s, dtype, b=B, valid=None):
         x = randn(b, t, c, dtype=dtype)
@@ -968,6 +982,11 @@ def check_kernels(dev) -> dict:
         moved = nbytes(x) + rows * 512 * x.element_size() \
             + w.numel() * x.element_size() + nbytes(cb, scale, bias)
         product = 2 * rows * k * c * 512
+        # layers 1-6 on the tensor cores (split TF32 in float32); the
+        # raw-audio layer 0 (k*C <= 16) in bf16 on them, in float32 on the
+        # scalar pipes
+        ops = (tc_ops(dtype, product) if k * c > conv.AUDIO_MAX_K
+               else (tc(dtype), product))
         epilogue = rows * 512 * (1 + LN_OPS + GELU_OPS)
         # a reference point, not the library column: the cuDNN chain of
         # three calls in x's type, conv1d on the channels-first view ->
@@ -983,8 +1002,7 @@ def check_kernels(dev) -> dict:
         # record), and the profiler's device time of the conv kernels
         return dict(fn=lambda: conv.conv_bias_ln_gelu(*args),
                     plain=lambda: conv.conv_bias_ln_gelu_plain(*args),
-                    bound=bound(moved, (tc(dtype), product),
-                                ("f32", epilogue)),
+                    bound=bound(moved, ops, ("f32", epilogue)),
                     library=None, twice=True, repeats=3,
                     extra=lambda: {"cudnn_chain_ms": cuda_ms(chain, 3),
                                    "device_ms": device_ms(
@@ -1523,7 +1541,8 @@ def run_precision(dev, model) -> dict:
     """The precision ladder (``runtime.precision``) on one full batch of 14
     x 20 s with the kernels, each arm against the eager float32 path (the
     oracle): |dprob| over the valid frames, the batch's wall ms (five
-    runs) and device busy ms (three, profiled), and its launches."""
+    runs) and device busy ms (three, profiled), and its launches; for the
+    f32 arm also one batch's top device ops and kernels (``op_profile``)."""
     from wav2vecsegmenter_tpu_torch.infer.pipeline import (PRECISION_ARMS,
                                                            WindowInference)
 
@@ -1555,6 +1574,8 @@ def run_precision(dev, model) -> dict:
                 np.abs(probs - oracle)[batch.out_mask]),
             "batch_ms": walls, "batch_ms_median": float(np.median(walls)),
             "device_busy_ms": device_busy_ms(run, 3), "launches": launches}
+        if arm == "f32":  # where the float32 batch's device time goes
+            arms[arm].update(op_profile(run))
     phase("precision", windows=B, oracle="eager float32", arms=arms,
           layer_rel_err=layer_trace(model, dev))
     for arm, row in arms.items():
@@ -1570,6 +1591,44 @@ def run_precision(dev, model) -> dict:
     check(res < low, f"precision: f32res mean dprob {res} not below bf16's "
                      f"{low}")
     return arms
+
+
+# the f32 arm's device time by kernel group (names as
+# ops/timing.device_kernels_ms shortens them): K5, the conv layers (1-6 on
+# split TF32, the raw-audio layer 0), the attention forward (K3, K4), the
+# weights' split, the LayerNorms; the rest is PyTorch's
+F32_ARM_GROUPS = {"ffn": ("ffn_tf32_kernel",),
+                  "conv_layers_1_6": ("conv_tf32_kernel",),
+                  "conv_layer_0": ("conv_audio_kernel",),
+                  "attention": ("attn_fwd_f32_kernel",),
+                  "weight_split": ("tf32_split_kernel",),
+                  "layer_norm": ("ln_rows_kernel",)}
+
+
+def op_profile(fn, n: int = 12) -> dict:
+    """One call traced (CPU and CUDA activity): its ``n`` host ops and
+    ``n`` device kernels of most device time (ms; every kernel launched
+    through ctypes falls outside any host op), and the kernels' time by
+    ``F32_ARM_GROUPS``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wav2vecsegmenter_tpu_torch.ops.timing import (device_kernels_ms,
+                                                        top_device_ops)
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels_ms(prof)
+    groups = {g: sum(ms for k, ms in kernels.items() if k in names)
+              for g, names in F32_ARM_GROUPS.items()}
+    groups["rest"] = sum(kernels.values()) - sum(groups.values())
+    return {"top_device_ops": top_device_ops(prof, n),
+            "top_device_kernels": dict(list(kernels.items())[:n]),
+            "device_kernel_groups": groups,
+            "device_kernels_total": sum(kernels.values())}
 
 
 # the four int8 products of an encoder layer on a batch of 14 x 20 s
@@ -4869,12 +4928,17 @@ def main() -> int:
     ptxas = ptxas_report(_build.build_log)
     f32_attn = {k: v for k, v in ptxas.items()
                 if k.split(" ")[0] in F32_ATTN_KERNELS}
+    f32_gemm = {k: v for k, v in ptxas.items()
+                if k.split(" ")[0] in F32_GEMM_KERNELS}
     phase("build", seconds=time.perf_counter() - t0,
           nvcc_seconds=_build.build_seconds, ptxas=ptxas,
-          f32_attention_ptxas=f32_attn)
+          f32_attention_ptxas=f32_attn, f32_gemm_ptxas=f32_gemm)
     # each of the four float32 attention kernels at D = 64, 96 and 128
     check(len(f32_attn) == 3 * len(F32_ATTN_KERNELS),
           f"float32 attention kernels in the ptxas report: {f32_attn}")
+    for name, n in F32_GEMM_KERNELS.items():
+        check(sum(k.split(" ")[0] == name for k in f32_gemm) == n,
+              f"float32 GEMM kernels in the ptxas report: {f32_gemm}")
 
     kernels = check_kernels(dev)
     # the bf16 conv and LayerNorm kernels (K9's too): no spills (checked

@@ -43,11 +43,12 @@ _SIGNATURES = {
     "w2v_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                       _F, _I, _P),
-    # x, w1, b1, w2, b2, hidden, out, rows, h, f, dtype, stream
-    "w2v_ffn": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
-    # x, w, conv_bias, scale, bias, out, batch, t_in, c_in, k, stride,
-    # t_out, n_out, eps, dtype, stream
-    "w2v_conv_ln_gelu": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _L,
+    # x, w1, b1, w2, b2, hidden, out, split (float32 scratch), rows, h, f,
+    # dtype, stream
+    "w2v_ffn": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # x, w, conv_bias, scale, bias, out, split (float32 scratch), batch,
+    # t_in, c_in, k, stride, t_out, n_out, eps, dtype, stream
+    "w2v_conv_ln_gelu": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _L,
                          _I, _F, _I, _P),
     "w2v_conv_audio_ln_gelu": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                                _L, _I, _F, _I, _P),

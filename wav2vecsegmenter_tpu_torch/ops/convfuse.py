@@ -10,9 +10,12 @@ On CUDA tensors it runs a kernel of ``csrc/convfuse.cu``:
   rows x 256 channels, the A operand loaded by TMA from x as it lies (the
   stride fold: one map for taps [0, s), one for [s, k)) and multicast to
   the pair, the LayerNorm statistics merged through distributed shared
-  memory, the output stored by TMA; in float32 scalar FMAs over the input
-  read in place as an overlapping strided view (row r is
-  ``x[b, r*s : r*s + k]`` flattened, K = k*C);
+  memory, the output stored by TMA; in float32 ``wgmma`` in split TF32
+  (the weight split into TF32 hi and lo parts once a call, in scratch this
+  wrapper allocates) fed by ``cp.async`` from the input read in place as
+  an overlapping strided view (row r is ``x[b, r*s : r*s + k]`` flattened,
+  K = k*C), in clusters of four CTAs of 128 channels that merge the
+  LayerNorm statistics through distributed shared memory;
 * ``conv_audio_ln_gelu``: a narrow product (k*C <= 16, the raw-audio layer
   0): in bf16 the taps on the tensor cores (``mma.sync``, K padded to 16)
   from a staged span of samples, in float32 scalar taps.
@@ -175,9 +178,11 @@ def _launch(x, weight, conv_bias, scale, bias, stride, eps) -> torch.Tensor:
     b, t, c, o, k, t_out = _geometry(x, weight, stride)
     if not x.is_contiguous():
         raise ValueError("conv kernel takes a contiguous [B, T, C] input")
-    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
-        raise ValueError("the bf16 conv kernels read x by TMA: its storage "
-                         "must start on a 16-byte boundary")
+    narrow = k * c <= AUDIO_MAX_K
+    if x.data_ptr() % 16 and (x.dtype == torch.bfloat16 or not narrow):
+        raise ValueError("the bf16 conv kernels read x by TMA, the float32 "
+                         "conv layers by cp.async: its storage must start "
+                         "on a 16-byte boundary")
     for p in (weight, conv_bias, scale, bias):
         if p.device != x.device:
             raise ValueError("conv parameters must be on x's device")
@@ -186,13 +191,21 @@ def _launch(x, weight, conv_bias, scale, bias, stride, eps) -> torch.Tensor:
     w = _gemm_weight(weight, x.dtype).contiguous()
     params = [p.float().contiguous() for p in (conv_bias, scale, bias)]
     out = torch.empty((b, t_out, o), dtype=x.dtype, device=x.device)
-    narrow = k * c <= AUDIO_MAX_K
     name = "conv_audio_ln_gelu" if narrow else "conv_bias_ln_gelu"
     lib = _build.library()
-    launch = lib.w2v_conv_audio_ln_gelu if narrow else lib.w2v_conv_ln_gelu
+    pointers = [x.data_ptr(), w.data_ptr(), *(p.data_ptr() for p in params),
+                out.data_ptr()]
+    if narrow:
+        launch = lib.w2v_conv_audio_ln_gelu
+    else:
+        launch = lib.w2v_conv_ln_gelu
+        # float32: the weight's TF32 hi and lo parts, written by the call
+        split = (torch.empty(2 * w.numel(), dtype=torch.float32,
+                             device=x.device)
+                 if x.dtype == torch.float32 else None)
+        pointers.append(None if split is None else split.data_ptr())
     status = launch(
-        x.data_ptr(), w.data_ptr(), *(p.data_ptr() for p in params),
-        out.data_ptr(), b, t, c, k, stride, t_out, o, float(eps),
+        *pointers, b, t, c, k, stride, t_out, o, float(eps),
         _build.dtype_code(x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, name)

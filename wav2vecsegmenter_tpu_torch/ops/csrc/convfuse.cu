@@ -56,9 +56,25 @@
 // shared memory; the output is staged (two buffers) and stored by TMA.  The
 // grid is persistent.
 //
-// float32 (the oracle run): conv_ln_gelu_kernel (SimtGemm scalar FMAs over
-// the input read in place as an overlapping strided view, W2vRows) and
-// conv_audio_kernel (scalar taps), each with the row epilogue ln_gelu_row.
+// float32, layers 1-6: conv_tf32_kernel, split TF32 on the tensor cores
+// (Tf32Gemm of gemm.cuh: wgmma in TF32, each product as lo_a hi_b +
+// hi_a lo_b + hi_a hi_b, the A fragments split in registers, the weight
+// split into hi and lo once a call, a 4-stage cp.async ring, fresh partials
+// added to running sums by IEEE adds) over the input read in place as an
+// overlapping strided view (W2vRows).  Bound: the product counted three
+// times at the TF32 peak, 3 * 705 GFLOP for layer 1 of a 14-window batch =
+// 4.27 ms at 495 TFLOP/s (on the H100 the scalar mainloop it replaces took
+// 22 ms, at the FP32 pipes' 67 TFLOP/s).  The running sums double the
+// accumulator, so a CTA holds 128 rows x 128 channels (two warpgroups of 64
+// rows) and a cluster of four CTAs a row tile's 512 channels; the LayerNorm
+// statistics are merged through distributed shared memory (each CTA's row
+// partials read by all four, added in rank order, so every CTA gets the
+// same float32 mean and variance).  Each CTA streams a quarter of the split
+// weight and the whole A tile (the four read it from L2 at about the same
+// time).
+// float32, layer 0: conv_audio_kernel (scalar taps).  Both end in
+// ln_gelu_row's arithmetic: the mean, then the mean of the squared
+// deviations, then the exact-erf GELU, rounded once.
 
 #include "gemm.cuh"
 #include "hopper.cuh"
@@ -66,14 +82,26 @@
 namespace {
 
 constexpr int kConvN = 512;            // output channels
-constexpr int kConvLdc = kConvN + 8;   // shared tile row (floats)
 constexpr int kPerLane = kConvN / 32;  // channels a lane: lane + 32 * q
 
 // ---------------------------------------------------------------------------
-// float32: the scalar oracle kernels
+// float32: split TF32 for layers 1-6, scalar taps for layer 0
 // ---------------------------------------------------------------------------
 
-using ConvSimt = SimtGemm<64, kConvN, 8, 16>;
+// split TF32, partials of kF32GemmSteps k-steps (8 K each), a ring of
+// kF32GemmStages stages of 32 K; a cluster of kF32GemmCluster CTAs, each
+// kF32GemmRows rows x kF32GemmCols channels (a warp's 16 rows of them)
+constexpr int kF32GemmSteps = 4;
+constexpr int kF32GemmStages = 4;
+constexpr int kF32GemmRows = 128;
+constexpr int kF32GemmCols = 128;
+constexpr int kF32GemmCluster = 4;
+static_assert(kF32GemmCluster * kF32GemmCols == kConvN, "a row a cluster");
+using ConvTf32 = Tf32Gemm<kF32GemmCols, kF32GemmStages, kF32GemmSteps>;
+static_assert(ConvTf32::kBM == kF32GemmRows, "row tiles");
+// shared floats past the stages: the CTA's row sums and squared deviations
+// [2][kBM] (read by the cluster), the rows' mean and 1/std [2][kBM]
+constexpr int kConvTf32Smem = ConvTf32::kSmemBytes + 4 * ConvTf32::kBM * 4;
 
 // the row's float32 pre-activations v (conv bias added) -> LayerNorm ->
 // scale, bias -> GELU -> out_row[lane + 32 * q]
@@ -98,42 +126,92 @@ __device__ __forceinline__ void ln_gelu_row(float (&v)[kPerLane],
     out_row[lane + 32 * q] = w2v_gelu((v[q] - mean) * rstd * sc[q] + bi[q]);
 }
 
-// 64 rows x 512 channels a block, scalar FMAs; the sums go to a shared tile
-// (the mainloop's buffers, now free) and each warp normalises whole rows
-__global__ void __launch_bounds__(ConvSimt::kThreads, 1)
-conv_ln_gelu_kernel(const float* __restrict__ x, W2vRows rows,
-                    long long m_rows, int k, const float* __restrict__ w,
-                    const float* __restrict__ conv_bias,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ bias, float eps,
-                    float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long m0 = (long long)blockIdx.x * ConvSimt::kBM;
-  float* tile = reinterpret_cast<float*>(smem);  // [kBM][kConvLdc]
-  {
-    ConvSimt g;
-    g.run(x, rows, m_rows, w, k, k, m0, 0, smem);
-    g.for_each([&](int r, int c, float v) { tile[r * kConvLdc + c] = v; });
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  float cb[kPerLane], sc[kPerLane], bi[kPerLane];
+// one cluster a row tile of 128 rows; CTA rank r owns channels
+// [128 r, 128 r + 128)
+__global__ void __launch_bounds__(ConvTf32::kThreads, 1)
+conv_tf32_kernel(const float* __restrict__ x, W2vRows rows, long long m_rows,
+                 int k, const float* __restrict__ whi,
+                 const float* __restrict__ wlo,
+                 const float* __restrict__ conv_bias,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias, float eps,
+                 float* __restrict__ out) {
+  using G = ConvTf32;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem + G::kSmemBytes);  // [2][kBM]
+  float* stat = xs + 2 * G::kBM;                                // [2][kBM]
+  const unsigned rank = hop_cluster_rank();
+  const long long m0 = (long long)(blockIdx.x / kF32GemmCluster) * G::kBM;
+  const int n0 = rank * G::kBN;
+  G g;
+  g.run(x, rows, m_rows, whi, wlo, k, k, m0, n0, smem);
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  // the row statistic p (0: sums, 1: squared deviations) of the thread's
+  // values f(e) (sum[e]'s), merged over the quad (a warp holds its rows'
+  // 128 channels) and the cluster's CTAs in rank order; then stat[p][row]
+  // = done(the row's total)
+  auto row_stat = [&](int p, auto&& f, auto&& done) {
 #pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
-    cb[q] = conv_bias[lane + 32 * q];
-    sc[q] = scale[lane + 32 * q];
-    bi[q] = bias[lane + 32 * q];
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < G::kBN / 8; ++j) {
+        s += f(4 * j + 2 * h);
+        s += f(4 * j + 2 * h + 1);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (lane % 4 == 0) xs[p * G::kBM + G::row_of(h)] = s;
+    }
+    hop_cluster_sync();  // every CTA's partials are written
+    if (tid < G::kBM) {
+      const uint32_t at = hop_smem(xs + p * G::kBM + tid);
+      float s = hop_ld_cluster_f32(hop_mapa(at, 0));
+#pragma unroll
+      for (int q = 1; q < kF32GemmCluster; ++q)
+        s += hop_ld_cluster_f32(hop_mapa(at, q));
+      stat[p * G::kBM + tid] = done(s);
+    }
+    __syncthreads();
+  };
+
+  // conv bias, then the row sums -> the mean
+#pragma unroll
+  for (int j = 0; j < G::kBN / 8; ++j) {
+    const float2 c =
+        *reinterpret_cast<const float2*>(conv_bias + n0 + G::col_of(j));
+    g.sum[4 * j] += c.x;
+    g.sum[4 * j + 1] += c.y;
+    g.sum[4 * j + 2] += c.x;
+    g.sum[4 * j + 3] += c.y;
   }
-  for (int r = threadIdx.x >> 5; r < ConvSimt::kBM;
-       r += ConvSimt::kThreads / 32) {
+  row_stat(0, [&](int e) { return g.sum[e]; },
+           [](float s) { return s / kConvN; });
+  // the deviations from the mean replace the sums
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mean = stat[G::row_of(h)];
+#pragma unroll
+    for (int j = 0; j < G::kBN / 8; ++j) {
+      g.sum[4 * j + 2 * h] -= mean;
+      g.sum[4 * j + 2 * h + 1] -= mean;
+    }
+  }
+  row_stat(1, [&](int e) { return g.sum[e] * g.sum[e]; },
+           [eps](float s) { return rsqrtf(s / kConvN + eps); });
+
+  g.for_each([&](int r, int c, float v0, float v1) {
     const long long m = m0 + r;
-    if (m >= m_rows) break;
-    float v[kPerLane];
-#pragma unroll
-    for (int q = 0; q < kPerLane; ++q)
-      v[q] = tile[r * kConvLdc + lane + 32 * q] + cb[q];
-    ln_gelu_row(v, sc, bi, eps, lane, out + m * kConvN);
-  }
+    if (m >= m_rows) return;
+    const float rstd = stat[G::kBM + r];
+    const float2 s2 = *reinterpret_cast<const float2*>(scale + n0 + c);
+    const float2 b2 = *reinterpret_cast<const float2*>(bias + n0 + c);
+    *reinterpret_cast<float2*>(out + m * kConvN + n0 + c) =
+        make_float2(w2v_gelu(v0 * rstd * s2.x + b2.x),
+                    w2v_gelu(v1 * rstd * s2.y + b2.y));
+  });
+  hop_cluster_sync();  // no CTA leaves while the cluster reads its partials
 }
 
 constexpr int kAudioMaxK = 16;
@@ -818,27 +896,50 @@ W2vRows conv_rows(long long t_in, int c_in, int stride, long long t_out) {
 
 int launch_conv_f32(const void* x, const void* w, const float* conv_bias,
                     const float* scale, const float* bias, void* out,
-                    int batch, long long t_in, int c_in, int k, int stride,
-                    long long t_out, float eps, cudaStream_t stream) {
+                    float* split, int batch, long long t_in, int c_in, int k,
+                    int stride, long long t_out, float eps,
+                    cudaStream_t stream) {
   const W2vRows rows = conv_rows(t_in, c_in, stride, t_out);
-  // float4 loads need every row start aligned
-  if (k * c_in % ConvSimt::kKAlign || rows.row_stride % 4 ||
-      rows.batch_stride % 4)
+  // cp.async needs every row start 16-byte aligned
+  const int kdim = k * c_in;
+  if (kdim % ConvTf32::kBK || rows.row_stride % 4 || rows.batch_stride % 4 ||
+      !aligned16(x) || !aligned16(w) || !aligned16(split) ||
+      reinterpret_cast<uintptr_t>(out) % 8 ||
+      reinterpret_cast<uintptr_t>(conv_bias) % 8 ||
+      reinterpret_cast<uintptr_t>(scale) % 8 ||
+      reinterpret_cast<uintptr_t>(bias) % 8)
     return W2V_BAD_ARGS;
   const long long m_rows = batch * t_out;
-  const long long blocks = (m_rows + ConvSimt::kBM - 1) / ConvSimt::kBM;
+  const long long blocks =
+      (m_rows + ConvTf32::kBM - 1) / ConvTf32::kBM * kF32GemmCluster;
   if (blocks > 0x7fffffffLL) return W2V_BAD_ARGS;
-  constexpr int tile_bytes = ConvSimt::kBM * kConvLdc * 4;
-  constexpr int smem = ConvSimt::kSmemBytes > tile_bytes
-                           ? ConvSimt::kSmemBytes
-                           : tile_bytes;
+  const long long n = (long long)kConvN * kdim;
+  float* whi = split;
+  float* wlo = split + n;
+  int status =
+      launch_tf32_split(static_cast<const float*>(w), whi, wlo, n, stream);
+  if (status != 0) return status;
   cudaError_t e = cudaFuncSetAttribute(
-      conv_ln_gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      conv_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kConvTf32Smem);
   if (e != cudaSuccess) return (int)e;
-  conv_ln_gelu_kernel<<<(unsigned)blocks, ConvSimt::kThreads, smem, stream>>>(
-      static_cast<const float*>(x), rows, m_rows, k * c_in,
-      static_cast<const float*>(w), conv_bias, scale, bias, eps,
-      static_cast<float*>(out));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kF32GemmCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(ConvTf32::kThreads);
+  cfg.dynamicSmemBytes = kConvTf32Smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, conv_tf32_kernel, static_cast<const float*>(x),
+                         rows, m_rows, kdim, (const float*)whi,
+                         (const float*)wlo, conv_bias, scale, bias, eps,
+                         static_cast<float*>(out));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -869,16 +970,18 @@ bool conv_shape_ok(int batch, long long t_in, int c_in, int k, int stride,
 // permuted to [O, k, C]) in x's type; conv_bias, scale, bias [512] float32;
 // out [batch, t_out, 512].  w2v_conv_ln_gelu takes, in bf16, x, w and out
 // 16-byte aligned, c_in a multiple of 8, min(k, s) * c_in and
-// (k - min(k, s)) * c_in multiples of 64 and k <= 2s; in float32, k * c_in
-// a multiple of 16.  w2v_conv_audio_ln_gelu takes k * c_in <= 16 (and in
+// (k - min(k, s)) * c_in multiples of 64 and k <= 2s; in float32, x, w and
+// split (float32 scratch of 2 * 512 * k * c_in floats: the weight's TF32 hi
+// and lo parts; unused in bf16) 16-byte aligned, k * c_in a multiple of 32
+// and s * c_in of 4.  w2v_conv_audio_ln_gelu takes k * c_in <= 16 (and in
 // bf16 s * c_in <= 64, out 16-byte aligned).  Launch on `stream`; return
 // the launch's cudaError_t or W2V_BAD_ARGS.
 extern "C" int w2v_conv_ln_gelu(const void* x, const void* w,
                                 const void* conv_bias, const void* scale,
-                                const void* bias, void* out, int batch,
-                                long long t_in, int c_in, int k, int stride,
-                                long long t_out, int n_out, float eps,
-                                int dtype, void* stream) {
+                                const void* bias, void* out, void* split,
+                                int batch, long long t_in, int c_in, int k,
+                                int stride, long long t_out, int n_out,
+                                float eps, int dtype, void* stream) {
   if (!conv_shape_ok(batch, t_in, c_in, k, stride, t_out, n_out))
     return W2V_BAD_ARGS;
   const float* cb = static_cast<const float*>(conv_bias);
@@ -889,8 +992,8 @@ extern "C" int w2v_conv_ln_gelu(const void* x, const void* w,
     return launch_conv_wg<ConvWgCfg>(x, w, cb, sc, bi, out, batch, t_in, c_in,
                                      k, stride, t_out, eps, s);
   if (dtype == W2V_F32)
-    return launch_conv_f32(x, w, cb, sc, bi, out, batch, t_in, c_in, k,
-                           stride, t_out, eps, s);
+    return launch_conv_f32(x, w, cb, sc, bi, out, static_cast<float*>(split),
+                           batch, t_in, c_in, k, stride, t_out, eps, s);
   return W2V_BAD_ARGS;
 }
 

@@ -25,8 +25,23 @@
 //   stores) runs while the other's wgmma mainloop keeps the tensor cores
 //   busy.  The tensor maps are built on the host for each call (A over x or
 //   the activation, B over w1 or w2).
-// float32 (the oracle run): the scalar-FMA mainloop of gemm.cuh with the
-//   same epilogues.
+// float32: two launches of Tf32Gemm (gemm.cuh), split TF32 on the tensor
+//   cores (wgmma in TF32, each product as lo_a hi_b + hi_a lo_b + hi_a hi_b,
+//   A's fragments split in registers, w1 and w2 split into hi and lo once a
+//   call), fed by a 4-stage cp.async ring, with the same epilogues writing
+//   float32.  Bound: the products counted three times at the TF32 peak,
+//   3 * 235 GFLOP at [14 * 999, 1024] x 4096 = 1.42 ms at 495 TFLOP/s.  On
+//   the H100 the scalar mainloop it replaces took 6.8 ms (the FP32 pipes'
+//   67 TFLOP/s), and mma.sync in split TF32 3.7 ms, bound by the rate at
+//   which its instructions start (PERF.md).  The running sums beside the
+//   fresh partials (the accumulation truncates; tf32.cuh) double the
+//   accumulator, so a block holds 128 x 128 (one an SM: 192 KB of stages),
+//   or 128 x 64 where the large tiles would leave half the SMs idle (one
+//   window: 64 tiles of the second product for 132 SMs; at two windows the
+//   256 small tiles would need two waves and lose to the 128 large ones).
+//   The grid runs the column tiles fastest, so the CTAs in flight share a
+//   few A row tiles and every B tile (the split weights, 32 MB, stay in
+//   L2).
 
 #include "gemm.cuh"
 #include "wgmma_gemm.cuh"
@@ -36,7 +51,21 @@ namespace {
 // 128 x 128 tiles a warpgroup, 4 stages of 32 KB (ops/tile_sweep.py sweeps
 // the tile shape and the stage count; PERF.md)
 using FfnWg = WgGemm<128, 128, 4>;
-using FfnSimt = SimtGemm<128, 128, 8, 8>;
+
+// float32: split TF32, partials of kF32GemmSteps k-steps (8 K each), a
+// ring of kF32GemmStages stages of 32 K; tiles of kF32GemmRows x
+// kF32GemmCols, or of kF32GemmRows x kF32GemmSmallCols (kF32GemmSmallStages
+// stages) where the large ones would fill at most half the SMs
+constexpr int kF32GemmSteps = 4;
+constexpr int kF32GemmStages = 4;
+constexpr int kF32GemmSmallStages = 3;
+constexpr int kF32GemmRows = 128;
+constexpr int kF32GemmCols = 128;
+constexpr int kF32GemmSmallCols = 64;
+using FfnTf32 = Tf32Gemm<kF32GemmCols, kF32GemmStages, kF32GemmSteps>;
+using FfnTf32Small =
+    Tf32Gemm<kF32GemmSmallCols, kF32GemmSmallStages, kF32GemmSteps>;
+static_assert(FfnTf32::kBM == kF32GemmRows, "row tiles");
 
 // out[m, c] = epilogue(A[m, :] . B[c, :] + bias[c]) over the CTA's tiles
 template <class G, bool GELU>
@@ -106,46 +135,70 @@ int launch_wg(const void* a, long long rows, int k, const void* b,
   return (int)cudaGetLastError();
 }
 
-// out[m, n] = epilogue(A[m, :] . B[n, :] + bias[n]) for one block tile
-template <class Gemm, typename T, bool GELU>
-__global__ void __launch_bounds__(Gemm::kThreads, Gemm::kMinBlocks)
-ffn_gemm_kernel(const T* __restrict__ a, long long rows, int k,
-                const T* __restrict__ b, const float* __restrict__ bias,
-                T* __restrict__ out, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long m0 = (long long)blockIdx.x * Gemm::kBM;
-  const int n0 = blockIdx.y * Gemm::kBN;
-  Gemm g;
-  g.run(a, W2vRows{rows, 0, k}, rows, b, k, k, m0, n0, smem);
-  g.for_each([&](int r, int c, float v) {
+// out[m, c] = epilogue(A[m, :] . B[c, :] + bias[c]) for one block tile,
+// float32 in split TF32; the column tiles run fastest
+template <class G, bool GELU>
+__global__ void __launch_bounds__(G::kThreads, 1)
+ffn_tf32_kernel(const float* __restrict__ a, long long rows, int k,
+                const float* __restrict__ bhi, const float* __restrict__ blo,
+                const float* __restrict__ bias, float* __restrict__ out,
+                int n) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int n_tiles = n / G::kBN;
+  const long long m0 = (long long)(blockIdx.x / n_tiles) * G::kBM;
+  const int n0 = (blockIdx.x % n_tiles) * G::kBN;
+  G g;
+  g.run(a, W2vRows{rows, 0, k}, rows, bhi, blo, k, k, m0, n0, smem);
+  g.for_each([&](int r, int c, float v0, float v1) {
     const long long m = m0 + r;
     if (m >= rows) return;
-    v += bias[n0 + c];
-    if (GELU) v = w2v_gelu(v);
-    w2v_store(out + m * n + n0 + c, v);
+    const float2 bb = *reinterpret_cast<const float2*>(bias + n0 + c);
+    v0 += bb.x;
+    v1 += bb.y;
+    if (GELU) {
+      v0 = w2v_gelu(v0);
+      v1 = w2v_gelu(v1);
+    }
+    *reinterpret_cast<float2*>(out + m * n + n0 + c) = make_float2(v0, v1);
   });
 }
 
-template <class Gemm, typename T, bool GELU>
-int launch_gemm(const T* a, long long rows, int k, const T* b,
-                const float* bias, T* out, int n, cudaStream_t stream) {
-  const long long row_tiles = (rows + Gemm::kBM - 1) / Gemm::kBM;
-  if (row_tiles > 0x7fffffffLL || n / Gemm::kBN > 65535) return W2V_BAD_ARGS;
-  auto kernel = ffn_gemm_kernel<Gemm, T, GELU>;
+template <class G, bool GELU>
+int launch_tf32(const float* a, long long rows, int k, const float* bhi,
+                const float* blo, const float* bias, float* out, int n,
+                cudaStream_t stream) {
+  const long long blocks = (rows + G::kBM - 1) / G::kBM * (n / G::kBN);
+  if (blocks > 0x7fffffffLL) return W2V_BAD_ARGS;
+  auto kernel = ffn_tf32_kernel<G, GELU>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Gemm::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)row_tiles, (unsigned)(n / Gemm::kBN));
-  kernel<<<grid, Gemm::kThreads, Gemm::kSmemBytes, stream>>>(a, rows, k, b,
-                                                             bias, out, n);
+  kernel<<<(unsigned)blocks, G::kThreads, G::kSmemBytes, stream>>>(
+      a, rows, k, bhi, blo, bias, out, n);
   return (int)cudaGetLastError();
+}
+
+// one product in float32: the small tiles where twice as many of them as
+// of the large ones still fit one wave of CTAs (the large ones would leave
+// half the SMs idle), else the large ones
+template <bool GELU>
+int launch_tf32_product(const float* a, long long rows, int k,
+                        const float* bhi, const float* blo, const float* bias,
+                        float* out, int n, cudaStream_t stream) {
+  const long long large =
+      (rows + FfnTf32::kBM - 1) / FfnTf32::kBM * (n / FfnTf32::kBN);
+  if (2 * large > hop_sm_count())
+    return launch_tf32<FfnTf32, GELU>(a, rows, k, bhi, blo, bias, out, n,
+                                      stream);
+  return launch_tf32<FfnTf32Small, GELU>(a, rows, k, bhi, blo, bias, out, n,
+                                         stream);
 }
 
 // both GEMMs: x . w1^T -> hidden (bias, GELU, cast), hidden . w2^T -> out
 template <class Gemm>
 bool shapes_ok(int h, int f) {
-  return h % Gemm::kBN == 0 && f % Gemm::kBN == 0 && h % Gemm::kKAlign == 0 &&
-         f % Gemm::kKAlign == 0;
+  return h % Gemm::kBN == 0 && f % Gemm::kBN == 0 && h % Gemm::kBK == 0 &&
+         f % Gemm::kBK == 0;
 }
 
 int launch_ffn_bf16(const void* x, const void* w1, const float* b1,
@@ -165,27 +218,47 @@ int launch_ffn_bf16(const void* x, const void* w1, const float* b1,
 
 int launch_ffn_f32(const void* x, const void* w1, const float* b1,
                    const void* w2, const float* b2, void* hidden, void* out,
-                   long long rows, int h, int f, cudaStream_t stream) {
-  if (!shapes_ok<FfnSimt>(h, f)) return W2V_BAD_ARGS;
-  const int status = launch_gemm<FfnSimt, float, true>(
-      static_cast<const float*>(x), rows, h, static_cast<const float*>(w1),
-      b1, static_cast<float*>(hidden), f, stream);
+                   float* split, long long rows, int h, int f,
+                   cudaStream_t stream) {
+  const void* ptrs[5] = {x, w1, w2, hidden, split};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return W2V_BAD_ARGS;
+  if (!shapes_ok<FfnTf32>(h, f) || reinterpret_cast<uintptr_t>(b1) % 8 ||
+      reinterpret_cast<uintptr_t>(b2) % 8 || hop_sm_count() == 0)
+    return W2V_BAD_ARGS;
+  // split: w1's hi and lo, then w2's, each [h * f]
+  const long long hf = (long long)h * f;
+  float* w1hi = split;
+  float* w1lo = split + hf;
+  float* w2hi = split + 2 * hf;
+  float* w2lo = split + 3 * hf;
+  int status =
+      launch_tf32_split(static_cast<const float*>(w1), w1hi, w1lo, hf, stream);
   if (status != 0) return status;
-  return launch_gemm<FfnSimt, float, false>(
-      static_cast<const float*>(hidden), rows, f,
-      static_cast<const float*>(w2), b2, static_cast<float*>(out), h, stream);
+  status =
+      launch_tf32_split(static_cast<const float*>(w2), w2hi, w2lo, hf, stream);
+  if (status != 0) return status;
+  status = launch_tf32_product<true>(static_cast<const float*>(x), rows, h,
+                                     w1hi, w1lo, b1,
+                                     static_cast<float*>(hidden), f, stream);
+  if (status != 0) return status;
+  return launch_tf32_product<false>(static_cast<const float*>(hidden), rows,
+                                    f, w2hi, w2lo, b2,
+                                    static_cast<float*>(out), h, stream);
 }
 
 }  // namespace
 
 // x, out: [rows, h]; hidden: [rows, f] scratch; w1 [f, h], w2 [h, f] in x's
-// type; b1 [f], b2 [h] float32.  All contiguous; in bf16 x, w1, w2 and
-// hidden 16-byte aligned; h, f multiples of 128.  Launches on `stream`;
-// returns the first failing launch's cudaError_t, or W2V_BAD_ARGS.
+// type; b1 [f], b2 [h] float32; split: in float32 scratch of 4 * h * f
+// floats (the weights' TF32 hi and lo parts), unused in bf16.  All
+// contiguous; x, w1, w2, hidden and split 16-byte aligned, b1 and b2 8-byte
+// aligned; h, f multiples of 128.  Launches on `stream`; returns the first
+// failing launch's cudaError_t, or W2V_BAD_ARGS.
 extern "C" int w2v_ffn(const void* x, const void* w1, const void* b1,
                        const void* w2, const void* b2, void* hidden,
-                       void* out, long long rows, int h, int f, int dtype,
-                       void* stream) {
+                       void* out, void* split, long long rows, int h, int f,
+                       int dtype, void* stream) {
   if (rows <= 0 || h <= 0 || f <= 0) return W2V_BAD_ARGS;
   const float* b1f = static_cast<const float*>(b1);
   const float* b2f = static_cast<const float*>(b2);
@@ -193,6 +266,7 @@ extern "C" int w2v_ffn(const void* x, const void* w1, const void* b1,
   if (dtype == W2V_BF16)
     return launch_ffn_bf16(x, w1, b1f, w2, b2f, hidden, out, rows, h, f, s);
   if (dtype == W2V_F32)
-    return launch_ffn_f32(x, w1, b1f, w2, b2f, hidden, out, rows, h, f, s);
+    return launch_ffn_f32(x, w1, b1f, w2, b2f, hidden, out,
+                          static_cast<float*>(split), rows, h, f, s);
   return W2V_BAD_ARGS;
 }

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) primitives of the bf16 attention kernels (attention.cu,
-// attention_bwd.cu), the FFN's GEMM mainloop (wgmma_gemm.cuh) and the conv
-// kernels (convfuse.cu): mbarriers, TMA tensor loads (also multicast to a
-// cluster) and stores, warpgroup MMA (wgmma) on bf16 operands with float32
-// accumulators, setmaxnreg, and the cluster's barrier and distributed
-// shared memory; on the host, the tensor maps TMA reads and writes.
+// attention_bwd.cu), the FFN's GEMM mainloops (wgmma_gemm.cuh, gemm.cuh)
+// and the conv kernels (convfuse.cu): mbarriers, TMA tensor loads (also
+// multicast to a cluster) and stores, warpgroup MMA (wgmma) on bf16 and
+// TF32 operands with float32 accumulators, setmaxnreg, and the cluster's
+// barrier and distributed shared memory; on the host, the tensor maps TMA
+// reads and writes.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: rows of
 // 64 bf16 (128 bytes), 8-row atoms of 1024 bytes, the 16-byte chunks of row
@@ -181,6 +182,14 @@ __device__ __forceinline__ uint32_t hop_mapa(uint32_t addr, unsigned rank) {
 __device__ __forceinline__ void hop_st_cluster_f32(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
                : "memory");
+}
+__device__ __forceinline__ float hop_ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 // one arrival on a barrier at a shared::cluster address (this CTA's or
 // another's), releasing this thread's earlier writes at cluster scope
@@ -398,6 +407,63 @@ __device__ __forceinline__ void hop_wgmma_rs_tb(float (&d)[N / 2],
     hop_wgmma_rs_n64_tb(d, a, db);
   else
     hop_wgmma_rs_n128_tb(d, a, db);
+}
+
+// d = A . B (+ d unless scale_d is 0) for one m64n64k8 step in TF32, A
+// from registers (the m64k8 fragment: rows g, g + 8 at k t, t + 4 of the
+// warp's 16 rows, as mma.m16n8k8's; TF32 bit patterns), B from shared
+// memory K-major
+__device__ __forceinline__ void hop_wgmma_tf32_rs_n64(float (&d)[32],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d = A . B (+ d unless scale_d is 0) for one m64n128k8 step in TF32, A
+// from registers (the m64k8 fragment: rows g, g + 8 at k t, t + 4 of the
+// warp's 16 rows, as mma.m16n8k8's; TF32 bit patterns), B from shared
+// memory K-major
+__device__ __forceinline__ void hop_wgmma_tf32_rs_n128(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void hop_wgmma_tf32_rs(float (&d)[N / 2],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma N");
+  if constexpr (N == 64)
+    hop_wgmma_tf32_rs_n64(d, a, db, scale_d);
+  else
+    hop_wgmma_tf32_rs_n128(d, a, db, scale_d);
 }
 
 // Register budget of a warp-specialised block: the producer warpgroup gives

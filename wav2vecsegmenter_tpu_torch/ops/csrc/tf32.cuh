@@ -1,6 +1,7 @@
 // Split-TF32 ("3xTF32") tensor-core products in float32, and the cp.async
 // tile loads, of the float32 attention kernels (attention.cu,
-// attention_bwd.cu).
+// attention_bwd.cu); the split and the loads also of the float32 GEMM
+// mainloop (gemm.cuh), whose products run on wgmma.
 //
 // A float32 x is split as x = hi + lo: hi is x rounded to TF32 (10 mantissa
 // bits; to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds), and

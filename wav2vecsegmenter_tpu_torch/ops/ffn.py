@@ -4,9 +4,12 @@ Counterpart of ``wav2vecsegmenter_tpu/ops/ffn.py``: ``ffn`` replaces the
 Pallas ``_ffn_kernel`` (K5).  On CUDA tensors it runs the kernels of
 ``csrc/ffn.cu`` (two launches of one GEMM mainloop, a bias + GELU + cast
 epilogue and a bias epilogue: in bf16 ``wgmma`` fed by TMA, which reads x,
-the weights and the activation through tensor maps and so needs them
-16-byte aligned; the source says why the activation is not kept on chip as
-on the TPU); on CPU tensors the plain version.  It takes float32 and
+the weights and the activation through tensor maps; in float32 ``wgmma`` in
+split TF32 fed by ``cp.async``, after one pass splits w1 and w2 into TF32
+hi and lo parts in scratch this wrapper allocates; either way x, the
+weights and the activation 16-byte aligned; the source says why the
+activation is not kept on chip as on the TPU); on CPU tensors the plain
+version.  It takes float32 and
 bfloat16: the JAX kernel's bf16-only and inference-only gates came from the
 TPU's 16 MB scoped-VMEM limit.
 
@@ -93,9 +96,13 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     rows = x.numel() // h
     hidden = torch.empty((rows, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    # float32: the weights' TF32 hi and lo parts, written by the call
+    split = (torch.empty(4 * h * f, dtype=torch.float32, device=x.device)
+             if x.dtype == torch.float32 else None)
     status = _build.library().w2v_ffn(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), rows, h, f,
+        b2.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+        None if split is None else split.data_ptr(), rows, h, f,
         _build.dtype_code(x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "ffn")

@@ -1,19 +1,28 @@
-"""Time tile-shape variants of the bf16 FFN, conv and LayerNorm kernels on
-one CUDA card, side by side in one process.
+"""Time tile-shape variants of the bf16 FFN, conv and LayerNorm kernels,
+and probes of the float32 FFN and conv kernels, on one CUDA card, side by
+side in one process.
 
     python3 -m wav2vecsegmenter_tpu_torch.ops.tile_sweep \
-        [ffn conv audio ln ln_bwd]
+        [ffn conv audio ln ln_bwd ffn_f32 conv_f32] [--csrc DIR ...]
 
 Each variant is a copy of ``csrc/`` with its configuration lines replaced
 (``using FfnWg = ...`` of ffn.cu; ``using ConvWgCfg = ...`` and
 ``kConvPersistent`` or ``using AudioTcCfg = ...`` and ``kAudioPersistent``
 of convfuse.cu; ``using LnVecCfg = ...`` of layernorm.cu, and for the "no
 gelu" probe the bf16 kernel's GELU line; ``using LnBwdCfg = ...`` of
-layernorm_bwd.cu), built by nvcc (all at once) into
-its own library and loaded with the same C signatures.  Every variant is
+layernorm_bwd.cu; for the float32 kinds text patches of gemm.cuh's
+split-TF32 mainloop, or ffn.cu's tile choice, that take out the copies,
+the products, A's split, two of each three TF32 products or the small
+tiles: their results are wrong on purpose and only their times tell
+where the time goes), built by nvcc (all at once) into its own library
+and loaded with the same C signatures.  ``--csrc DIR`` adds, for the
+float32 kinds, a variant built from another copy of ``csrc/`` (an
+alternative implementation, timed in the same process).  Every variant is
 held against the plain version at the main path's shapes (bf16: the FFN
 at [14, 999, 1024] x 4096, conv layer 1 at [14, 63999, 512], k=3, s=2, the
-raw-audio layer 0 at [14, 320000, 1], k=10, s=5; the LayerNorm K1 at
+raw-audio layer 0 at [14, 320000, 1], k=10, s=5; float32: the FFN at
+[w, 999, 1024] x 4096 for w = 14, 1, 2, 4, conv layers 1 and 3 at
+[14, 63999, 512] and [14, 15999, 512], k=3, s=2; the LayerNorm K1 at
 [14 * 999, 1024] and [14 * 999, 512], and K2 at [14 * 63999, 512], the
 probe against bias + LayerNorm without the GELU; the LayerNorm backward K9
 at [14 * 999, 1024] with and without dx and at [14 * 999, 512], its dx,
@@ -119,6 +128,29 @@ LN_BWD = {
     "bulk, smem sums, 8 warps, 3 rows, handoff":
         "LnBwd<8, 3, 1, true, true, true>",
 }
+# the float32 probes (gemm.cuh's Tf32Gemm, run by K5 and K6 in float32):
+# (file, text, its replacement) patches
+F32_MMA = ("hop_wgmma_tf32_rs<BN>(part, al[kk], dh, kk % STEPS != 0);",
+           "hop_wgmma_tf32_rs<BN>(part, ah[kk], dl, 1);",
+           "hop_wgmma_tf32_rs<BN>(part, ah[kk], dh, 1);")
+F32_PROBES = {
+    "as built": (),
+    "no loads": (("gemm.cuh", "    auto load = [&](int slot, int k0) {\n",
+                  "    auto load = [&](int slot, int k0) {\n"
+                  "      return;\n"),),
+    "no products": tuple(("gemm.cuh", m, "(void)0;") for m in F32_MMA),
+    "no A split": (("gemm.cuh",
+                    "tf32_split(x[e], ah[kk][e], al[kk][e]);",
+                    "ah[kk][e] = al[kk][e] = __float_as_uint(x[e]);"),),
+    "one TF32 product": (("gemm.cuh", F32_MMA[0], "(void)0;"),
+                         ("gemm.cuh", F32_MMA[1], "(void)0;"),
+                         ("gemm.cuh", F32_MMA[2],
+                          F32_MMA[2].replace(", 1);",
+                                             ", kk % STEPS != 0);"))),
+}
+F32_FFN_PROBES = {**F32_PROBES, "large tiles only": (
+    ("ffn.cu", "  if (2 * large > hop_sm_count())",
+     "  if (true)"),)}
 # the lines of each kind's source that a variant replaces
 PATTERNS = {
     "ffn": (r"using FfnWg = [^;]*;",),
@@ -131,7 +163,10 @@ PATTERNS = {
 }
 SOURCES = {"ffn": ("ffn.cu", FFN), "conv": ("convfuse.cu", CONV),
            "audio": ("convfuse.cu", AUDIO), "ln": ("layernorm.cu", LN),
-           "ln_bwd": ("layernorm_bwd.cu", LN_BWD)}
+           "ln_bwd": ("layernorm_bwd.cu", LN_BWD),
+           "ffn_f32": ("ffn.cu", F32_FFN_PROBES),
+           "conv_f32": ("convfuse.cu", F32_PROBES)}
+F32_KINDS = ("ffn_f32", "conv_f32")
 # the bf16 kernels whose ptxas registers and spills a variant prints
 PTXAS = {"ln": "ln_vec_kernel", "ln_bwd": "ln_bwd_vec_kernel"}
 
@@ -145,26 +180,39 @@ def _template_args(mangled: str) -> str:
     return " ".join(re.findall(r"L[ib](\d+)E", m.group(1))) if m else ""
 
 
-def _build_variants(work: Path, kinds) -> dict:
+def _build_variants(work: Path, kinds, copies=()) -> dict:
     from . import _build
 
     nvcc = _build._nvcc()
     jobs = {}
     for kind in kinds:
         source, variants = SOURCES[kind]
+        if kind in F32_KINDS:
+            variants = {**variants, **{f"csrc {c}": () for c in copies}}
         for tag, decl in variants.items():
             d = work / f"{kind}_{len(jobs)}"
-            shutil.copytree(_build.CSRC_DIR, d)
+            shutil.copytree(tag[5:] if tag.startswith("csrc ")
+                            else _build.CSRC_DIR, d)
+            if kind in F32_KINDS:
+                for name, before, after in decl:
+                    text = (d / name).read_text()
+                    if text.count(before) != 1:
+                        raise RuntimeError(f"no '{before}' in {name}")
+                    (d / name).write_text(text.replace(before, after))
+                decl = None
             text = (d / source).read_text()
-            if kind == "ln":
+            if decl is None:
+                pass
+            elif kind == "ln":
                 decl, patches = decl
                 decl = (decl, decl)
                 for before, after in patches:
                     if text.count(before) != 1:
                         raise RuntimeError(f"no '{before}' in {source}")
                     text = text.replace(before, after)
-            decls = (decl,) if isinstance(decl, str) else decl
-            for pattern, value in zip(PATTERNS[kind], decls):
+            decls = () if decl is None else (
+                (decl,) if isinstance(decl, str) else decl)
+            for pattern, value in zip(PATTERNS.get(kind, ()), decls):
                 head = pattern.split(" = ")[0]
                 text, n = re.subn(pattern, f"{head} = {value};", text)
                 if n != 1:
@@ -210,7 +258,11 @@ def main() -> int:
     from . import convfuse, ffn, layernorm
     from .timing import cuda_ms, device_ms
 
-    kinds = sys.argv[1:] or list(SOURCES)
+    args = sys.argv[1:]
+    copies_of = [args[i + 1] for i, a in enumerate(args) if a == "--csrc"]
+    kinds = [a for i, a in enumerate(args)
+             if a != "--csrc" and (i == 0 or args[i - 1] != "--csrc")]
+    kinds = kinds or list(SOURCES)
     if not set(kinds) <= set(SOURCES):
         raise SystemExit(f"tile_sweep: kinds are {list(SOURCES)}")
     if not torch.cuda.is_available():
@@ -242,8 +294,8 @@ def main() -> int:
         out = torch.empty_like(x)
         calls["ffn"] = [("[14,999,1024]x4096", lambda lib: lib.w2v_ffn(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), rows, h, f,
-            1, stream), out, ffn.ffn_plain(x, w1, b1, w2, b2),
+            b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), None, rows, h,
+            f, 1, stream), out, ffn.ffn_plain(x, w1, b1, w2, b2),
             4 * rows * h * f, 20, ("true>", "false>"))]
     if "conv" in kinds:
         xc = randn(14, 63999, 512).bfloat16()
@@ -253,8 +305,8 @@ def main() -> int:
         calls["conv"] = [("[14,63999,512] k=3 s=2", lambda lib:
                           lib.w2v_conv_ln_gelu(
             xc.data_ptr(), wk.data_ptr(), cb.data_ptr(), sc.data_ptr(),
-            bi.data_ptr(), out_c.data_ptr(), 14, 63999, 512, 3, 2, 31999,
-            512, 1e-5, 1, stream), out_c,
+            bi.data_ptr(), out_c.data_ptr(), None, 14, 63999, 512, 3, 2,
+            31999, 512, 1e-5, 1, stream), out_c,
             convfuse.conv_bias_ln_gelu_plain(xc, wc, cb, sc, bi, 2),
             2 * 14 * 31999 * 1536 * 512, 10, ())]
     if "audio" in kinds:
@@ -269,6 +321,44 @@ def main() -> int:
             512, 1e-5, 1, stream), out_a,
             convfuse.conv_bias_ln_gelu_plain(xa, wa, cb, sc, bi, 5),
             2 * 14 * 63999 * 10 * 512, 10, ())]
+    if "ffn_f32" in kinds:
+        calls["ffn_f32"] = []
+        h, f = 1024, 4096
+        w1, b1 = randn(f, h, std=0.03), randn(f, std=0.1)
+        w2, b2 = randn(h, f, std=0.015), randn(h, std=0.1)
+        split = torch.empty(4 * h * f, device=dev)
+        for w in (14, 1, 2, 4):
+            rows = w * 999
+            x = randn(rows, h)
+            hidden = torch.empty(rows, f, device=dev)
+            out = torch.empty_like(x)
+            calls["ffn_f32"].append((
+                f"[{w},999,1024]x4096", lambda lib, x=x, hidden=hidden,
+                out=out, rows=rows: lib.w2v_ffn(
+                    x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                    w2.data_ptr(), b2.data_ptr(), hidden.data_ptr(),
+                    out.data_ptr(), split.data_ptr(), rows, h, f, 0, stream),
+                out, ffn.ffn_plain(x, w1, b1, w2, b2), 4 * rows * h * f, 10,
+                ("ffn_tf32_kernel", "tf32_split_kernel")))
+    if "conv_f32" in kinds:
+        calls["conv_f32"] = []
+        wf = randn(512, 512, 3, std=1536 ** -0.5)
+        wfk = wf.permute(0, 2, 1).reshape(512, 1536).contiguous()
+        split_c = torch.empty(2 * wfk.numel(), device=dev)
+        for t in (63999, 15999):
+            xf = randn(14, t, 512)
+            t_out = (t - 3) // 2 + 1
+            out_f = torch.empty(14, t_out, 512, device=dev)
+            calls["conv_f32"].append((
+                f"[14,{t},512] k=3 s=2", lambda lib, xf=xf, out_f=out_f,
+                t=t, t_out=t_out: lib.w2v_conv_ln_gelu(
+                    xf.data_ptr(), wfk.data_ptr(), cb.data_ptr(),
+                    sc.data_ptr(), bi.data_ptr(), out_f.data_ptr(),
+                    split_c.data_ptr(), 14, t, 512, 3, 2, t_out, 512, 1e-5,
+                    0, stream), out_f,
+                convfuse.conv_bias_ln_gelu_plain(xf, wf, cb, sc, bi, 2),
+                2 * 14 * t_out * 1536 * 512, 3 if t == 63999 else 10,
+                ("conv_tf32_kernel", "tf32_split_kernel")))
     copies = []  # (label, a copy_ of the LayerNorm's bytes, iters)
     if "ln" in kinds:
         calls["ln"] = []
@@ -332,7 +422,7 @@ def main() -> int:
                            50))
 
     with tempfile.TemporaryDirectory() as tmp:
-        libs = _build_variants(Path(tmp), kinds)
+        libs = _build_variants(Path(tmp), kinds, copies_of)
         for rnd in range(2):
             for (kind, tag), lib in libs.items():
                 probe = kind == "ln" and LN[tag][1] == NO_GELU
@@ -359,7 +449,7 @@ def main() -> int:
                         row["device_ms"] = (
                             dict(zip(("gelu_gemm_ms", "bias_gemm_ms"),
                                      dev_ms.values())) if kind == "ffn"
-                            else dev_ms if kind == "ln_bwd"
+                            else dev_ms if kind in ("ln_bwd", *F32_KINDS)
                             else sum(dev_ms.values()))
                     print(json.dumps(row), flush=True)
             # the yardstick of the LayerNorm rows: one copy of their bytes

@@ -101,6 +101,28 @@ def top_device_ops(prof, n: int) -> dict:
     return {**dict(rows[:n]), "total": sum(ms for _, ms in rows)}
 
 
+def device_kernels_ms(prof) -> dict:
+    """{kernel: device ms} of a finished torch.profiler trace, every
+    device activity (kernels, copies) summed by its name shortened to the
+    function (template arguments and parameters cut, so a template's
+    instances count together), most first: the kernels launched through
+    ctypes, which no torch op encloses, count here too."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or _annotation(e):
+            continue
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+        name = re.split(r"[<(]", name, maxsplit=1)[0] or e.key[:64]
+        out[name] = out.get(name, 0.0) + getattr(
+            e, "self_device_time_total",
+            getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def host_us(fn, iters: int) -> float:
     """Mean host microseconds per call: the time ``iters`` calls take to
     enqueue their work, after one warm call, without waiting for the
