@@ -8,7 +8,8 @@ Phases, each printed on its own line; any failure exits non-zero:
 2. build: nvcc builds the kernels of wav2vecsegmenter_tpu_torch/ops/csrc
    (one process per source file, in parallel); the line carries ptxas's
    registers and spills of every kernel (the bf16 conv and LayerNorm
-   kernels must show none: checked after the kernel phase);
+   kernels and the float32 layer-0 kernel must show none: checked after
+   the kernel phase);
 3. kernels: each hand kernel against its plain PyTorch version on the card,
    at the shapes the segmentation and training paths give it, float32
    (TF32 off) and bf16, with ragged lengths; times from CUDA events,
@@ -76,8 +77,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    the default path does); the f32 arm within F32_ATOL of the eager float32
    path (mean and p99), f32res's mean |dprob| below bf16's; and C3's
    trace: for the bf16 kernels and bf16 eager paths, the relative L2
-   error from float32 of the hidden state after the feature projection,
-   after each encoder layer and of the head's logits;
+   error from float32 of each conv layer's output, of the hidden state
+   after the feature projection, after each encoder layer and of the
+   head's logits;
 7. int8: ``runtime.quantize=int8`` on the same batch, at the bf16 and
    f32res arms, with the kernels: mean, p99 and max |dprob| against the
    eager float32 path, the bf16 path and the int8 eager path (the
@@ -450,11 +452,12 @@ INFER_PATH = DEFAULT_PATH + ("row_dot",)
 # rows of their own, as has the raw-audio layer 0
 CONV_MIDDLE = ((31999, 3, 2), (15999, 3, 2), (7999, 3, 2), (3999, 2, 2))
 # the conv kernels by name (bf16: wgmma + TMA, tensor-core taps; float32:
-# split TF32 for layers 1-6 with its weight split, scalar taps for layer
-# 0), for the profiler's device times and (the bf16 two) the build phase's
-# spill check
+# the raw-audio layer 0's persistent kernel, split TF32 for layers 1-6 with
+# its weight split), for the profiler's device times and (the first three)
+# the build phase's spill check
 CONV_KERNELS = ("conv_wg_kernel", "conv_audio_tc_kernel",
-                "conv_tf32_kernel", "conv_audio_kernel", "tf32_split_kernel")
+                "conv_audio_f32_kernel", "conv_tf32_kernel",
+                "tf32_split_kernel")
 # K5's kernels by name (bf16: wgmma + TMA; float32: split TF32 and its
 # weights' split), for the profiler's device times
 FFN_KERNELS = ("ffn_wg_kernel", "ffn_tf32_kernel", "tf32_split_kernel")
@@ -1473,11 +1476,13 @@ def dprob_stats(d: np.ndarray) -> dict:
 def layer_trace(model, dev) -> dict:
     """C3's trace: one full batch (host-normalized) through the model's
     forward in bf16 with the kernels and eager, and eager in float32; for
-    each bf16 arm the relative L2 error from float32 of the hidden state
-    after the feature projection, after each encoder layer (the input of
-    the next layer's first LayerNorm; the last layer's the encoder's
-    output) and of the head's logits.  No rounding point changes: the
-    model's own functions are wrapped to read their values."""
+    each bf16 arm the relative L2 error from float32 of the output of each
+    conv layer (``conv0`` .. ``conv6``, the fused conv function's calls in
+    order), of the hidden state after the feature projection, after each
+    encoder layer (the input of the next layer's first LayerNorm; the last
+    layer's the encoder's output) and of the head's logits.  No rounding
+    point changes: the model's own functions are wrapped to read their
+    values."""
     from wav2vecsegmenter_tpu_torch.data.collate import collate, out_len_for
     from wav2vecsegmenter_tpu_torch.models import wav2vec2 as w2v
 
@@ -1488,8 +1493,15 @@ def layer_trace(model, dev) -> dict:
     proj = model.backbone.feature_projection.projection
     first_ln = {id(layer.layer_norm.weight): i
                 for i, layer in enumerate(layers)}
-    real = {f: getattr(w2v, f) for f in ("_lin", "layer_norm", "encoder")}
+    real = {f: getattr(w2v, f) for f in ("_lin", "layer_norm", "encoder",
+                                          "conv_bias_ln_gelu")}
     states: list = []
+
+    def conv_(*args, **kw):
+        out = real["conv_bias_ln_gelu"](*args, **kw)
+        states.append((f"conv{sum(k.startswith('conv') for k, _ in states)}",
+                       out))
+        return out
 
     def lin(lin_, x, dt):
         out = real["_lin"](lin_, x, dt)
@@ -1517,7 +1529,7 @@ def layer_trace(model, dev) -> dict:
         return [(k, v.float()) for k, v in states] + [("head", logits)]
 
     for f, fn in (("_lin", lin), ("layer_norm", layer_norm_),
-                  ("encoder", encoder_)):
+                  ("encoder", encoder_), ("conv_bias_ln_gelu", conv_)):
         setattr(w2v, f, fn)
     try:
         ref = run("eager", torch.float32)
@@ -1599,7 +1611,7 @@ def run_precision(dev, model) -> dict:
 # weights' split, the LayerNorms; the rest is PyTorch's
 F32_ARM_GROUPS = {"ffn": ("ffn_tf32_kernel",),
                   "conv_layers_1_6": ("conv_tf32_kernel",),
-                  "conv_layer_0": ("conv_audio_kernel",),
+                  "conv_layer_0": ("conv_audio_f32_kernel",),
                   "attention": ("attn_fwd_f32_kernel",),
                   "weight_split": ("tf32_split_kernel",),
                   "layer_norm": ("ln_rows_kernel",)}
@@ -4941,11 +4953,11 @@ def main() -> int:
               f"float32 GEMM kernels in the ptxas report: {f32_gemm}")
 
     kernels = check_kernels(dev)
-    # the bf16 conv and LayerNorm kernels (K9's too): no spills (checked
-    # after the
-    # kernel rows, so that this script run on an earlier checkout still
-    # times its kernels before it stops here)
-    for name in CONV_KERNELS[:2] + LN_KERNELS[:1] + LN_BWD_KERNELS[:1]:
+    # the bf16 conv and LayerNorm kernels (K9's too) and the float32
+    # layer 0: no spills (checked after the kernel rows, so that this
+    # script run on an earlier checkout still times its kernels before it
+    # stops here)
+    for name in CONV_KERNELS[:3] + LN_KERNELS[:1] + LN_BWD_KERNELS[:1]:
         found = [v for k, v in ptxas.items() if k.startswith(name + " ")]
         check(bool(found) and all(v.endswith("spills 0/0 bytes")
                                   for v in found),

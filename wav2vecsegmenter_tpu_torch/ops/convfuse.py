@@ -18,7 +18,9 @@ On CUDA tensors it runs a kernel of ``csrc/convfuse.cu``:
   LayerNorm statistics through distributed shared memory;
 * ``conv_audio_ln_gelu``: a narrow product (k*C <= 16, the raw-audio layer
   0): in bf16 the taps on the tensor cores (``mma.sync``, K padded to 16)
-  from a staged span of samples, in float32 scalar taps.
+  from a staged span of samples; in float32 a persistent kernel whose
+  warps take two rows at a time, scalar taps on the weight held in shared
+  memory, each row stored as four 512-byte warp stores of 16 bytes a lane.
 
 Both end in the same block with the LayerNorm and GELU.  On CPU tensors
 the plain version runs.
@@ -28,7 +30,9 @@ x's type per call), VALID, stride s -> [B, T', O], T' = (T - k)//s + 1.
 The products accumulate in float32 and stay float32 through the bias,
 LayerNorm and GELU, rounded once at the end, as ``_kernel_2tap_wide`` does;
 the plain version rounds there too.  (The JAX ``_xla_ref`` rounds the
-product to x's type before the epilogue.)
+product to x's type before the epilogue.)  The narrow kernel takes
+k*C <= 16 and a row step s*C <= 64 in bf16, <= 16 in float32; a wider
+step on CUDA raises ``ValueError``.
 
 Where a gradient is needed, ``conv_bias_ln_gelu`` goes through
 ``_ConvLnGeluFn``, the counterpart of the JAX custom VJP ``_fused``: its
@@ -50,6 +54,8 @@ from .layernorm import (EPS, bias_layer_norm_gelu_composed,
                         bias_layer_norm_gelu_plain)
 
 AUDIO_MAX_K = 16  # widest product (k*C) of conv_audio_ln_gelu
+# widest row step (s*C) of conv_audio_ln_gelu, by dtype
+AUDIO_MAX_STEP = {torch.bfloat16: 64, torch.float32: 16}
 
 backend.register_kernel("conv_bias_ln_gelu")
 backend.register_kernel("conv_audio_ln_gelu")
@@ -179,6 +185,10 @@ def _launch(x, weight, conv_bias, scale, bias, stride, eps) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("conv kernel takes a contiguous [B, T, C] input")
     narrow = k * c <= AUDIO_MAX_K
+    if narrow and stride * c > AUDIO_MAX_STEP.get(x.dtype, stride * c):
+        raise ValueError(
+            f"the narrow conv kernel takes a row step s*C up to "
+            f"{AUDIO_MAX_STEP[x.dtype]} in {x.dtype}, not {stride * c}")
     if x.data_ptr() % 16 and (x.dtype == torch.bfloat16 or not narrow):
         raise ValueError("the bf16 conv kernels read x by TMA, the float32 "
                          "conv layers by cp.async: its storage must start "

@@ -72,20 +72,35 @@
 // same float32 mean and variance).  Each CTA streams a quarter of the split
 // weight and the whole A tile (the four read it from L2 at about the same
 // time).
-// float32, layer 0: conv_audio_kernel (scalar taps).  Both end in
-// ln_gelu_row's arithmetic: the mean, then the mean of the squared
-// deviations, then the exact-erf GELU, rounded once.
+//
+// float32, layer 0 (k*C <= 16, s*C <= 16): conv_audio_f32_kernel<G>.  Bound
+// by bytes: its 1.83 GB output at a 14-window batch, 0.55 ms at 3.35 TB/s;
+// the taps, LayerNorm and exact-erf GELU take ~40 instructions an element
+// (the erf ~25 of them: ops/tile_sweep.py counts the SASS), which on the
+// H100 take longer (0.85-0.9 ms without any store), so the design spends
+// its issue slots on them and keeps the stores in flight under them.  A
+// persistent grid (occupancy x SMs) walks tiles of 16 rows a warp that
+// never cross a batch element; the weight and the conv bias, scale and
+// bias are loaded once a CTA; the next tile's span of samples is copied
+// into shared memory by cp.async (zeros past the batch element's end)
+// while this tile computes, one __syncthreads a tile.  A warp holds a
+// group of rows at once (their reductions and GELUs interleave): scalar
+// FMAs on the weight read from shared memory as float4, a lane's channels
+// 4 lane + 128 p + e, and each row stored as four fully coalesced
+// 512-byte warp stores of 16 bytes a lane (st.global.cs: the output
+// streams past L2).  All layer-0 and the float32 layer 1-6
+// kernels end in the same arithmetic: the mean, then the mean of the
+// squared deviations, then the exact-erf GELU, rounded once.
 
 #include "gemm.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kConvN = 512;            // output channels
-constexpr int kPerLane = kConvN / 32;  // channels a lane: lane + 32 * q
+constexpr int kConvN = 512;  // output channels
 
 // ---------------------------------------------------------------------------
-// float32: split TF32 for layers 1-6, scalar taps for layer 0
+// float32, layers 1-6: split TF32 on wgmma
 // ---------------------------------------------------------------------------
 
 // split TF32, partials of kF32GemmSteps k-steps (8 K each), a ring of
@@ -102,29 +117,6 @@ static_assert(ConvTf32::kBM == kF32GemmRows, "row tiles");
 // shared floats past the stages: the CTA's row sums and squared deviations
 // [2][kBM] (read by the cluster), the rows' mean and 1/std [2][kBM]
 constexpr int kConvTf32Smem = ConvTf32::kSmemBytes + 4 * ConvTf32::kBM * 4;
-
-// the row's float32 pre-activations v (conv bias added) -> LayerNorm ->
-// scale, bias -> GELU -> out_row[lane + 32 * q]
-__device__ __forceinline__ void ln_gelu_row(float (&v)[kPerLane],
-                                            const float (&sc)[kPerLane],
-                                            const float (&bi)[kPerLane],
-                                            float eps, int lane,
-                                            float* __restrict__ out_row) {
-  float sum = 0.f;
-#pragma unroll
-  for (int q = 0; q < kPerLane; ++q) sum += v[q];
-  const float mean = w2v_warp_sum(sum) / kConvN;
-  float sq = 0.f;
-#pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
-    const float d = v[q] - mean;
-    sq += d * d;
-  }
-  const float rstd = rsqrtf(w2v_warp_sum(sq) / kConvN + eps);
-#pragma unroll
-  for (int q = 0; q < kPerLane; ++q)
-    out_row[lane + 32 * q] = w2v_gelu((v[q] - mean) * rstd * sc[q] + bi[q]);
-}
 
 // one cluster a row tile of 128 rows; CTA rank r owns channels
 // [128 r, 128 r + 128)
@@ -214,73 +206,214 @@ conv_tf32_kernel(const float* __restrict__ x, W2vRows rows, long long m_rows,
   hop_cluster_sync();  // no CTA leaves while the cluster reads its partials
 }
 
-constexpr int kAudioMaxK = 16;
-constexpr int kAudioRows = 128;      // rows a block
-constexpr int kAudioThreads = 256;
-constexpr int kAudioGroup = 4;       // rows a warp computes together
+// ---------------------------------------------------------------------------
+// float32, the raw-audio layer 0: persistent, store-bound
+// ---------------------------------------------------------------------------
 
-// k*C <= 16: a block stages its rows' samples and the [K, 512] weight in
-// shared memory and runs scalar FMAs, four rows per warp at a time
-__global__ void __launch_bounds__(kAudioThreads)
-conv_audio_kernel(const float* __restrict__ x, W2vRows rows, long long m_rows,
-                  int k, const float* __restrict__ w,
-                  const float* __restrict__ conv_bias,
-                  const float* __restrict__ scale,
-                  const float* __restrict__ bias, float eps,
-                  float* __restrict__ out) {
-  __shared__ float w_s[kAudioMaxK * kConvN];       // [k][512]
-  __shared__ float x_s[kAudioRows * kAudioMaxK];   // [row][k]
-  const long long m0 = (long long)blockIdx.x * kAudioRows;
-  for (int i = threadIdx.x; i < k * kConvN; i += kAudioThreads) {
-    const int j = i / kConvN, o = i - j * kConvN;
-    w_s[i] = w[o * k + j];
+constexpr int kAudioMaxK = 16;        // widest product k*C of layer 0
+constexpr int kAudioF32MaxStep = 16;  // widest row step s*C in float32
+
+// a warp holds a group of ROWS rows at once; WARPS warps a CTA, 16 rows a
+// warp a tile
+template <int ROWS, int WARPS>
+struct AudioF32 {
+  static constexpr int kGroup = ROWS;
+  static constexpr int kWarps = WARPS;
+  static constexpr int kThreads = 32 * WARPS;
+  static constexpr int kTile = 16 * WARPS;      // rows a tile
+  static constexpr int kSpan = (kTile - 1) * kAudioF32MaxStep + kAudioMaxK;
+  // shared memory: the weight [16 taps][512] floats, the conv bias, scale
+  // and bias [3][512], two spans
+  static constexpr int kPar = kAudioMaxK * kConvN * 4;
+  static constexpr int kSpans = kPar + 3 * kConvN * 4;
+  static constexpr int kSmemBytes = kSpans + 2 * kSpan * 4;
+  static_assert(16 % kGroup == 0, "whole groups a tile");
+  static_assert(kSmemBytes <= 227 * 1024, "shared memory");
+};
+
+// 4 bytes global -> shared without registers; zeros where !valid (then
+// nothing is read, and src only needs to be a valid address)
+__device__ __forceinline__ void audio_cp4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hop_smem(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ float audio_act(float v) { return w2v_gelu(v); }
+
+// a group of ROWS rows: row i's samples at sp + i * step, its output at
+// out_rows + i * 512 (rows i < valid stored); the lane's channels
+// 4 lane + 128 p + e (p, e < 4), summed in that order
+template <class G>
+__device__ __forceinline__ void audio_rows(const float* sp, int step,
+                                           int kdim, const float* w_s,
+                                           const float* par, float eps,
+                                           float* out_rows, int valid,
+                                           int lane) {
+  constexpr int R = G::kGroup;
+  const float4* w4 = reinterpret_cast<const float4*>(w_s);
+  const float4* cb4 = reinterpret_cast<const float4*>(par);
+  const float4* sc4 = cb4 + kConvN / 4;
+  const float4* bi4 = sc4 + kConvN / 4;
+  float v[R][16];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const float4 c = cb4[lane + 32 * p];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      v[i][4 * p] = c.x;
+      v[i][4 * p + 1] = c.y;
+      v[i][4 * p + 2] = c.z;
+      v[i][4 * p + 3] = c.w;
+    }
   }
-  for (int i = threadIdx.x; i < kAudioRows * k; i += kAudioThreads) {
-    const int r = i / k, j = i - r * k;
-    const long long m = m0 + r;
-    x_s[r * kAudioMaxK + j] = m < m_rows ? x[rows.offset(m) + j] : 0.f;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float cb[kPerLane], sc[kPerLane], bi[kPerLane];
+  // the taps in order onto the conv bias, each weight float4 serving the
+  // group's rows
+  for (int j = 0; j < kdim; ++j) {
+    float xs[R];
 #pragma unroll
-  for (int q = 0; q < kPerLane; ++q) {
-    cb[q] = conv_bias[lane + 32 * q];
-    sc[q] = scale[lane + 32 * q];
-    bi[q] = bias[lane + 32 * q];
-  }
-  constexpr int kWarps = kAudioThreads / 32;
-  for (int g0 = warp * kAudioGroup; g0 < kAudioRows;
-       g0 += kWarps * kAudioGroup) {
-    if (m0 + g0 >= m_rows) break;
-    float v[kAudioGroup][kPerLane];
+    for (int i = 0; i < R; ++i) xs[i] = sp[i * step + j];
 #pragma unroll
-    for (int i = 0; i < kAudioGroup; ++i)
+    for (int p = 0; p < 4; ++p) {
+      const float4 wv = w4[j * (kConvN / 4) + lane + 32 * p];
 #pragma unroll
-      for (int q = 0; q < kPerLane; ++q) v[i][q] = 0.f;
-    for (int j = 0; j < k; ++j) {
-      float xv[kAudioGroup];
-#pragma unroll
-      for (int i = 0; i < kAudioGroup; ++i)
-        xv[i] = x_s[(g0 + i) * kAudioMaxK + j];
-#pragma unroll
-      for (int q = 0; q < kPerLane; ++q) {
-        const float wv = w_s[j * kConvN + lane + 32 * q];
-#pragma unroll
-        for (int i = 0; i < kAudioGroup; ++i) v[i][q] = fmaf(xv[i], wv, v[i][q]);
+      for (int i = 0; i < R; ++i) {
+        v[i][4 * p] = fmaf(xs[i], wv.x, v[i][4 * p]);
+        v[i][4 * p + 1] = fmaf(xs[i], wv.y, v[i][4 * p + 1]);
+        v[i][4 * p + 2] = fmaf(xs[i], wv.z, v[i][4 * p + 2]);
+        v[i][4 * p + 3] = fmaf(xs[i], wv.w, v[i][4 * p + 3]);
       }
     }
+  }
+  // the rows' reductions side by side: the mean, the deviations in place,
+  // the mean of their squares
+  float mean[R], rstd[R];
 #pragma unroll
-    for (int i = 0; i < kAudioGroup; ++i) {
-      const long long m = m0 + g0 + i;
-      if (m >= m_rows) break;
+  for (int i = 0; i < R; ++i) {
+    float s = 0.f;
 #pragma unroll
-      for (int q = 0; q < kPerLane; ++q) v[i][q] += cb[q];
-      ln_gelu_row(v[i], sc, bi, eps, lane, out + m * kConvN);
+    for (int q = 0; q < 16; ++q) s += v[i][q];
+    mean[i] = s;
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) mean[i] = w2v_warp_sum(mean[i]) / kConvN;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      v[i][q] -= mean[i];
+      s += v[i][q] * v[i][q];
+    }
+    rstd[i] = s;
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    rstd[i] = rsqrtf(w2v_warp_sum(rstd[i]) / kConvN + eps);
+  // a lane's 4 channels of a row: one 16-byte evict-first store
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const float4 s = sc4[lane + 32 * p], b = bi4[lane + 32 * p];
+    const int c = 4 * lane + 128 * p;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float4 y =
+          make_float4(audio_act(v[i][4 * p] * rstd[i] * s.x + b.x),
+                      audio_act(v[i][4 * p + 1] * rstd[i] * s.y + b.y),
+                      audio_act(v[i][4 * p + 2] * rstd[i] * s.z + b.z),
+                      audio_act(v[i][4 * p + 3] * rstd[i] * s.w + b.w));
+      if (i < valid)
+        __stcs(reinterpret_cast<float4*>(out_rows + i * kConvN + c), y);
     }
   }
 }
+
+// x [batch, t_in * c_in] float32, w [512, k * c_in]; the tiles (batch
+// element, 16 * WARPS rows) walked from blockIdx.x by gridDim.x
+template <class G>
+__global__ void __launch_bounds__(G::kThreads, 1)
+conv_audio_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ conv_bias,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias, float eps,
+                      float* __restrict__ out, int batch, long long t_in,
+                      int c_in, int k, int stride, int t_out) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* w_s = reinterpret_cast<float*>(smem);
+  float* par = reinterpret_cast<float*>(smem + G::kPar);
+  float* spans = reinterpret_cast<float*>(smem + G::kSpans);
+  const int kdim = k * c_in, step = stride * c_in;
+  const long long len_b = t_in * c_in;  // elements of a batch element
+  const int span = (G::kTile - 1) * step + kdim;
+  const int tiles_b = (t_out + G::kTile - 1) / G::kTile;
+  const int n_tiles = batch * tiles_b;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  // a tile's span into spans[buf]: elements [r0 * s*C, + span) of its
+  // batch element, zeros past the element's end
+  auto fetch = [&](int tile, int buf) {
+    const int b = tile / tiles_b, r0 = (tile % tiles_b) * G::kTile;
+    const long long first = (long long)r0 * step;
+    const float* src = x + b * len_b + first;
+    float* dst = spans + buf * G::kSpan;
+    for (int e = threadIdx.x; e < span; e += G::kThreads) {
+      const bool ok = first + e < len_b;
+      audio_cp4(dst + e, ok ? src + e : x, ok);
+    }
+    tf32_cp_commit();
+  };
+  if ((int)blockIdx.x < n_tiles) fetch(blockIdx.x, 0);
+
+  // the weight and the parameters, once a CTA, under the first copies:
+  // the weight [16 taps][512] read in w's order (coalesced), zeros past k*C
+  for (int i = threadIdx.x; i < kAudioMaxK * kConvN; i += G::kThreads) {
+    if (i < kdim * kConvN)
+      w_s[(i % kdim) * kConvN + i / kdim] = w[i];
+    else
+      w_s[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i < kConvN; i += G::kThreads) {
+    par[i] = conv_bias[i];
+    par[kConvN + i] = scale[i];
+    par[2 * kConvN + i] = bias[i];
+  }
+
+  unsigned it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    // this tile's span has landed (the first time also the weight), and
+    // every warp is done with the span of the last tile, which the next
+    // fetch overwrites
+    tf32_cp_wait<0>();
+    __syncthreads();
+    if (tile + (int)gridDim.x < n_tiles)
+      fetch(tile + gridDim.x, (it + 1) & 1);
+    const int b = tile / tiles_b, r0 = (tile % tiles_b) * G::kTile;
+    const float* sp = spans + (it & 1) * G::kSpan;
+    float* out_t = out + ((long long)b * t_out + r0) * kConvN;
+    // group q of warp w: rows (q * WARPS + w) * kGroup of the tile, so the
+    // warps store neighbouring rows at a time
+#pragma unroll 1
+    for (int q = 0; q < 16 / G::kGroup; ++q) {
+      const int rg = (q * G::kWarps + warp) * G::kGroup;
+      const int valid = t_out - r0 - rg;  // rows of the group to store
+      if (valid <= 0) break;
+      audio_rows<G>(sp + rg * step, step, kdim, w_s, par, eps,
+                    out_t + (long long)rg * kConvN, valid, lane);
+    }
+  }
+}
+
+// 2 rows a group, 16 warps a CTA (117 registers: one CTA an SM).  The time
+// goes to the exact erf (one polynomial whose coefficients are picked by a
+// select each, ~25 instructions an element), not to the taps or the
+// stores: taps on the tensor cores in split TF32 ran 0.6% slower, and rows
+// staged in shared memory and written by bulk (TMA) copies 10-30% slower,
+// so neither route is kept (PERF.md).  ops/tile_sweep.py audio_f32 sweeps
+// the rows a group and the warps, and probes the kernel without stores and
+// without GELU.
+using AudioF32Cfg = AudioF32<2, 16>;
 
 // ---------------------------------------------------------------------------
 // bf16, conv layers 1-6: wgmma + TMA in a cluster of CM x 2 CTAs
@@ -943,18 +1076,33 @@ int launch_conv_f32(const void* x, const void* w, const float* conv_bias,
   return (int)cudaGetLastError();
 }
 
+template <class G>
 int launch_audio_f32(const void* x, const void* w, const float* conv_bias,
                      const float* scale, const float* bias, void* out,
                      int batch, long long t_in, int c_in, int k, int stride,
                      long long t_out, float eps, cudaStream_t stream) {
-  if (k * c_in > kAudioMaxK) return W2V_BAD_ARGS;
-  const long long m_rows = batch * t_out;
-  const long long blocks = (m_rows + kAudioRows - 1) / kAudioRows;
-  if (blocks > 0x7fffffffLL) return W2V_BAD_ARGS;
-  conv_audio_kernel<<<(unsigned)blocks, kAudioThreads, 0, stream>>>(
-      static_cast<const float*>(x), conv_rows(t_in, c_in, stride, t_out),
-      m_rows, k * c_in, static_cast<const float*>(w), conv_bias, scale, bias,
-      eps, static_cast<float*>(out));
+  if (k * c_in > kAudioMaxK || stride * c_in > kAudioF32MaxStep ||
+      !aligned16(out) || t_out > 0x7fffffffLL || hop_sm_count() == 0)
+    return W2V_BAD_ARGS;
+  const long long tiles = batch * ((t_out + G::kTile - 1) / G::kTile);
+  if (tiles > 0x7fffffffLL) return W2V_BAD_ARGS;
+  auto kernel = conv_audio_f32_kernel<G>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  static int per_sm = 0;  // CTAs an SM holds at once
+  if (per_sm == 0) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, G::kThreads, G::kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm == 0) return W2V_BAD_ARGS;
+  }
+  const long long resident = (long long)hop_sm_count() * per_sm;
+  kernel<<<(unsigned)(tiles < resident ? tiles : resident), G::kThreads,
+           G::kSmemBytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), conv_bias,
+      scale, bias, eps, static_cast<float*>(out), batch, t_in, c_in, k,
+      stride, (int)t_out);
   return (int)cudaGetLastError();
 }
 
@@ -973,9 +1121,9 @@ bool conv_shape_ok(int batch, long long t_in, int c_in, int k, int stride,
 // (k - min(k, s)) * c_in multiples of 64 and k <= 2s; in float32, x, w and
 // split (float32 scratch of 2 * 512 * k * c_in floats: the weight's TF32 hi
 // and lo parts; unused in bf16) 16-byte aligned, k * c_in a multiple of 32
-// and s * c_in of 4.  w2v_conv_audio_ln_gelu takes k * c_in <= 16 (and in
-// bf16 s * c_in <= 64, out 16-byte aligned).  Launch on `stream`; return
-// the launch's cudaError_t or W2V_BAD_ARGS.
+// and s * c_in of 4.  w2v_conv_audio_ln_gelu takes k * c_in <= 16, out
+// 16-byte aligned, and s * c_in <= 64 in bf16, <= 16 in float32.  Launch
+// on `stream`; return the launch's cudaError_t or W2V_BAD_ARGS.
 extern "C" int w2v_conv_ln_gelu(const void* x, const void* w,
                                 const void* conv_bias, const void* scale,
                                 const void* bias, void* out, void* split,
@@ -1014,7 +1162,7 @@ extern "C" int w2v_conv_audio_ln_gelu(const void* x, const void* w,
     return launch_audio_tc<AudioTcCfg>(x, w, cb, sc, bi, out, batch, t_in,
                                        c_in, k, stride, t_out, eps, s);
   if (dtype == W2V_F32)
-    return launch_audio_f32(x, w, cb, sc, bi, out, batch, t_in, c_in, k,
-                            stride, t_out, eps, s);
+    return launch_audio_f32<AudioF32Cfg>(x, w, cb, sc, bi, out, batch, t_in,
+                                         c_in, k, stride, t_out, eps, s);
   return W2V_BAD_ARGS;
 }

@@ -1,27 +1,33 @@
-"""Time tile-shape variants of the bf16 FFN, conv and LayerNorm kernels,
-and probes of the float32 FFN and conv kernels, on one CUDA card, side by
-side in one process.
+"""Time tile-shape variants of the bf16 FFN, conv and LayerNorm kernels
+and of the float32 raw-audio conv kernel, and probes of the float32 FFN
+and conv kernels, on one CUDA card, side by side in one process.
 
     python3 -m wav2vecsegmenter_tpu_torch.ops.tile_sweep \
-        [ffn conv audio ln ln_bwd ffn_f32 conv_f32] [--csrc DIR ...]
+        [ffn conv audio audio_f32 ln ln_bwd ffn_f32 conv_f32] \
+        [--csrc DIR ...]
 
 Each variant is a copy of ``csrc/`` with its configuration lines replaced
 (``using FfnWg = ...`` of ffn.cu; ``using ConvWgCfg = ...`` and
-``kConvPersistent`` or ``using AudioTcCfg = ...`` and ``kAudioPersistent``
-of convfuse.cu; ``using LnVecCfg = ...`` of layernorm.cu, and for the "no
-gelu" probe the bf16 kernel's GELU line; ``using LnBwdCfg = ...`` of
+``kConvPersistent``, ``using AudioTcCfg = ...`` and ``kAudioPersistent``,
+or ``using AudioF32Cfg = ...`` of convfuse.cu, the last also under the
+"no stores" and "no gelu" probes, which keep the arithmetic and drop the
+stores, or keep the stores and drop the GELU; ``using LnVecCfg = ...`` of
+layernorm.cu, and for the "no gelu" probe the bf16 kernel's GELU line;
+``using LnBwdCfg = ...`` of
 layernorm_bwd.cu; for the float32 kinds text patches of gemm.cuh's
 split-TF32 mainloop, or ffn.cu's tile choice, that take out the copies,
 the products, A's split, two of each three TF32 products or the small
 tiles: their results are wrong on purpose and only their times tell
 where the time goes), built by nvcc (all at once) into its own library
-and loaded with the same C signatures.  ``--csrc DIR`` adds, for the
+and loaded with the same C signatures; for some kinds each variant's
+ptxas registers and spills, and for ``audio_f32`` its kernel's SASS
+instructions by opcode, are printed first.  ``--csrc DIR`` adds, for the
 float32 kinds, a variant built from another copy of ``csrc/`` (an
 alternative implementation, timed in the same process).  Every variant is
 held against the plain version at the main path's shapes (bf16: the FFN
 at [14, 999, 1024] x 4096, conv layer 1 at [14, 63999, 512], k=3, s=2, the
-raw-audio layer 0 at [14, 320000, 1], k=10, s=5; float32: the FFN at
-[w, 999, 1024] x 4096 for w = 14, 1, 2, 4, conv layers 1 and 3 at
+raw-audio layer 0 at [14, 320000, 1], k=10, s=5; float32: that layer 0,
+the FFN at [w, 999, 1024] x 4096 for w = 14, 1, 2, 4, conv layers 1 and 3 at
 [14, 63999, 512] and [14, 15999, 512], k=3, s=2; the LayerNorm K1 at
 [14 * 999, 1024] and [14 * 999, 512], and K2 at [14 * 63999, 512], the
 probe against bias + LayerNorm without the GELU; the LayerNorm backward K9
@@ -71,6 +77,24 @@ AUDIO = {
     "64 rows persistent": ("AudioTc<4>", "true"),
     "64 rows a block a tile": ("AudioTc<4>", "false"),
     "32 rows persistent": ("AudioTc<2>", "true"),
+}
+# AudioF32<ROWS, WARPS> (convfuse.cu), the float32 layer 0: rows a warp
+# holds at once, warps a CTA; then the variant's text patches: NO_STORES
+# keeps every value and stores none, NO_ACT stores the GELU's input (both
+# wrong on purpose: bytes or issue)
+NO_STORES = (("      if (i < valid)\n        __stcs(",
+              "      if (i < valid && y.x == -1234.5f)\n        __stcs("),)
+NO_ACT = (("{ return w2v_gelu(v); }", "{ return v; }"),)
+AUDIO_F32 = {
+    "1 row, 8 warps": ("AudioF32<1, 8>", ()),
+    "2 rows, 8 warps": ("AudioF32<2, 8>", ()),
+    "2 rows, 12 warps": ("AudioF32<2, 12>", ()),
+    "2 rows, 16 warps": ("AudioF32<2, 16>", ()),
+    "2 rows, 24 warps": ("AudioF32<2, 24>", ()),
+    "4 rows, 4 warps": ("AudioF32<4, 4>", ()),
+    "4 rows, 8 warps": ("AudioF32<4, 8>", ()),
+    "2 rows, 16 warps, no stores": ("AudioF32<2, 16>", NO_STORES),
+    "2 rows, 16 warps, no gelu": ("AudioF32<2, 16>", NO_ACT),
 }
 # LnVec<WARPS, DEPTH, MINB, PREFETCH> (layernorm.cu), set for K1 and K2
 # alike: warps a CTA, rows in flight a warp, CTAs an SM the registers must
@@ -158,17 +182,38 @@ PATTERNS = {
              r"constexpr bool kConvPersistent = [^;]*;"),
     "audio": (r"using AudioTcCfg = [^;]*;",
               r"constexpr bool kAudioPersistent = [^;]*;"),
+    "audio_f32": (r"using AudioF32Cfg = [^;]*;",),
     "ln": (r"using LnVecCfg = [^;]*;", r"using LnVecGeluCfg = [^;]*;"),
     "ln_bwd": (r"using LnBwdCfg = [^;]*;",),
 }
 SOURCES = {"ffn": ("ffn.cu", FFN), "conv": ("convfuse.cu", CONV),
-           "audio": ("convfuse.cu", AUDIO), "ln": ("layernorm.cu", LN),
+           "audio": ("convfuse.cu", AUDIO),
+           "audio_f32": ("convfuse.cu", AUDIO_F32), "ln": ("layernorm.cu", LN),
            "ln_bwd": ("layernorm_bwd.cu", LN_BWD),
            "ffn_f32": ("ffn.cu", F32_FFN_PROBES),
            "conv_f32": ("convfuse.cu", F32_PROBES)}
 F32_KINDS = ("ffn_f32", "conv_f32")
-# the bf16 kernels whose ptxas registers and spills a variant prints
-PTXAS = {"ln": "ln_vec_kernel", "ln_bwd": "ln_bwd_vec_kernel"}
+# the kernels whose ptxas registers and spills a variant prints
+PTXAS = {"ln": "ln_vec_kernel", "ln_bwd": "ln_bwd_vec_kernel",
+         "audio_f32": "conv_audio_f32_kernel"}
+# the kinds whose kernel's SASS instructions a variant counts by opcode
+# (cuobjdump; static counts: a loop's body counts once)
+SASS = ("audio_f32",)
+
+
+def _sass_ops(lib: Path, name: str) -> dict:
+    """{opcode: count} of the first kernel named ``name`` in ``lib``."""
+    from . import _build
+
+    dump = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True).stdout
+    body = re.search(rf"Function : \S*{name}\S*\n(.*?)(?=Function : |\Z)",
+                     dump, re.S).group(1)
+    ops = re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+    return dict(sorted(((op, ops.count(op)) for op in set(ops)),
+                       key=lambda kv: -kv[1]))
 
 
 def _template_args(mangled: str) -> str:
@@ -203,9 +248,10 @@ def _build_variants(work: Path, kinds, copies=()) -> dict:
             text = (d / source).read_text()
             if decl is None:
                 pass
-            elif kind == "ln":
+            elif kind in ("ln", "audio_f32"):
                 decl, patches = decl
-                decl = (decl, decl)
+                if kind == "ln":
+                    decl = (decl, decl)
                 for before, after in patches:
                     if text.count(before) != 1:
                         raise RuntimeError(f"no '{before}' in {source}")
@@ -243,6 +289,11 @@ def _build_variants(work: Path, kinds, copies=()) -> dict:
                     r"(?:[^\n]*\n)*?[^\n]*?(\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads\n[^\n]*?Used (\d+) registers",
                     log)]}), flush=True)
+        if key[0] in SASS:
+            ops = _sass_ops(path, PTXAS[key[0]])
+            print(json.dumps({"kernel": key[0], "tile": key[1],
+                              "sass_total": sum(ops.values()),
+                              "sass": ops}), flush=True)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _build._SIGNATURES.items():
             if hasattr(lib, name):
@@ -321,6 +372,18 @@ def main() -> int:
             512, 1e-5, 1, stream), out_a,
             convfuse.conv_bias_ln_gelu_plain(xa, wa, cb, sc, bi, 5),
             2 * 14 * 63999 * 10 * 512, 10, ())]
+    if "audio_f32" in kinds:
+        xf = randn(14, 320000, 1)
+        wf = randn(512, 1, 10, std=10 ** -0.5)
+        wfk = wf.reshape(512, 10).contiguous()
+        out_f = torch.empty(14, 63999, 512, device=dev)
+        calls["audio_f32"] = [("[14,320000,1] k=10 s=5", lambda lib:
+                               lib.w2v_conv_audio_ln_gelu(
+            xf.data_ptr(), wfk.data_ptr(), cb.data_ptr(), sc.data_ptr(),
+            bi.data_ptr(), out_f.data_ptr(), 14, 320000, 1, 10, 5, 63999,
+            512, 1e-5, 0, stream), out_f,
+            convfuse.conv_bias_ln_gelu_plain(xf, wf, cb, sc, bi, 5), None, 10,
+            ("conv_audio_f32_kernel",))]
     if "ffn_f32" in kinds:
         calls["ffn_f32"] = []
         h, f = 1024, 4096
