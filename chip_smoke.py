@@ -17,8 +17,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    its operations over the peak rate of their type) and, where one PyTorch
    call computes the same function, that call's time (for the attention backward: the SDPA call's forward +
    backward less its forward); each output is held to the tolerances of
-   its own dtype.  The bf16 attention backward rows first run the forward
-   under grad, whose softmax statistics are held against their plain
+   its own dtype.  Every attention row (K3, K4 and K10, both dtypes,
+   every head dim and cross shape) is timed three times in turns with its
+   SDPA call, the median on record.  The bf16 attention backward rows
+   first run the forward under grad, whose softmax statistics are held
+   against their plain
    version, and add the forward's time with and without them and the
    profiler's device time of each of K10's three kernels; the FFN rows
    (the full batch, the tail bucket and the remainder ladder's 1, 2 and 4
@@ -139,10 +142,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    newest checkpoint loaded through load_reference_checkpoint are checked.
    The line gives the micro-step's wall, its fetch (the wait on the
    background reader) and its read (the reader's own read + collate);
-   ``steady_state`` the same over a 40-talk epoch of 18 micro-steps,
-   while the reader works and after it is done, and with the serial
-   builder in its place, each run's device busy ms and idle share over
-   four profiled micro-steps in mid-epoch;
+   ``steady_state`` the same over a 40-talk epoch of 18 micro-steps in
+   three runs: the reader on the native loader (``native``), the reader
+   on the stdlib ``wave`` route (``wave``, forced by ``wave_reader``) and
+   the serial builder (``serial``), each with its ms a micro-step while
+   the reads go on and once they are done, read and fetch ms, and device
+   busy ms and idle share over four profiled micro-steps in mid-epoch;
    a fifth run, bf16 with the kernels, profiles one micro-step for the
    device's busy time (``--profile``: its torch.profiler table on
    standard error);
@@ -287,7 +292,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    micro-steps (losses and gradients) equal the run without a group,
    bitwise; (b) two ranks on the one card over gloo (NCCL refuses two
    ranks on one device), launched by core.runtime.launch_ranks: data
-   parallel (data=2, 7 rows a rank of batch 14) and tensor parallel
+   parallel (data=2, 7 rows a rank of batch 14, each rank reading only
+   its rows: every rank's windows read must equal its rows of the sweep's
+   batches, with its read ms a batch and its reader route) and tensor
+   parallel
    (model=2: K3 at 8 heads, K5 at F=2048, the head's K4 at 4 heads): each
    run's probabilities within KERNEL_SLACK of the one-rank bf16 run's
    distance to float32 (mean and p99), the data-parallel yaml rows
@@ -318,6 +326,10 @@ outputs must be bitwise equal (no atomics).  The attention rows (bf16 on
 the tensor-core kernels, float32 on the scalar ones) include a batch row
 whose keys are all masked, compared in full: its outputs must also be the
 uniform average of its in-range values.
+
+Every phase that reads wavs (slice, packing, online, train, lna, mesh)
+prints ``reader_backend`` (``data.audio.reader_backend``) and fails
+unless the native loader reads them.
 
 Needs CUDA; exits non-zero without it.  Imports no JAX.
 """
@@ -738,7 +750,7 @@ def check_kernels(dev) -> dict:
                         proj, mask, 16, 64 ** -0.5),
                     uniform=uniform_row(v, 16, 64) if b > 3 else None,
                     bound=attn_bound(q, mask, 16, 64, dtype),
-                    library=sdpa(q, k, v, mask), twice=True)
+                    library=sdpa(q, k, v, mask), twice=True, repeats=3)
 
     def bthd_case(t, dtype, b=B, valid=None, d=128):
         # the SFC's view layout; d = 96 at a base model's width (768 / 8)
@@ -752,7 +764,7 @@ def check_kernels(dev) -> dict:
                         q, k, v, mask, d ** -0.5),
                     uniform=uniform_row(v, 8, d) if b > 3 else None,
                     bound=attn_bound(q, mask, 8, d, dtype),
-                    library=sdpa(q, k, v, mask), twice=True)
+                    library=sdpa(q, k, v, mask), twice=True, repeats=3)
 
     def cross_case(tq, tk, dtype):
         # the arseg decoder's cross-attention: queries of the decoder's
@@ -769,7 +781,7 @@ def check_kernels(dev) -> dict:
                     uniform=uniform_row(v, 8, 128),
                     bound=bound(2 * nbytes(q) + nbytes(kv), tc_ops(
                         dtype, 8 * 128 * (4 * valid + 2 * empty))),
-                    library=sdpa(q, k, v, mask), twice=True)
+                    library=sdpa(q, k, v, mask), twice=True, repeats=3)
 
     def row_dot_case(rows, dtype):
         # the bce head's output layer: the final LayerNorm's output (about
@@ -878,7 +890,8 @@ def check_kernels(dev) -> dict:
                                 tc_ops(dtype, flops)),
                     library=lambda: torch.autograd.grad(lib_fwd(), leaves,
                                                         do_t),
-                    library_less=lib_fwd, rtol=BWD_RTOL, twice=True)
+                    library_less=lib_fwd, rtol=BWD_RTOL, twice=True,
+                    repeats=3)
         # the forward under grad writes the statistics the backward reads,
         # once, outside the timed region; they are held against their
         # plain version, and the forward with them is timed against the
@@ -1354,7 +1367,8 @@ def run_slice(dev) -> tuple[dict, dict, SHAS]:
     u_vs_k = dprob(probs_u, probs_k)
     u_vs_f = dprob(probs_u, probs_f32)
     med = {m: float(np.median(w)) for m, w in walls.items()}
-    phase("slice", params=n_params, segments_kernels=len(rows_k),
+    phase("slice", reader_backend=native_reads(),
+          params=n_params, segments_kernels=len(rows_k),
           segments_eager=len(rows_e), segments_unfused=len(rows_u),
           prob_range=[float(min(p.min() for p in probs_k.values())),
                       float(max(p.max() for p in probs_k.values()))],
@@ -1902,13 +1916,13 @@ def run_packing(dev, model) -> dict:
                             for o in other.values())}
     gap = row_gap(rows_p, rows_u)
     env_gap = {bs: row_gap(o[0], rows_u) for bs, o in other.items()}
-    phase("packing", talks=len(PACK_TALKS), audio_secs=sum(
-        PACK_TALKS.values()), batch_size=B, batches_packed=n_p,
-        batches_per_talk=n_u, wall_s_packed=walls[True],
-        wall_s_per_talk=walls[False], dprob_by_talk=talks,
-        rows_packed=len(rows_p), rows_per_talk=len(rows_u),
-        rows_vs_per_talk=gap, rows_batch_size_vs_14=env_gap,
-        seconds=time.perf_counter() - t0)
+    phase("packing", reader_backend=native_reads(),
+          talks=len(PACK_TALKS), audio_secs=sum(PACK_TALKS.values()),
+          batch_size=B, batches_packed=n_p, batches_per_talk=n_u,
+          wall_s_packed=walls[True], wall_s_per_talk=walls[False],
+          dprob_by_talk=talks, rows_packed=len(rows_p),
+          rows_per_talk=len(rows_u), rows_vs_per_talk=gap,
+          rows_batch_size_vs_14=env_gap, seconds=time.perf_counter() - t0)
     check(n_p < n_u, f"packing ran {n_p} batches, per talk {n_u}")
     check({r["wav"] for r in rows_p} == set(PACK_TALKS),
           "packing: a talk got no segments")
@@ -2374,7 +2388,8 @@ def run_online(dev, model) -> dict:
     # (5) the daemon: eight clients, then a drain
     server = serve_check(engine, pcm, audio, alone_probs, dmax)
     launches = backend.launch_counts()
-    phase("online", chunk_secs=ONLINE_CHUNK / 16000, stream_secs=ONLINE_SECS,
+    phase("online", reader_backend=native_reads(),
+          chunk_secs=ONLINE_CHUNK / 16000, stream_secs=ONLINE_SECS,
           first_call=first, single=single, multi=multi,
           invariance=invariance, server=server,
           cudnn_benchmark=torch.backends.cudnn.benchmark, launches=launches)
@@ -2618,15 +2633,41 @@ def serial_builder():
         BatchIterator.__iter__ = threaded
 
 
+@contextlib.contextmanager
+def wave_reader():
+    """The port's window reads take the stdlib ``wave`` route inside the
+    block, as where the native loader cannot be built."""
+    from wav2vecsegmenter_tpu_torch.data import audio
+
+    saved = audio._native
+    audio._native = False
+    try:
+        yield
+    finally:
+        audio._native = saved
+
+
+def native_reads() -> str:
+    """``data.audio.reader_backend()``, for a phase that reads wavs: it
+    fails unless the native loader reads them."""
+    from wav2vecsegmenter_tpu_torch.data.audio import reader_backend
+
+    name = reader_backend()
+    check(name == "native", f"the window reads take the {name} route, not "
+                            f"the native loader's")
+    return name
+
+
 def reader_steady_state(dev, root: Path) -> dict:
     """One epoch of the train phase's bf16 kernels run over STEADY_TALKS
-    talks, with the background reader and then with the serial builder:
-    median ms a micro-step while the reader works (the warm-up, the
-    epoch's first, the last three micro-steps and those the profiler
-    touches excluded) and after it has read the epoch's last batch (the
-    last three), fetch and read ms; the serial run's micro-step (from the
-    request for its batch) and read ms, over the same micro-steps.  In
-    both runs the profiler (device activity only) traces micro-steps
+    talks three times: with the background reader on the native loader
+    (``native``), with the reader on the stdlib ``wave`` route
+    (:func:`wave_reader`) and with the serial builder (``serial``).  For
+    each: the median ms a micro-step while the reads go on (the warm-up,
+    the epoch's first, the last three micro-steps and those the profiler
+    touches excluded) and after the reader has read the epoch's last batch
+    (the last three), fetch and read ms over the first span.  In every run
+    the profiler (device activity only) traces micro-steps
     STEADY_PROFILED: the device's busy ms a micro-step there, the host's
     wall of the same span and the device's idle share of it."""
     from torch.profiler import ProfilerActivity, schedule
@@ -2662,33 +2703,31 @@ def reader_steady_state(dev, root: Path) -> dict:
         torch.cuda.empty_cache()
         hist = {k: [t * 1e3 for t in v] for k, v in out["history"].items()
                 if k.endswith("_seconds")}
+        n = len(hist["step_seconds"])
+        keep = [i for i in range(2, n - 3) if not first - 1 <= i <= end]
+
+        def med(key, idx=keep):
+            return float(np.median([hist[key][i] for i in idx]))
+
         wall = (marks[end - 1] - marks[first - 1]) * 1e3
-        hist["profiled"] = {"device_busy_ms": busy[0] / (end - first),
-                            "wall_ms": wall / (end - first),
-                            "idle_share": 1 - busy[0] / wall}
-        return hist
+        return {"micro_steps": n,
+                "ms_per_micro_step": med("step_seconds"),
+                "ms_per_micro_step_reader_done": med("step_seconds",
+                                                     range(n - 3, n)),
+                "fetch_ms": med("fetch_seconds"),
+                "read_ms": med("read_seconds"),
+                "profiled": {"device_busy_ms": busy[0] / (end - first),
+                             "wall_ms": wall / (end - first),
+                             "idle_share": 1 - busy[0] / wall},
+                "step_ms": hist["step_seconds"]}
 
-    reader = run("steady_reader")
+    native = run("steady_native")
+    with wave_reader():
+        wave_ = run("steady_wave")
     with serial_builder():
-        plain = run("steady_serial")
-    n = len(reader["step_seconds"])
-    keep = [i for i in range(2, n - 3) if not first - 1 <= i <= end]
-
-    def med(xs, idx=keep):
-        return float(np.median([xs[i] for i in idx]))
-
-    return {"micro_steps": n, "profiled_micro_steps": [first, end],
-            "ms_per_micro_step": med(reader["step_seconds"]),
-            "fetch_ms": med(reader["fetch_seconds"]),
-            "read_ms": med(reader["read_seconds"]),
-            "ms_per_micro_step_reader_done": med(reader["step_seconds"],
-                                                 range(n - 3, n)),
-            "ms_per_micro_step_serial": med(plain["step_seconds"]),
-            "read_ms_serial": med(plain["read_seconds"]),
-            "profiled": reader["profiled"],
-            "profiled_serial": plain["profiled"],
-            "step_ms": reader["step_seconds"],
-            "step_ms_serial": plain["step_seconds"]}
+        serial = run("steady_serial")
+    return {"profiled_micro_steps": [first, end], "native": native,
+            "wave": wave_, "serial": serial}
 
 
 def train_config(dev, split: dict, exp: str, mode: str, dtype: str,
@@ -2838,7 +2877,8 @@ def run_train(dev, profile: bool) -> tuple[dict, dict]:
     def per_step(out, key):
         return [t * 1e3 for t in out["history"][key]]
 
-    phase("train", seconds=time.perf_counter() - t0,
+    phase("train", reader_backend=native_reads(),
+          seconds=time.perf_counter() - t0,
           micro_steps=len(out_k["history"]["loss"]),
           updates=out_k["updates"], loss_kernels=out_k["history"]["loss"],
           loss_eager=out_e["history"]["loss"],
@@ -3381,7 +3421,8 @@ def run_lna(dev) -> dict:
         del model, fresh
         torch.cuda.empty_cache()
 
-    phase("lna", seconds=time.perf_counter() - t0,
+    phase("lna", reader_backend=native_reads(),
+          seconds=time.perf_counter() - t0,
           micro_steps=len(k["history"]["loss"]), updates=k["updates"],
           loss_kernels=k["history"]["loss"],
           loss_eager=runs["eager", "bfloat16"]["history"]["loss"],
@@ -4562,14 +4603,16 @@ def mesh_train_batch(n: int, seed: int = 3):
     return collate(examples, n, L_AUDIO, t_out, device_normalize=True)
 
 
-def mesh_segment(model, wavs, dev, dtype=torch.bfloat16, mesh=None):
+def mesh_segment(model, wavs, dev, dtype=torch.bfloat16, mesh=None,
+                 read_seconds=None):
     """(rows, talk probabilities, wall s) of the slice's sweep at batch 14,
-    pTHR, on ``mesh``."""
+    pTHR, on ``mesh`` (each batch's read s onto ``read_seconds``)."""
     probs: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rows = segment_wavs(model, wavs, PTHR, B, 20.0, 1, dev, dtype,
-                        talk_probs=probs, mesh=mesh)
+                        talk_probs=probs, mesh=mesh,
+                        read_seconds=read_seconds)
     torch.cuda.synchronize()
     return rows, probs, time.perf_counter() - t0
 
@@ -4679,15 +4722,75 @@ def mesh_lna_step(dev, mesh, mode: str = "auto", dtype=torch.bfloat16,
                                               for g in grads)))}
 
 
+def sweep_windows(wavs, n_data: int = 1, data_rank: int = 0) -> int:
+    """The windows a data rank reads in the slice's sweep at batch B: its
+    rows of every batch (all of them on one rank)."""
+    from wav2vecsegmenter_tpu_torch.data.windows import (
+        BatchIterator, FixedSegmentationDatasetNoTarget)
+
+    total = 0
+    for w in wavs:
+        ds = FixedSegmentationDatasetNoTarget(w, 20.0, 1)
+        ds.fixed_length_segmentation(0)
+        it = BatchIterator(ds, B, 20.0, n_data=n_data, data_rank=data_rank)
+        total += sum(len(it._own_rows(idx)) for idx in it._index_batches())
+    return total
+
+
+def sweep_reads_alone(wavs, n_data: int = 1, data_rank: int = 0) -> dict:
+    """A data rank's batches of the slice's sweep at batch B, built
+    serially with nothing else in flight as ``segment_wavs`` builds them
+    (pinned; each window read alone on a data rank): ms a batch to read
+    its windows (``windows_ms``) and to read, collate and pin its rows
+    (``batch_ms``), the medians over three passes after one to warm up."""
+    from wav2vecsegmenter_tpu_torch.data.windows import (
+        BatchIterator, FixedSegmentationDatasetNoTarget)
+
+    windows, batches = [], []
+    for rep in range(4):
+        for w in wavs:
+            ds = FixedSegmentationDatasetNoTarget(w, 20.0, 1,
+                                                  whole_talk=n_data == 1)
+            ds.fixed_length_segmentation(0)
+            it = BatchIterator(ds, B, 20.0, pin_memory=True, n_data=n_data,
+                               data_rank=data_rank)
+            for idx in it._index_batches():
+                own = it._own_rows(idx) if n_data > 1 else idx
+                t0 = time.perf_counter()
+                for j in own:
+                    ds[j]
+                t1 = time.perf_counter()
+                it._batch(idx, lambda ix: [ds[j] for j in ix])
+                if rep:
+                    windows.append(t1 - t0)
+                    batches.append(time.perf_counter() - t1)
+    return {"windows_ms": float(np.median(windows)) * 1e3,
+            "batch_ms": float(np.median(batches)) * 1e3}
+
+
 def mesh_rank(argv: list) -> dict:
     """One of the mesh phase's two ranks on the one card, run by
     ``core.runtime.launch_ranks`` over gloo; ``argv`` holds the talks'
-    paths.  Rank 0 also runs the one-rank references (the others wait)."""
+    paths.  Rank 0 also runs the one-rank references (the others wait).
+    Each mesh run's sweep records every rank's reader route, windows read
+    and read ms a batch (``reads``)."""
     from torch import distributed as dist
 
     from wav2vecsegmenter_tpu_torch.core import runtime
+    from wav2vecsegmenter_tpu_torch.data.audio import reader_backend
+    from wav2vecsegmenter_tpu_torch.data.windows import (
+        FixedSegmentationDatasetNoTarget)
     from wav2vecsegmenter_tpu_torch.infer.pipeline import WindowInference
     from wav2vecsegmenter_tpu_torch.parallel import mesh as pmesh
+
+    reads: list = []
+    getitem = FixedSegmentationDatasetNoTarget.__getitem__
+
+    def counted(self, idx):
+        reads.append(int(idx))
+        return getitem(self, idx)
+
+    FixedSegmentationDatasetNoTarget.__getitem__ = counted
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4700,9 +4803,12 @@ def mesh_rank(argv: list) -> dict:
     ref: dict = {}
     if rank0:
         mesh_segment(model, wavs, dev)
-        ref["rows"], ref["bf16"], _ = mesh_segment(model, wavs, dev)
+        read_s: list = []
+        ref["rows"], ref["bf16"], _ = mesh_segment(model, wavs, dev,
+                                                   read_seconds=read_s)
         _, ref["f32"], _ = mesh_segment(model, wavs, dev, torch.float32)
         out["one_vs_f32"] = dprob_to(ref["bf16"], ref["f32"])
+        out["one_read_ms_per_batch"] = float(np.median(read_s)) * 1e3
     dist.barrier()
     batch = full_batch()
     for name, conf in (("dp", {"data": 2}), ("tp", {"data": 1,
@@ -4711,14 +4817,23 @@ def mesh_rank(argv: list) -> dict:
         if name == "tp":
             pmesh.shard_model(model, mesh)
         mesh_segment(model, wavs, dev, mesh=mesh)  # warm-up
+        reads.clear()
+        read_s: list = []
         backend.reset_launch_counts()
-        rows, probs, wall = mesh_segment(model, wavs, dev, mesh=mesh)
+        rows, probs, wall = mesh_segment(model, wavs, dev, mesh=mesh,
+                                         read_seconds=read_s)
         counts = backend.launch_counts()
+        mine = {"reader_backend": reader_backend(),
+                "windows_read": len(reads),
+                "read_ms_per_batch": float(np.median(read_s)) * 1e3}
+        per_rank = [None] * MESH_RANKS
+        dist.all_gather_object(per_rank, mine)
         engine = WindowInference(model, dev, torch.bfloat16, mesh=mesh)
         ms = [None] * MESH_RANKS
         dist.all_gather_object(ms, time_engine(engine, batch))
         res = {"segments": len(rows), "wall_s": wall,
-               "batch_ms_per_rank": ms, "launches": counts}
+               "batch_ms_per_rank": ms, "launches": counts,
+               "reads": per_rank}
         if name == "tp":
             res["allreduce_share"] = allreduce_share(engine, batch)
         if rank0:
@@ -4884,6 +4999,12 @@ def run_mesh(dev) -> dict:
         ranks = runtime.launch_ranks("chip_smoke:mesh_rank",
                                      [str(w) for w in wavs], MESH_RANKS)
         ranks_s = time.perf_counter() - t0
+        windows = {"one_rank": sweep_windows(wavs),
+                   "data_ranks": [sweep_windows(wavs, MESH_RANKS, r)
+                                  for r in range(MESH_RANKS)]}
+        reads_alone = {"one_rank": sweep_reads_alone(wavs),
+                       "data_ranks": [sweep_reads_alone(wavs, MESH_RANKS, r)
+                                      for r in range(MESH_RANKS)]}
         # (c) the profiled train run's trace
         t0 = time.perf_counter()
         (Path(tmp) / "train").mkdir()
@@ -4897,6 +5018,20 @@ def run_mesh(dev) -> dict:
             check(run["vs_f32"][q] <= KERNEL_SLACK * one_f32[q],
                   f"{name} mesh: {q} dprob to float32 {run['vs_f32'][q]} "
                   f"vs {one_f32[q]} on one rank")
+    # every rank reads through the native loader; on data=2 a rank reads
+    # its rows of each batch and no other, on model=2 every window
+    for name in ("dp", "tp"):
+        for r, got in enumerate(ranks[name]["reads"]):
+            check(got["reader_backend"] == "native",
+                  f"{name} rank {r} reads through {got['reader_backend']}")
+            want = (windows["data_ranks"][r] if name == "dp"
+                    else windows["one_rank"])
+            check(got["windows_read"] == want,
+                  f"{name} rank {r} read {got['windows_read']} windows, "
+                  f"its rows hold {want}")
+    check(sum(windows["data_ranks"]) == windows["one_rank"]
+          and max(windows["data_ranks"]) < windows["one_rank"],
+          f"the data ranks' rows do not split the sweep: {windows}")
     # the data-parallel yaml: each rank's half of a batch is a change of
     # batch size, held to tests/test_packing.py's row bounds
     check(ranks["dp"]["rows_vs_one"]["beyond_bounds"] == 0,
@@ -4910,11 +5045,15 @@ def run_mesh(dev) -> dict:
                      + lna["launches"].get(k, 0)
                      for k in set(ranks["tp"]["launches"])
                      | set(lna["launches"])}
-    phase("mesh", seconds=time.perf_counter() - start,
+    phase("mesh", reader_backend=native_reads(),
+          seconds=time.perf_counter() - start,
           world1_nccl_seconds=one_s, ranks_seconds=ranks_s,
+          sweep_windows=windows, sweep_read_ms_alone=reads_alone,
           trace_seconds=trace_s, world1_nccl="rows and 3 frozen "
           "micro-steps bitwise equal", backend=ranks["backend"],
-          one_rank_vs_f32=one_f32, data=ranks["dp"], model=ranks["tp"],
+          one_rank_vs_f32=one_f32,
+          one_rank_read_ms_per_batch=ranks["one_read_ms_per_batch"],
+          data=ranks["dp"], model=ranks["tp"],
           lna_one=ranks["lna_one"], lna_tp=lna, lna_dp=ranks["lna_dp"],
           fsdp=ranks["fsdp"], trace=trace, launches_mesh=launches_mesh)
     return launches_mesh

@@ -13,11 +13,16 @@ exits non-zero without two cards or when a check fails.  Parts:
    multiple of the data ranks), data=N and data=N/2 x model=2: the
    probabilities within ``KERNEL_SLACK`` of one card's distance to
    float32 (mean and p99), the sweep's wall against one card's, each
-   rank's ms a batch of 16 windows of 20 s and, on the model axis, the
-   all-reduces' share of one;
-2. train: the train phase's corpus (6 talks of 100 s), the head on the
-   frozen backbone, one epoch at batch 14 a rank on data=N against one
-   card at batch 14: ms a micro-step and windows a second;
+   rank's read + collate ms a batch of the sweep (a data rank reads only
+   its rows) against one card's, each rank's ms a batch of 16 windows of
+   20 s and, on the model axis, the all-reduces' share of one;
+2. train: the train phase's talks of 100 s, ``TALKS_PER_CARD`` a card
+   (at least 5 micro-steps a rank on data=N), the head on the frozen
+   backbone, one epoch at batch 14 a rank on data=N against one card at
+   batch 14 on the same corpus: ms a micro-step, windows a second, and
+   the read and fetch ms of a micro-step, each the median of the
+   micro-steps after the first ``WARM_STEPS`` on both sides, beside the
+   count of micro-steps;
 3. lna: one micro-step of conf/task/shas.yaml's LNA split on 4 windows on
    data=N, under FSDP on data=N and under FSDP on data=N/2 x model=2,
    each held to one card's by ``chip_smoke.check_lna_runs``: its loss
@@ -55,9 +60,15 @@ def batch16():
     return batch
 
 
+# the train part's corpus: talks a card, and the warm-up micro-steps
+# (first launches, the reader's start) left out of every median
+TALKS_PER_CARD, WARM_STEPS = 16, 2
+
+
 def train_run(dev, split: dict, root: Path, n_data: int) -> dict:
     """One epoch of the train phase's frozen head at batch 14 a rank: ms
-    a micro-step (the median after the first two) and windows a second."""
+    a micro-step and windows a second, read and fetch ms, each the median
+    of the micro-steps after the first ``WARM_STEPS``."""
     from wav2vecsegmenter_tpu_torch.config import Config, merge
     from wav2vecsegmenter_tpu_torch.train.loop import train
 
@@ -72,9 +83,18 @@ def train_run(dev, split: dict, root: Path, n_data: int) -> dict:
                     "mesh": {"data": n_data, "model": 1}}})
     out = train(config, work_dir=root)
     steps = out["history"]["step_seconds"]
-    ms = float(np.median(steps[2:] if len(steps) > 3 else steps) * 1e3)
-    return {"micro_steps": len(steps), "ms_per_micro_step": ms,
+    cs.check(len(steps) >= WARM_STEPS + 3,
+             f"train on data={n_data}: {len(steps)} micro-steps, too few "
+             "for a median after the warm-up")
+
+    def med(key):
+        return float(np.median(out["history"][key][WARM_STEPS:]) * 1e3)
+
+    ms = med("step_seconds")
+    return {"micro_steps": len(steps),
+            "median_of": len(steps) - WARM_STEPS, "ms_per_micro_step": ms,
             "windows_per_s": cs.B * n_data / ms * 1e3,
+            "read_ms": med("read_seconds"), "fetch_ms": med("fetch_seconds"),
             "loss": out["history"]["loss"]}
 
 
@@ -99,12 +119,17 @@ def cards_rank(argv: list) -> dict:
             pmesh.shard_model(model, mesh)
         cs.mesh_segment(model, wavs, dev, mesh=mesh)
         cs.backend.reset_launch_counts()
-        rows, probs, wall = cs.mesh_segment(model, wavs, dev, mesh=mesh)
+        read_s: list = []
+        rows, probs, wall = cs.mesh_segment(model, wavs, dev, mesh=mesh,
+                                            read_seconds=read_s)
         counts = cs.backend.launch_counts()
+        reads = [None] * n
+        dist.all_gather_object(reads, float(np.median(read_s)) * 1e3)
         engine = WindowInference(model, dev, torch.bfloat16, mesh=mesh)
         ms = [None] * n
         dist.all_gather_object(ms, cs.time_engine(engine, batch))
         res = {"segments": len(rows), "wall_s": wall, "probs": probs,
+               "read_ms_per_batch_per_rank": reads,
                "batch16_ms_per_rank": ms, "launches": counts}
         if name == "tp":
             res["allreduce_share"] = cs.allreduce_share(engine, batch)
@@ -148,11 +173,13 @@ def main() -> int:
         for seed, w in enumerate(wavs):
             cs.write_talk(w, cs.MESH_TALKS[w.name], seed)
         (root / "corpus").mkdir()
-        cs.write_corpus(root / "corpus")
+        cs.write_corpus(root / "corpus", TALKS_PER_CARD * n)
         # one card: the references
         model = cs.mesh_model(dev).eval()
         cs.mesh_segment(model, wavs, dev)
-        _, one, one_wall = cs.mesh_segment(model, wavs, dev)
+        one_reads: list = []
+        _, one, one_wall = cs.mesh_segment(model, wavs, dev,
+                                           read_seconds=one_reads)
         _, f32, _ = cs.mesh_segment(model, wavs, dev, torch.float32)
         one_ms = cs.time_engine(
             WindowInference(model, dev, torch.bfloat16), batch16())
@@ -179,6 +206,8 @@ def main() -> int:
                           "one_card": {"vs_f32": one_f32, "wall_s": one_wall,
                                        "audio_per_wall": sum(
                                            cs.MESH_TALKS.values()) / one_wall,
+                                       "read_ms_per_batch": float(np.median(
+                                           one_reads)) * 1e3,
                                        "batch16_ms": one_ms}, **run}),
               flush=True)
     print(json.dumps({"part": "train", "one_card": train_one,

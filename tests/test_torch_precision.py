@@ -172,3 +172,47 @@ def test_f32_last_k_refuses_freezing_splits_and_train_mode():
         jax_encoder(params["wav2vec"], jnp.zeros((1, 49, 64)),
                     jnp.ones((1, 49), bool), jm.w2v_cfg, n_frozen_layers=1,
                     f32_last_k=1)
+
+
+# ROADMAP C3, held as a fidelity question: the port's bf16 logits may sit
+# no farther from the JAX float32 logits than this many times the JAX bf16
+# (XLA) logits do
+C3_RATIO = 1.25
+
+
+class _FloatLogitsSpy(_LogitsSpy):
+    def __call__(self, *args, **kwargs):
+        out = self.model(*args, **kwargs)
+        self.logits.append(out.float().numpy().copy())
+        return out
+
+
+def _rel_l2(got, want, mask) -> float:
+    got, want = (np.asarray(a, np.float64)[mask] for a in (got, want))
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_error_from_f32_within_jax_bf16s(tmp_path, seed):
+    """On the same weights (``tiny_pair`` of ``seed``), the relative L2
+    distance on ``out_mask`` of the port's eager bf16 logits from the JAX
+    float32 logits is within C3_RATIO of the JAX bf16 engine's
+    (``compute_dtype=bfloat16``, XLA): the port adds no bf16 error of its
+    own (ROADMAP C3)."""
+    jm, params, model = tiny_pair(tmp_path / "ckpt.pt", seed)
+    jbatch = jax_collate(_examples(), 2, 16000, 50)
+    set_backend("xla")
+    try:
+        _, want = jpipe.WindowInference(jm, params).run_batch(jbatch)
+        _, jax_bf16 = jpipe.WindowInference(
+            jm, params, compute_dtype=jnp.bfloat16).run_batch(jbatch)
+    finally:
+        set_backend("auto")
+    engine = tpipe.WindowInference(model, "cpu", torch.bfloat16)
+    spy = engine.model = _FloatLogitsSpy(model)
+    batch = collate(_examples(), 2, 16000, 50)
+    assert np.isfinite(engine.run_batch(batch).numpy()).all()
+    port = _rel_l2(spy.logits[0], want, batch.out_mask)
+    jax_err = _rel_l2(jax_bf16, want, batch.out_mask)
+    print(f"seed {seed}: port bf16 {port:.5f}, JAX bf16 {jax_err:.5f}")
+    assert 0 < port <= C3_RATIO * jax_err, (port, jax_err)

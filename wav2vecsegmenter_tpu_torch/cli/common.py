@@ -358,10 +358,12 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
     of one built from ``device``, ``compute_dtype``, ``precision``,
     ``quantize`` and ``loss_tag``.
 
-    On a ``mesh`` (``parallel.mesh``) each data rank runs its rows of every
-    batch (the engine's) and gets the batch's probabilities back; the batch
-    size rounds up to a multiple of the data ranks, and so does each
-    remainder batch of the ladder.  ``profile_dir`` traces the first talk
+    On a ``mesh`` (``parallel.mesh``) each data rank reads only its windows
+    of every batch, each alone, runs its rows (``data.windows.LocalBatch``,
+    the engine's) and gets the batch's probabilities back; the batch size
+    rounds up to a multiple of the data ranks, and so does each remainder
+    batch of the ladder.  Packing (``pack_across_talks``) decodes each talk
+    whole and reads whole batches, each rank keeping its rows.  ``profile_dir`` traces the first talk
     with ``torch.profiler`` (``core.trace``), from the first dispatch until
     the talk is drained or the sweep fails.
     """
@@ -374,6 +376,7 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
     if mesh is None and engine is not None:
         mesh = engine.mesh
     n_data = 1 if mesh is None else mesh.n_data
+    data_rank = 0 if mesh is None else mesh.data_rank
     padded = pad_batch_to_devices(batch_size, n_data)
     if padded != batch_size:
         logger.info("batch_size %d -> %d (multiple of %d devices)",
@@ -391,7 +394,8 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
 
     def dispatch_one(wav_path):
         dataset = FixedSegmentationDatasetNoTarget(
-            wav_path, segment_length, inference_times)
+            wav_path, segment_length, inference_times,
+            whole_talk=n_data == 1 or packer is not None)
         passes = []
         for it in range(inference_times):
             dataset.fixed_length_segmentation(it)
@@ -401,7 +405,7 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
             batches = BatchIterator(dataset, batch_size, float(segment_length),
                                     remainder_ladder=remainder_ladder,
                                     pin_memory=engine.device.type == "cuda",
-                                    min_multiple=n_data)
+                                    n_data=n_data, data_rank=data_rank)
             passes.append(dispatch_talk(engine, batches, need_logits))
             if read_seconds is not None:
                 read_seconds.extend(batches.read_seconds)

@@ -1,13 +1,27 @@
 """Wav decoding with random-access window reads.
 
 Replaces the reference's torchaudio sox_io seek-reads (lib/dataset.py:
-659-663) with the stdlib ``wave`` module (16-bit PCM mono, which is what
-MuST-C ships).  Samples are returned float32 in [-1, 1) (int16 / 32768,
-torchaudio's convention).
+659-663).  Backends, as in ``wav2vecsegmenter_tpu/data/audio.py``:
+  * the native C++ loader (``native/audio/wav_loader.cpp`` through the
+    port's binding, ``data.native_audio``, built into ``_build/`` on first
+    use) — a ``ctypes`` call that releases the interpreter lock while it
+    reads into a preallocated buffer, so that the background reader's
+    threads (``data.windows``) do not hold up the thread that launches
+    the device's work;
+  * the stdlib ``wave`` module (16-bit PCM mono is what MuST-C ships) where
+    the loader cannot be built, and for every case where the loader's
+    answer is not the stdlib's: encodings other than 16-bit PCM (it
+    refuses to read them, and reports the header of an IEEE float file,
+    which the stdlib refuses), a window that starts past the end (the
+    stdlib raises), a negative offset or frame count, and a file it
+    cannot open.
+:func:`reader_backend` says which one reads 16-bit PCM.  Samples are
+returned float32 in [-1, 1) (int16 / 32768, torchaudio's convention).
 
-The port's copy of ``wav2vecsegmenter_tpu/data/audio.py`` without its native
-C++ loader, which belongs to the JAX package (tests/test_torch_copies.py
-holds the two equal).
+The port's copy of the JAX module, with its own binding of the same
+loader (tests/test_torch_copies.py holds the two modules equal, and
+tests/test_torch_reader_native.py the native route equal to the JAX
+module's stdlib route, format by format).
 """
 
 from __future__ import annotations
@@ -20,10 +34,36 @@ from pathlib import Path
 import numpy as np
 
 from ..constants import INPUT_SAMPLE_RATE
+from . import native_audio
+
+_native = None
+
+
+def _get_native():
+    global _native
+    if _native is None:
+        _native = native_audio if native_audio.available() else False
+    return _native
+
+
+def reader_backend() -> str:
+    """``"native"`` when the C++ loader reads 16-bit PCM windows, else
+    ``"wave"`` (the loader could not be built).  It reports; it sets
+    nothing."""
+    return "native" if _get_native() else "wave"
 
 
 def wav_info(path: str | Path) -> tuple[int, int, int]:
     """(num_frames, sample_rate, channels)."""
+    nat = _get_native()
+    if nat:
+        try:
+            info = nat.wav_info(str(path))
+            # the loader's header for a file it reads (16-bit PCM) only
+            if nat.read_window(str(path), 0, 1).size == 1:
+                return info
+        except OSError:
+            pass
     with wave.open(str(path), "rb") as f:
         return f.getnframes(), f.getframerate(), f.getnchannels()
 
@@ -31,6 +71,18 @@ def wav_info(path: str | Path) -> tuple[int, int, int]:
 def read_wav_window(path: str | Path, offset: int = 0,
                     num_frames: int | None = None) -> np.ndarray:
     """Read ``num_frames`` samples starting at ``offset`` -> float32 [-1, 1)."""
+    nat = _get_native()
+    if nat and offset >= 0 and (num_frames is None or num_frames > 0):
+        try:
+            data = nat.read_window(str(path), int(offset),
+                                   -1 if num_frames is None
+                                   else int(num_frames))
+        except OSError:  # not 16-bit PCM, or unreadable
+            data = None
+        # an empty read is a window at or past the end, where the stdlib
+        # raises for a start past it
+        if data is not None and data.size:
+            return data
     with wave.open(str(path), "rb") as f:
         n_channels = f.getnchannels()
         sampwidth = f.getsampwidth()

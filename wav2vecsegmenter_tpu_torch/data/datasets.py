@@ -23,6 +23,7 @@ import numpy as np
 from ..core.frames import inframes_to_outframes
 from ..core.windows import fixed_window_grid, random_window_grid
 from .audio import WaveformCache, read_wav_window
+from .windows import out_span
 
 
 def _read_tsv(path) -> list[dict]:
@@ -129,6 +130,8 @@ class _GridDataset:
     """Windows over a corpus with targets; yields numpy examples
     (waveform, target, start_out, end_out)."""
 
+    has_targets = True
+
     def __init__(self, corpus: SegmentationCorpus):
         self.corpus = corpus
         # rows: (talk_id, path, start_in, end_in, spans)
@@ -165,6 +168,11 @@ class _GridDataset:
     def __len__(self) -> int:
         return len(self.rows)
 
+    def window_span(self, idx: int) -> tuple[int, int, int]:
+        """(samples, start, end) of window ``idx`` without reading it."""
+        _, _, s, e, _ = self.rows[idx]
+        return (e - s, *out_span(s, e))
+
     def __getitem__(self, idx: int):
         talk_id, path, s, e, spans = self.rows[idx]
         if self._wav_cache is not None:
@@ -172,9 +180,7 @@ class _GridDataset:
         else:
             waveform = read_wav_window(path, s, e - s)
         target = construct_target(spans, e - s)
-        start = int(inframes_to_outframes(s + 1e-6))
-        end = int(inframes_to_outframes(e + 1e-6))
-        return waveform, target, start, end
+        return (waveform, target, *out_span(s, e))
 
 
 class RandomSegmentationDataset(_GridDataset):
@@ -194,15 +200,18 @@ class RandomSegmentationDataset(_GridDataset):
 
 class FixedSegmentationDataset(_GridDataset):
     """Fixed-length segmentation of one talk (or all), per inference pass
-    (reference lib/dataset.py:335-497)."""
+    (reference lib/dataset.py:335-497).  Talks are decoded whole and their
+    windows sliced, unless ``whole_talk`` is False: a data rank that holds
+    only some rows of each batch reads each of its windows alone."""
 
     def __init__(self, talk_list, segments_list, segment_length,
-                 inference_times: int = 1):
+                 inference_times: int = 1, whole_talk: bool = True):
         super().__init__(SegmentationCorpus(talk_list, segments_list))
         self.segment_length = segment_length
         self.inference_times = inference_times
         self.duration_outframes: int | None = None
-        self._wav_cache = WaveformCache(2)
+        if whole_talk:
+            self._wav_cache = WaveformCache(2)
 
     def generate_fixed_segments(self, talk_id, iteration: int) -> None:
         self.rows, self.transcripts = [], []
@@ -223,4 +232,5 @@ class FixedSegmentationDataset(_GridDataset):
     def release_cache(self) -> None:
         """Drop decoded waveforms between evals (the dataset lives for the
         whole training run)."""
-        self._wav_cache.clear()
+        if self._wav_cache is not None:
+            self._wav_cache.clear()

@@ -9,7 +9,9 @@ normalization on the device, and the windows' targets; with a ``vocab``
 (the multi-class tasks) the targets are padded with its ``<PAD>`` id, and
 with ``ctc`` the batches carry the windows' encoded transcripts; with
 ``autoregression`` (``task=arseg``) they are ``AutoRegBatch``es, SEP-wrapped
-with the vocabulary's ``<SEP>`` and normalized on the host.
+with the vocabulary's ``<SEP>`` and normalized on the host.  On a mesh's
+data axis (``n_data`` ranks, this one ``data_rank``) each rank reads only
+its rows of every batch (``data.windows.LocalBatch``).
 """
 
 from __future__ import annotations
@@ -37,8 +39,10 @@ class RandomDataloaderGenerator:
     def __init__(self, talk_list, segments_list, segment_length, batch_size,
                  seed: int | None = None,
                  pin_memory: bool = False, vocab=None,
-                 ctc: bool = False, autoregression: bool = False) -> None:
+                 ctc: bool = False, autoregression: bool = False,
+                 n_data: int = 1, data_rank: int = 0) -> None:
         self.vocab = vocab
+        self.ranks = {"n_data": n_data, "data_rank": data_rank}
         self.ctc = ctc
         self.autoregression = autoregression
         self.talk_list = talk_list
@@ -61,7 +65,7 @@ class RandomDataloaderGenerator:
         return BatchIterator(self.dataset, self.batch_size,
                              float(self.segment_length),
                              remainder_ladder=False, shuffle=True, seed=seed,
-                             pin_memory=self.pin_memory,
+                             pin_memory=self.pin_memory, **self.ranks,
                              **_vocab_kwargs(self.vocab, self.ctc,
                                              self.autoregression))
 
@@ -75,18 +79,21 @@ class FixedDataloaderGenerator:
                  remainder_ladder: bool = False,
                  pin_memory: bool = False, vocab=None,
                  ctc: bool = False, autoregression: bool = False,
-                 min_multiple: int = 1) -> None:
+                 min_multiple: int = 1, n_data: int = 1,
+                 data_rank: int = 0) -> None:
         self.vocab = vocab
+        self.ranks = {"n_data": n_data, "data_rank": data_rank}
         self.ctc = ctc
         self.autoregression = autoregression
         self.batch_size = batch_size
         self.segment_length = segment_length
         self.remainder_ladder = remainder_ladder
-        # a mesh's data ranks: every ladder slot count a multiple of them
+        # a one-rank reference of a mesh's ladder (``BatchIterator``)
         self.min_multiple = min_multiple
         self.pin_memory = pin_memory
         self.dataset = FixedSegmentationDataset(
-            talk_list, segments_list, segment_length, inference_times)
+            talk_list, segments_list, segment_length, inference_times,
+            whole_talk=n_data == 1)
 
     def generate(self, talk_id, iteration: int) -> BatchIterator:
         """Windows of one talk (or of every talk, for ``talk_id == ""``)."""
@@ -98,7 +105,7 @@ class FixedDataloaderGenerator:
                              float(self.segment_length),
                              remainder_ladder=self.remainder_ladder,
                              pin_memory=self.pin_memory,
-                             min_multiple=self.min_multiple,
+                             min_multiple=self.min_multiple, **self.ranks,
                              **_vocab_kwargs(self.vocab, self.ctc,
                                              self.autoregression))
 

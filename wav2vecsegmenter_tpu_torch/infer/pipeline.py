@@ -36,8 +36,10 @@ On a mesh (``mesh``, ``parallel.mesh``) each data rank runs its rows of
 every batch, on a model split over the mesh's model axis where it has one,
 and the probabilities, logits and row losses come back gathered, in batch
 order, on every rank; a batch's rows are normalized over the whole batch's
-``norm_length``.  int8 does not compose with tensor parallelism, as in the
-JAX engine.
+``norm_length``.  A rank that read only its rows (``data.windows.
+LocalBatch``) also gathers their starts, ends, ``included`` flags and
+targets, which :func:`collect_talk` stitches in place of the batch's.
+int8 does not compose with tensor parallelism, as in the JAX engine.
 
 A model with a ``greedy_decode`` (the autoregressive segmenter,
 ``task=arseg``) decodes each batch one token a frame instead: its
@@ -48,11 +50,14 @@ probabilities are p(in-segment) = softmax([l_B, l_NB])[1], and its
 from __future__ import annotations
 
 import dataclasses
+import math
+import types
 
 import numpy as np
 import torch
 
 from ..data.collate import Batch
+from ..data.windows import LocalBatch
 from ..ops.quant import quantize_layers
 from ..parallel.mesh import all_gather, local_rows
 
@@ -65,6 +70,8 @@ from ..parallel.mesh import all_gather, local_rows
 #   f32lastK  + the last K encoder layers entirely in float32 (f32last4)
 #   f32       everything in float32 (the oracle)
 PRECISION_ARMS = ("bf16", "f32head", "f32res", "f32last4", "f32")
+# the batch fields that stitch_row reads
+STITCH_ROWS = ("starts", "ends", "included", "target")
 
 
 def resolve_precision(precision: str | None, compute_dtype):
@@ -120,14 +127,18 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 
 
 class ProbsHandle:
-    """A batch's probabilities (and its loss and frame logits, if computed)
-    on their way to the host."""
+    """A batch's probabilities (and its loss and frame logits, if computed,
+    and a rank's gathered ``rows``: :func:`gather_rows`) on their way to
+    the host."""
 
     def __init__(self, probs: torch.Tensor, loss: torch.Tensor | None = None,
-                 logits: torch.Tensor | None = None):
+                 logits: torch.Tensor | None = None,
+                 rows: GatheredRows | None = None):
         self._host = _to_host(probs)
         self._loss = None if loss is None else _to_host(loss)
         self._logits = None if logits is None else _to_host(logits)
+        self._rows = None if rows is None else dataclasses.replace(
+            rows, packed=_to_host(rows.packed))
         self._event = None
         if probs.is_cuda:
             self._event = torch.cuda.Event()
@@ -152,6 +163,12 @@ class ProbsHandle:
             self._event.synchronize()
         return float(self._loss)
 
+    def rows(self) -> types.SimpleNamespace:
+        """The gathered row fields, as numpy arrays."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._rows.numpy()
+
 
 def row_losses(loss_fn, logits: torch.Tensor, target: torch.Tensor,
                out_mask: torch.Tensor) -> torch.Tensor:
@@ -173,14 +190,63 @@ def batch_loss(loss_fn, logits: torch.Tensor, target: torch.Tensor,
 
 def local_batch(batch, mesh):
     """This data rank's rows of a batch (every per-row field sliced; the
-    batch-wide ones, ``norm_length`` and ``n_real``, kept)."""
+    batch-wide ones, ``norm_length`` and ``n_real``, kept); a batch the
+    rank read as its rows (``LocalBatch``) as it is."""
     if mesh is None or mesh.n_data == 1:
         return batch
     b = len(batch.included)
+    if getattr(batch, "global_slots", 0):
+        if batch.global_slots != b * mesh.n_data:
+            raise ValueError(f"{b} rows of a batch of {batch.global_slots} "
+                             f"on {mesh.n_data} data ranks")
+        return batch
     return dataclasses.replace(batch, **{
         f.name: local_rows(v, mesh) for f in dataclasses.fields(batch)
         if isinstance(v := getattr(batch, f.name), np.ndarray)
         and v.ndim and v.shape[0] == b})
+
+
+@dataclasses.dataclass
+class GatheredRows:
+    """Row fields of every data rank's rows in batch order, as one byte
+    tensor (:func:`gather_rows`): ``packed`` [rows, bytes a row], and each
+    field's (name, (dtype, row shape)), or (name, None) for a field the
+    batch lacks."""
+    packed: torch.Tensor
+    layout: tuple
+
+    def numpy(self) -> types.SimpleNamespace:
+        """The fields, as numpy arrays."""
+        packed = self.packed.cpu().numpy()
+        out, at = {}, 0
+        for name, spec in self.layout:
+            if spec is None:
+                out[name] = None
+                continue
+            dtype, shape = spec
+            width = dtype.itemsize * math.prod(shape)
+            out[name] = np.ascontiguousarray(packed[:, at:at + width]).view(
+                dtype).reshape(len(packed), *shape)
+            at += width
+        return types.SimpleNamespace(**out)
+
+
+def gather_rows(batch, names, mesh, device) -> GatheredRows:
+    """The fields ``names`` of a rank's rows (``LocalBatch``), gathered
+    over the mesh's data ranks in batch order by one ``all_gather`` of the
+    rows' bytes, on ``device``."""
+    n = len(batch.included)
+    layout, cols = [], []
+    for name in names:
+        v = getattr(batch, name)
+        if v is None:
+            layout.append((name, None))
+            continue
+        v = np.ascontiguousarray(v)
+        layout.append((name, (v.dtype, v.shape[1:])))
+        cols.append(v.reshape(n, -1).view(np.uint8))
+    packed = upload(np.concatenate(cols, axis=1), device)
+    return GatheredRows(all_gather(packed, mesh.data_group), tuple(layout))
 
 
 class WindowInference:
@@ -236,14 +302,17 @@ class WindowInference:
         probs, loss, logits = self._run_rows(local_batch(batch, self.mesh),
                                              need_logits)
         mesh = self.mesh
+        rows = None
         if mesh is not None and mesh.n_data > 1:
             def gather(t):
                 return None if t is None else all_gather(
                     t, mesh.data_group)
             probs, loss, logits = gather(probs), gather(loss), gather(logits)
+            if isinstance(batch, LocalBatch):
+                rows = gather_rows(batch, STITCH_ROWS, mesh, self.device)
         if loss is not None:
             loss = loss[:batch.n_real or len(loss)].mean()
-        return ProbsHandle(probs, loss, logits)
+        return ProbsHandle(probs, loss, logits, rows)
 
     def _run_rows(self, batch: Batch, need_logits: bool):
         """(probabilities, row losses or None, logits or None) of a batch's
@@ -344,6 +413,8 @@ def collect_talk(pending: list, duration_outframes: int,
     (:func:`talk_logits_array`, gaps filled too), when given."""
     talk_probs = np.full(duration_outframes, np.nan)
     for handle, batch in pending:
+        if isinstance(batch, LocalBatch):  # a rank's rows: the whole batch's
+            batch = handle.rows()
         probs = handle.numpy()
         logits = None if talk_logits is None else handle.logits()
         loss = handle.loss()

@@ -61,12 +61,13 @@ package (nothing would train).
 A run on a mesh (``runtime.mesh``: ``data``, ``model``, ``fsdp``;
 ``parallel.mesh``) is one of a process group's ranks (``core.runtime``;
 the train CLI launches them): the effective batch is ``batch_size`` times
-the data ranks, every rank reads the same seeded global batch and takes
-its rows (``train.step``); the model is split over the model axis and,
-under ``fsdp``, ``fully_shard``-ed over 'data'.  Plain data parallelism
-evaluates the whole eval set on every rank with its replicated model; a
-model axis or FSDP evaluates through the sharded model, the rows over
-'data'.  Rank 0 writes the checkpoints and the run state, whole and in the
+the data ranks, and each rank reads only its rows of the same seeded
+global batch (``data.windows.LocalBatch``; ``train.step``); the model is
+split over the model axis and, under ``fsdp``, ``fully_shard``-ed over
+'data'.  Plain data parallelism evaluates the whole eval set on every
+rank with its replicated model; a model axis or FSDP evaluates through
+the sharded model, each rank reading its rows over 'data'.  Rank 0
+writes the checkpoints and the run state, whole and in the
 single-device layout (``resume=true`` splits them again), and the files
 of the ST evaluation.
 
@@ -136,16 +137,23 @@ def _init_weights(model, config, seed: int) -> None:
             allow_random_wav2vec=bool(config.get("allow_random_wav2vec")))
 
 
+def data_ranks(mesh) -> dict:
+    """A loader's ``n_data`` and ``data_rank`` on ``mesh`` (or none)."""
+    if mesh is None:
+        return {"n_data": 1, "data_rank": 0}
+    return {"n_data": mesh.n_data, "data_rank": mesh.data_rank}
+
+
 def train_generator(config, batch_size: int, seed: int,
                     pin_memory: bool = False, vocab=None, ctc: bool = False,
-                    autoregression: bool = False):
+                    autoregression: bool = False, mesh=None):
     """The training loader generator: ``task.train_generator`` merged with
     ``data.train`` and ``batch_size`` added, as the
     JAX loop instantiates it.  An unset seed of the random generator
     becomes ``seed`` (the JAX single-process loop leaves it unseeded; a
     resumed run needs a seeded stream); ``vocab``, ``ctc`` and
-    ``autoregression`` as the JAX loop passes them.  Any other target
-    raises."""
+    ``autoregression`` as the JAX loop passes them; on ``mesh`` each data
+    rank reads its rows of every batch.  Any other target raises."""
     conf = {**to_plain(config.task.get("train_generator") or {}),
             **to_plain(config.data.train)}
     target = conf.pop("_target_", None)
@@ -158,7 +166,8 @@ def train_generator(config, batch_size: int, seed: int,
         conf["seed"] = seed
     conf["batch_size"] = batch_size
     return GENERATORS[target](**conf, pin_memory=pin_memory, vocab=vocab,
-                              ctc=ctc, autoregression=autoregression)
+                              ctc=ctc, autoregression=autoregression,
+                              **data_ranks(mesh))
 
 
 def st_eval_segments(config, model, engine, vocab=None) -> dict:
@@ -345,7 +354,7 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     batch_size = int(config.batch_size) * n_data
     pin = device.type == "cuda"
     train_gen = train_generator(config, batch_size, seed, pin, vocab, is_ctc,
-                                autoregression)
+                                autoregression, mesh)
     # plain data parallelism evaluates the whole set on every rank; a model
     # axis or FSDP through the sharded model, rows over 'data'
     eval_mesh = mesh if mesh is not None and (mesh.n_model > 1 or fsdp) \
@@ -358,7 +367,7 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
         remainder_ladder=bool(rt.get("infer_remainder_ladder", False)),
         pin_memory=pin, vocab=vocab, ctc=is_ctc,
         autoregression=autoregression,
-        min_multiple=1 if eval_mesh is None else n_data)
+        **data_ranks(eval_mesh))
 
     # the first epoch's loader sizes the schedule (reference train.py:321-332)
     train_loader = _generate(train_gen)
@@ -474,6 +483,8 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
                 losses.append(loss)
                 gnorms.append(history["grad_norm"][-1])
                 lg = metrics["logits"].float().cpu().numpy()
+                if "rows" in metrics:  # a rank's rows: the whole batch's
+                    batch = metrics["rows"].numpy()
                 if loss_tag == "bce":
                     t = min(lg.shape[1], batch.out_mask.shape[1])
                     m = batch.out_mask[:, :t]

@@ -44,7 +44,10 @@ stands for ``make_optimizer``, its ``flush`` method for
   (``ops.shmap.rand_rows``); under FSDP the backward reduce-scatters them
   (``loss.backward``), else one all-reduce sums them; ``loss`` is the
   global batch's, ``grad_norm`` covers the whole parameters (split and
-  sharded parts summed) and ``logits`` are the global batch's.
+  sharded parts summed) and ``logits`` are the global batch's; a rank
+  that read only its rows (``data.windows.LocalBatch``) keeps them as
+  they are, and gathers the target fields the loop's metrics read
+  (``rows``).
 
 PyTorch runs eagerly, so there is no jit and no donated state: the
 optimizer object carries the moments, the accumulation and the counts,
@@ -58,7 +61,9 @@ import math
 import torch
 
 from ..data.collate import AutoRegBatch, Batch
-from ..infer.pipeline import local_batch, normalize_int16, upload
+from ..data.windows import LocalAutoRegBatch, LocalBatch
+from ..infer.pipeline import (gather_rows, local_batch, normalize_int16,
+                              upload)
 from ..models.wav2vec2 import frame_lengths
 from ..ops.shmap import global_rows
 from ..parallel import mesh as pmesh
@@ -253,7 +258,10 @@ def make_train_step(model, loss_fn, ma_window_steps: int,
     (``fsdp``: the model is ``fully_shard``-ed over 'data') the step is the
     mesh step of the module docstring.  Metrics: ``loss``, ``grad_norm``
     (0-dim tensors), ``logits`` (the frame logits, detached) and the
-    micro-step's raw ``grads`` (this rank's parts of them on a mesh)."""
+    micro-step's raw ``grads`` (this rank's parts of them on a mesh), and
+    for a rank's rows (``LocalBatch``) on a data mesh ``rows``: the global
+    batch's ``out_mask`` and target (``out_target`` for ``AutoRegBatch``),
+    gathered by one collective (``infer.pipeline.GatheredRows``)."""
     params = optimizer.params
     device = params[0].device if not hasattr(params[0], "to_local") \
         else params[0].to_local().device
@@ -266,6 +274,10 @@ def make_train_step(model, loss_fn, ma_window_steps: int,
 
     def step(batch: Batch | AutoRegBatch,
              pos_weight: float | None = None) -> dict:
+        rows = None
+        if n_data > 1 and isinstance(batch, (LocalBatch, LocalAutoRegBatch)):
+            rows = gather_rows(batch, ("out_target",) if autoregression
+                               else ("out_mask", "target"), mesh, device)
         batch = local_batch(batch, mesh)
         with global_rows(mesh):
             if autoregression:
@@ -310,7 +322,10 @@ def make_train_step(model, loss_fn, ma_window_steps: int,
         else:
             grad_norm = grad_norm_of(names, grads, split, mesh)
         optimizer.update(grads)
-        return {"loss": loss, "grad_norm": grad_norm, "logits": logits,
-                "grads": grads}
+        out = {"loss": loss, "grad_norm": grad_norm, "logits": logits,
+               "grads": grads}
+        if rows is not None:
+            out["rows"] = rows
+        return out
 
     return step
