@@ -2611,8 +2611,8 @@ STEADY_PROFILED = (8, 12)
 def _serial_iter(self):
     """``BatchIterator.__iter__`` without the reader: the batches read in
     the consumer's thread, as before the reader, timed as the reader times
-    them."""
-    self.read_seconds = reads = []
+    them; the consumer's wait for a batch is its read."""
+    self.read_seconds = self.wait_seconds = reads = []
     t = time.perf_counter()
     for batch in self._serial_batches():
         reads.append(time.perf_counter() - t)

@@ -409,8 +409,7 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
             passes.append(dispatch_talk(engine, batches, need_logits))
             if read_seconds is not None:
                 read_seconds.extend(batches.read_seconds)
-        return {"wav": wav_path, "dataset": dataset, "passes": passes,
-                "t0": time.perf_counter()}
+        return {"wav": wav_path, "dataset": dataset, "passes": passes}
 
     yaml_content: list[dict] = []
     total_audio_secs = 0.0
@@ -439,11 +438,7 @@ def segment_wavs(model, wav_paths: list, algorithm: dict, batch_size: int,
             talk_probs[name] = probs
         segments = run_algorithm(tag, algorithm, probs, logits, vocab)
         yaml_content = update_yaml_content(yaml_content, segments, name)
-        secs = dataset.duration_inframes / 16000
-        total_audio_secs += secs
-        dt = time.perf_counter() - h["t0"]
-        logger.info("%s: %.1fs audio in %.2fs (%.0fx RT, pipelined)",
-                    name, secs, dt, secs / dt)
+        total_audio_secs += dataset.duration_inframes / 16000
 
     prof = None
 

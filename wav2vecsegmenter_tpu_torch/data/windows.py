@@ -35,12 +35,12 @@ import dataclasses
 import math
 import queue
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.frames import inframes_to_outframes, secs_to_inframes
 from ..core.windows import fixed_window_grid
 from .audio import WaveformCache, assert_sample_rate, read_wav_window
@@ -126,8 +126,10 @@ class BatchIterator:
     """Static-shape, device-normalized batches of a dataset, in order or,
     with ``shuffle``, in the order of ``RandomState(seed).shuffle``, read
     ``prefetch`` batches ahead on ``num_threads`` threads.  ``read_seconds``
-    holds each batch's read + collate time in the reader, in batch order,
-    for the current iteration.  With ``n_data`` > 1 the batches are rank
+    holds each batch's read + collate time in the reader (the span
+    ``data.read``), in batch order, for the current iteration, and
+    ``wait_seconds`` the consumer's wait for each batch and for the end
+    (``data.wait``).  With ``n_data`` > 1 the batches are rank
     ``data_rank``'s rows (``LocalBatch``), read alone; the dataset then
     gives each window's span (``window_span``) and says whether its
     examples carry targets (``has_targets``)."""
@@ -157,6 +159,7 @@ class BatchIterator:
         self.autoregression = autoregression
         self.sep_token_id = sep_token_id
         self.read_seconds: list[float] = []
+        self.wait_seconds: list[float] = []
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
@@ -272,6 +275,7 @@ class BatchIterator:
     def __iter__(self):
         idx_batches = self._index_batches()
         self.read_seconds = read_seconds = []
+        self.wait_seconds = wait_seconds = []
         q: queue.Queue = queue.Queue(maxsize=READER_PREFETCH)
         stop = threading.Event()
 
@@ -294,10 +298,9 @@ class BatchIterator:
                     for idx in idx_batches:
                         if stop.is_set():
                             return
-                        t0 = time.perf_counter()
-                        batch = self._batch(idx, lambda ix: list(
-                            pool.map(self.dataset.__getitem__, ix)))
-                        read_seconds.append(time.perf_counter() - t0)
+                        with trace.span("data.read", into=read_seconds):
+                            batch = self._batch(idx, lambda ix: list(
+                                pool.map(self.dataset.__getitem__, ix)))
                         if not put_or_stop(batch):
                             return
             except BaseException as e:  # re-raised in the consumer
@@ -309,7 +312,8 @@ class BatchIterator:
                          daemon=True).start()
         try:
             while True:
-                item = q.get()
+                with trace.span("data.wait", into=wait_seconds):
+                    item = q.get()
                 if item is None:
                     break
                 if isinstance(item, BaseException):

@@ -76,6 +76,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import trace
 from ..ops.attention import attention_packed
 from ..ops.convfuse import (conv_bias_ln_gelu, convfuse_enabled,
                             strided_conv1d_as_matmul)
@@ -452,7 +453,16 @@ def pos_conv_weight(conv: WeightNormConv) -> torch.Tensor:
 
 def positional_conv(pe: PositionalConvEmbedding, x: torch.Tensor,
                     cfg: Wav2Vec2Config, dt) -> torch.Tensor:
-    """Grouped conv positional embedding [B, T, H] -> [B, T, H]."""
+    """Grouped conv positional embedding [B, T, H] -> [B, T, H].  While
+    the span recorder is on (``core.trace``) its backward is the span
+    ``models.pos_conv.bwd``: the GELU's, the bias's, the conv's and the
+    weight norm's gradients."""
+    return trace.backward_span("models.pos_conv.bwd", _positional_conv, x,
+                               pe, cfg, dt)
+
+
+def _positional_conv(x: torch.Tensor, pe: PositionalConvEmbedding,
+                     cfg: Wav2Vec2Config, dt) -> torch.Tensor:
     k = cfg.num_conv_pos_embeddings
     w = pos_conv_weight(pe.conv).to(dt)  # [H, H/groups, k]
     y = F.conv1d(x.to(dt).transpose(1, 2), w, padding=k // 2,

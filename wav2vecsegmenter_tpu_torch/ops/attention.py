@@ -41,7 +41,12 @@ then the packed [B, T, 3H] one as it lies; the launch keeps the counter
 the keys: the autoregressive decoder's queries over the encoder memory)
 goes through ``attention_cross(q [B, Tq, H, D], kv [B, Tk, 2, H, D])``,
 whose grad branch is ``_CrossAttentionFn``: the same forward and backward
-kernels, K10 writing dq and a packed dkv.  ``attention_bthd``'s grad
+kernels, K10 writing dq and a packed dkv.  While the span recorder is on
+(``core.trace``) both Functions' backward is the span
+``ops.attention.bwd``, which carries its forward call's shape (``b``,
+``t_q``, ``t_k``, ``heads``, ``d``) and its key mask (``key_mask``: each
+row's valid key count is its sum), so that a roofline can follow the op
+whatever implements it.  ``attention_bthd``'s grad
 branch stacks k and v into one copy for it and exists to keep the JAX
 function's differentiable signature at every shape (its tests use it).
 
@@ -57,6 +62,7 @@ import ctypes
 
 import torch
 
+from ..core import trace
 from . import _build, backend
 
 NEG_INF = -1e30
@@ -303,6 +309,26 @@ def _launch_bwd(q, k, v, key_mask, do, scale, o, stats, out):
     return out
 
 
+def _span_attrs(b: int, t_q: int, t_k: int, heads: int, d: int,
+                key_mask) -> dict | None:
+    """A call's shape for the span of its backward (``core.trace``), taken
+    only while the recorder is on: ``key_mask`` is the call's own tensor
+    (None: every key valid), held and not reduced, so that the span
+    launches nothing."""
+    if not trace.on():
+        return None
+    return {"b": b, "t_q": t_q, "t_k": t_k, "heads": heads, "d": d,
+            "key_mask": key_mask}
+
+
+def _backward_span(ctx):
+    """The span ``ops.attention.bwd`` of a Function's backward, carrying
+    the forward call's shape; none where the forward was not recorded."""
+    if ctx.span_attrs is None:
+        return trace.OFF
+    return trace.span("ops.attention.bwd", **ctx.span_attrs)
+
+
 class _AttentionFn(torch.autograd.Function):
     """Attention on the QKV projection viewed [B, T, 3, H, D], whose
     backward is ``attention_bwd`` (K10 on CUDA) writing one packed
@@ -315,15 +341,18 @@ class _AttentionFn(torch.autograd.Function):
                                      with_stats=True, name=name)
         ctx.save_for_backward(qkv, key_mask, out, stats)
         ctx.scale = scale
+        b, t, _, heads, d = qkv.shape
+        ctx.span_attrs = _span_attrs(b, t, t, heads, d, key_mask)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         qkv, key_mask, out, stats = ctx.saved_tensors
-        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
-        attention_bwd(*qkv.unbind(2), key_mask, do, ctx.scale, out, stats,
-                      out=dqkv.unbind(2))
+        with _backward_span(ctx):
+            dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+            attention_bwd(*qkv.unbind(2), key_mask, do, ctx.scale, out,
+                          stats, out=dqkv.unbind(2))
         return dqkv, None, None, None
 
 
@@ -340,16 +369,19 @@ class _CrossAttentionFn(torch.autograd.Function):
                                      with_stats=True, name=name)
         ctx.save_for_backward(q, kv, key_mask, out, stats)
         ctx.scale = scale
+        b, tq, heads, d = q.shape
+        ctx.span_attrs = _span_attrs(b, tq, kv.shape[1], heads, d, key_mask)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         q, kv, key_mask, out, stats = ctx.saved_tensors
-        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        dkv = torch.empty(kv.shape, dtype=kv.dtype, device=kv.device)
-        attention_bwd(q, *kv.unbind(2), key_mask, do, ctx.scale, out, stats,
-                      out=(dq, *dkv.unbind(2)))
+        with _backward_span(ctx):
+            dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            dkv = torch.empty(kv.shape, dtype=kv.dtype, device=kv.device)
+            attention_bwd(q, *kv.unbind(2), key_mask, do, ctx.scale, out,
+                          stats, out=(dq, *dkv.unbind(2)))
         return dq, dkv, None, None, None
 
 

@@ -75,7 +75,15 @@ of the ST evaluation.
 (``core.trace``) of the first N micro-steps that this process takes (after
 a resume, the first N after it) to ``<exp_name>/profile``, one file a
 rank; the trace is written early when the run ends before N and when a
-step raises.  ``log_wandb=true`` starts a wandb run on rank 0
+step raises.  Beside the kernels it carries the program's spans as
+ranges (``core.trace.span``): the reader's ``data.wait`` and
+``data.read``, the step's ``train.step`` around ``train.upload``,
+``train.forward``, ``train.backward``, ``train.grad_norm`` and
+``train.optimizer`` (``train.optimizer.apply`` on the k-th micro-step),
+and on the autograd thread ``models.pos_conv.bwd`` and
+``ops.attention.bwd``; ``core.trace.spans()`` holds them in memory with
+their host times and, for the spans a metric reads, their device times,
+until the trace stops.  ``log_wandb=true`` starts a wandb run on rank 0
 (``core.wandblog``) and logs ``{"epoch", **train metrics}`` at each print
 at the global step, the epoch's evaluation and ``finish``, the keys and
 steps of the JAX trainer.  Not ported: ``steps_per_call`` (one micro-step
@@ -299,8 +307,9 @@ class Checkpoints:
 def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
     """Run training.  Returns ``{"eval": last eval metrics, "history":
     per-micro-step loss, grad_norm, step_seconds (from the request for the
-    batch to its loss), fetch_seconds (the wait for the batch) and
-    read_seconds (its read and collate in the reader), "steps_per_epoch",
+    batch to its loss), fetch_seconds (the wait for the batch: the
+    reader's ``data.wait`` span) and read_seconds (its read and collate in
+    the reader: ``data.read``), "steps_per_epoch",
     "updates": optimizer updates applied, "total_steps": the schedule's
     length, "start_epoch": 0, or the epoch a resumed run started at,
     "evals": (checkpoint name, eval metrics and, with
@@ -463,14 +472,14 @@ def train(config, work_dir: str | Path | None = None, on_step=None) -> dict:
             # wait on the reader) to its loss on the host; the optimizer's
             # update, when one falls due, is inside it
             for n, batch in enumerate(train_loader, start=1):
-                t_batch = time.perf_counter()
                 if prof is None and global_step < trace_stop_at:
                     prof = start_trace(results_path / "profile")
                 global_step += 1
                 metrics = step(batch, pos_weight)
                 loss = float(metrics["loss"])  # waits for the device
                 history["step_seconds"].append(time.perf_counter() - t0)
-                history["fetch_seconds"].append(t_batch - t0)
+                history["fetch_seconds"].append(
+                    train_loader.wait_seconds[n - 1])
                 history["read_seconds"].append(
                     train_loader.read_seconds[n - 1])
                 history["loss"].append(loss)

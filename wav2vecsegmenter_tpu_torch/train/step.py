@@ -49,6 +49,16 @@ stands for ``make_optimizer``, its ``flush`` method for
   they are, and gathers the target fields the loop's metrics read
   (``rows``).
 
+The step is the span ``train.step`` of ``core.trace``, and inside it
+five spans, end to end: ``train.upload``
+(the rows gathered, the batch on the device and normalized there),
+``train.forward`` (the forward and the loss), ``train.backward``,
+``train.grad_norm`` (with a data mesh's all-reduce of the gradients) and
+``train.optimizer`` (accumulation; its child ``train.optimizer.apply``
+on the k-th micro-step); a step ends its micro-step
+(``trace.micro_step_done``).  The four after the upload record their
+device time, which the benchmark's metrics read.
+
 PyTorch runs eagerly, so there is no jit and no donated state: the
 optimizer object carries the moments, the accumulation and the counts,
 and its ``state_dict`` all of them, for a resumed run.
@@ -60,6 +70,7 @@ import math
 
 import torch
 
+from ..core import trace
 from ..data.collate import AutoRegBatch, Batch
 from ..data.windows import LocalAutoRegBatch, LocalBatch
 from ..infer.pipeline import (gather_rows, local_batch, normalize_int16,
@@ -128,14 +139,15 @@ class AccumulatingAdamW:
         return True
 
     def _apply(self) -> None:
-        for group in self.adamw.param_groups:
-            group["lr"] = self.learning_rate()
-        for p, acc in zip(self.params, self._acc):
-            p.grad = acc.div_(self.every_k)
-        self.adamw.step()
-        for p, acc in zip(self.params, self._acc):
-            p.grad = None
-            acc.zero_()
+        with trace.span("train.optimizer.apply"):
+            for group in self.adamw.param_groups:
+                group["lr"] = self.learning_rate()
+            for p, acc in zip(self.params, self._acc):
+                p.grad = acc.div_(self.every_k)
+            self.adamw.step()
+            for p, acc in zip(self.params, self._acc):
+                p.grad = None
+                acc.zero_()
         self.updates += 1
         self.mini_step = 0
 
@@ -274,58 +286,71 @@ def make_train_step(model, loss_fn, ma_window_steps: int,
 
     def step(batch: Batch | AutoRegBatch,
              pos_weight: float | None = None) -> dict:
-        rows = None
-        if n_data > 1 and isinstance(batch, (LocalBatch, LocalAutoRegBatch)):
-            rows = gather_rows(batch, ("out_target",) if autoregression
-                               else ("out_mask", "target"), mesh, device)
-        batch = local_batch(batch, mesh)
-        with global_rows(mesh):
-            if autoregression:
-                b = autoreg_batch_to_device(batch, device)
-                logits = model.train_forward(b["audio"], b["in_lengths"],
-                                             b["in_target"], b["tgt_mask"],
-                                             generator, compute_dtype)
-                loss = loss_fn(logits.reshape(-1, logits.shape[-1]),
-                               b["out_target"].reshape(-1)).sum()
-            else:
-                b = batch_to_device(batch, device)
-                out = model.train_forward(b["audio"], b["in_lengths"],
-                                          b["out_mask"], generator,
-                                          compute_dtype)
-                loss, logits = frame_loss(model, loss_fn, loss_tag, vocab,
-                                          b, out, pos_weight,
-                                          ma_window_steps)
-        loss = loss_share(loss, loss_fn, loss_tag, autoregression, b, mesh)
-        if fsdp:
-            loss.backward()
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                     for p in params]
-            for p in params:
-                p.grad = None
-        else:
-            grads = [torch.zeros_like(p) if g is None else g for p, g in
-                     zip(params, torch.autograd.grad(loss, params,
-                                                     allow_unused=True))]
-        loss = loss.detach()
-        logits = logits.detach()
-        if n_data > 1:
-            if not fsdp:
-                flat = torch.cat([g.reshape(-1) for g in grads])
-                pmesh.all_reduce(flat, mesh.data_group)
-                grads = [f.view_as(g) for f, g in zip(
-                    flat.split([g.numel() for g in grads]), grads)]
-            loss = pmesh.all_reduce(loss.clone(), mesh.data_group)
-            logits = pmesh.all_gather(logits, mesh.data_group)
-        if mesh is None:
-            grad_norm = torch.sqrt(sum(g.float().square().sum()
-                                       for g in grads))
-        else:
-            grad_norm = grad_norm_of(names, grads, split, mesh)
-        optimizer.update(grads)
-        out = {"loss": loss, "grad_norm": grad_norm, "logits": logits,
-               "grads": grads}
-        if rows is not None:
-            out["rows"] = rows
-        return out
+        # ``train.step`` around the parts leaves no stretch of the host's
+        # time in the step outside a span: a device's idle gap there is
+        # named by one
+        with trace.span("train.step"):
+            with trace.span("train.upload"):
+                rows = None
+                if n_data > 1 and isinstance(batch, (LocalBatch,
+                                                     LocalAutoRegBatch)):
+                    rows = gather_rows(batch, ("out_target",)
+                                       if autoregression
+                                       else ("out_mask", "target"),
+                                       mesh, device)
+                batch = local_batch(batch, mesh)
+                b = (autoreg_batch_to_device if autoregression
+                     else batch_to_device)(batch, device)
+            with trace.span("train.forward", device=True), global_rows(mesh):
+                if autoregression:
+                    logits = model.train_forward(
+                        b["audio"], b["in_lengths"], b["in_target"],
+                        b["tgt_mask"], generator, compute_dtype)
+                    loss = loss_fn(logits.reshape(-1, logits.shape[-1]),
+                                   b["out_target"].reshape(-1)).sum()
+                else:
+                    out = model.train_forward(b["audio"], b["in_lengths"],
+                                              b["out_mask"], generator,
+                                              compute_dtype)
+                    loss, logits = frame_loss(model, loss_fn, loss_tag,
+                                              vocab, b, out, pos_weight,
+                                              ma_window_steps)
+                loss = loss_share(loss, loss_fn, loss_tag, autoregression,
+                                  b, mesh)
+            with trace.span("train.backward", device=True):
+                if fsdp:
+                    loss.backward()
+                    grads = [torch.zeros_like(p) if p.grad is None
+                             else p.grad for p in params]
+                    for p in params:
+                        p.grad = None
+                else:
+                    grads = [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(params, torch.autograd.grad(
+                                 loss, params, allow_unused=True))]
+                loss = loss.detach()
+                logits = logits.detach()
+            with trace.span("train.grad_norm", device=True):
+                if n_data > 1:
+                    if not fsdp:
+                        flat = torch.cat([g.reshape(-1) for g in grads])
+                        pmesh.all_reduce(flat, mesh.data_group)
+                        grads = [f.view_as(g) for f, g in zip(
+                            flat.split([g.numel() for g in grads]), grads)]
+                    loss = pmesh.all_reduce(loss.clone(), mesh.data_group)
+                    logits = pmesh.all_gather(logits, mesh.data_group)
+                if mesh is None:
+                    grad_norm = torch.sqrt(sum(g.float().square().sum()
+                                               for g in grads))
+                else:
+                    grad_norm = grad_norm_of(names, grads, split, mesh)
+            with trace.span("train.optimizer", device=True):
+                optimizer.update(grads)
+            trace.micro_step_done()
+            out = {"loss": loss, "grad_norm": grad_norm, "logits": logits,
+                   "grads": grads}
+            if rows is not None:
+                out["rows"] = rows
+            return out
 
     return step
